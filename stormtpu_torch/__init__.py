@@ -1,0 +1,34 @@
+"""stormtpu_torch — the PyTorch/CUDA port of stormtpu's exact all-pairs
+bitmap intersection-count engine, for one NVIDIA H100.
+
+Same surface as the JAX package ``stormtpu`` (which it never imports):
+build a :class:`BitMatrix`, then :func:`intersect_count_matrix`,
+:func:`count_block` or :func:`pair_count`. Entry points run on the CUDA
+card unless the caller passes ``device="cpu"``; the K2 kernel is a
+hand-written sm_90a CUDA kernel (``kernels/csrc/k2_mxu.cu``), built with
+``nvcc`` on first use.
+"""
+
+from stormtpu_torch.api import count_block, intersect_count_matrix, pair_count
+from stormtpu_torch.config import EngineConfig, default_config
+from stormtpu_torch.layout import BitMatrix, BitMatrixBuilder, pack_bits, unpack_bits
+from stormtpu_torch.oracle import (
+    oracle_count_block,
+    oracle_count_matrix,
+    oracle_pair_count,
+)
+
+__all__ = [
+    "BitMatrix",
+    "BitMatrixBuilder",
+    "EngineConfig",
+    "default_config",
+    "pack_bits",
+    "unpack_bits",
+    "oracle_pair_count",
+    "oracle_count_matrix",
+    "oracle_count_block",
+    "intersect_count_matrix",
+    "pair_count",
+    "count_block",
+]

@@ -1,0 +1,310 @@
+"""K2 — exact all-pairs counts as an int8 product with the bit unpack
+fused into the kernel (port of ``stormtpu/kernels/mxu.py``).
+
+Two kernel wrappers, each with its plain PyTorch version beside it and a
+launch counter (``LAUNCHES``):
+
+- :func:`count_tiles_pallas_mxu` — the triangular tile list (CUDA entry
+  ``k2_tri_launch`` in ``csrc/k2_mxu.cu``);
+- :func:`_count_block_padded` — the rectangular grid (``k2_rect_launch``).
+
+A tensor on the CPU takes the plain version; a tensor on the card
+launches the CUDA kernel, or raises. There is no fall back from one to
+the other.
+
+Unpacking M bits to int8 is an 8× expansion, so the CUDA kernel unpacks
+per operand fragment inside the kernel and the unpacked matrix never
+exists in device memory. The plain versions unpack one K step
+(``tile_words`` words) at a time.
+
+Exactness: products are 0/1 and sums are int32, exact for M < 2³¹
+(``EngineConfig.validate``). ``variant`` ("concat" or "planes") selects
+between the JAX package's two Pallas bodies; it is accepted for parity
+and has no effect here — both compute the same counts.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from stormtpu_torch.config import EngineConfig, default_config
+from stormtpu_torch.kernels.xla import int8_dot_nt, unpack_to_int8
+from stormtpu_torch.utils import assemble_triangular, round_up, triangular_tile_ids
+
+__all__ = [
+    "LAUNCHES",
+    "k2_tile_shape",
+    "count_tiles_pallas_mxu",
+    "count_tiles_plain",
+    "count_block_plain",
+    "count_block_pallas_mxu",
+    "count_matrix_pallas_mxu",
+    "reset_launches",
+]
+
+_VARIANTS = ("concat", "planes")
+
+# CUDA launches per kernel wrapper; the plain versions do not count.
+LAUNCHES = {"k2_tri": 0, "k2_rect": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in _VARIANTS:
+        raise ValueError(f"unknown K2 variant {variant!r}; want one of {_VARIANTS}")
+
+
+def _check_geometry(name, t: torch.Tensor, tile_rows: int, tile_words: int) -> None:
+    rows, w_pad = t.shape
+    if tile_rows <= 0 or tile_rows % 32:
+        raise ValueError(f"{name}: tile_rows={tile_rows} must be a positive multiple of 32")
+    if tile_words <= 0 or tile_words % 8:
+        raise ValueError(f"{name}: tile_words={tile_words} must be a positive multiple of 8")
+    if rows % tile_rows or w_pad % tile_words:
+        raise ValueError(
+            f"{name}: shape {tuple(t.shape)} is not a multiple of the tile "
+            f"({tile_rows}, {tile_words})"
+        )
+
+
+def _check_cuda_operand(name, t: torch.Tensor) -> None:
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: want int32 bit-view words, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: operand must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: operand must be 16-byte aligned")
+
+
+def _unpack_step(packed: torch.Tensor, k0: int, tile_words: int) -> torch.Tensor:
+    return unpack_to_int8(packed[:, k0 : k0 + tile_words].contiguous())
+
+
+# ----------------------------------------------------------------- plain forms
+def count_tiles_plain(
+    packed: torch.Tensor,
+    ibs: torch.Tensor,
+    jbs: torch.Tensor,
+    *,
+    tile_rows: int,
+    tile_words: int,
+) -> torch.Tensor:
+    """Plain version of :func:`count_tiles_pallas_mxu`: per K step, unpack
+    the step's words of every row block that a tile touches and add the
+    int8 products of each tile pair."""
+    n_pad, w_pad = packed.shape
+    ti = tile_rows
+    t = ibs.shape[0]
+    out = torch.zeros((t, ti, ti), dtype=torch.int32, device=packed.device)
+    if t == 0:
+        return out
+    ib = ibs.cpu().numpy()
+    jb = jbs.cpu().numpy()
+    # tiles grouped by their A row block: one product per (group, K step)
+    groups = []
+    for i0 in np.unique(ib):
+        sel = np.flatnonzero(ib == i0)
+        groups.append((
+            int(i0),
+            torch.from_numpy(sel).to(packed.device),
+            torch.from_numpy(jb[sel].astype(np.int64)).to(packed.device),
+        ))
+    rows = packed.reshape(n_pad // ti, ti, w_pad)
+    for k0 in range(0, w_pad, tile_words):
+        step = rows[:, :, k0 : k0 + tile_words]
+        for i0, sel, jsel in groups:
+            ua = unpack_to_int8(step[i0].contiguous())
+            ub = unpack_to_int8(step[jsel].reshape(-1, step.shape[2]))
+            prod = int8_dot_nt(ua, ub).view(ti, sel.numel(), ti).permute(1, 0, 2)
+            out.index_add_(0, sel, prod)
+    return out
+
+
+def count_block_plain(
+    a_pad: torch.Tensor, b_pad: torch.Tensor, *, tile_words: int
+) -> torch.Tensor:
+    """Plain version of :func:`_count_block_padded`: per K step, unpack
+    both operands' words and add their int8 product."""
+    na = a_pad.shape[0]
+    nb, w_pad = b_pad.shape
+    out = torch.zeros((na, nb), dtype=torch.int32, device=a_pad.device)
+    for k0 in range(0, w_pad, tile_words):
+        out += int8_dot_nt(
+            _unpack_step(a_pad, k0, tile_words), _unpack_step(b_pad, k0, tile_words)
+        )
+    return out
+
+
+# ------------------------------------------------------------- kernel wrappers
+def count_tiles_pallas_mxu(
+    packed: torch.Tensor,
+    ibs: torch.Tensor,
+    jbs: torch.Tensor,
+    *,
+    tile_rows: int,
+    tile_words: int,
+    variant: str = "concat",
+) -> torch.Tensor:
+    """T count tiles int32 [T, TI, TI] for row-block pairs (ibs[t], jbs[t])
+    of a padded packed matrix int32 [N_pad, W_pad]."""
+    _check_variant(variant)
+    _check_geometry("count_tiles_pallas_mxu", packed, tile_rows, tile_words)
+    if ibs.shape != jbs.shape or ibs.dim() != 1:
+        raise ValueError("ibs and jbs must be 1-D of equal length")
+    nb = packed.shape[0] // tile_rows
+    if ibs.numel() and not (
+        0 <= min(int(ibs.min()), int(jbs.min()))
+        and max(int(ibs.max()), int(jbs.max())) < nb
+    ):
+        raise ValueError(f"tile ids must lie in [0, {nb})")
+    if packed.device.type == "cpu":
+        return count_tiles_plain(
+            packed, ibs, jbs, tile_rows=tile_rows, tile_words=tile_words
+        )
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    _check_cuda_operand("count_tiles_pallas_mxu", packed)
+    for name, ids in (("ibs", ibs), ("jbs", jbs)):
+        if ids.device != packed.device or ids.dtype != torch.int32 or not ids.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 on {packed.device}")
+    t = ibs.shape[0]
+    out = torch.empty((t, tile_rows, tile_rows), dtype=torch.int32, device=packed.device)
+    if t == 0:
+        return out
+    from stormtpu_torch.kernels._build import library
+
+    lib = library("k2_mxu")
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k2_tri_launch(
+            packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), out.data_ptr(),
+            t, tile_rows, packed.shape[1], stream,
+        )
+    if err:
+        raise RuntimeError(f"k2_tri_launch failed: CUDA error {err}")
+    LAUNCHES["k2_tri"] += 1
+    return out
+
+
+def _count_block_padded(
+    a_pad: torch.Tensor,
+    b_pad: torch.Tensor,
+    *,
+    tile_rows: int,
+    tile_words: int,
+    variant: str,
+) -> torch.Tensor:
+    """Rectangular counts int32 [Na_pad, Nb_pad] of two padded packed
+    matrices int32 [Na_pad, W_pad] and [Nb_pad, W_pad]."""
+    _check_variant(variant)
+    _check_geometry("_count_block_padded", a_pad, tile_rows, tile_words)
+    _check_geometry("_count_block_padded", b_pad, tile_rows, tile_words)
+    if a_pad.shape[1] != b_pad.shape[1]:
+        raise ValueError("word-count mismatch")
+    if a_pad.device != b_pad.device:
+        raise ValueError("operands on different devices")
+    if a_pad.device.type == "cpu":
+        return count_block_plain(a_pad, b_pad, tile_words=tile_words)
+    if a_pad.device.type != "cuda":
+        raise ValueError(f"unsupported device {a_pad.device}")
+    _check_cuda_operand("_count_block_padded", a_pad)
+    _check_cuda_operand("_count_block_padded", b_pad)
+    na, w_pad = a_pad.shape
+    nb = b_pad.shape[0]
+    from stormtpu_torch.kernels._build import library
+
+    lib = library("k2_mxu")
+    if -(-na // lib.k2_block_rows()) > 65535:
+        raise ValueError(f"_count_block_padded: Na_pad={na} exceeds the grid limit")
+    out = torch.empty((na, nb), dtype=torch.int32, device=a_pad.device)
+    with torch.cuda.device(a_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k2_rect_launch(
+            a_pad.data_ptr(), b_pad.data_ptr(), out.data_ptr(), na, nb, w_pad, stream
+        )
+    if err:
+        raise RuntimeError(f"k2_rect_launch failed: CUDA error {err}")
+    LAUNCHES["k2_rect"] += 1
+    return out
+
+
+# ------------------------------------------------------------ tile walks
+def k2_tile_shape(cfg: EngineConfig, n: int, w: int) -> tuple[int, int]:
+    """(tile_rows, tile_words) for the K2 tile walk — the JAX package's
+    geometry rule (small W collapses to a single K step), kept so the
+    port's tile stack has the same layout."""
+    ti = min(cfg.k2_tile_rows, round_up(max(n, 32), 32))
+    if w <= cfg.k2_tile_words:
+        wk = round_up(max(w, 8), 8)
+    else:
+        wk = round_up(cfg.k2_tile_words, 128)
+    return ti, wk
+
+
+def _pad(x: torch.Tensor, rows: int, words: int) -> torch.Tensor:
+    n, w = x.shape
+    if (n, w) == (rows, words) and x.is_contiguous():
+        return x
+    xp = torch.zeros((rows, words), dtype=torch.int32, device=x.device)
+    xp[:n, :w] = x
+    return xp
+
+
+def count_block_pallas_mxu(
+    a_packed: torch.Tensor,
+    b_packed: torch.Tensor,
+    *,
+    config: Optional[EngineConfig] = None,
+    variant: Optional[str] = None,
+) -> torch.Tensor:
+    """Rectangular cross counts int32 [Na, Nb] on the operands' device."""
+    cfg = config or default_config()
+    variant = variant or cfg.k2_variant
+    na, w = a_packed.shape
+    nb_rows, wb = b_packed.shape
+    if w != wb:
+        raise ValueError("word-count mismatch")
+    ti, wk = k2_tile_shape(cfg, max(na, nb_rows), w)
+    w_pad = round_up(w, wk)
+    out = _count_block_padded(
+        _pad(a_packed, round_up(na, ti), w_pad),
+        _pad(b_packed, round_up(nb_rows, ti), w_pad),
+        tile_rows=ti,
+        tile_words=wk,
+        variant=variant,
+    )
+    return out[:na, :nb_rows]
+
+
+def count_matrix_pallas_mxu(
+    packed: torch.Tensor,
+    *,
+    config: Optional[EngineConfig] = None,
+    variant: Optional[str] = None,
+) -> np.ndarray:
+    """Full N×N exact counts int32 (numpy) via the K2 triangular walk and
+    the host-side symmetric mirror."""
+    cfg = config or default_config()
+    variant = variant or cfg.k2_variant
+    n, w = packed.shape
+    ti, wk = k2_tile_shape(cfg, n, w)
+    n_pad = round_up(n, ti)
+    xp = _pad(packed, n_pad, round_up(w, wk))
+    nb = n_pad // ti
+    ibs, jbs = triangular_tile_ids(nb)
+    tiles = count_tiles_pallas_mxu(
+        xp,
+        torch.from_numpy(ibs).to(packed.device),
+        torch.from_numpy(jbs).to(packed.device),
+        tile_rows=ti,
+        tile_words=wk,
+        variant=variant,
+    )
+    return assemble_triangular(tiles.cpu().numpy(), ibs, jbs, nb, n)

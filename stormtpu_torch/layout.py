@@ -1,0 +1,334 @@
+"""Bit-matrix layout: packing, containers, density statistics.
+
+The port's copy of ``stormtpu/layout.py`` (NumPy paths only; the C++
+host tier is not ported yet). The primary representation is the
+contiguous packed matrix ``uint32[N, W]`` on the host, with per-row nnz
+and the global density that D1 dispatches on.
+
+Bit order: bit ``p`` of row ``i`` lives at ``packed[i, p >> 5]`` bit
+``(p & 31)`` (LSB-first within a uint32 word).
+
+On the device the words live as **int32 bit-views** of the uint32 words
+(:func:`to_device_words`): torch implements neither ``>>`` nor most
+bitwise ops for ``uint32`` on the CPU, so device code shifts the int32
+view arithmetically and masks afterwards.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from stormtpu_torch.config import WORD_BITS, EngineConfig, default_config
+
+__all__ = [
+    "BitMatrixBuilder",
+    "BitMatrix",
+    "from_reference",
+    "pack_bits",
+    "unpack_bits",
+    "pack_positions",
+    "pad_rows",
+    "pad_words",
+    "to_device_words",
+    "words_for_bits",
+]
+
+
+def words_for_bits(m_bits: int) -> int:
+    return -(-m_bits // WORD_BITS)
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def to_device_words(packed: np.ndarray, device) -> torch.Tensor:
+    """uint32 [N, W] host words → int32 bit-view tensor on ``device``."""
+    arr = np.ascontiguousarray(packed, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(arr).to(device)
+
+
+def pack_bits(dense01: np.ndarray) -> np.ndarray:
+    """Pack a {0,1} matrix [N, M] into uint32 words [N, ceil(M/32)].
+
+    LSB-first within each word (bit p → word p>>5, bit p&31).
+    """
+    dense01 = np.asarray(dense01)
+    if dense01.ndim != 2:
+        raise ValueError(f"expected 2-D {{0,1}} matrix, got shape {dense01.shape}")
+    n, m = dense01.shape
+    w = words_for_bits(m)
+    # np.packbits packs MSB-first per byte; request little bit order then
+    # view 4 bytes as one little-endian uint32 → LSB-first per word.
+    padded_bits = _round_up(m, WORD_BITS)
+    buf = np.zeros((n, padded_bits), dtype=np.uint8)
+    buf[:, :m] = dense01.astype(np.uint8)
+    bytes_ = np.packbits(buf, axis=1, bitorder="little")
+    return bytes_.reshape(n, w, 4).view("<u4").reshape(n, w)
+
+
+def unpack_bits(packed: np.ndarray, m_bits: int) -> np.ndarray:
+    """Inverse of :func:`pack_bits` → uint8 {0,1} matrix [N, m_bits]."""
+    packed = np.ascontiguousarray(np.asarray(packed, dtype=np.uint32))
+    n, w = packed.shape
+    bytes_ = packed.reshape(n, w, 1).view("<u1").reshape(n, w * 4)
+    bits = np.unpackbits(bytes_, axis=1, bitorder="little")
+    return bits[:, :m_bits]
+
+
+def pack_positions(
+    row_ids: np.ndarray, positions: np.ndarray, n: int, m_bits: int
+) -> np.ndarray:
+    """Pack COO set-bit coordinates into uint32 words [N, ceil(M/32)].
+
+    O(total set bits). Duplicate positions are idempotent (bitwise OR).
+    """
+    row_ids = np.asarray(row_ids, dtype=np.int64)
+    positions = np.asarray(positions, dtype=np.int64)
+    if row_ids.shape != positions.shape:
+        raise ValueError("row_ids and positions must have the same shape")
+    if positions.size and (positions.min() < 0 or positions.max() >= m_bits):
+        raise ValueError("position out of range")
+    if row_ids.size and (row_ids.min() < 0 or row_ids.max() >= n):
+        raise ValueError("row id out of range")
+    w = words_for_bits(m_bits)
+    packed = np.zeros((n, w), dtype=np.uint32)
+    np.bitwise_or.at(
+        packed,
+        (row_ids, positions >> 5),
+        (np.uint32(1) << (positions & 31).astype(np.uint32)),
+    )
+    return packed
+
+
+def pad_rows(packed: np.ndarray, row_mult: int) -> np.ndarray:
+    """Zero-pad rows to a multiple of ``row_mult`` (zero rows ⇒ zero counts)."""
+    n = packed.shape[0]
+    n_pad = _round_up(max(n, 1), row_mult)
+    if n_pad == n:
+        return packed
+    out = np.zeros((n_pad,) + packed.shape[1:], dtype=packed.dtype)
+    out[:n] = packed
+    return out
+
+
+def pad_words(packed: np.ndarray, word_mult: int) -> np.ndarray:
+    """Zero-pad the word axis to a multiple of ``word_mult`` (exactness-safe)."""
+    w = packed.shape[1]
+    w_pad = _round_up(max(w, 1), word_mult)
+    if w_pad == w:
+        return packed
+    out = np.zeros(packed.shape[:1] + (w_pad,) + packed.shape[2:], dtype=packed.dtype)
+    out[:, :w] = packed
+    return out
+
+
+@dataclasses.dataclass
+class BitMatrix:
+    """N bitmaps over an M-bit universe, bit-packed row-major, with the
+    ingest-time statistics D1 dispatches on."""
+
+    packed: np.ndarray        # uint32 [N, W], W = ceil(m_bits / 32)
+    n: int
+    m_bits: int
+    row_nnz: np.ndarray       # int64 [N] set-bit count per row
+
+    # ------------------------------------------------------------------ build
+    @classmethod
+    def from_dense(cls, dense01: np.ndarray) -> "BitMatrix":
+        dense01 = np.asarray(dense01)
+        packed = pack_bits(dense01)
+        return cls.from_packed(packed, m_bits=dense01.shape[1])
+
+    @classmethod
+    def from_packed(cls, packed: np.ndarray, m_bits: int) -> "BitMatrix":
+        packed = np.ascontiguousarray(np.asarray(packed, dtype=np.uint32))
+        n, w = packed.shape
+        if w != words_for_bits(m_bits):
+            raise ValueError(
+                f"packed has {w} words but m_bits={m_bits} needs "
+                f"{words_for_bits(m_bits)}"
+            )
+        tail = m_bits % WORD_BITS
+        if tail and n and np.any(packed[:, -1] >> tail):
+            raise ValueError("set bits beyond m_bits in final word")
+        row_nnz = np.bitwise_count(packed).sum(axis=1, dtype=np.int64)
+        return cls(packed=packed, n=n, m_bits=m_bits, row_nnz=row_nnz)
+
+    @classmethod
+    def from_positions(
+        cls, row_ids: np.ndarray, positions: np.ndarray, n: int, m_bits: int
+    ) -> "BitMatrix":
+        return cls.from_packed(
+            pack_positions(row_ids, positions, n, m_bits), m_bits=m_bits
+        )
+
+    @classmethod
+    def from_position_lists(
+        cls, lists: Sequence[np.ndarray], m_bits: int
+    ) -> "BitMatrix":
+        n = len(lists)
+        if n:
+            row_ids = np.concatenate(
+                [np.full(len(np.atleast_1d(l)), i, dtype=np.int64)
+                 for i, l in enumerate(lists)]
+            )
+            positions = np.concatenate(
+                [np.atleast_1d(np.asarray(l, dtype=np.int64)) for l in lists]
+            ) if row_ids.size else np.zeros(0, dtype=np.int64)
+        else:
+            row_ids = positions = np.zeros(0, dtype=np.int64)
+        return cls.from_positions(row_ids, positions, n, m_bits)
+
+    # ------------------------------------------------------------------ views
+    def to_dense(self) -> np.ndarray:
+        return unpack_bits(self.packed, self.m_bits)
+
+    def device_cached(self, key: tuple, build, device):
+        """Cache a device tensor on this matrix under ``key`` and the
+        device string, so a matrix used on the CPU and then on the card in
+        one process never serves a tensor from the wrong device. The cache
+        lives outside the dataclass fields.
+
+        Contract: a BitMatrix is treated as IMMUTABLE once built. After an
+        in-place mutation of ``packed``/``row_nnz`` call
+        :meth:`clear_device_cache`."""
+        cache = self.__dict__.setdefault("_device_cache", {})
+        full_key = key + (str(torch.device(device)),)
+        buf = cache.get(full_key)
+        if buf is None:
+            buf = build()
+            cache[full_key] = buf
+        return buf
+
+    def device_padded(self, n_pad: int, *, device):
+        """``packed`` zero-padded to ``n_pad`` rows as an int32 bit-view
+        tensor on ``device``, cached per (``n_pad``, device): repeated
+        queries on one matrix reuse the device copy instead of uploading
+        O(N·W) bytes per call."""
+        if n_pad < self.n:
+            raise ValueError(f"n_pad={n_pad} < N={self.n}")
+
+        def build():
+            if n_pad == self.n:
+                return to_device_words(self.packed, device)
+            xp = np.zeros((n_pad, self.packed.shape[1]), dtype=np.uint32)
+            xp[: self.n] = self.packed
+            return to_device_words(xp, device)
+
+        return self.device_cached(("padded", int(n_pad)), build, device)
+
+    def clear_device_cache(self) -> None:
+        """Drop cached device tensors (frees device memory; REQUIRED
+        after any in-place mutation of ``packed``/``row_nnz``)."""
+        self.__dict__.pop("_device_cache", None)
+
+    def positions_csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """(indptr int64 [N+1], indices int32 [nnz]) sorted per row."""
+        dense = self.to_dense()
+        rows, cols = np.nonzero(dense)
+        indptr = np.zeros(self.n + 1, dtype=np.int64)
+        np.add.at(indptr, rows + 1, 1)
+        np.cumsum(indptr, out=indptr)
+        return indptr, cols.astype(np.int32)
+
+    def block_summary(self, block_bits: int = 65536) -> np.ndarray:
+        """Per-row non-empty-block summary, uint8 [N, ceil(M/block_bits)]:
+        entry [i, b] is 1 iff row i has any set bit in block b. The
+        clustered-sparsity signal D1 reads."""
+        wpb = max(1, block_bits // WORD_BITS)
+        w = self.packed.shape[1]
+        if w == 0:
+            return np.zeros((self.n, 0), dtype=np.uint8)
+        starts = np.arange(0, w, wpb)
+        grouped = np.bitwise_or.reduceat(self.packed, starts, axis=1)
+        return (grouped != 0).astype(np.uint8)
+
+    # ------------------------------------------------------------------ stats
+    @property
+    def nnz(self) -> int:
+        return int(self.row_nnz.sum())
+
+    @property
+    def density(self) -> float:
+        if self.n == 0 or self.m_bits == 0:
+            return 0.0
+        return self.nnz / (self.n * self.m_bits)
+
+    @property
+    def n_words(self) -> int:
+        return self.packed.shape[1]
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (
+            f"BitMatrix(n={self.n}, m_bits={self.m_bits}, "
+            f"density={self.density:.4g})"
+        )
+
+
+def from_reference(
+    packed: np.ndarray, m_bits: int, config: Optional[dict] = None
+) -> tuple[BitMatrix, EngineConfig]:
+    """Build the port's (BitMatrix, EngineConfig) from the JAX package's
+    plain values: ``bm.packed`` (uint32 [N, W]) and
+    ``dataclasses.asdict(cfg)``. An unknown config field raises
+    ``TypeError``."""
+    bm = BitMatrix.from_packed(np.asarray(packed, dtype=np.uint32), m_bits)
+    cfg = default_config() if config is None else EngineConfig(**config)
+    return bm, cfg
+
+
+class BitMatrixBuilder:
+    """Incremental ingest: ``add_row`` / ``add`` set-bit positions, then
+    ``finalize()`` into an immutable :class:`BitMatrix`. Positions may
+    arrive unsorted and with duplicates (idempotent OR)."""
+
+    def __init__(self, m_bits: int):
+        if m_bits <= 0:
+            raise ValueError("m_bits must be positive")
+        self.m_bits = int(m_bits)
+        self._rows: list[np.ndarray] = []
+        self._chunks_row: list[np.ndarray] = []
+        self._chunks_pos: list[np.ndarray] = []
+
+    @property
+    def n(self) -> int:
+        return len(self._rows)
+
+    def add_row(self, positions=()) -> int:
+        """Append a new bitmap with the given set-bit positions; returns
+        its row id."""
+        pos = np.atleast_1d(np.asarray(positions, dtype=np.int64)).ravel()
+        if pos.size and (pos.min() < 0 or pos.max() >= self.m_bits):
+            raise ValueError("position out of range")
+        self._rows.append(pos)
+        return len(self._rows) - 1
+
+    def add(self, row_id: int, positions) -> None:
+        """Add set-bit positions to an existing row."""
+        if not 0 <= row_id < len(self._rows):
+            raise ValueError(f"row {row_id} does not exist (n={self.n})")
+        pos = np.atleast_1d(np.asarray(positions, dtype=np.int64)).ravel()
+        if pos.size and (pos.min() < 0 or pos.max() >= self.m_bits):
+            raise ValueError("position out of range")
+        self._chunks_row.append(np.full(pos.size, row_id, dtype=np.int64))
+        self._chunks_pos.append(pos)
+
+    def finalize(self) -> BitMatrix:
+        """Pack everything accumulated so far into a BitMatrix (the
+        builder stays usable — finalize again after more adds)."""
+        n = len(self._rows)
+        parts_r = [
+            np.full(r.size, i, dtype=np.int64) for i, r in enumerate(self._rows)
+        ] + self._chunks_row
+        parts_p = list(self._rows) + self._chunks_pos
+        if parts_p:
+            row_ids = np.concatenate(parts_r) if parts_r else np.zeros(0, np.int64)
+            positions = np.concatenate(parts_p)
+        else:
+            row_ids = positions = np.zeros(0, dtype=np.int64)
+        return BitMatrix.from_positions(row_ids, positions, n, self.m_bits)

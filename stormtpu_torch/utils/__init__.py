@@ -1,0 +1,17 @@
+from stormtpu_torch.utils.backend import resolve_device
+from stormtpu_torch.utils.tiling import (
+    assemble_triangular,
+    next_pow2,
+    quantize_bucket,
+    round_up,
+    triangular_tile_ids,
+)
+
+__all__ = [
+    "assemble_triangular",
+    "next_pow2",
+    "quantize_bucket",
+    "resolve_device",
+    "round_up",
+    "triangular_tile_ids",
+]

@@ -1,0 +1,108 @@
+"""K2 CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. On the
+card run them without the JAX package's conftest:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Counts are integers, so every comparison is exact equality.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from stormtpu_torch import BitMatrix, intersect_count_matrix, count_block
+from stormtpu_torch.config import EngineConfig
+from stormtpu_torch.kernels import mxu
+from stormtpu_torch.layout import to_device_words
+from stormtpu_torch.oracle import oracle_count_block, oracle_count_matrix
+from stormtpu_torch.utils import round_up, triangular_tile_ids
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _words(n, w, density, seed):
+    rng = np.random.default_rng(seed)
+    if density >= 1.0:
+        return np.full((n, w), 0xFFFFFFFF, dtype=np.uint32)
+    bits = rng.random((n, w * 32)) < density
+    return np.packbits(bits, axis=1, bitorder="little").view("<u4")
+
+
+@pytest.mark.parametrize("density", (0.001, 0.5, 1.0))
+@pytest.mark.parametrize("n,w,ti,wk", [
+    (37, 33, 64, 40), (300, 300, 256, 256), (70, 129, 32, 128), (129, 16, 160, 8),
+])
+def test_k2_tri_kernel_equals_plain(cuda, n, w, ti, wk, density):
+    packed = _words(n, w, density, seed=n + w)
+    n_pad, w_pad = round_up(n, ti), round_up(w, wk)
+    xp = np.zeros((n_pad, w_pad), np.uint32)
+    xp[:n, :w] = packed
+    ibs, jbs = triangular_tile_ids(n_pad // ti)
+    args = (to_device_words(xp, cuda), torch.from_numpy(ibs).to(cuda),
+            torch.from_numpy(jbs).to(cuda))
+    got = mxu.count_tiles_pallas_mxu(*args, tile_rows=ti, tile_words=wk)
+    want = mxu.count_tiles_plain(*args, tile_rows=ti, tile_words=wk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("density", (0.001, 0.5, 1.0))
+@pytest.mark.parametrize("na,nb,w,ti,wk", [
+    (37, 300, 33, 64, 40), (256, 384, 300, 128, 256), (32, 32, 8, 32, 8),
+])
+def test_k2_rect_kernel_equals_plain(cuda, na, nb, w, ti, wk, density):
+    a = _words(na, w, density, seed=na)
+    b = _words(nb, w, density, seed=nb + 1)
+    w_pad = round_up(w, wk)
+    ap = np.zeros((round_up(na, ti), w_pad), np.uint32)
+    bp = np.zeros((round_up(nb, ti), w_pad), np.uint32)
+    ap[:na, :w] = a
+    bp[:nb, :w] = b
+    ta, tb = to_device_words(ap, cuda), to_device_words(bp, cuda)
+    got = mxu._count_block_padded(ta, tb, tile_rows=ti, tile_words=wk, variant="planes")
+    want = mxu.count_block_plain(ta, tb, tile_words=wk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy()[:na, :nb], oracle_count_block(a, b))
+
+
+def test_entry_points_on_card_launch_the_kernels(cuda):
+    rng = np.random.default_rng(5)
+    m = (1 << 17) + 77
+    dense = (rng.random((70, m)) < 0.3).astype(np.uint8)
+    bm = BitMatrix.from_dense(dense)
+    cfg = EngineConfig(k2_tile_rows=32)
+    mxu.reset_launches()
+    got = intersect_count_matrix(bm, config=cfg)
+    assert np.array_equal(got, oracle_count_matrix(bm.packed))
+    blk = count_block(bm, BitMatrix.from_dense(dense[:9]), config=cfg)
+    assert np.array_equal(blk, oracle_count_block(bm.packed, bm.packed[:9]))
+    assert mxu.LAUNCHES["k2_tri"] == 1 and mxu.LAUNCHES["k2_rect"] == 1
+
+
+@pytest.mark.parametrize("strategy", ("popcount", "mxu", "pallas_mxu"))
+def test_strategies_on_card_equal_oracle(cuda, strategy):
+    rng = np.random.default_rng(6)
+    bm = BitMatrix.from_dense((rng.random((45, 2000)) < 0.4).astype(np.uint8))
+    got = intersect_count_matrix(bm, strategy=strategy)
+    assert np.array_equal(got, oracle_count_matrix(bm.packed))
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    xp = torch.zeros((64, 16), dtype=torch.int32, device=cuda)
+    ids = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        mxu.count_tiles_pallas_mxu(xp.float(), ids, ids, tile_rows=32, tile_words=8)
+    with pytest.raises(ValueError):
+        mxu.count_tiles_pallas_mxu(xp, ids.cpu(), ids, tile_rows=32, tile_words=8)
+    with pytest.raises(ValueError):
+        mxu.count_tiles_pallas_mxu(xp, ids, ids, tile_rows=48, tile_words=8)

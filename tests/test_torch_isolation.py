@@ -1,0 +1,71 @@
+"""The port stands alone: ``stormtpu_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package ``stormtpu`` (whose ``__init__``
+imports JAX), checked both by importing every module in a fresh
+interpreter and by scanning the sources."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "stormtpu_torch"
+
+_CHECK = """
+import importlib, pkgutil, sys
+sys.path.insert(0, {root!r})
+import stormtpu_torch
+names = [m.name for m in pkgutil.walk_packages(stormtpu_torch.__path__, "stormtpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+       or m == "stormtpu" or m.startswith("stormtpu.")]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "stormtpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_importing_every_module_loads_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _CHECK.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT),
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 10  # every module was imported
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_sources_import_no_jax(path):
+    bad = [name for name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_package_modules_are_all_scanned():
+    import stormtpu_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(stormtpu_torch.__path__, "stormtpu_torch.")}
+    assert {"stormtpu_torch.api", "stormtpu_torch.kernels.mxu",
+            "stormtpu_torch.kernels._build"} <= mods

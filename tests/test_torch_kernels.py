@@ -1,0 +1,176 @@
+"""The port's kernel modules on the CPU — the K2 wrappers (which take
+their plain versions for CPU tensors) and the plain-torch ``xla`` forms —
+against the JAX package's, with K2 in Pallas interpret mode. Inputs are
+shared numpy arrays; every comparison is exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import stormtpu.kernels.mxu as jm
+import stormtpu.kernels.xla as jx
+import stormtpu_torch.kernels.mxu as tm
+import stormtpu_torch.kernels.xla as tx
+from stormtpu.config import EngineConfig as JaxConfig
+from stormtpu.kernels.clustered import clustered_work_fraction as jax_wf
+from stormtpu.layout import BitMatrix as JaxBitMatrix
+from stormtpu_torch.config import EngineConfig
+from stormtpu_torch.kernels.clustered import clustered_work_fraction
+from stormtpu_torch.layout import BitMatrix, to_device_words
+from stormtpu_torch.oracle import oracle_count_block, oracle_count_matrix
+from stormtpu_torch.utils import round_up, triangular_tile_ids
+
+from conftest import DENSITY_SWEEP
+
+
+def _words(n, w, density, seed):
+    rng = np.random.default_rng(seed)
+    if density >= 1.0:
+        return np.full((n, w), 0xFFFFFFFF, dtype=np.uint32)
+    bits = rng.random((n, w * 32)) < density
+    return np.packbits(bits, axis=1, bitorder="little").view("<u4")
+
+
+def _t(words):
+    return to_device_words(words, "cpu")
+
+
+def _eq(port, ref):
+    port = port.numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape
+    assert np.array_equal(port.astype(np.int64), ref.astype(np.int64))
+
+
+@pytest.mark.parametrize("variant", ("concat", "planes"))
+@pytest.mark.parametrize("n,w", [(70, 600), (33, 256)])
+def test_k2_tri_plain_equals_jax_interpret(n, w, variant):
+    ti, wk = 32, 256
+    words = _words(n, w, 0.5, seed=n)
+    xp = np.zeros((round_up(n, ti), round_up(w, wk)), np.uint32)
+    xp[:n, :w] = words
+    ibs, jbs = triangular_tile_ids(xp.shape[0] // ti)
+    want = jm.count_tiles_pallas_mxu(
+        jnp.asarray(xp), jnp.asarray(ibs), jnp.asarray(jbs),
+        tile_rows=ti, tile_words=wk, interpret=True, variant=variant,
+    )
+    got = tm.count_tiles_pallas_mxu(
+        _t(xp), torch.from_numpy(ibs), torch.from_numpy(jbs),
+        tile_rows=ti, tile_words=wk, variant=variant,
+    )
+    assert got.dtype == torch.int32
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("variant", ("concat", "planes"))
+def test_k2_rect_plain_equals_jax_interpret(variant):
+    ti, wk = 32, 256
+    a = np.zeros((64, 512), np.uint32)
+    b = np.zeros((96, 512), np.uint32)
+    a[:50, :300] = _words(50, 300, 0.3, seed=1)
+    b[:70, :300] = _words(70, 300, 0.7, seed=2)
+    want = jm._count_block_padded(
+        jnp.asarray(a), jnp.asarray(b), tile_rows=ti, tile_words=wk,
+        interpret=True, variant=variant,
+    )
+    got = tm._count_block_padded(_t(a), _t(b), tile_rows=ti, tile_words=wk,
+                                 variant=variant)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("n,w,cfg", [
+    (1, 5, EngineConfig()), (37, 300, EngineConfig()),
+    (70, 600, EngineConfig(k2_tile_rows=32)),
+    (45, 1000, EngineConfig(k2_tile_rows=64, k2_tile_words=128)),
+])
+def test_k2_tile_walks_equal_jax(n, w, cfg):
+    jcfg = JaxConfig(k2_tile_rows=cfg.k2_tile_rows, k2_tile_words=cfg.k2_tile_words)
+    words = _words(n, w, 0.4, seed=w)
+    assert tm.k2_tile_shape(cfg, n, w) == jm.k2_tile_shape(jcfg, n, w)
+    got = tm.count_matrix_pallas_mxu(_t(words), config=cfg)
+    want = jm.count_matrix_pallas_mxu(jnp.asarray(words), config=jcfg, interpret=True)
+    assert got.dtype == np.int32
+    _eq(got, want)
+    _eq(got, oracle_count_matrix(words))
+    other = _words(n + 3, w, 0.6, seed=w + 1)
+    got = tm.count_block_pallas_mxu(_t(words), _t(other), config=cfg)
+    want = jm.count_block_pallas_mxu(words, other, config=jcfg, interpret=True)
+    _eq(got, want)
+
+
+def test_k2_tile_shape_grid_equal():
+    for rows, words in ((32, 256), (256, 256), (64, 100), (128, 512)):
+        cfg = EngineConfig(k2_tile_rows=rows, k2_tile_words=words)
+        jcfg = JaxConfig(k2_tile_rows=rows, k2_tile_words=words)
+        for n in (1, 31, 33, 255, 257, 1000):
+            for w in (1, 7, 8, 100, 256, 257, 5000):
+                assert tm.k2_tile_shape(cfg, n, w) == jm.k2_tile_shape(jcfg, n, w)
+
+
+@pytest.mark.parametrize("density", DENSITY_SWEEP)
+def test_xla_forms_equal_jax(density):
+    a = _words(13, 40, density, seed=3)
+    b = _words(21, 40, density, seed=4)
+    ja, jb, ta, tb = jnp.asarray(a), jnp.asarray(b), _t(a), _t(b)
+    assert int(tx.pair_count_xla(ta[0], tb[0])) == int(jx.pair_count_xla(ja[0], jb[0]))
+    _eq(tx.pair_count_batch_xla(ta, tb[:13]), jx.pair_count_batch_xla(ja, jb[:13]))
+    _eq(tx.count_block_popcount_xla(ta, tb), jx.count_block_popcount_xla(ja, jb))
+    _eq(tx.count_block_popcount_xla(ta, tb, tile_rows=5),
+        jx.count_block_popcount_xla(ja, jb, tile_rows=5))
+    _eq(tx.count_matrix_popcount_xla(ta), jx.count_matrix_popcount_xla(ja))
+    _eq(tx.unpack_to_int8(ta), jx.unpack_to_int8(ja))
+    _eq(tx.count_block_int8_xla(ta, tb), jx.count_block_int8_xla(ja, jb))
+    _eq(tx.count_matrix_int8_xla(ta), jx.count_matrix_int8_xla(ja))
+    _eq(tx.count_block_int8_xla(ta, tb), oracle_count_block(a, b))
+
+
+def test_popcount32_edge_words():
+    words = np.array([0, 1, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0x55555555,
+                      0xAAAAAAAA, 0xF0F0F0F0, 0x00FF00FF], dtype=np.uint32)
+    got = tx.popcount32(_t(words[None]))[0].numpy()
+    assert got.tolist() == [bin(int(x)).count("1") for x in words]
+
+
+def test_kernel_wrappers_refuse_bad_geometry():
+    xp = _t(np.zeros((64, 16), np.uint32))
+    ids = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tm.count_tiles_pallas_mxu(xp, ids, ids, tile_rows=48, tile_words=8)
+    with pytest.raises(ValueError):
+        tm.count_tiles_pallas_mxu(xp, ids, ids, tile_rows=32, tile_words=12)
+    with pytest.raises(ValueError):
+        tm.count_tiles_pallas_mxu(xp, ids, ids, tile_rows=32, tile_words=8,
+                                  variant="rows")
+    with pytest.raises(ValueError):
+        tm.count_tiles_pallas_mxu(xp, ids + 2, ids, tile_rows=32, tile_words=8)
+    with pytest.raises(ValueError):
+        tm.count_tiles_pallas_mxu(xp, ids, ids - 1, tile_rows=32, tile_words=8)
+    with pytest.raises(ValueError):
+        tm._count_block_padded(xp, _t(np.zeros((64, 24), np.uint32)),
+                               tile_rows=32, tile_words=8, variant="planes")
+
+
+def test_plain_forms_do_not_count_launches():
+    tm.reset_launches()
+    words = _words(40, 20, 0.5, seed=9)
+    tm.count_matrix_pallas_mxu(_t(words))
+    tm.count_block_pallas_mxu(_t(words), _t(words))
+    assert tm.LAUNCHES == {"k2_tri": 0, "k2_rect": 0}
+
+
+@pytest.mark.parametrize("clustered", (False, True))
+def test_clustered_work_fraction_equal(clustered):
+    rng = np.random.default_rng(7)
+    n, m = 96, 64 * 32 * 8
+    dense = (rng.random((n, m)) < 0.3).astype(np.uint8)
+    if clustered:  # block-diagonal: each row block occupies its own K-groups
+        mask = np.zeros_like(dense)
+        for blk in range(3):
+            mask[blk * 32:(blk + 1) * 32, blk * 4096:(blk + 1) * 4096] = 1
+        dense &= mask
+    cfg = EngineConfig(k2_tile_rows=32, k2_tile_words=128)
+    jcfg = JaxConfig(k2_tile_rows=32, k2_tile_words=128)
+    jb = JaxBitMatrix.from_dense(dense)
+    assert clustered_work_fraction(BitMatrix.from_packed(jb.packed, m), cfg) == \
+        jax_wf(jb, jcfg)
