@@ -20,7 +20,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 5. ``pair_count`` of one pair of 1,048,576 bits, checked against numpy;
 6. timings at the main-path shapes (CUDA events): each kernel, its plain
    version (also compared, exactly), one ``torch._int_mm`` call on
-   pre-unpacked int8 operands as a yardstick, and each kernel's bound.
+   pre-unpacked int8 operands as a yardstick, and each kernel's bound;
+7. hold K5 (work list), K1 (AND + popcount tiles) and K0 (pair stream)
+   against their plain versions, exactly: K5 on plans of block-diagonal
+   inputs at three tile configurations (pad slots, tail pad items, slots
+   fed by several K-groups) and on an all-ones 128 × 2^27 work list; K1 at
+   ragged N and M, densities 0.001 / 0.5 / 1.0 and all ones at 2^27; K0
+   at ragged W with salt 0 and 0xDEADBEEF and all ones;
+8. the clustered path: ``intersect_count_matrix`` with ``strategy="auto"``
+   on a 16384 × 1,048,576-bit LD-block panel (16 blocks, boundaries drawn
+   from the seed); D1 must choose ``clustered``, K5 must launch and K2 must
+   not; sampled pairs within and across blocks, the diagonal and symmetry
+   are checked; a ``[breakdown]`` of the warm call, and K2's triangle on
+   the same padded operand for the skip ratio;
+9. the ``pallas_dense`` path at the main-path shape: K1 must launch and the
+   matrix must equal phase 3's exactly;
+10. K0 on 16384 pairs of 1,048,576 bits, sampled rows checked;
+11. timings of K5, K1 and K0 as in phase 6.
 
 The lines before the last are a ``kernels`` JSON object and the card's
 ``name, power.limit``; the last line is the result object.
@@ -39,6 +55,9 @@ import numpy as np
 # NVIDIA H100 SXM data sheet, dense: int8 tensor-core rate and HBM3 rate
 PEAK_INT8_OPS = 1.979e15
 PEAK_BYTES_PER_S = 3.35e12
+# 32-bit population count: results per clock per SM for compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instructions)
+POPC_PER_CLOCK_PER_SM = 16
 
 DEVICE = "cuda"
 MAIN_N = 16384
@@ -49,6 +68,19 @@ ALL_ONES_N, ALL_ONES_M = 128, 1 << 27
 BLOCK_NA = 4096
 PAIR_M = 1 << 20
 N_SAMPLES = 4096
+# K5 kernel checks: (label, k2_tile_rows, k2_tile_words, N, M, blocks);
+# None tile sizes take the default configuration
+K5_CASES = (
+    ("default", None, None, 1000, 300_007, 5),
+    ("ti32", 32, 128, 301, 100_003, 6),
+    ("ti32 pad slots", 32, 128, 70, 13_000, 2),
+    ("ti160", 160, 128, 997, 150_001, 4),
+)
+K1_NS = (37, 300, 2053)
+K1_MS = (100_003, 262_161)
+K0_CASES = ((37, 1001), (1000, 4093), (1000, 32_771))
+LD_N, LD_M, LD_BLOCKS, LD_DENSITY = 16384, 1 << 20, 16, 0.3
+STREAM_R, STREAM_M = 16384, 1 << 20
 
 
 def random_words(rng, n: int, m_bits: int, density: float) -> np.ndarray:
@@ -93,10 +125,41 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = ops / PEAK_INT8_OPS * 1e3
+def bound(ops: float, nbytes: float, ops_per_s: float = PEAK_INT8_OPS) -> tuple[float, str]:
+    t_ops = ops / ops_per_s * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def block_cuts(rng, n: int, parts: int, jitter: int, avoid: int) -> np.ndarray:
+    """``parts + 1`` ascending cut points of [0, n), the inner ones near
+    equal spacing, moved by up to ``jitter`` and off multiples of ``avoid``."""
+    cuts = np.linspace(0, n, parts + 1).astype(np.int64)
+    for k in range(1, parts):
+        c = int(cuts[k] + rng.integers(-jitter, jitter + 1))
+        cuts[k] = c + 1 if c % avoid == 0 else c
+    return cuts
+
+
+def ld_panel(rng, n: int, m_bits: int, blocks: int, density: float, row_avoid: int = 256,
+             bit_avoid: int = 8192):
+    """An LD-block panel: uint32 [n, ceil(m/32)] words where row block b
+    holds bits only in bit block b, at ``density`` inside its block. Cut
+    points are drawn from ``rng`` and not aligned to ``row_avoid`` rows or
+    ``bit_avoid`` bits. Returns (words, row cuts, bit cuts)."""
+    w = -(-m_bits // 32)
+    rows = block_cuts(rng, n, blocks, max(1, n // (4 * blocks)), row_avoid)
+    bits = block_cuts(rng, m_bits, blocks, max(1, m_bits // (4 * blocks)), bit_avoid)
+    words = np.zeros((n, w), dtype=np.uint32)
+    level = int(round(density * 1000))
+    for b in range(blocks):
+        r0, r1, c0, c1 = rows[b], rows[b + 1], bits[b], bits[b + 1]
+        w0, w1 = c0 // 32, -(-c1 // 32)
+        on = rng.integers(0, 1000, size=(r1 - r0, (w1 - w0) * 32), dtype=np.uint16) < level
+        on[:, : c0 - w0 * 32] = False
+        on[:, c1 - w0 * 32 :] = False
+        words[r0:r1, w0:w1] |= np.packbits(on, axis=1, bitorder="little").view("<u4")
+    return words, rows, bits
 
 
 def exact_diff(torch, got, want) -> int:
@@ -123,7 +186,8 @@ def main(argv=None) -> int:
     import stormtpu_torch as st
     from stormtpu_torch.config import default_config
     from stormtpu_torch.dispatch import choose_strategy
-    from stormtpu_torch.kernels import _build, mxu
+    from stormtpu_torch.config import EngineConfig
+    from stormtpu_torch.kernels import _build, clustered, dense, launch_counts, mxu, reset_launches
     from stormtpu_torch.kernels.xla import unpack_to_int8
     from stormtpu_torch.layout import to_device_words
     from stormtpu_torch.oracle import oracle_pair_count
@@ -132,7 +196,7 @@ def main(argv=None) -> int:
     dev = torch.device(DEVICE)
     cfg = default_config()
     rng = np.random.default_rng(args.seed)
-    max_err = {"k2_tri": 0, "k2_rect": 0}
+    max_err = {"k2_tri": 0, "k2_rect": 0, "k5": 0, "k1": 0, "k0": 0}
 
     # ---------------------------------------------------------------- 1 build
     t0 = time.perf_counter()
@@ -201,11 +265,11 @@ def main(argv=None) -> int:
     chosen = choose_strategy(bm.n, bm.m_bits, bm.density, cfg, bm=bm, device=dev)
     if chosen != "pallas_mxu":
         raise AssertionError(f"D1 chose {chosen!r} at {MAIN_N} x {MAIN_M}, want 'pallas_mxu'")
-    mxu.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     out = st.intersect_count_matrix(bm, strategy="auto", device=dev)
     wall_tri = time.perf_counter() - t0
-    launches_tri = mxu.LAUNCHES["k2_tri"]
+    launches_tri = launch_counts()["k2_tri"]
     if launches_tri < 1:
         raise AssertionError("the main path did not launch the K2 triangular kernel")
     if out.shape != (MAIN_N, MAIN_N) or out.dtype != np.int32:
@@ -221,16 +285,16 @@ def main(argv=None) -> int:
     print(f"[main path] intersect_count_matrix {MAIN_N} x {MAIN_M} bits: D1 chose {chosen}, "
           f"k2_tri launches {launches_tri}, {N_SAMPLES} sampled pairs + diagonal + symmetry "
           f"exact; wall {wall_tri:.3f} s (first call: upload, kernel, host assembly)")
-    del out
+    main_out = out
 
     # --------------------------------------------------------- 4 count_block
     words_a = rng.integers(0, 1 << 32, size=(BLOCK_NA, MAIN_M // 32), dtype=np.uint32)
     bm_a = st.BitMatrix.from_packed(words_a, MAIN_M)
-    mxu.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     blk = st.count_block(bm_a, bm, device=dev)
     wall_rect = time.perf_counter() - t0
-    launches_rect = mxu.LAUNCHES["k2_rect"]
+    launches_rect = launch_counts()["k2_rect"]
     if launches_rect < 1:
         raise AssertionError("count_block did not launch the K2 rectangular kernel")
     if blk.shape != (BLOCK_NA, MAIN_N) or blk.dtype != np.int32:
@@ -299,6 +363,7 @@ def main(argv=None) -> int:
     for r in range(0, n_pad, 2048):
         u[r : r + 2048] = unpack_to_int8(targs[0][r : r + 2048])
     lib_ms = cuda_ms(torch, lambda: torch._int_mm(u, u.t()), reps=3)
+    int_mm_square_ms = lib_ms
     ti = tkw["tile_rows"]
     b_ms, b_by = bound(2.0 * t_tiles * ti * ti * w_pad * 32,
                        4.0 * (n_pad * w_pad + 2 * t_tiles + t_tiles * ti * ti))
@@ -333,14 +398,347 @@ def main(argv=None) -> int:
     del u, ua, targs, ap, bp
     torch.cuda.empty_cache()
 
-    source = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    popc_per_s = POPC_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6
+    print(f"[card] {sms} SMs, max SM clock {clock_mhz:.0f} MHz: popcount bound rate "
+          f"{POPC_PER_CLOCK_PER_SM} x {sms} x {clock_mhz:.0f} MHz = {popc_per_s:.4g} /s")
+
+    def padded(words: np.ndarray, rows: int, cols: int):
+        xp = np.zeros((rows, cols), np.uint32)
+        xp[: words.shape[0], : words.shape[1]] = words
+        return to_device_words(xp, dev)
+
+    # ------------------------------------------- 7 kernel vs plain: K5, K1, K0
+    seen = {"pad slots": False, "tail pad items": False, "multi-group slot": False}
+    for label, rows_cfg, words_cfg, n, m, blocks in K5_CASES:
+        kcfg = cfg if rows_cfg is None else EngineConfig(k2_tile_rows=rows_cfg,
+                                                         k2_tile_words=words_cfg)
+        ti5, wk5 = mxu.k2_tile_shape(kcfg, n, -(-m // 32))
+        kwords, _, _ = ld_panel(rng, n, m, blocks, 0.3, row_avoid=ti5, bit_avoid=wk5 * 32)
+        plan5 = clustered.build_clustered_plan(st.BitMatrix.from_packed(kwords, m), kcfg)
+        if plan5 is None:
+            raise AssertionError(f"K5 {label}: no plan")
+        p5 = plan5.slot_ibs.size
+        seen["pad slots"] |= plan5.n_slots > p5
+        seen["tail pad items"] |= plan5.ibs_w.size > plan5.n_work + plan5.n_slots - p5
+        seen["multi-group slot"] |= bool(np.bincount(plan5.slots_w[: plan5.n_work]).max() > 1)
+        args5 = [padded(kwords, plan5.n_pad, plan5.w_pad)] + [
+            torch.from_numpy(x).to(dev)
+            for x in (plan5.ibs_w, plan5.jbs_w, plan5.gsel_w, plan5.slots_w, plan5.first_w)]
+        kw5 = dict(n_slots=plan5.n_slots, tile_rows=plan5.ti, tile_words=plan5.wk)
+        got = clustered.count_tiles_worklist(*args5, **kw5)
+        want = clustered.count_tiles_worklist_plain(*args5, **kw5)
+        torch.cuda.synchronize()
+        max_err["k5"] = max(max_err["k5"], exact_diff(torch, got, want))
+        print(f"[kernel vs plain] k5 {label}: N={n} M={m} tile={plan5.ti}x{plan5.wk} "
+              f"items={plan5.n_work}/{plan5.ibs_w.size} slots={p5}/{plan5.n_slots} exact")
+    if not all(seen.values()):
+        raise AssertionError(f"K5 cases did not cover {seen}")
+    ones = torch.full((ALL_ONES_N, ALL_ONES_M // 32), -1, dtype=torch.int32, device=dev)
+    ti5, wk5 = mxu.k2_tile_shape(cfg, ALL_ONES_N, ALL_ONES_M // 32)
+    ng5 = ones.shape[1] // wk5
+    zeros_ids = torch.zeros(ng5, dtype=torch.int32, device=dev)
+    first5 = torch.zeros(ng5, dtype=torch.int32, device=dev)
+    first5[0] = 1
+    args5 = [ones, zeros_ids, zeros_ids, torch.arange(ng5, dtype=torch.int32, device=dev),
+             zeros_ids, first5]
+    kw5 = dict(n_slots=1, tile_rows=ti5, tile_words=wk5)
+    got = clustered.count_tiles_worklist(*args5, **kw5)
+    want = clustered.count_tiles_worklist_plain(*args5, **kw5)
+    torch.cuda.synchronize()
+    max_err["k5"] = max(max_err["k5"], exact_diff(torch, got, want))
+    if not bool((got == ALL_ONES_M).all()):
+        raise AssertionError(f"k5 all-ones: counts are not all {ALL_ONES_M}")
+    print(f"[kernel vs plain] k5 all-ones N={ALL_ONES_N} M={ALL_ONES_M}: {ng5} items "
+          f"of one slot, every count {ALL_ONES_M}, exact")
+    del args5, got, want
+
+    def k1_inputs(words: np.ndarray):
+        n, w = words.shape
+        ti1, wk1 = dense.k1_tile_shape(cfg, n, w)
+        ibs1, jbs1 = triangular_tile_ids(round_up(n, ti1) // ti1)
+        return (padded(words, round_up(n, ti1), round_up(w, wk1)),
+                torch.from_numpy(ibs1).to(dev), torch.from_numpy(jbs1).to(dev)), \
+            dict(tile_rows=ti1, tile_words=wk1)
+
+    def check_k1(label: str, words: np.ndarray, expect_all=None) -> None:
+        args1, kw1 = k1_inputs(words)
+        got1 = dense.count_tiles_pallas_dense(*args1, **kw1)
+        want1 = dense.count_tiles_dense_plain(*args1, **kw1)
+        torch.cuda.synchronize()
+        max_err["k1"] = max(max_err["k1"], exact_diff(torch, got1, want1))
+        n = words.shape[0]
+        if expect_all is not None and not bool((got1[0, :n, :n] == expect_all).all()):
+            raise AssertionError(f"k1 {label}: counts are not all {expect_all}")
+        print(f"[kernel vs plain] k1 {label}: N={n} W={words.shape[1]} "
+              f"tile={kw1['tile_rows']}x{kw1['tile_words']} T={args1[1].numel()} exact")
+
+    for n in K1_NS:
+        for m in K1_MS:
+            for density in (0.001, 0.5, 1.0):
+                check_k1(f"M={m} density={density}", random_words(rng, n, m, density))
+    check_k1("all-ones", np.full((ALL_ONES_N, ALL_ONES_M // 32), 0xFFFFFFFF, np.uint32),
+             expect_all=ALL_ONES_M)
+
+    for r, w in K0_CASES:
+        a = random_words(rng, r, w * 32, 0.5)
+        b = random_words(rng, r, w * 32, 0.5)
+        a[r // 2] = 0
+        for salt in (0, 0xDEADBEEF):
+            ta, tb = to_device_words(a, dev), to_device_words(b, dev)
+            got = dense.pair_count_stream_pallas(ta, tb, salt=salt)
+            want = dense.pair_count_stream_plain(ta, tb, salt=salt)
+            torch.cuda.synchronize()
+            max_err["k0"] = max(max_err["k0"], exact_diff(torch, got, want))
+            oracle = np.bitwise_count((a ^ np.uint32(salt)) & b).sum(axis=1, dtype=np.int64)
+            if not np.array_equal(got.cpu().numpy().astype(np.int64), oracle):
+                raise AssertionError(f"k0 R={r} W={w} salt={salt:#x} differs from numpy")
+            print(f"[kernel vs plain] k0 R={r} W={w} salt={salt:#x}: exact, numpy exact")
+    ta = torch.full((1000, 4096), -1, dtype=torch.int32, device=dev)
+    for salt in (0, 0xDEADBEEF):
+        got = dense.pair_count_stream_pallas(ta, ta, salt=salt)
+        want = dense.pair_count_stream_plain(ta, ta, salt=salt)
+        torch.cuda.synchronize()
+        max_err["k0"] = max(max_err["k0"], exact_diff(torch, got, want))
+        expect = 4096 * bin(~salt & 0xFFFFFFFF).count("1")
+        if not bool((got == expect).all()):
+            raise AssertionError(f"k0 all-ones salt={salt:#x}: counts are not all {expect}")
+    print("[kernel vs plain] k0 all-ones R=1000 W=4096 at salt 0 and 0xdeadbeef: exact")
+    del ones, ta
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------- 8 clustered path
+    t0 = time.perf_counter()
+    ld_words, ld_rows, ld_bits = ld_panel(rng, LD_N, LD_M, LD_BLOCKS, LD_DENSITY)
+    bm_ld = st.BitMatrix.from_packed(ld_words, LD_M)
+    occupancy = float(bm_ld.packed.any(axis=0).mean())
+    print(f"[clustered] LD panel {LD_N} x {LD_M} bits, {LD_BLOCKS} blocks, density "
+          f"{LD_DENSITY} inside blocks, global column occupancy {occupancy:.6f}; made in "
+          f"{time.perf_counter() - t0:.2f} s; row cuts {ld_rows.tolist()}; bit cuts "
+          f"{ld_bits.tolist()}")
+    chosen = choose_strategy(bm_ld.n, bm_ld.m_bits, bm_ld.density, cfg, bm=bm_ld, device=dev)
+    if chosen != "clustered":
+        raise AssertionError(f"D1 chose {chosen!r} on the LD panel, want 'clustered'")
+    plan = clustered.build_clustered_plan(bm_ld, cfg)
+    n_vis = plan.slot_ibs.size
+    reset_launches()
+    t0 = time.perf_counter()
+    ld_out = st.intersect_count_matrix(bm_ld, strategy="auto", device=dev)
+    wall_ld = time.perf_counter() - t0
+    counts = launch_counts()
+    launches_k5 = counts["k5"]
+    if launches_k5 < 1 or counts["k2_tri"] != 0:
+        raise AssertionError(f"the clustered path launched {counts}; want k5 >= 1, k2_tri 0")
+    if ld_out.shape != (LD_N, LD_N) or ld_out.dtype != np.int32:
+        raise AssertionError(f"result {ld_out.shape} {ld_out.dtype}")
+    half = N_SAMPLES // 2
+    blk_of = np.searchsorted(ld_rows, np.arange(LD_N), side="right") - 1
+    same = rng.integers(0, LD_BLOCKS, half)
+    i = rng.integers(ld_rows[same], ld_rows[same + 1])
+    j = rng.integers(ld_rows[same], ld_rows[same + 1])
+    ai = rng.integers(0, LD_N, 4 * half)
+    aj = rng.integers(0, LD_N, 4 * half)
+    cross = blk_of[ai] != blk_of[aj]
+    i = np.concatenate([i, ai[cross][:half]])
+    j = np.concatenate([j, aj[cross][:half]])
+    if i.size != N_SAMPLES:
+        raise AssertionError("could not draw the cross-block samples")
+    if not np.array_equal(ld_out[i, j], sampled_counts(ld_words, ld_words, i, j)):
+        raise AssertionError("clustered path: sampled pairs differ from numpy")
+    if not np.array_equal(np.diagonal(ld_out), bm_ld.row_nnz):
+        raise AssertionError("clustered path: diagonal differs from row_nnz")
+    if not np.array_equal(ld_out, ld_out.T):
+        raise AssertionError("clustered path: count matrix is not symmetric")
+    print(f"[clustered path] intersect_count_matrix {LD_N} x {LD_M} bits: D1 chose {chosen}, "
+          f"launches {counts}; work fraction {plan.work_fraction:.6f}, n_work {plan.n_work}, "
+          f"items with padding {plan.ibs_w.size}, visited slots {n_vis}, n_slots "
+          f"{plan.n_slots}, tile {plan.ti}x{plan.wk}, {plan.nb} row blocks x {plan.ng} "
+          f"K-groups; {half} within-block + {half} cross-block sampled pairs, diagonal, "
+          f"symmetry exact; first call wall {wall_ld:.3f} s")
+    del ld_out
+    t0 = time.perf_counter()
+    st.intersect_count_matrix(bm_ld, device=dev)
+    wall_ld_warm = time.perf_counter() - t0
+    stages = {}
+    stage("dispatch", lambda: choose_strategy(bm_ld.n, bm_ld.m_bits, bm_ld.density, cfg,
+                                              bm=bm_ld, device=dev))
+    plan = stage("plan", lambda: clustered.build_clustered_plan(bm_ld, cfg))
+    packed_ld = stage("operand_cached", lambda: clustered.device_operand(bm_ld, plan, dev))
+    work = stage("worklist_h2d", lambda: clustered.device_worklist(plan, dev))
+    kw5 = dict(n_slots=n_vis, tile_rows=plan.ti, tile_words=plan.wk)
+    tiles5 = stage("k5_kernel", lambda: clustered.count_tiles_worklist(packed_ld, *work, **kw5))
+    tiles5_np = stage("tiles_d2h", lambda: tiles5.cpu().numpy())
+    stage("host_assembly", lambda: assemble_triangular(tiles5_np, plan.slot_ibs, plan.slot_jbs,
+                                                       plan.nb, LD_N))
+    print("[breakdown] warm clustered intersect_count_matrix stages (host clock, s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.4f} of wall {wall_ld_warm:.4f}")
+    bm_ld.clear_device_cache()
+    del packed_ld
+    torch.cuda.empty_cache()
+    stages = {}
+    packed_ld = stage("pad_upload_cold", lambda: clustered.device_operand(bm_ld, plan, dev))
+    print(f"[breakdown] first-call operand pad and upload ({plan.n_pad} x {plan.w_pad} words): "
+          f"{stages['pad_upload_cold']:.4f} s")
+    # K2's whole triangle on the same padded operand: the walk K5 skips
+    ibs_all, jbs_all = triangular_tile_ids(plan.nb)
+    ids_all = (torch.from_numpy(ibs_all).to(dev), torch.from_numpy(jbs_all).to(dev))
+    tiles2 = mxu.count_tiles_pallas_mxu(packed_ld, *ids_all, tile_rows=plan.ti,
+                                        tile_words=plan.wk)
+    lut = np.full((plan.nb, plan.nb), -1, np.int64)
+    lut[ibs_all, jbs_all] = np.arange(ibs_all.size)
+    vis = torch.from_numpy(lut[plan.slot_ibs, plan.slot_jbs]).to(dev)
+    if not (torch.equal(tiles2[vis], tiles5)
+            and int(tiles2.sum(dtype=torch.int64)) == int(tiles5.sum(dtype=torch.int64))):
+        raise AssertionError("K5 tiles differ from K2's, or a skipped tile pair is not zero")
+    k2_same_ms = cuda_ms(torch, lambda: mxu.count_tiles_pallas_mxu(
+        packed_ld, *ids_all, tile_rows=plan.ti, tile_words=plan.wk), reps=3)
+    print(f"[clustered] K2 triangle on the same operand: T={ibs_all.size} tile pairs x "
+          f"{plan.ng + 1} K-groups; its visited tiles equal K5's and the rest are zero; "
+          f"{k2_same_ms:.3f} ms")
+    del tiles2, tiles5, tiles5_np, ids_all
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------- 9 pallas_dense path
+    reset_launches()
+    t0 = time.perf_counter()
+    dense_out = st.intersect_count_matrix(bm, strategy="pallas_dense", device=dev)
+    wall_k1 = time.perf_counter() - t0
+    counts = launch_counts()
+    launches_k1 = counts["k1"]
+    if launches_k1 < 1:
+        raise AssertionError(f"the pallas_dense path launched {counts}; want k1 >= 1")
+    if not np.array_equal(dense_out, main_out):
+        raise AssertionError("pallas_dense matrix differs from the K2 main path's")
+    print(f"[pallas_dense path] intersect_count_matrix {MAIN_N} x {MAIN_M} bits: launches "
+          f"{counts}; equal to the K2 main path's matrix; wall {wall_k1:.3f} s")
+    del dense_out, main_out
+
+    # ---------------------------------------------------- 10 K0 pair stream
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    w_st = STREAM_M // 32
+    sa, sb = (torch.randint(-(1 << 31), 1 << 31, (STREAM_R, w_st), dtype=torch.int32,
+                            device=dev, generator=gen) for _ in range(2))
+    reset_launches()
+    t0 = time.perf_counter()
+    pc = dense.pair_count_stream_pallas(sa, sb)
+    torch.cuda.synchronize()
+    wall_k0 = time.perf_counter() - t0
+    counts = launch_counts()
+    launches_k0 = counts["k0"]
+    if launches_k0 < 1:
+        raise AssertionError(f"pair_count_stream_pallas launched {counts}; want k0 >= 1")
+    rows = torch.from_numpy(rng.integers(0, STREAM_R, 256)).to(dev)
+    ah = sa[rows].cpu().numpy().view(np.uint32)
+    bh = sb[rows].cpu().numpy().view(np.uint32)
+    if not np.array_equal(pc[rows].cpu().numpy().astype(np.int64),
+                          np.bitwise_count(ah & bh).sum(axis=1, dtype=np.int64)):
+        raise AssertionError("K0 sampled rows differ from numpy")
+    print(f"[k0 path] pair_count_stream_pallas {STREAM_R} pairs x {STREAM_M} bits: launches "
+          f"{counts}; 256 sampled rows exact; wall {wall_k0:.3f} s")
+
+    # ---------------------------------------------------- 11 timings
+    got = clustered.count_tiles_worklist(packed_ld, *work, **kw5)
+    want = clustered.count_tiles_worklist_plain(packed_ld, *work, **kw5)
+    torch.cuda.synchronize()
+    max_err["k5"] = max(max_err["k5"], exact_diff(torch, got, want))
+    del got, want
+    plain_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist_plain(packed_ld, *work, **kw5),
+                       reps=1, warmup=0)
+    kern_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist(packed_ld, *work, **kw5),
+                      reps=10)
+    ti5, wk5 = plan.ti, plan.wk
+    b_ms, b_by = bound(2.0 * plan.n_work * ti5 * ti5 * wk5 * 32,
+                       2.0 * plan.n_work * ti5 * wk5 * 4 + n_vis * ti5 * ti5 * 4.0)
+    timings["k5"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by, library="none: no one PyTorch call computes a "
+                         "work-list accumulation")
+    pad_args = [torch.from_numpy(x).to(dev)
+                for x in (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)]
+    pad_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist(
+        packed_ld, *pad_args, n_slots=plan.n_slots, tile_rows=ti5, tile_words=wk5), reps=10)
+    del pad_args
+    print(f"[timing] k5 LD panel n_work={plan.n_work} slots={n_vis} tile={ti5}x{wk5}: kernel "
+          f"{kern_ms:.3f} ms (with the plan's bucket padding, {plan.ibs_w.size} items into "
+          f"{plan.n_slots} slots: {pad_ms:.3f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); K2 triangle on the same operand "
+          f"{k2_same_ms:.3f} ms, skip ratio {k2_same_ms / kern_ms:.2f}x")
+    del packed_ld, work
+    torch.cuda.empty_cache()
+
+    args1, kw1 = k1_inputs(words)
+    t1 = args1[1].numel()
+    n_pad1, w_pad1 = args1[0].shape
+    ti1 = kw1["tile_rows"]
+    kern_ms = cuda_ms(torch, lambda: dense.count_tiles_pallas_dense(*args1, **kw1), reps=3)
+    b_ms, b_by = bound(float(t1) * ti1 * ti1 * w_pad1,
+                       4.0 * (n_pad1 * w_pad1 + 2 * t1 + t1 * ti1 * ti1), popc_per_s)
+    del args1
+    mid_args, mid_kw = k1_inputs(random_words(rng, MID_N, MID_M, 0.5))
+    got = dense.count_tiles_pallas_dense(*mid_args, **mid_kw)
+    want = dense.count_tiles_dense_plain(*mid_args, **mid_kw)
+    torch.cuda.synchronize()
+    max_err["k1"] = max(max_err["k1"], exact_diff(torch, got, want))
+    del got, want
+    plain_mid_ms = cuda_ms(torch, lambda: dense.count_tiles_dense_plain(*mid_args, **mid_kw),
+                           reps=1, warmup=0)
+    kern_mid_ms = cuda_ms(torch, lambda: dense.count_tiles_pallas_dense(*mid_args, **mid_kw),
+                          reps=5)
+    timings["k1"] = dict(ms=kern_ms, plain_ms=plain_mid_ms, library_ms=int_mm_square_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         plain_shape=f"{MID_N} x {MID_M} bits", ms_at_plain_shape=kern_mid_ms,
+                         library="torch._int_mm full square on unpacked int8 (phase 6)")
+    print(f"[timing] k1 N_pad={n_pad1} W_pad={w_pad1} T={t1} tile={ti1}: kernel {kern_ms:.3f} "
+          f"ms, bound {b_ms:.3f} ms ({b_by}, {POPC_PER_CLOCK_PER_SM}/clock/SM x {sms} SMs x "
+          f"{clock_mhz:.0f} MHz), _int_mm full square {int_mm_square_ms:.3f} ms; at "
+          f"{MID_N} x {MID_M} bits (T={mid_args[1].numel()}): kernel {kern_mid_ms:.3f} ms, "
+          f"plain {plain_mid_ms:.3f} ms")
+    del mid_args
+
+    got = dense.pair_count_stream_pallas(sa, sb, salt=0xDEADBEEF)
+    want = dense.pair_count_stream_plain(sa, sb, salt=0xDEADBEEF)
+    torch.cuda.synchronize()
+    max_err["k0"] = max(max_err["k0"], exact_diff(torch, got, want))
+    del got, want
+    plain_ms = cuda_ms(torch, lambda: dense.pair_count_stream_plain(sa, sb), reps=3)
+    kern_ms = cuda_ms(torch, lambda: dense.pair_count_stream_pallas(sa, sb), reps=10)
+    b_ms, b_by = bound(float(STREAM_R) * w_st, 2.0 * STREAM_R * w_st * 4 + STREAM_R * 4.0,
+                       popc_per_s)
+    timings["k0"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by, library="none: torch has no popcount op")
+    print(f"[timing] k0 R={STREAM_R} W={w_st}: kernel {kern_ms:.3f} ms "
+          f"({2.0 * STREAM_R * w_st * 4 / (kern_ms * 1e-3) / 1e9:.1f} GB/s), plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by})")
+    print(f"[timing] clustered intersect_count_matrix wall: first call {wall_ld:.3f} s, warm "
+          f"call {wall_ld_warm:.3f} s; pallas_dense wall {wall_k1:.3f} s")
+    del sa, sb, pc
+    torch.cuda.empty_cache()
+
+    src_k2 = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
+    src_k1 = "stormtpu_torch/kernels/csrc/k1_dense.cu"
+    int_mm_note = "torch._int_mm on unpacked int8"
     kernels = [
-        dict(name="k2_tri", route="cuda", source=source,
+        dict(name="k2_tri", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/mxu.py:202", launches=launches_tri,
-             max_abs_err=max_err["k2_tri"], **timings["k2_tri"]),
-        dict(name="k2_rect", route="cuda", source=source,
+             max_abs_err=max_err["k2_tri"], library=int_mm_note + ", full square",
+             **timings["k2_tri"]),
+        dict(name="k2_rect", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/mxu.py:248", launches=launches_rect,
-             max_abs_err=max_err["k2_rect"], **timings["k2_rect"]),
+             max_abs_err=max_err["k2_rect"], library=int_mm_note, **timings["k2_rect"]),
+        dict(name="k5", route="cuda", source=src_k2,
+             replaces="stormtpu/kernels/clustered.py:165", launches=launches_k5,
+             max_abs_err=max_err["k5"], **timings["k5"]),
+        dict(name="k1", route="cuda", source=src_k1,
+             replaces="stormtpu/kernels/dense.py:140", launches=launches_k1,
+             max_abs_err=max_err["k1"], **timings["k1"]),
+        dict(name="k0", route="cuda", source=src_k1,
+             replaces="stormtpu/kernels/dense.py:239", launches=launches_k0,
+             max_abs_err=max_err["k0"], **timings["k0"]),
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

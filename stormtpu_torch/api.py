@@ -27,10 +27,8 @@ MatrixLike = Union[BitMatrix, np.ndarray]
 
 # the ROADMAP.md queue item each unported strategy waits on
 _NOT_PORTED = {
-    "pallas_dense": "kernel queue: K1 (stormtpu/kernels/dense.py)",
     "sparse": "module queue: kernels/sparse.py K3",
     "sparse_outer": "module queue: kernels/sparse.py K4",
-    "clustered": "kernel queue: K5 (stormtpu/kernels/clustered.py)",
 }
 
 
@@ -74,10 +72,11 @@ def intersect_count_matrix(
     """Exact N×N pairwise intersection-count matrix, numpy int32.
 
     ``strategy``: "auto" (D1 dispatch) or one of ``dispatch.STRATEGIES``.
-    Explicitly requesting a strategy that is not ported yet raises
-    ``NotImplementedError``; "auto" never lands on one — where D1 names an
-    unported strategy, the dense choice for the shape runs instead (every
-    strategy gives the same exact counts).
+    Explicitly requesting a strategy that is not ported yet (``sparse``,
+    ``sparse_outer``) raises ``NotImplementedError``; "auto" never lands on
+    one — where D1 names one, the dense choice for the shape runs instead
+    (every strategy gives the same exact counts). Where D1 names
+    ``"clustered"``, "auto" runs the K5 work list.
     """
     dev = resolve_device(device)
     bm = _as_bitmatrix(x)
@@ -97,6 +96,28 @@ def intersect_count_matrix(
             f"(ROADMAP.md, {_NOT_PORTED[strategy]})"
         )
     from stormtpu_torch.stream import STREAM_NOT_PORTED, require_device_budget
+
+    if strategy == "clustered":
+        # K5 pads and caches its own operand and skips empty K-groups per
+        # tile pair, which subsumes the global column compaction below. Its
+        # device footprint is the padded operand plus the visited count
+        # tiles, exact from the plan; a degenerate plan with set bits takes
+        # the K2 walk and its N² output.
+        from stormtpu_torch.kernels.clustered import (
+            build_clustered_plan,
+            count_matrix_clustered,
+        )
+
+        plan = build_clustered_plan(bm, cfg)
+        if bm.n > 2 and (plan is not None or bm.nnz):
+            if plan is None:
+                need = 4 * bm.n * bm.n + 4 * bm.n * bm.n_words
+                what = "the N² count matrix plus operand"
+            else:
+                need = 4 * plan.n_pad * plan.w_pad + 4 * plan.n_slots * plan.ti * plan.ti
+                what = "the K5 operand plus work-list count tiles"
+            require_device_budget(need, f"N={bm.n}: {what}", STREAM_NOT_PORTED, device=dev)
+        return count_matrix_clustered(bm, config=cfg, plan=plan, device=dev)
 
     if bm.n > 2:
         # the N² int32 output plus the packed operand, on the device
@@ -124,6 +145,10 @@ def intersect_count_matrix(
         out = kx.count_matrix_popcount_xla(packed).cpu().numpy()
     elif strategy == "mxu":
         out = kx.count_matrix_int8_xla(packed).cpu().numpy()
+    elif strategy == "pallas_dense":
+        from stormtpu_torch.kernels.dense import count_matrix_pallas_dense
+
+        out = count_matrix_pallas_dense(packed, config=cfg, variant=cfg.k1_variant)
     else:  # pallas_mxu
         from stormtpu_torch.kernels.mxu import count_matrix_pallas_mxu
 

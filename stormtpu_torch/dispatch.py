@@ -12,6 +12,10 @@ Differences from the JAX package, all temporary (ROADMAP.md):
 - on CUDA, the density < ``sparse_density_threshold`` branch falls
   through to the dense choice until K3/K4 are ported (on the CPU it
   returns ``"sparse"``, as the JAX package does off the TPU).
+
+The block-clustered choice (``"clustered"``, K5) is made as the JAX
+package makes it, and runs: ``"auto"`` takes it on the card and on the
+CPU. ``"pallas_dense"`` (K1) runs when asked for; D1 never picks it.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ STRATEGIES = (
 )
 
 # strategies the port can run; the rest name their ROADMAP item
-PORTED = ("popcount", "mxu", "pallas_mxu")
+PORTED = ("popcount", "mxu", "pallas_dense", "pallas_mxu", "clustered")
 
 
 def dense_strategy(n: int, m_bits: int, config: Optional[EngineConfig] = None) -> str:

@@ -4,7 +4,10 @@
   unpacked operands) for small shapes and the CPU.
 - ``mxu``       — K2: int8 tensor-core product with the bit unpack fused
   into the CUDA kernel (``csrc/k2_mxu.cu``), triangular and rectangular.
-- ``clustered`` — the dispatch statistic of the block-clustered regime.
+- ``clustered`` — K5: the block-clustered work list (planner, dispatch
+  statistic, and a CUDA kernel sharing K2's tile body in ``csrc/k2_mxu.cu``).
+- ``dense``     — K1 (AND + popcount tiles) and K0 (row-wise pair stream),
+  CUDA-core kernels in ``csrc/k1_dense.cu``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,46 @@ import torch
 # package's routing constant, kept so both packages route alike.
 MXU_XLA_MAX_BITS = 1 << 17
 
-__all__ = ["MXU_XLA_MAX_BITS", "count_block_auto"]
+from stormtpu_torch.kernels import clustered, dense, mxu  # noqa: E402
+from stormtpu_torch.kernels.clustered import (  # noqa: E402
+    ClusteredPlan,
+    build_clustered_plan,
+    count_matrix_clustered,
+    count_tiles_worklist,
+)
+from stormtpu_torch.kernels.dense import (  # noqa: E402
+    count_matrix_pallas_dense,
+    count_tiles_pallas_dense,
+    pair_count_stream_pallas,
+)
+
+__all__ = [
+    "MXU_XLA_MAX_BITS",
+    "ClusteredPlan",
+    "build_clustered_plan",
+    "count_block_auto",
+    "count_matrix_clustered",
+    "count_matrix_pallas_dense",
+    "count_tiles_pallas_dense",
+    "count_tiles_worklist",
+    "launch_counts",
+    "pair_count_stream_pallas",
+    "reset_launches",
+]
+
+_COUNTED = (mxu, clustered, dense)
+
+
+def launch_counts() -> dict[str, int]:
+    """CUDA launches of every kernel wrapper since the last reset, by
+    kernel (``k2_tri``, ``k2_rect``, ``k5``, ``k1``, ``k0``)."""
+    return {k: v for m in _COUNTED for k, v in m.LAUNCHES.items()}
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for m in _COUNTED:
+        m.reset_launches()
 
 
 def count_block_auto(

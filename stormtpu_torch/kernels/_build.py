@@ -40,6 +40,12 @@ SOURCES = {
         "k2_block_rows": ((), _I),
         "k2_tri_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
         "k2_rect_launch": ((_VP, _VP, _VP, _LL, _LL, _LL, _VP), _I),
+        "k5_launch": ((_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _VP), _I),
+    },
+    "k1_dense": {
+        "k1_block_rows": ((), _I),
+        "k1_tri_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
+        "k0_stream_launch": ((_VP, _VP, _VP, _LL, _LL, _I, _VP), _I),
     },
 }
 

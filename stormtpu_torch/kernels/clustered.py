@@ -1,26 +1,105 @@
-"""The D1 half of K5's planner (port of ``stormtpu/kernels/clustered.py``
-``_block_occupancy`` and ``clustered_work_fraction``): the pure-NumPy
-co-occupancy statistic that tells dispatch an input is block-clustered.
-The K5 work-list kernel itself is not ported yet.
+"""K5 — the block-clustered work list (port of
+``stormtpu/kernels/clustered.py`` for one matrix).
+
+The host plans, the card counts. ``BitMatrix.block_summary`` gives each
+row's K-group occupancy (one group = one K2 K step of ``wk`` words),
+OR-reduced per ``ti``-row block to ``occ[nb, ng]``. Every upper-triangular
+tile pair (ib, jb) needs only the groups where ``occ[ib] & occ[jb]``: one
+work item (tile pair, group) per such group, sorted by output slot. Tile
+pairs with no co-occupied group never reach the card; their counts are
+exactly zero. :func:`build_clustered_plan` is a copy of the JAX package's
+planner and gives the same arrays.
+
+:func:`count_tiles_worklist` runs the items on the card with the K2 tile
+body (CUDA entry ``k5_launch`` in ``csrc/k2_mxu.cu``); a tensor on the CPU
+takes its plain version, :func:`count_tiles_worklist_plain`. The CUDA
+kernel gives each slot one block per 128×128 sub-tile that walks the
+slot's items with the sums in registers and stores once, so it needs the
+items sorted by slot and ``first`` marking each slot's first item (the
+wrapper checks both). A slot with no items comes out zero; the JAX kernel
+leaves such memory undefined, so no valid result changes.
+
+Exactness: as K2 (0/1 products, int32 sums, M < 2³¹); a dropped
+(tile pair, group) contributes zero by construction of the summary.
+``variant`` ("concat"/"planes") is accepted for parity and has no effect.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from stormtpu_torch.config import WORD_BITS, EngineConfig, default_config
-from stormtpu_torch.kernels.mxu import k2_tile_shape
-from stormtpu_torch.utils import round_up
+from stormtpu_torch.kernels.mxu import (
+    _check_cuda_ids,
+    _check_cuda_operand,
+    _check_geometry,
+    _check_variant,
+    count_matrix_pallas_mxu,
+    k2_tile_shape,
+)
+from stormtpu_torch.kernels.xla import int8_dot_nt, unpack_to_int8
+from stormtpu_torch.layout import to_device_words
+from stormtpu_torch.utils import (
+    assemble_triangular,
+    quantize_bucket,
+    resolve_device,
+    round_up,
+)
 
-__all__ = ["clustered_work_fraction"]
+__all__ = [
+    "LAUNCHES",
+    "ClusteredPlan",
+    "build_clustered_plan",
+    "clustered_work_fraction",
+    "count_matrix_clustered",
+    "count_tiles_worklist",
+    "count_tiles_worklist_plain",
+    "device_operand",
+    "device_worklist",
+    "reset_launches",
+]
+
+# CUDA launches of the K5 wrapper; the plain version does not count.
+LAUNCHES = {"k5": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusteredPlan:
+    """Host-built execution plan for the K5 work-list kernel."""
+
+    ti: int                 # tile rows
+    wk: int                 # words per K-group (= K2 K step)
+    n_pad: int
+    w_pad: int              # includes one trailing all-zero pad group
+    nb: int                 # row blocks
+    ng: int                 # real K-groups (pad group excluded)
+    slot_ibs: np.ndarray    # int32 [P] visited tile-pair row blocks
+    slot_jbs: np.ndarray    # int32 [P]
+    ibs_w: np.ndarray       # int32 [T_pad] work-item row block
+    jbs_w: np.ndarray       # int32 [T_pad]
+    gsel_w: np.ndarray      # int32 [T_pad] work-item K-group
+    slots_w: np.ndarray     # int32 [T_pad] output slot
+    first_w: np.ndarray     # int32 [T_pad] 1 = first item of its slot
+    n_slots: int            # bucket-padded output slots (≥ P); pad slots
+                            # are zero-written by one filler item each
+    n_work: int             # real items (before bucket padding)
+    work_fraction: float    # n_work / (T_tri · ng): the dispatch statistic
 
 
 def _block_occupancy(bm, cfg: EngineConfig):
     """Per-tile-block K-group occupancy bool [nb, ng] (+ tile geometry),
-    cached on the BitMatrix. None when ng < 2 (a single K-group: the
-    summary cannot skip anything)."""
+    cached on the BitMatrix — the one O(N·W) summary scan, shared by the
+    dispatch statistic and the planner. None when ng < 2 (a single
+    K-group: the summary cannot skip anything)."""
     n, w = bm.n, bm.n_words
     if n == 0 or w == 0:
         return None
@@ -57,3 +136,237 @@ def clustered_work_fraction(
     ibs_t, jbs_t = np.triu_indices(nb)
     co = occ[ibs_t] & occ[jbs_t]
     return float(co.sum()) / float(ibs_t.size * ng)
+
+
+def build_clustered_plan(
+    bm, config: Optional[EngineConfig] = None
+) -> Optional[ClusteredPlan]:
+    """Summary-AND planning: per-tile-block K-group occupancy → sorted
+    (tile pair, group) work list. None for degenerate shapes (single
+    K-group) or an all-empty matrix."""
+    cfg = config or default_config()
+    geo = _block_occupancy(bm, cfg)
+    if geo is None:
+        return None
+    occ, ti, wk, n_pad, nb, ng = geo
+
+    ibs_t, jbs_t = np.triu_indices(nb)
+    co = occ[ibs_t] & occ[jbs_t]               # [T_tri, ng] summary AND
+    pair_idx, group_idx = np.nonzero(co)       # sorted by pair (row-major)
+    n_work = pair_idx.size
+    t_tri = ibs_t.size
+    work_fraction = n_work / float(t_tri * ng)
+    if n_work == 0:
+        return None
+
+    # visited tile pairs → output slots, in pair order
+    visited, slot_of_item = np.unique(pair_idx, return_inverse=True)
+    slot_ibs = ibs_t[visited].astype(np.int32)
+    slot_jbs = jbs_t[visited].astype(np.int32)
+    first = np.empty(n_work, dtype=np.int32)
+    first[0] = 1
+    first[1:] = (slot_of_item[1:] != slot_of_item[:-1]).astype(np.int32)
+
+    # bucket the slot and item counts (≤12.5% padding): pad slots are
+    # zero-written by one filler item each (first=1, zero pad K-group),
+    # then tail items are exact no-ops (first=0, zero group) into the last
+    # slot
+    p = visited.size
+    n_slots = quantize_bucket(p)
+    n_fill = n_slots - p
+    t_pad = quantize_bucket(n_work + n_fill)
+    ibs_w = np.zeros(t_pad, dtype=np.int32)
+    jbs_w = np.zeros(t_pad, dtype=np.int32)
+    gsel_w = np.full(t_pad, ng, dtype=np.int32)
+    slots_w = np.full(t_pad, n_slots - 1, dtype=np.int32)
+    first_w = np.zeros(t_pad, dtype=np.int32)
+    ibs_w[:n_work] = ibs_t[pair_idx]
+    jbs_w[:n_work] = jbs_t[pair_idx]
+    gsel_w[:n_work] = group_idx
+    slots_w[:n_work] = slot_of_item
+    first_w[:n_work] = first
+    if n_fill:
+        slots_w[n_work : n_work + n_fill] = np.arange(p, n_slots, dtype=np.int32)
+        first_w[n_work : n_work + n_fill] = 1
+
+    return ClusteredPlan(
+        ti=ti, wk=wk, n_pad=n_pad, w_pad=(ng + 1) * wk, nb=nb, ng=ng,
+        slot_ibs=slot_ibs, slot_jbs=slot_jbs,
+        ibs_w=ibs_w, jbs_w=jbs_w, gsel_w=gsel_w, slots_w=slots_w,
+        first_w=first_w, n_slots=n_slots, n_work=n_work,
+        work_fraction=work_fraction,
+    )
+
+
+# ----------------------------------------------------------------- plain form
+def count_tiles_worklist_plain(
+    packed: torch.Tensor,
+    ibs: torch.Tensor,
+    jbs: torch.Tensor,
+    gsel: torch.Tensor,
+    slots: torch.Tensor,
+    first: torch.Tensor,
+    *,
+    n_slots: int,
+    tile_rows: int,
+    tile_words: int,
+) -> torch.Tensor:
+    """Plain version of :func:`count_tiles_worklist`, the JAX semantics
+    item by item: zero the slot on ``first``, then add the int8 product of
+    the item's two row blocks over its K-group. Slots no item visits are
+    zero."""
+    ti, wk = tile_rows, tile_words
+    out = torch.zeros((n_slots, ti, ti), dtype=torch.int32, device=packed.device)
+    items = zip(*(x.cpu().tolist() for x in (ibs, jbs, gsel, slots, first)))
+    for ib, jb, g, s, f in items:
+        if f:
+            out[s] = 0
+        cols = slice(g * wk, (g + 1) * wk)
+        ua = unpack_to_int8(packed[ib * ti : (ib + 1) * ti, cols].contiguous())
+        ub = unpack_to_int8(packed[jb * ti : (jb + 1) * ti, cols].contiguous())
+        out[s] += int8_dot_nt(ua, ub)
+    return out
+
+
+# ------------------------------------------------------------- kernel wrapper
+def _slot_starts(
+    ibs, jbs, gsel, slots, first, *, n_slots: int, nb: int, ng: int
+) -> np.ndarray:
+    """Check a work list and return each slot's first item, int32
+    [n_slots + 1] (slot s owns items [start[s], start[s+1])). Raises on
+    ids out of range, slots not ascending, or ``first`` flags that do not
+    mark exactly each slot's first item."""
+    ib, jb, gs, sl, fi = (x.cpu().numpy() for x in (ibs, jbs, gsel, slots, first))
+    if not ib.shape == jb.shape == gs.shape == sl.shape == fi.shape or ib.ndim != 1:
+        raise ValueError("work-list arrays must be 1-D of equal length")
+    if ib.size:
+        for name, ids, hi in (("ibs", ib, nb), ("jbs", jb, nb), ("gsel", gs, ng),
+                              ("slots", sl, n_slots)):
+            if ids.min() < 0 or ids.max() >= hi:
+                raise ValueError(f"{name} must lie in [0, {hi})")
+        if np.any(sl[1:] < sl[:-1]):
+            raise ValueError("work-list slots must be ascending")
+        want = np.ones(sl.size, dtype=bool)
+        want[1:] = sl[1:] != sl[:-1]
+        if not np.array_equal(fi, want.astype(fi.dtype)):
+            raise ValueError("first must flag exactly each slot's first item")
+    return np.searchsorted(sl, np.arange(n_slots + 1)).astype(np.int32)
+
+
+def count_tiles_worklist(
+    packed: torch.Tensor,
+    ibs: torch.Tensor,
+    jbs: torch.Tensor,
+    gsel: torch.Tensor,
+    slots: torch.Tensor,
+    first: torch.Tensor,
+    *,
+    n_slots: int,
+    tile_rows: int,
+    tile_words: int,
+    variant: str = "planes",
+) -> torch.Tensor:
+    """``n_slots`` count tiles int32 [n_slots, TI, TI]: work item t adds
+    the (ibs[t], jbs[t]) row-block pair over K-group gsel[t] (words
+    ``[gsel·WK, gsel·WK + WK)``) into slot slots[t]. Items must be sorted
+    by slot with ``first`` marking each slot's first item; a slot no item
+    visits is zero."""
+    _check_variant(variant)
+    _check_geometry("count_tiles_worklist", packed, tile_rows, tile_words)
+    if n_slots < 0:
+        raise ValueError(f"n_slots={n_slots} must be >= 0")
+    n_pad, w_pad = packed.shape
+    starts = _slot_starts(
+        ibs, jbs, gsel, slots, first, n_slots=n_slots,
+        nb=n_pad // tile_rows, ng=w_pad // tile_words,
+    )
+    kw = dict(n_slots=n_slots, tile_rows=tile_rows, tile_words=tile_words)
+    if packed.device.type == "cpu":
+        return count_tiles_worklist_plain(packed, ibs, jbs, gsel, slots, first, **kw)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    _check_cuda_operand("count_tiles_worklist", packed)
+    _check_cuda_ids(packed.device, ibs=ibs, jbs=jbs, gsel=gsel)
+    out = torch.empty((n_slots, tile_rows, tile_rows), dtype=torch.int32,
+                      device=packed.device)
+    if n_slots == 0:
+        return out
+    from stormtpu_torch.kernels._build import library
+
+    lib = library("k2_mxu")
+    slot_start = torch.from_numpy(starts).to(packed.device)
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k5_launch(
+            packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), gsel.data_ptr(),
+            slot_start.data_ptr(), out.data_ptr(), n_slots, tile_rows,
+            tile_words, w_pad, stream,
+        )
+    if err:
+        raise RuntimeError(f"k5_launch failed: CUDA error {err}")
+    LAUNCHES["k5"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ the path
+def device_operand(bm, plan: ClusteredPlan, device) -> torch.Tensor:
+    """``bm.packed`` zero-padded to the plan's [n_pad, w_pad] (the last
+    K-group all zero) as int32 words on ``device``, padded there and
+    cached on the matrix: repeated calls do not upload it again."""
+
+    def build():
+        xp = torch.zeros((plan.n_pad, plan.w_pad), dtype=torch.int32, device=device)
+        xp[: bm.n, : bm.n_words] = to_device_words(bm.packed, device)
+        return xp
+
+    return bm.device_cached(("padded2dz", plan.n_pad, plan.w_pad), build, device)
+
+
+def device_worklist(plan: ClusteredPlan, device) -> list[torch.Tensor]:
+    """The plan's real work items (ibs, jbs, gsel, slots, first) on
+    ``device``, for ``plan.slot_ibs.size`` slots.
+
+    The plan's bucket padding (one filler item per pad slot, then no-op
+    tail items into the last slot) bounds the JAX package's compile
+    shapes. The CUDA kernel compiles once and zeroes a slot no item
+    visits, so the padding is pure cost here, and a serial one: every
+    tail item lands in the last slot, whose blocks walk them one by one."""
+    k = plan.n_work
+    return [torch.from_numpy(a[:k]).to(device)
+            for a in (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)]
+
+
+def count_matrix_clustered(
+    bm,
+    *,
+    config: Optional[EngineConfig] = None,
+    variant: Optional[str] = None,
+    plan: Optional[ClusteredPlan] = None,
+    device=None,
+) -> np.ndarray:
+    """Full N×N exact counts (numpy int32) via the K5 work list and the
+    host-side symmetric mirror, on ``device`` (``None``: the card). Tile
+    pairs with no co-occupied K-group are never computed — their counts
+    are exactly zero. A degenerate plan (single K-group) takes the K2
+    walk; an empty matrix gives zeros."""
+    dev = resolve_device(device)
+    cfg = config or default_config()
+    cfg.validate(bm.m_bits)
+    variant = variant or cfg.k2_variant
+    if plan is None:
+        plan = build_clustered_plan(bm, cfg)
+    if plan is None:
+        if bm.n == 0 or bm.nnz == 0:
+            return np.zeros((bm.n, bm.n), dtype=np.int32)
+        return count_matrix_pallas_mxu(
+            bm.device_padded(bm.n, device=dev), config=cfg, variant=variant
+        )
+
+    tiles = count_tiles_worklist(
+        device_operand(bm, plan, dev), *device_worklist(plan, dev),
+        n_slots=plan.slot_ibs.size, tile_rows=plan.ti,
+        tile_words=plan.wk, variant=variant,
+    )
+    return assemble_triangular(
+        tiles.cpu().numpy(), plan.slot_ibs, plan.slot_jbs, plan.nb, bm.n
+    )

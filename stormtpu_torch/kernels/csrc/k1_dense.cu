@@ -1,0 +1,209 @@
+// K1 and K0 for Hopper: exact intersection counts of packed bit rows by
+// word-wise AND and population count on the CUDA cores.
+//
+// Replaces the JAX package's Pallas kernels:
+//   stormtpu/kernels/dense.py  _k1_kernel / _k1_kernel_chunk
+//                              (triangular tile list, count_tiles_pallas_dense)
+//   stormtpu/kernels/dense.py  _stream_kernel
+//                              (row-wise pair stream, pair_count_stream_pallas)
+//
+// K1 computes out[t, r, c] = popcount(A[r] & B[c]) for the TI x TI tile of
+// row blocks ibs[t] x jbs[t]: one __popc per (pair, word). What bounds it:
+// the popcount issue rate, T·TI²·W popcounts at 16 per clock per SM
+// (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+// capability 9.0) on 132 SMs. Bytes are far below that bound: each word
+// staged in shared memory is used by 64 output columns. What the design
+// does about it:
+//  - One block owns a 64 x 64 sub-tile of one tile pair and loops over all
+//    of K inside the block, the sums in registers: no atomics, no
+//    cross-block sums, exact by construction.
+//  - A and B words are staged in shared memory, KW words a stage, with an
+//    odd row stride (KW + 1) so that the 16 rows a half-warp reads in one
+//    step fall in 16 different banks.
+//  - Each thread keeps a 4 x 4 register tile (rows ty + 16i, columns
+//    tx + 16j): 8 shared loads feed 16 AND + popcount + add.
+//  - TI is any multiple of 8: rows >= TI of a sub-tile load as zero and are
+//    not stored; words >= W load as zero (W is a multiple of 4).
+//
+// K0 computes out[r] = sum over words of popcount((A[r] ^ salt) & B[r]).
+// What bounds it: bytes, each word of A and B read once (2·R·W·4 bytes at
+// 3.35 TB/s). What the design does about it: one warp per row, grid-stride
+// over rows, 16-byte loads (4 words a lane) and sums in registers, a
+// warp-shuffle reduction and one store per row. A W that is not a multiple
+// of 4 takes a one-word-a-lane loop.
+//
+// Launch interface: plain C functions taking device pointers and the
+// stream as void*, returning cudaGetLastError() of the launch.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int SUB = 64;               // output rows and columns per block
+constexpr int KW = 32;                // packed words per shared-memory stage
+constexpr int LDS = KW + 1;           // odd row stride: conflict-free reads
+constexpr int TX = 16;                // threads along columns
+constexpr int TY = 16;                // threads along rows
+constexpr int THREADS = TX * TY;      // 256
+constexpr int RT = SUB / TY;          // 4 rows per thread
+constexpr int CT = SUB / TX;          // 4 columns per thread
+
+// Stage rows [0, rows) x words [k0, k0 + KW) (row stride w, a multiple of
+// 4) into shared memory; rows >= rows and words >= w are zero.
+__device__ __forceinline__ void load_stage(uint32_t* sm,
+                                           const uint32_t* __restrict__ g,
+                                           int rows, int64_t w, int64_t k0) {
+  constexpr int VEC_PER_ROW = KW / 4;
+  for (int v = threadIdx.x; v < SUB * VEC_PER_ROW; v += THREADS) {
+    const int r = v / VEC_PER_ROW;
+    const int c = (v % VEC_PER_ROW) * 4;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows && k0 + c < w) {
+      val = *reinterpret_cast<const uint4*>(g + r * w + k0 + c);
+    }
+    uint32_t* dst = sm + r * LDS + c;
+    dst[0] = val.x;
+    dst[1] = val.y;
+    dst[2] = val.z;
+    dst[3] = val.w;
+  }
+}
+
+// blockIdx.x = tile pair t, blockIdx.y = SUB x SUB sub-tile of the TI x TI
+// tile; out is int32 [T, ti, ti].
+__global__ void __launch_bounds__(THREADS)
+    k1_tri_kernel(const uint32_t* __restrict__ packed,
+                  const int* __restrict__ ibs, const int* __restrict__ jbs,
+                  int* __restrict__ out, int ti, int64_t w) {
+  __shared__ uint32_t sa[SUB * LDS];
+  __shared__ uint32_t sb[SUB * LDS];
+
+  const int64_t t = blockIdx.x;
+  const int nsub = (ti + SUB - 1) / SUB;
+  const int si = blockIdx.y / nsub;
+  const int sj = blockIdx.y % nsub;
+  const int a_rows = min(SUB, ti - si * SUB);
+  const int b_rows = min(SUB, ti - sj * SUB);
+  const uint32_t* a = packed + (static_cast<int64_t>(ibs[t]) * ti + si * SUB) * w;
+  const uint32_t* b = packed + (static_cast<int64_t>(jbs[t]) * ti + sj * SUB) * w;
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+
+  int acc[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0;
+
+  for (int64_t k0 = 0; k0 < w; k0 += KW) {
+    load_stage(sa, a, a_rows, w, k0);
+    load_stage(sb, b, b_rows, w, k0);
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < KW; ++kk) {
+      uint32_t av[RT];
+      uint32_t bv[CT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) av[i] = sa[(ty + i * TY) * LDS + kk];
+#pragma unroll
+      for (int j = 0; j < CT; ++j) bv[j] = sb[(tx + j * TX) * LDS + kk];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) acc[i][j] += __popc(av[i] & bv[j]);
+    }
+    __syncthreads();
+  }
+
+  int* o = out + t * ti * ti + static_cast<int64_t>(si) * SUB * ti + sj * SUB;
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = ty + i * TY;
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const int c = tx + j * TX;
+      if (r < a_rows && c < b_rows) o[static_cast<int64_t>(r) * ti + c] = acc[i][j];
+    }
+  }
+}
+
+constexpr int K0_THREADS = 256;
+constexpr int K0_WARPS = K0_THREADS / 32;
+
+// One warp per row, grid-stride over rows. VEC: w % 4 == 0 and both bases
+// 16-byte aligned, so every row is read as uint4 vectors.
+template <bool VEC>
+__global__ void __launch_bounds__(K0_THREADS)
+    k0_stream_kernel(const uint32_t* __restrict__ a,
+                     const uint32_t* __restrict__ b, int* __restrict__ out,
+                     int64_t r, int64_t w, uint32_t salt) {
+  const int lane = threadIdx.x & 31;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * K0_WARPS + (threadIdx.x >> 5);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * K0_WARPS;
+  for (int64_t row = first; row < r; row += step) {
+    const uint32_t* pa = a + row * w;
+    const uint32_t* pb = b + row * w;
+    int s = 0;
+    if (VEC) {
+      const uint4* va = reinterpret_cast<const uint4*>(pa);
+      const uint4* vb = reinterpret_cast<const uint4*>(pb);
+      const int64_t nv = w / 4;
+#pragma unroll 4
+      for (int64_t v = lane; v < nv; v += 32) {
+        const uint4 x = va[v];
+        const uint4 y = vb[v];
+        s += __popc((x.x ^ salt) & y.x) + __popc((x.y ^ salt) & y.y) +
+             __popc((x.z ^ salt) & y.z) + __popc((x.w ^ salt) & y.w);
+      }
+    } else {
+      for (int64_t k = lane; k < w; k += 32) s += __popc((pa[k] ^ salt) & pb[k]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, off);
+    if (lane == 0) out[row] = s;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Sub-tile edge the wrappers may rely on for grid limits.
+int k1_block_rows() { return SUB; }
+
+// packed: int32/uint32 [n_pad, w], w % 4 == 0; ibs, jbs: int32 [t];
+// out: int32 [t, ti, ti].
+int k1_tri_launch(const void* packed, const void* ibs, const void* jbs,
+                  void* out, int t, int ti, long long w, void* stream) {
+  const int nsub = (ti + SUB - 1) / SUB;
+  const dim3 grid(static_cast<unsigned>(t), static_cast<unsigned>(nsub * nsub));
+  k1_tri_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), static_cast<const int*>(ibs),
+      static_cast<const int*>(jbs), static_cast<int*>(out), ti, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, b: int32/uint32 [r, w]; out: int32 [r]. salt is the uint32 salt's
+// int32 bit-view (a C int cannot hold a Python int >= 2^31).
+int k0_stream_launch(const void* a, const void* b, void* out, long long r,
+                     long long w, int salt, void* stream) {
+  const long long want = (r + K0_WARPS - 1) / K0_WARPS;
+  const unsigned blocks = static_cast<unsigned>(want < 4096 ? want : 4096);
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t u = static_cast<uint32_t>(salt);
+  if (vec) {
+    k0_stream_kernel<true><<<blocks, K0_THREADS, 0, s>>>(
+        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+        static_cast<int*>(out), r, w, u);
+  } else {
+    k0_stream_kernel<false><<<blocks, K0_THREADS, 0, s>>>(
+        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+        static_cast<int*>(out), r, w, u);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

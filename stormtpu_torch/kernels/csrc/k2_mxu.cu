@@ -1,11 +1,14 @@
-// K2 for Hopper: exact all-pairs intersection counts of packed bit rows on
-// the int8 tensor cores, with the bit unpack fused into the operand load.
+// K2 and K5 for Hopper: exact all-pairs intersection counts of packed bit
+// rows on the int8 tensor cores, with the bit unpack fused into the
+// operand load.
 //
-// Replaces the JAX package's Pallas K2 kernels:
-//   stormtpu/kernels/mxu.py  _k2_kernel / _k2_kernel_planes
-//                            (triangular tile list, count_tiles_pallas_mxu)
-//   stormtpu/kernels/mxu.py  _k2_rect_concat / _k2_rect_planes
-//                            (rectangular grid, _count_block_padded)
+// Replaces the JAX package's Pallas kernels:
+//   stormtpu/kernels/mxu.py        _k2_kernel / _k2_kernel_planes
+//                                  (triangular tile list, count_tiles_pallas_mxu)
+//   stormtpu/kernels/mxu.py        _k2_rect_concat / _k2_rect_planes
+//                                  (rectangular grid, _count_block_padded)
+//   stormtpu/kernels/clustered.py  _k5_kernel_concat / _k5_kernel_planes
+//                                  (work list, count_tiles_worklist)
 //
 // What it computes: C[i, j] = popcount(A[i] AND B[j]) = sum over bits of
 // A_bit * B_bit, i.e. an int8 {0,1} product A·Bᵀ with int32 sums. Products
@@ -16,10 +19,15 @@
 // operand, so bytes are never the bound at the shapes the main path uses.
 //
 // What the design does about it:
-//  - One block owns a BM x BN sub-tile of output and loops over ALL of K
-//    inside the block, keeping the int32 sums in registers. Blocks run in
-//    any order with no atomics and no cross-block sums; the TPU's
+//  - One block owns a BM x BN sub-tile of output and loops over ALL of its
+//    K range inside the block, keeping the int32 sums in registers. Blocks
+//    run in any order with no atomics and no cross-block sums; the TPU's
 //    sequential K grid axis becomes this loop.
+//  - The tile body is two parts: accumulate() adds the product over a word
+//    range [k_begin, k_begin + k_len) of rows with stride ld, and
+//    store_tile() writes the sums once. K2 calls accumulate() once over all
+//    words; K5 calls it once per work item of its slot (one K-group each)
+//    and stores once, so a slot needs neither zeroing nor atomics.
 //  - Packed uint32 words of A and B row blocks are staged in shared
 //    memory; each word is unpacked to int8 {0,1} in registers as it is
 //    loaded into an mma.sync.m16n8k32 s8 fragment. The 8x-larger unpacked
@@ -70,30 +78,44 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 }
 
 // Stage rows [0, rows) x words [k0, k0 + KW) of a row-major packed matrix
-// (row stride w words) into shared memory; rows >= rows and words >= w
-// are zero (exact: zero bits add nothing). w % 4 == 0, rows 16-B aligned.
+// (row stride ld words) into shared memory; rows >= rows and words >=
+// k_len are zero (exact: zero bits add nothing). ld, k_len and the base
+// are multiples of 4 words, so each 16-B vector is wholly in or out.
 __device__ __forceinline__ void load_stage(uint32_t* sm,
                                            const uint32_t* __restrict__ g,
-                                           int rows, int64_t w, int k0) {
+                                           int rows, int64_t ld, int k0,
+                                           int k_len) {
   constexpr int VEC_PER_ROW = KW / 4;
   for (int v = threadIdx.x; v < BM * VEC_PER_ROW; v += THREADS) {
     const int r = v / VEC_PER_ROW;
     const int c = (v % VEC_PER_ROW) * 4;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows && k0 + c < w) {
-      val = *reinterpret_cast<const uint4*>(g + r * w + k0 + c);
+    if (r < rows && k0 + c < k_len) {
+      val = *reinterpret_cast<const uint4*>(g + r * ld + k0 + c);
     }
     *reinterpret_cast<uint4*>(sm + r * LDS + c) = val;
   }
 }
 
-// One BM x BN count tile: out[r, c] = popcount(a[r] & b[c]) for
-// r < a_rows, c < b_rows; out has row stride ldo.
-__device__ __forceinline__ void count_tile(const uint32_t* __restrict__ a,
+using Acc = int[MT][NT][4];
+
+__device__ __forceinline__ void zero_acc(Acc& acc) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+}
+
+// acc[r, c] += popcount(a[r] & b[c]) over words [0, k_len) of a and b
+// (each already offset to its first word), r < a_rows, c < b_rows.
+__device__ __forceinline__ void accumulate(Acc& acc,
+                                           const uint32_t* __restrict__ a,
                                            int a_rows,
                                            const uint32_t* __restrict__ b,
-                                           int b_rows, int64_t w,
-                                           int* __restrict__ out, int64_t ldo) {
+                                           int b_rows, int64_t ld,
+                                           int k_len) {
   __shared__ __align__(16) uint32_t sa[BM * LDS];
   __shared__ __align__(16) uint32_t sb[BN * LDS];
 
@@ -104,17 +126,9 @@ __device__ __forceinline__ void count_tile(const uint32_t* __restrict__ a,
   const int wm = (warp / WARPS_N) * WM;
   const int wn = (warp % WARPS_N) * WN;
 
-  int acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int64_t k0 = 0; k0 < w; k0 += KW) {
-    load_stage(sa, a, a_rows, w, static_cast<int>(k0));
-    load_stage(sb, b, b_rows, w, static_cast<int>(k0));
+  for (int k0 = 0; k0 < k_len; k0 += KW) {
+    load_stage(sa, a, a_rows, ld, k0, k_len);
+    load_stage(sb, b, b_rows, ld, k0, k_len);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < KW; ++kk) {
@@ -142,7 +156,17 @@ __device__ __forceinline__ void count_tile(const uint32_t* __restrict__ a,
     }
     __syncthreads();
   }
+}
 
+// out[r, c] = acc[r, c] for r < a_rows, c < b_rows; out has row stride ldo.
+__device__ __forceinline__ void store_tile(const Acc& acc, int a_rows,
+                                           int b_rows, int* __restrict__ out,
+                                           int64_t ldo) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane >> 2;
+  const int wm = (warp / WARPS_N) * WM;
+  const int wn = (warp % WARPS_N) * WN;
   // accumulator layout: c0, c1 at (grp, 2q + {0,1}); c2, c3 at row grp + 8
   const int q2 = (lane & 3) * 2;
 #pragma unroll
@@ -161,6 +185,18 @@ __device__ __forceinline__ void count_tile(const uint32_t* __restrict__ a,
       }
     }
   }
+}
+
+// One BM x BN count tile over all w words: out[r, c] = popcount(a[r] & b[c]).
+__device__ __forceinline__ void count_tile(const uint32_t* __restrict__ a,
+                                           int a_rows,
+                                           const uint32_t* __restrict__ b,
+                                           int b_rows, int64_t w,
+                                           int* __restrict__ out, int64_t ldo) {
+  Acc acc;
+  zero_acc(acc);
+  accumulate(acc, a, a_rows, b, b_rows, w, static_cast<int>(w));
+  store_tile(acc, a_rows, b_rows, out, ldo);
 }
 
 // Triangular form: blockIdx.x = tile pair t, blockIdx.y = BM x BN sub-tile
@@ -195,6 +231,38 @@ __global__ void __launch_bounds__(THREADS)
              w, out + ra * nb + rb, nb);
 }
 
+// Work-list form: blockIdx.x = output slot s, blockIdx.y = BM x BN
+// sub-tile of its TI x TI tile. Items [slot_start[s], slot_start[s+1])
+// are the slot's (sorted by slot); item t adds row blocks ibs[t] x jbs[t]
+// over K-group gsel[t] (words [gsel*wk, gsel*wk + wk) of a row of w words).
+// A slot with no items stores zeros.
+__global__ void __launch_bounds__(THREADS)
+    k5_kernel(const uint32_t* __restrict__ packed,
+              const int* __restrict__ ibs, const int* __restrict__ jbs,
+              const int* __restrict__ gsel,
+              const int* __restrict__ slot_start, int* __restrict__ out,
+              int ti, int wk, int64_t w) {
+  const int64_t s = blockIdx.x;
+  const int nsub = (ti + BN - 1) / BN;
+  const int si = blockIdx.y / nsub;
+  const int sj = blockIdx.y % nsub;
+  const int a_rows = min(BM, ti - si * BM);
+  const int b_rows = min(BN, ti - sj * BN);
+  Acc acc;
+  zero_acc(acc);
+  const int end = slot_start[s + 1];
+  for (int t = slot_start[s]; t < end; ++t) {
+    const int64_t k_begin = static_cast<int64_t>(gsel[t]) * wk;
+    const int64_t row_a = static_cast<int64_t>(ibs[t]) * ti + si * BM;
+    const int64_t row_b = static_cast<int64_t>(jbs[t]) * ti + sj * BN;
+    accumulate(acc, packed + row_a * w + k_begin, a_rows,
+               packed + row_b * w + k_begin, b_rows, w, wk);
+  }
+  store_tile(acc, a_rows, b_rows,
+             out + s * ti * ti + static_cast<int64_t>(si) * BM * ti + sj * BN,
+             ti);
+}
+
 }  // namespace
 
 extern "C" {
@@ -221,6 +289,21 @@ int k2_rect_launch(const void* a, const void* b, void* out, long long na,
   k2_rect_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<int*>(out), na, nb, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// packed: int32/uint32 [n_pad, w]; ibs, jbs, gsel: int32 [t_work];
+// slot_start: int32 [n_slots + 1]; out: int32 [n_slots, ti, ti].
+int k5_launch(const void* packed, const void* ibs, const void* jbs,
+              const void* gsel, const void* slot_start, void* out,
+              int n_slots, int ti, int wk, long long w, void* stream) {
+  const int nsub = (ti + BN - 1) / BN;
+  const dim3 grid(static_cast<unsigned>(n_slots),
+                  static_cast<unsigned>(nsub * nsub));
+  k5_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), static_cast<const int*>(ibs),
+      static_cast<const int*>(jbs), static_cast<const int*>(gsel),
+      static_cast<const int*>(slot_start), static_cast<int*>(out), ti, wk, w);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -83,6 +83,22 @@ def _check_cuda_operand(name, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: operand must be 16-byte aligned")
 
 
+def _check_tile_ids(name, ibs: torch.Tensor, jbs: torch.Tensor, nb: int) -> None:
+    if ibs.shape != jbs.shape or ibs.dim() != 1:
+        raise ValueError(f"{name}: ibs and jbs must be 1-D of equal length")
+    if ibs.numel() and not (
+        0 <= min(int(ibs.min()), int(jbs.min()))
+        and max(int(ibs.max()), int(jbs.max())) < nb
+    ):
+        raise ValueError(f"{name}: tile ids must lie in [0, {nb})")
+
+
+def _check_cuda_ids(device: torch.device, **ids: torch.Tensor) -> None:
+    for name, t in ids.items():
+        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 on {device}")
+
+
 def _unpack_step(packed: torch.Tensor, k0: int, tile_words: int) -> torch.Tensor:
     return unpack_to_int8(packed[:, k0 : k0 + tile_words].contiguous())
 
@@ -156,14 +172,7 @@ def count_tiles_pallas_mxu(
     of a padded packed matrix int32 [N_pad, W_pad]."""
     _check_variant(variant)
     _check_geometry("count_tiles_pallas_mxu", packed, tile_rows, tile_words)
-    if ibs.shape != jbs.shape or ibs.dim() != 1:
-        raise ValueError("ibs and jbs must be 1-D of equal length")
-    nb = packed.shape[0] // tile_rows
-    if ibs.numel() and not (
-        0 <= min(int(ibs.min()), int(jbs.min()))
-        and max(int(ibs.max()), int(jbs.max())) < nb
-    ):
-        raise ValueError(f"tile ids must lie in [0, {nb})")
+    _check_tile_ids("count_tiles_pallas_mxu", ibs, jbs, packed.shape[0] // tile_rows)
     if packed.device.type == "cpu":
         return count_tiles_plain(
             packed, ibs, jbs, tile_rows=tile_rows, tile_words=tile_words
@@ -171,9 +180,7 @@ def count_tiles_pallas_mxu(
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     _check_cuda_operand("count_tiles_pallas_mxu", packed)
-    for name, ids in (("ibs", ibs), ("jbs", jbs)):
-        if ids.device != packed.device or ids.dtype != torch.int32 or not ids.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int32 on {packed.device}")
+    _check_cuda_ids(packed.device, ibs=ibs, jbs=jbs)
     t = ibs.shape[0]
     out = torch.empty((t, tile_rows, tile_rows), dtype=torch.int32, device=packed.device)
     if t == 0:

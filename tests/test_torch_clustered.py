@@ -1,0 +1,174 @@
+"""The port's K5 path (``stormtpu_torch.kernels.clustered``) against the
+JAX package's on the CPU: the planner's arrays, the work-list kernel (the
+JAX side in Pallas interpret mode), the clustered matrix, and the entry
+point with ``strategy="clustered"`` / ``"auto"``. Inputs are shared numpy
+arrays; every comparison is exact."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import stormtpu
+import stormtpu.kernels.clustered as jc
+import stormtpu_torch as st
+import stormtpu_torch.kernels.clustered as tc
+from stormtpu.config import EngineConfig as JaxConfig
+from stormtpu_torch.config import EngineConfig
+from stormtpu_torch.layout import to_device_words
+from stormtpu_torch.oracle import oracle_count_matrix
+
+from conftest import DENSITY_SWEEP
+
+# small tiles so CPU shapes cross tile and K-group boundaries cheaply
+# (k2_tile_shape forces 128 words per K-group when W > k2_tile_words)
+CFG = EngineConfig(k2_tile_rows=32, k2_tile_words=128)
+JCFG = JaxConfig(k2_tile_rows=32, k2_tile_words=128)
+
+
+def _block_diagonal(n, m, n_blocks, density, seed):
+    """Row block b occupies only bit stripe b (the LD-panel shape: every
+    word column is occupied by some row, so global compaction is a no-op)."""
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((n, m), np.uint8)
+    rows = np.linspace(0, n, n_blocks + 1).astype(int)
+    cols = np.linspace(0, m, n_blocks + 1).astype(int)
+    for b in range(n_blocks):
+        r0, r1, c0, c1 = rows[b], rows[b + 1], cols[b], cols[b + 1]
+        dense[r0:r1, c0:c1] = rng.random((r1 - r0, c1 - c0)) < density
+    return dense
+
+
+def _uniform(n, m, density, seed):
+    return (np.random.default_rng(seed).random((n, m)) < density).astype(np.uint8)
+
+
+def _pair(dense):
+    bj = stormtpu.BitMatrix.from_dense(dense)
+    return bj, st.BitMatrix.from_packed(bj.packed, dense.shape[1])
+
+
+PLAN_INPUTS = {
+    "block_diagonal": lambda: _block_diagonal(128, 16384, 4, 0.3, seed=1),
+    "ragged": lambda: _block_diagonal(97, 12345, 3, 0.4, seed=2),
+    "empty": lambda: np.zeros((40, 16384), np.uint8),
+    "single_group": lambda: _uniform(40, 2048, 0.3, seed=3),
+    **{f"density_{d}": (lambda d=d: _uniform(96, 16000, d, seed=4))
+       for d in DENSITY_SWEEP},
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_INPUTS))
+def test_build_clustered_plan_equals_jax(name):
+    bj, bt = _pair(PLAN_INPUTS[name]())
+    want = jc.build_clustered_plan(bj, JCFG)
+    got = tc.build_clustered_plan(bt, CFG)
+    assert tc.clustered_work_fraction(bt, CFG) == jc.clustered_work_fraction(bj, JCFG)
+    if want is None:
+        assert got is None
+        return
+    for field in dataclasses.fields(want):
+        w, g = getattr(want, field.name), getattr(got, field.name)
+        if isinstance(w, np.ndarray):
+            assert g.dtype == w.dtype and np.array_equal(g, w), field.name
+        else:
+            assert g == w, field.name
+
+
+def _plan_inputs(dense, cfg=CFG, jcfg=JCFG):
+    bj, bt = _pair(dense)
+    plan = tc.build_clustered_plan(bt, cfg)
+    xp = np.zeros((plan.n_pad, plan.w_pad), np.uint32)
+    xp[: bt.n, : bt.n_words] = bt.packed
+    work = (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)
+    return plan, xp, work
+
+
+@pytest.mark.parametrize("variant", ("concat", "planes"))
+def test_count_tiles_worklist_equals_jax_interpret(variant):
+    # ragged N and M; P < 8 so the plan has pad slots and tail pad items,
+    # and the block stripes span several K-groups per slot
+    plan, xp, work = _plan_inputs(_block_diagonal(70, 13000, 2, 0.35, seed=5))
+    assert plan.n_slots > plan.slot_ibs.size
+    assert plan.ibs_w.size > plan.n_work + plan.n_slots - plan.slot_ibs.size
+    assert np.bincount(plan.slots_w[: plan.n_work]).max() > 1
+    kw = dict(n_slots=plan.n_slots, tile_rows=plan.ti, tile_words=plan.wk)
+    want = jc.count_tiles_worklist(
+        jnp.asarray(xp), *map(jnp.asarray, work), interpret=True, variant=variant, **kw
+    )
+    got = tc.count_tiles_worklist(
+        to_device_words(xp, "cpu"), *map(torch.from_numpy, work), variant=variant, **kw
+    )
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ("block_diagonal", "ragged", "empty", "single_group"))
+def test_count_matrix_clustered_equals_jax(name):
+    bj, bt = _pair(PLAN_INPUTS[name]())
+    got = tc.count_matrix_clustered(bt, config=CFG, device="cpu")
+    want = jc.count_matrix_clustered(bj, config=JCFG, interpret=True)
+    assert got.dtype == np.int32 and got.shape == (bt.n, bt.n)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, oracle_count_matrix(bj.packed))
+
+
+@pytest.mark.parametrize("strategy", ("clustered", "auto"))
+def test_intersect_count_matrix_ld_panel_equals_jax(strategy):
+    bj, bt = _pair(_block_diagonal(96, 16384, 3, 0.3, seed=6))
+    assert st.dispatch.choose_strategy(
+        bt.n, bt.m_bits, bt.density, CFG, bm=bt, device="cpu") == "clustered"
+    got = st.intersect_count_matrix(bt, strategy=strategy, config=CFG, device="cpu")
+    want = stormtpu.intersect_count_matrix(bj, strategy=strategy, config=JCFG)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, oracle_count_matrix(bj.packed))
+
+
+def test_worklist_wrapper_refuses_bad_lists():
+    plan, xp, work = _plan_inputs(_block_diagonal(100, 9000, 2, 0.35, seed=7))
+    packed = to_device_words(xp, "cpu")
+    kw = dict(n_slots=plan.n_slots, tile_rows=plan.ti, tile_words=plan.wk)
+
+    def call(**swap):
+        arrays = dict(zip(("ibs", "jbs", "gsel", "slots", "first"), work))
+        arrays.update(swap)
+        return tc.count_tiles_worklist(
+            packed, *(torch.from_numpy(np.asarray(a, np.int32)) for a in arrays.values()), **kw)
+
+    call()  # the plan as built is accepted
+    with pytest.raises(ValueError, match="ascending"):
+        call(slots=plan.slots_w[::-1].copy())
+    bad_first = plan.first_w.copy()
+    bad_first[1] ^= 1
+    with pytest.raises(ValueError, match="first"):
+        call(first=bad_first)
+    with pytest.raises(ValueError, match="gsel"):
+        call(gsel=np.full_like(plan.gsel_w, plan.ng + 1))
+    with pytest.raises(ValueError, match="ibs"):
+        call(ibs=np.full_like(plan.ibs_w, plan.nb))
+    with pytest.raises(ValueError):
+        tc.count_tiles_worklist(packed, *map(torch.from_numpy, work), variant="rows", **kw)
+
+
+def test_unvisited_slot_is_zero_and_plain_launches_nothing():
+    plan, xp, work = _plan_inputs(_block_diagonal(100, 9000, 2, 0.35, seed=8))
+    tc.reset_launches()
+    got = tc.count_tiles_worklist(
+        to_device_words(xp, "cpu"), *map(torch.from_numpy, work),
+        n_slots=plan.n_slots + 2, tile_rows=plan.ti, tile_words=plan.wk)
+    assert not got[plan.n_slots:].any()
+    assert tc.LAUNCHES == {"k5": 0}
+
+
+def test_clustered_budget_guard_uses_the_plan(monkeypatch):
+    _, bt = _pair(_block_diagonal(96, 12800, 4, 0.35, seed=9))
+    plan = tc.build_clustered_plan(bt, CFG)
+    need = 4 * plan.n_pad * plan.w_pad + 4 * plan.n_slots * plan.ti * plan.ti
+    monkeypatch.setenv("STORMTPU_DEVICE_REFUSE_BUDGET_BYTES", str(need - 1))
+    with pytest.raises(ValueError, match="K5 operand"):
+        st.intersect_count_matrix(bt, strategy="clustered", config=CFG, device="cpu")
+    monkeypatch.setenv("STORMTPU_DEVICE_REFUSE_BUDGET_BYTES", str(need))
+    got = st.intersect_count_matrix(bt, strategy="clustered", config=CFG, device="cpu")
+    assert np.array_equal(got, oracle_count_matrix(bt.packed))

@@ -1,4 +1,5 @@
-"""K2 CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K2, K5, K1, K0) against their plain PyTorch
+versions, on the card.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. On the
 card run them without the JAX package's conftest:
@@ -14,7 +15,7 @@ import torch
 
 from stormtpu_torch import BitMatrix, intersect_count_matrix, count_block
 from stormtpu_torch.config import EngineConfig
-from stormtpu_torch.kernels import mxu
+from stormtpu_torch.kernels import clustered, dense, launch_counts, mxu, reset_launches
 from stormtpu_torch.layout import to_device_words
 from stormtpu_torch.oracle import oracle_count_block, oracle_count_matrix
 from stormtpu_torch.utils import round_up, triangular_tile_ids
@@ -106,3 +107,72 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         mxu.count_tiles_pallas_mxu(xp, ids.cpu(), ids, tile_rows=32, tile_words=8)
     with pytest.raises(ValueError):
         mxu.count_tiles_pallas_mxu(xp, ids, ids, tile_rows=48, tile_words=8)
+
+
+def _block_diagonal(n, m, n_blocks, density, seed):
+    rng = np.random.default_rng(seed)
+    d = np.zeros((n, m), np.uint8)
+    rows = np.linspace(0, n, n_blocks + 1).astype(int)
+    cols = np.linspace(0, m, n_blocks + 1).astype(int)
+    for b in range(n_blocks):
+        d[rows[b]:rows[b + 1], cols[b]:cols[b + 1]] = (
+            rng.random((rows[b + 1] - rows[b], cols[b + 1] - cols[b])) < density)
+    return BitMatrix.from_dense(d)
+
+
+@pytest.mark.parametrize("n,m,blocks,cfg", [
+    (70, 13000, 2, EngineConfig(k2_tile_rows=32, k2_tile_words=128)),
+    (301, 100_003, 6, EngineConfig(k2_tile_rows=160, k2_tile_words=128)),
+    (1000, 300_007, 5, EngineConfig()),
+])
+def test_k5_kernel_equals_plain(cuda, n, m, blocks, cfg):
+    bm = _block_diagonal(n, m, blocks, 0.3, seed=n)
+    plan = clustered.build_clustered_plan(bm, cfg)
+    xp = np.zeros((plan.n_pad, plan.w_pad), np.uint32)
+    xp[:n, : bm.n_words] = bm.packed
+    args = [to_device_words(xp, cuda)] + [
+        torch.from_numpy(a).to(cuda)
+        for a in (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)]
+    kw = dict(n_slots=plan.n_slots, tile_rows=plan.ti, tile_words=plan.wk)
+    got = clustered.count_tiles_worklist(*args, **kw)
+    want = clustered.count_tiles_worklist_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("density", (0.001, 0.5, 1.0))
+@pytest.mark.parametrize("n,w,ti,wk", [(37, 300, 40, 128), (130, 513, 128, 4), (9, 64, 8, 64)])
+def test_k1_kernel_equals_plain(cuda, n, w, ti, wk, density):
+    packed = _words(n, w, density, seed=n + w)
+    xp = np.zeros((round_up(n, ti), round_up(w, wk)), np.uint32)
+    xp[:n, :w] = packed
+    ibs, jbs = triangular_tile_ids(xp.shape[0] // ti)
+    args = (to_device_words(xp, cuda), torch.from_numpy(ibs).to(cuda),
+            torch.from_numpy(jbs).to(cuda))
+    got = dense.count_tiles_pallas_dense(*args, tile_rows=ti, tile_words=wk)
+    want = dense.count_tiles_dense_plain(*args, tile_rows=ti, tile_words=wk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("salt", (0, 0xDEADBEEF))
+@pytest.mark.parametrize("r,w", [(37, 1001), (1000, 4096), (3, 5)])
+def test_k0_kernel_equals_plain(cuda, r, w, salt):
+    a = to_device_words(_words(r, w, 0.5, seed=r), cuda)
+    b = to_device_words(_words(r, w, 0.5, seed=w), cuda)
+    got = dense.pair_count_stream_pallas(a, b, salt=salt)
+    want = dense.pair_count_stream_plain(a, b, salt=salt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_clustered_and_dense_entry_points_launch_their_kernels(cuda):
+    cfg = EngineConfig(k2_tile_rows=32, k2_tile_words=128)
+    bm = _block_diagonal(96, 16384, 3, 0.3, seed=7)
+    reset_launches()
+    got = intersect_count_matrix(bm, config=cfg)
+    assert np.array_equal(got, oracle_count_matrix(bm.packed))
+    assert launch_counts()["k5"] == 1 and launch_counts()["k2_tri"] == 0
+    got = intersect_count_matrix(bm, strategy="pallas_dense", config=cfg)
+    assert np.array_equal(got, oracle_count_matrix(bm.packed))
+    assert launch_counts()["k1"] == 1
