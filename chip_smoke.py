@@ -6,7 +6,10 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. build the CUDA kernels from ``stormtpu_torch/kernels/csrc`` (one nvcc
-   per source, all started together);
+   per source, all started together), and measure the back-to-back issue
+   rate of the tensor-core instructions (``csrc/tc_rate.cu``): K2's
+   operation bound is stated against the measured rate of the instruction
+   its tile body issues;
 2. hold each K2 kernel against its plain PyTorch version on the card, with
    exact equality (counts are integers: tolerance 0) — ragged small
    shapes, a mid shape at densities 0.001 / 0.5 / 1.0, and an all-ones
@@ -18,9 +21,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 4. ``count_block`` of 4096 × 16384 rows at the same width; the K2
    rectangular kernel must launch; sampled pairs checked;
 5. ``pair_count`` of one pair of 1,048,576 bits, checked against numpy;
-6. timings at the main-path shapes (CUDA events): each kernel, its plain
-   version (also compared, exactly), one ``torch._int_mm`` call on
-   pre-unpacked int8 operands as a yardstick, and each kernel's bound;
+6. timings at the main-path shapes (CUDA events): each kernel, the
+   previous tile body (int8 ``mma.sync`` with the unpack fused in, kept in
+   the source for this) in the same run, its plain version (also compared,
+   exactly), one ``torch._int_mm`` call on pre-unpacked int8 operands as a
+   yardstick, and each kernel's bound; a ``[breakdown]`` of the warm call
+   (kernel, assembly of the N×N matrix on the card, one download);
 7. hold K5 (work list), K1 (AND + popcount tiles) and K0 (pair stream)
    against their plain versions, exactly: K5 on plans of block-diagonal
    inputs at three tile configurations (pad slots, tail pad items, slots
@@ -187,11 +193,13 @@ def main(argv=None) -> int:
     from stormtpu_torch.config import default_config
     from stormtpu_torch.dispatch import choose_strategy
     from stormtpu_torch.config import EngineConfig
-    from stormtpu_torch.kernels import _build, clustered, dense, launch_counts, mxu, reset_launches
+    from stormtpu_torch.kernels import (_build, clustered, dense, launch_counts, mxu,
+                                        reset_launches, tc_rate)
     from stormtpu_torch.kernels.xla import unpack_to_int8
     from stormtpu_torch.layout import to_device_words
     from stormtpu_torch.oracle import oracle_pair_count
-    from stormtpu_torch.utils import assemble_triangular, round_up, triangular_tile_ids
+    from stormtpu_torch.utils import (assemble_triangular_torch, download, round_up,
+                                      triangular_tile_ids)
 
     dev = torch.device(DEVICE)
     cfg = default_config()
@@ -200,14 +208,40 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 1 build
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(tuple(_build.SOURCES))
     for name in _build.SOURCES:
         _build.library(name)
-    print(f"[build] {len(_build.SOURCES)} source(s) in {time.perf_counter() - t0:.2f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    print(f"[build] {len(_build.SOURCES)} source(s) in {time.perf_counter() - t0:.2f} s, "
+          f"{len(logs)} compiled now")
+    for name in _build.SOURCES:
+        for symbol, used in _build.kernel_resources(name).items():
+            print(f"[build] {name}: {symbol}: {used['registers']} registers, "
+                  f"{used['spill_bytes']} spill bytes")
+    # registers a thread of K2's and K5's kernels, on the tile body the wrappers
+    # launch ("now": B1Wgmma in csrc/k2_mxu.cu) and on the previous one (S8Body)
+    used = _build.kernel_resources("k2_mxu")
+    regs = {body: {k: next(v["registers"] for sym, v in used.items()
+                           if f"{k}_kernel" in sym and struct in sym)
+                   for k in ("k2_tri", "k2_rect", "k5")}
+            for body, struct in (("now", "B1Wgmma"), ("previous", "S8Body"))}
+    rates = tc_rate.issue_rates(dev)
+    for r in rates:
+        print(f"[rate] {r['name']} issued back to back on every SM: {r['macs_per_s']:.4g} "
+              f"MAC/s = {2 * r['macs_per_s'] / 1e12:.1f} TOP/s")
+    k2_rate = rates[tc_rate.KINDS["wgmma_b1_n256"]]
+    k2_ops_per_s = 2.0 * k2_rate["macs_per_s"]
+    print(f"[rate] K2's tile body issues {k2_rate['name']}: its operation bound is "
+          f"2*pairs*M / {k2_ops_per_s:.4g} /s; at the int8 data-sheet rate it would be "
+          f"2*pairs*M / {PEAK_INT8_OPS:.4g} /s")
+
+    def k2_bounds(ops: float, nbytes: float) -> dict:
+        """Bound against the measured rate of the body's instruction, with the
+        int8 data-sheet figure beside it."""
+        b_ms, b_by = bound(ops, nbytes, k2_ops_per_s)
+        return dict(bound_ms=b_ms, bound_by=b_by, bound_rate=f"measured {k2_rate['name']}",
+                    operations_ms=ops / k2_ops_per_s * 1e3,
+                    bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                    bound_ms_int8=bound(ops, nbytes)[0])
 
     def tri_inputs(words: np.ndarray):
         n, w = words.shape
@@ -284,8 +318,10 @@ def main(argv=None) -> int:
         raise AssertionError("count matrix is not symmetric")
     print(f"[main path] intersect_count_matrix {MAIN_N} x {MAIN_M} bits: D1 chose {chosen}, "
           f"k2_tri launches {launches_tri}, {N_SAMPLES} sampled pairs + diagonal + symmetry "
-          f"exact; wall {wall_tri:.3f} s (first call: upload, kernel, host assembly)")
-    main_out = out
+          f"exact; wall {wall_tri:.3f} s (first call: upload, kernel, assembly on the card, download)")
+    # kept for phase 9 as a pageable copy, so that this result does not count
+    # against the page-locked bytes that live results may hold (utils.download)
+    main_out = out.copy()
 
     # --------------------------------------------------------- 4 count_block
     words_a = rng.integers(0, 1 << 32, size=(BLOCK_NA, MAIN_M // 32), dtype=np.uint32)
@@ -316,6 +352,14 @@ def main(argv=None) -> int:
     print(f"[pair_count] {PAIR_M} bits: {got} exact")
 
     # ------------------------------------------------------------ 6 timings
+    # two warm calls: while an earlier result is alive its pinned host buffer
+    # is in use, so the call pins a fresh one unless PyTorch's host cache
+    # holds a released one of that size; once a result has been released,
+    # the next call finds its buffer in that cache
+    t0 = time.perf_counter()
+    again = st.intersect_count_matrix(bm, device=dev)
+    wall_tri_fresh = time.perf_counter() - t0
+    del again, out
     t0 = time.perf_counter()
     st.intersect_count_matrix(bm, device=dev)
     wall_tri_warm = time.perf_counter() - t0
@@ -341,9 +385,10 @@ def main(argv=None) -> int:
                                          torch.from_numpy(jbs_np).to(dev)))
     tiles = stage("k2_tri_kernel", lambda: mxu.count_tiles_pallas_mxu(
         xp_main, *ids, tile_rows=ti_main, tile_words=wk_main))
-    tiles_np = stage("tiles_d2h", lambda: tiles.cpu().numpy())
-    stage("host_assembly", lambda: assemble_triangular(tiles_np, ibs_np, jbs_np, nb_main, MAIN_N))
-    del tiles, tiles_np
+    full = stage("device_assembly", lambda: assemble_triangular_torch(
+        tiles, ibs_np, jbs_np, nb_main, MAIN_N))
+    stage("matrix_d2h", lambda: download(full))
+    del tiles, full
     print("[breakdown] warm intersect_count_matrix stages (host clock, s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + f"; sum {sum(stages.values()):.4f} of wall {wall_tri_warm:.4f}")
@@ -356,45 +401,62 @@ def main(argv=None) -> int:
     want = mxu.count_tiles_plain(*targs, **tkw)
     torch.cuda.synchronize()
     max_err["k2_tri"] = max(max_err["k2_tri"], exact_diff(torch, got, want))
+    exact_diff(torch, mxu.count_tiles_pallas_mxu(*targs, previous_body=True, **tkw), want)
     del got, want
     plain_ms = cuda_ms(torch, lambda: mxu.count_tiles_plain(*targs, **tkw), reps=2)
     kern_ms = cuda_ms(torch, lambda: mxu.count_tiles_pallas_mxu(*targs, **tkw), reps=5)
+    old_ms = cuda_ms(torch, lambda: mxu.count_tiles_pallas_mxu(*targs, previous_body=True,
+                                                               **tkw), reps=3)
     u = torch.empty((n_pad, w_pad * 32), dtype=torch.int8, device=dev)
     for r in range(0, n_pad, 2048):
         u[r : r + 2048] = unpack_to_int8(targs[0][r : r + 2048])
     lib_ms = cuda_ms(torch, lambda: torch._int_mm(u, u.t()), reps=3)
     int_mm_square_ms = lib_ms
     ti = tkw["tile_rows"]
-    b_ms, b_by = bound(2.0 * t_tiles * ti * ti * w_pad * 32,
+    bounds = k2_bounds(2.0 * t_tiles * ti * ti * w_pad * 32,
                        4.0 * (n_pad * w_pad + 2 * t_tiles + t_tiles * ti * ti))
     timings["k2_tri"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by)
+                             previous_body_ms=old_ms,
+                             registers=regs["now"]["k2_tri"], **bounds)
     print(f"[timing] k2_tri N_pad={n_pad} W_pad={w_pad} T={t_tiles} tile={ti}: kernel "
-          f"{kern_ms:.3f} ms, plain {plain_ms:.3f} ms, _int_mm full square on unpacked "
-          f"int8 {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+          f"{kern_ms:.3f} ms ({regs['now']['k2_tri']} registers a thread), "
+          f"previous body {old_ms:.3f} ms ({regs['previous']['k2_tri']} "
+          f"registers), plain {plain_ms:.3f} ms, _int_mm full square on unpacked "
+          f"int8 {lib_ms:.3f} ms, bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, "
+          f"{bounds['bound_rate']}; at the int8 data-sheet rate {bounds['bound_ms_int8']:.3f} ms)")
     # rectangular K2 at count_block's shapes
     (ap, bp), rkw = rect_inputs(words_a, words)
     got = mxu._count_block_padded(ap, bp, variant=cfg.k2_variant, **rkw)
     want = mxu.count_block_plain(ap, bp, tile_words=rkw["tile_words"])
     torch.cuda.synchronize()
     max_err["k2_rect"] = max(max_err["k2_rect"], exact_diff(torch, got, want))
+    exact_diff(torch, mxu._count_block_padded(ap, bp, variant=cfg.k2_variant,
+                                              previous_body=True, **rkw), want)
     del got, want
     plain_ms = cuda_ms(torch, lambda: mxu.count_block_plain(ap, bp, tile_words=rkw["tile_words"]), reps=2)
     kern_ms = cuda_ms(torch, lambda: mxu._count_block_padded(ap, bp, variant=cfg.k2_variant, **rkw), reps=5)
+    old_ms = cuda_ms(torch, lambda: mxu._count_block_padded(
+        ap, bp, variant=cfg.k2_variant, previous_body=True, **rkw), reps=3)
     ua = torch.empty((ap.shape[0], w_pad * 32), dtype=torch.int8, device=dev)
     for r in range(0, ap.shape[0], 2048):
         ua[r : r + 2048] = unpack_to_int8(ap[r : r + 2048])
     lib_ms = cuda_ms(torch, lambda: torch._int_mm(ua, u.t()), reps=3)
     na_pad, nb_pad = ap.shape[0], bp.shape[0]
-    b_ms, b_by = bound(2.0 * na_pad * nb_pad * w_pad * 32,
+    bounds = k2_bounds(2.0 * na_pad * nb_pad * w_pad * 32,
                        4.0 * ((na_pad + nb_pad) * w_pad + na_pad * nb_pad))
     timings["k2_rect"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=b_ms, bound_by=b_by)
-    print(f"[timing] k2_rect {na_pad} x {nb_pad} W_pad={w_pad}: kernel {kern_ms:.3f} ms, "
+                              previous_body_ms=old_ms,
+                              registers=regs["now"]["k2_rect"], **bounds)
+    print(f"[timing] k2_rect {na_pad} x {nb_pad} W_pad={w_pad}: kernel {kern_ms:.3f} ms "
+          f"({regs['now']['k2_rect']} registers a thread), previous body "
+          f"{old_ms:.3f} ms ({regs['previous']['k2_rect']} registers), "
           f"plain {plain_ms:.3f} ms, _int_mm on unpacked int8 {lib_ms:.3f} ms, "
-          f"bound {b_ms:.3f} ms ({b_by})")
+          f"bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, {bounds['bound_rate']}; "
+          f"at the int8 data-sheet rate {bounds['bound_ms_int8']:.3f} ms)")
     print(f"[timing] intersect_count_matrix wall: first call {wall_tri:.3f} s, warm call "
-          f"{wall_tri_warm:.3f} s; count_block wall {wall_rect:.3f} s")
+          f"{wall_tri_fresh:.3f} s while the first result is alive (pins a fresh buffer) and "
+          f"{wall_tri_warm:.3f} s after both were released (cached buffer); count_block wall "
+          f"{wall_rect:.3f} s")
     del u, ua, targs, ap, bp
     torch.cuda.empty_cache()
 
@@ -559,7 +621,10 @@ def main(argv=None) -> int:
           f"{plan.n_slots}, tile {plan.ti}x{plan.wk}, {plan.nb} row blocks x {plan.ng} "
           f"K-groups; {half} within-block + {half} cross-block sampled pairs, diagonal, "
           f"symmetry exact; first call wall {wall_ld:.3f} s")
-    del ld_out
+    t0 = time.perf_counter()
+    again = st.intersect_count_matrix(bm_ld, device=dev)
+    wall_ld_fresh = time.perf_counter() - t0
+    del ld_out, again
     t0 = time.perf_counter()
     st.intersect_count_matrix(bm_ld, device=dev)
     wall_ld_warm = time.perf_counter() - t0
@@ -571,9 +636,10 @@ def main(argv=None) -> int:
     work = stage("worklist_h2d", lambda: clustered.device_worklist(plan, dev))
     kw5 = dict(n_slots=n_vis, tile_rows=plan.ti, tile_words=plan.wk)
     tiles5 = stage("k5_kernel", lambda: clustered.count_tiles_worklist(packed_ld, *work, **kw5))
-    tiles5_np = stage("tiles_d2h", lambda: tiles5.cpu().numpy())
-    stage("host_assembly", lambda: assemble_triangular(tiles5_np, plan.slot_ibs, plan.slot_jbs,
-                                                       plan.nb, LD_N))
+    full5 = stage("device_assembly", lambda: assemble_triangular_torch(
+        tiles5, plan.slot_ibs, plan.slot_jbs, plan.nb, LD_N))
+    stage("matrix_d2h", lambda: download(full5))
+    del full5
     print("[breakdown] warm clustered intersect_count_matrix stages (host clock, s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + f"; sum {sum(stages.values()):.4f} of wall {wall_ld_warm:.4f}")
@@ -600,7 +666,7 @@ def main(argv=None) -> int:
     print(f"[clustered] K2 triangle on the same operand: T={ibs_all.size} tile pairs x "
           f"{plan.ng + 1} K-groups; its visited tiles equal K5's and the rest are zero; "
           f"{k2_same_ms:.3f} ms")
-    del tiles2, tiles5, tiles5_np, ids_all
+    del tiles2, tiles5, ids_all
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------- 9 pallas_dense path
@@ -647,16 +713,28 @@ def main(argv=None) -> int:
     want = clustered.count_tiles_worklist_plain(packed_ld, *work, **kw5)
     torch.cuda.synchronize()
     max_err["k5"] = max(max_err["k5"], exact_diff(torch, got, want))
+    exact_diff(torch, clustered.count_tiles_worklist(packed_ld, *work, previous_body=True,
+                                                     **kw5), want)
     del got, want
     plain_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist_plain(packed_ld, *work, **kw5),
                        reps=1, warmup=0)
     kern_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist(packed_ld, *work, **kw5),
                       reps=10)
+    old_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist(
+        packed_ld, *work, previous_body=True, **kw5), reps=5)
     ti5, wk5 = plan.ti, plan.wk
-    b_ms, b_by = bound(2.0 * plan.n_work * ti5 * ti5 * wk5 * 32,
-                       2.0 * plan.n_work * ti5 * wk5 * 4 + n_vis * ti5 * ti5 * 4.0)
-    timings["k5"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                         bound_by=b_by, library="none: no one PyTorch call computes a "
+    # bytes: each distinct (row block, K-group) slab that an item reads, as
+    # its A or its B operand, once; the five work-list arrays; each slot's tile
+    k = plan.n_work
+    slabs = np.unique(np.concatenate([
+        plan.ibs_w[:k].astype(np.int64) * (plan.ng + 1) + plan.gsel_w[:k],
+        plan.jbs_w[:k].astype(np.int64) * (plan.ng + 1) + plan.gsel_w[:k]])).size
+    bounds = k2_bounds(2.0 * k * ti5 * ti5 * wk5 * 32,
+                       4.0 * (slabs * ti5 * wk5 + 5 * k + n_vis * ti5 * ti5))
+    timings["k5"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=None,
+                         previous_body_ms=old_ms,
+                         registers=regs["now"]["k5"], distinct_slabs=slabs, **bounds,
+                         library="none: no one PyTorch call computes a "
                          "work-list accumulation")
     pad_args = [torch.from_numpy(x).to(dev)
                 for x in (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)]
@@ -664,9 +742,14 @@ def main(argv=None) -> int:
         packed_ld, *pad_args, n_slots=plan.n_slots, tile_rows=ti5, tile_words=wk5), reps=10)
     del pad_args
     print(f"[timing] k5 LD panel n_work={plan.n_work} slots={n_vis} tile={ti5}x{wk5}: kernel "
-          f"{kern_ms:.3f} ms (with the plan's bucket padding, {plan.ibs_w.size} items into "
-          f"{plan.n_slots} slots: {pad_ms:.3f} ms), plain "
-          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); K2 triangle on the same operand "
+          f"{kern_ms:.3f} ms ({regs['now']['k5']} registers a thread; with "
+          f"the plan's bucket padding, {plan.ibs_w.size} items into "
+          f"{plan.n_slots} slots: {pad_ms:.3f} ms), previous body {old_ms:.3f} ms "
+          f"({regs['previous']['k5']} registers), plain "
+          f"{plain_ms:.3f} ms, bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, "
+          f"{bounds['bound_rate']}; bytes alone {bounds['bytes_ms']:.3f} ms for {slabs} "
+          f"distinct slabs of {ti5} rows x {wk5} words; at the int8 data-sheet rate "
+          f"{bounds['bound_ms_int8']:.3f} ms); K2 triangle on the same operand "
           f"{k2_same_ms:.3f} ms, skip ratio {k2_same_ms / kern_ms:.2f}x")
     del packed_ld, work
     torch.cuda.empty_cache()
@@ -715,7 +798,9 @@ def main(argv=None) -> int:
           f"({2.0 * STREAM_R * w_st * 4 / (kern_ms * 1e-3) / 1e9:.1f} GB/s), plain {plain_ms:.3f} ms, "
           f"bound {b_ms:.3f} ms ({b_by})")
     print(f"[timing] clustered intersect_count_matrix wall: first call {wall_ld:.3f} s, warm "
-          f"call {wall_ld_warm:.3f} s; pallas_dense wall {wall_k1:.3f} s")
+          f"call {wall_ld_fresh:.3f} s while the first result is alive and {wall_ld_warm:.3f} s "
+          f"after both were released (both find a buffer the main path released in the host "
+          f"cache); pallas_dense wall {wall_k1:.3f} s")
     del sa, sb, pc
     torch.cuda.empty_cache()
 

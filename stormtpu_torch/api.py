@@ -19,7 +19,7 @@ from stormtpu_torch.config import EngineConfig, default_config
 from stormtpu_torch.dispatch import PORTED, STRATEGIES, choose_strategy, dense_strategy
 from stormtpu_torch.kernels import xla as kx
 from stormtpu_torch.layout import BitMatrix, to_device_words
-from stormtpu_torch.utils import resolve_device
+from stormtpu_torch.utils import resolve_device, round_up, triangular_assembly_bytes
 
 __all__ = ["pair_count", "intersect_count_matrix", "count_block"]
 
@@ -42,6 +42,17 @@ def _as_bitmatrix(x: MatrixLike) -> BitMatrix:
             "BitMatrix.from_packed(packed, m_bits=...)"
         )
     return BitMatrix.from_dense(x)
+
+
+def _walk_bytes(n: int, w: int, tile_shape) -> int:
+    """Device bytes of a triangular tile walk over an n × w-word matrix
+    with ``tile_shape(n, w) -> (tile_rows, tile_words)``: the padded
+    operand, the tile stack and the matrix assembled beside it."""
+    ti, wk = tile_shape(n, w)
+    nb = round_up(n, ti) // ti
+    return 4 * nb * ti * round_up(w, wk) + triangular_assembly_bytes(
+        nb * (nb + 1) // 2, ti, nb, n
+    )
 
 
 def pair_count(a: MatrixLike, b: MatrixLike, *, device=None) -> int:
@@ -77,6 +88,13 @@ def intersect_count_matrix(
     one — where D1 names one, the dense choice for the shape runs instead
     (every strategy gives the same exact counts). Where D1 names
     ``"clustered"``, "auto" runs the K5 work list.
+
+    Host memory: on the card, the tile-walk strategies (``pallas_mxu``,
+    ``pallas_dense``, ``clustered``) return an array that lives in a
+    page-locked buffer (``utils.download``). The results a caller holds at
+    once take at most ``utils.tiling.PINNED_RESULT_BYTES_MAX`` (2 GiB) of
+    page-locked memory, further ones are ordinary pageable arrays, and a
+    released buffer stays page-locked in PyTorch's host cache for reuse.
     """
     dev = resolve_device(device)
     bm = _as_bitmatrix(x)
@@ -100,33 +118,45 @@ def intersect_count_matrix(
     if strategy == "clustered":
         # K5 pads and caches its own operand and skips empty K-groups per
         # tile pair, which subsumes the global column compaction below. Its
-        # device footprint is the padded operand plus the visited count
-        # tiles, exact from the plan; a degenerate plan with set bits takes
-        # the K2 walk and its N² output.
+        # device footprint is the padded operand, the visited count tiles
+        # and the matrix assembled beside them, exact from the plan; a
+        # degenerate plan with set bits takes the K2 walk.
         from stormtpu_torch.kernels.clustered import (
             build_clustered_plan,
             count_matrix_clustered,
         )
+        from stormtpu_torch.kernels.mxu import k2_tile_shape
 
         plan = build_clustered_plan(bm, cfg)
         if bm.n > 2 and (plan is not None or bm.nnz):
             if plan is None:
-                need = 4 * bm.n * bm.n + 4 * bm.n * bm.n_words
-                what = "the N² count matrix plus operand"
+                need = _walk_bytes(bm.n, bm.n_words, lambda n, w: k2_tile_shape(cfg, n, w))
+                what = "the operand, the K2 count tiles and the N² count matrix"
             else:
-                need = 4 * plan.n_pad * plan.w_pad + 4 * plan.n_slots * plan.ti * plan.ti
-                what = "the K5 operand plus work-list count tiles"
+                need = 4 * plan.n_pad * plan.w_pad + triangular_assembly_bytes(
+                    plan.n_slots, plan.ti, plan.nb, bm.n
+                )
+                what = "the K5 operand, the work-list count tiles and the N² count matrix"
             require_device_budget(need, f"N={bm.n}: {what}", STREAM_NOT_PORTED, device=dev)
         return count_matrix_clustered(bm, config=cfg, plan=plan, device=dev)
 
     if bm.n > 2:
-        # the N² int32 output plus the packed operand, on the device
-        require_device_budget(
-            4 * bm.n * bm.n + 4 * bm.n * bm.n_words,
-            f"N={bm.n}: the N² count matrix plus operand",
-            STREAM_NOT_PORTED,
-            device=dev,
-        )
+        # on the device together: the packed operand and the N² int32
+        # output, and on the tile walks the tile stack it is assembled from
+        if strategy == "pallas_mxu":
+            from stormtpu_torch.kernels.mxu import k2_tile_shape
+
+            need = _walk_bytes(bm.n, bm.n_words, lambda n, w: k2_tile_shape(cfg, n, w))
+            what = "the operand, the K2 count tiles and the N² count matrix"
+        elif strategy == "pallas_dense":
+            from stormtpu_torch.kernels.dense import k1_tile_shape
+
+            need = _walk_bytes(bm.n, bm.n_words, lambda n, w: k1_tile_shape(cfg, n, w))
+            what = "the operand, the K1 count tiles and the N² count matrix"
+        else:
+            need = 4 * bm.n * bm.n + 4 * bm.n * bm.n_words
+            what = "the N² count matrix plus operand"
+        require_device_budget(need, f"N={bm.n}: {what}", STREAM_NOT_PORTED, device=dev)
     packed_np = bm.packed
     if bm.n > 1:
         # Clustered-sparsity compaction: drop all-empty word columns

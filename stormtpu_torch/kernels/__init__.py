@@ -2,8 +2,8 @@
 
 - ``xla``       — plain-torch paths (AND + popcount; int8 product of the
   unpacked operands) for small shapes and the CPU.
-- ``mxu``       — K2: int8 tensor-core product with the bit unpack fused
-  into the CUDA kernel (``csrc/k2_mxu.cu``), triangular and rectangular.
+- ``mxu``       — K2: the tensor cores' binary product (AND + popcount)
+  of the packed words (``csrc/k2_mxu.cu``), triangular and rectangular.
 - ``clustered`` — K5: the block-clustered work list (planner, dispatch
   statistic, and a CUDA kernel sharing K2's tile body in ``csrc/k2_mxu.cu``).
 - ``dense``     — K1 (AND + popcount tiles) and K0 (row-wise pair stream),

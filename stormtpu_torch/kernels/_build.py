@@ -15,12 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "nvcc_path"]
+__all__ = ["KERNEL_SOURCES", "SOURCES", "build_all", "kernel_resources", "library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_STR = ctypes.c_char_p
 
 # source name → {C function: (argtypes, restype)}
 SOURCES = {
@@ -41,6 +43,17 @@ SOURCES = {
         "k2_tri_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
         "k2_rect_launch": ((_VP, _VP, _VP, _LL, _LL, _LL, _VP), _I),
         "k5_launch": ((_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _VP), _I),
+        # the previous tile body, for timing beside the one above
+        "k2_tri_launch_prev": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
+        "k2_rect_launch_prev": ((_VP, _VP, _VP, _LL, _LL, _LL, _VP), _I),
+        "k5_launch_prev": ((_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _VP), _I),
+    },
+    "tc_rate": {
+        "tc_rate_kinds": ((), _I),
+        "tc_rate_name": ((_I,), _STR),
+        "tc_rate_threads": ((), _I),
+        "tc_rate_macs": ((_I,), _LL),
+        "tc_rate_launch": ((_I, _I, _I, _VP, _VP), _I),
     },
     "k1_dense": {
         "k1_block_rows": ((), _I),
@@ -48,6 +61,10 @@ SOURCES = {
         "k0_stream_launch": ((_VP, _VP, _VP, _LL, _LL, _I, _VP), _I),
     },
 }
+
+# The sources the package's entry points launch. ``tc_rate`` is a measuring
+# tool (``kernels/tc_rate.py``) and is built only for whoever asks for it.
+KERNEL_SOURCES = ("k2_mxu", "k1_dense")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -106,12 +123,12 @@ def _finish(name: str, so: Path, proc, tmp: Path) -> None:
     os.replace(tmp, so)  # atomic: a concurrent builder sees all or nothing
 
 
-def build_all() -> dict[str, str]:
-    """Build every source that is not built yet, one ``nvcc`` per source,
-    all started together. Returns {name: compiler output} for the sources
-    built now (``-Xptxas -v`` register and spill report)."""
+def build_all(names=KERNEL_SOURCES) -> dict[str, str]:
+    """Build the sources ``names`` that are not built yet, one ``nvcc`` per
+    source, all started together. Returns {name: compiler output} for the
+    sources built now (``-Xptxas -v`` register and spill report)."""
     with _LOCK:
-        started = {n: _start(n) for n in SOURCES}
+        started = {n: _start(n) for n in names}
         logs = {}
         for n, (so, proc, tmp) in started.items():
             _finish(n, so, proc, tmp)
@@ -135,3 +152,27 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = restype
             _LIBS[name] = lib
         return lib
+
+
+def kernel_resources(name: str) -> dict[str, dict[str, int]]:
+    """{kernel symbol: {"registers", "spill_bytes", "smem_bytes"}} of
+    ``csrc/<name>.cu`` as ``nvcc -Xptxas -v`` reported them when the
+    library was built (static shared memory only). Builds it if needed."""
+    library(name)
+    out: dict[str, dict[str, int]] = {}
+    symbol = None
+    for line in _target(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            symbol = m.group(1)
+            out[symbol] = {"registers": 0, "spill_bytes": 0, "smem_bytes": 0}
+        elif symbol is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[symbol]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[symbol]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                out[symbol]["smem_bytes"] = int(m.group(1)) if m else 0
+    return out

@@ -38,13 +38,15 @@ from stormtpu_torch.kernels.mxu import (
     _check_cuda_operand,
     _check_geometry,
     _check_variant,
+    _launch_k2,
     count_matrix_pallas_mxu,
     k2_tile_shape,
 )
 from stormtpu_torch.kernels.xla import int8_dot_nt, unpack_to_int8
 from stormtpu_torch.layout import to_device_words
 from stormtpu_torch.utils import (
-    assemble_triangular,
+    assemble_triangular_torch,
+    download,
     quantize_bucket,
     resolve_device,
     round_up,
@@ -265,6 +267,7 @@ def count_tiles_worklist(
     tile_rows: int,
     tile_words: int,
     variant: str = "planes",
+    previous_body: bool = False,
 ) -> torch.Tensor:
     """``n_slots`` count tiles int32 [n_slots, TI, TI]: work item t adds
     the (ibs[t], jbs[t]) row-block pair over K-group gsel[t] (words
@@ -291,19 +294,12 @@ def count_tiles_worklist(
                       device=packed.device)
     if n_slots == 0:
         return out
-    from stormtpu_torch.kernels._build import library
-
-    lib = library("k2_mxu")
     slot_start = torch.from_numpy(starts).to(packed.device)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k5_launch(
-            packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), gsel.data_ptr(),
-            slot_start.data_ptr(), out.data_ptr(), n_slots, tile_rows,
-            tile_words, w_pad, stream,
-        )
-    if err:
-        raise RuntimeError(f"k5_launch failed: CUDA error {err}")
+    _launch_k2(
+        "k5_launch", packed.device, previous_body,
+        packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), gsel.data_ptr(),
+        slot_start.data_ptr(), out.data_ptr(), n_slots, tile_rows, tile_words, w_pad,
+    )
     LAUNCHES["k5"] += 1
     return out
 
@@ -345,9 +341,9 @@ def count_matrix_clustered(
     device=None,
 ) -> np.ndarray:
     """Full N×N exact counts (numpy int32) via the K5 work list and the
-    host-side symmetric mirror, on ``device`` (``None``: the card). Tile
-    pairs with no co-occupied K-group are never computed — their counts
-    are exactly zero. A degenerate plan (single K-group) takes the K2
+    symmetric mirror on the tiles' device (one download of the finished
+    matrix), on ``device`` (``None``: the card). Tile pairs with no
+    co-occupied K-group are never computed — their counts are exactly zero. A degenerate plan (single K-group) takes the K2
     walk; an empty matrix gives zeros."""
     dev = resolve_device(device)
     cfg = config or default_config()
@@ -367,6 +363,6 @@ def count_matrix_clustered(
         n_slots=plan.slot_ibs.size, tile_rows=plan.ti,
         tile_words=plan.wk, variant=variant,
     )
-    return assemble_triangular(
-        tiles.cpu().numpy(), plan.slot_ibs, plan.slot_jbs, plan.nb, bm.n
+    return download(
+        assemble_triangular_torch(tiles, plan.slot_ibs, plan.slot_jbs, plan.nb, bm.n)
     )

@@ -40,7 +40,12 @@ from stormtpu_torch.kernels.mxu import (
     _pad,
 )
 from stormtpu_torch.kernels.xla import popcount32
-from stormtpu_torch.utils import assemble_triangular, round_up, triangular_tile_ids
+from stormtpu_torch.utils import (
+    assemble_triangular_torch,
+    download,
+    round_up,
+    triangular_tile_ids,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -243,7 +248,8 @@ def count_matrix_pallas_dense(
     variant: Optional[str] = None,
 ) -> np.ndarray:
     """Full N×N exact counts int32 (numpy) via the K1 triangular walk and
-    the host-side symmetric mirror."""
+    the symmetric mirror on the tiles' device (one download of the
+    finished matrix)."""
     cfg = config or default_config()
     variant = variant or cfg.k1_variant
     n, w = packed.shape
@@ -260,4 +266,4 @@ def count_matrix_pallas_dense(
         tile_words=wk,
         variant=variant,
     )
-    return assemble_triangular(tiles.cpu().numpy(), ibs, jbs, nb, n)
+    return download(assemble_triangular_torch(tiles, ibs, jbs, nb, n))

@@ -1,5 +1,5 @@
-"""K2 — exact all-pairs counts as an int8 product with the bit unpack
-fused into the kernel (port of ``stormtpu/kernels/mxu.py``).
+"""K2 — exact all-pairs counts on the tensor cores, straight from the
+packed words (port of ``stormtpu/kernels/mxu.py``).
 
 Two kernel wrappers, each with its plain PyTorch version beside it and a
 launch counter (``LAUNCHES``):
@@ -12,10 +12,16 @@ A tensor on the CPU takes the plain version; a tensor on the card
 launches the CUDA kernel, or raises. There is no fall back from one to
 the other.
 
-Unpacking M bits to int8 is an 8× expansion, so the CUDA kernel unpacks
-per operand fragment inside the kernel and the unpacked matrix never
-exists in device memory. The plain versions unpack one K step
+The JAX kernels unpack bits to int8 {0,1} and take an int8 product. The
+CUDA kernel takes the tensor cores' binary product (AND + popcount over
+256 bits a step) of the packed words as they are, so nothing is unpacked
+anywhere. The plain versions keep the int8 form and unpack one K step
 (``tile_words`` words) at a time.
+
+``csrc/k2_mxu.cu`` also keeps the previous tile body (int8 ``mma.sync``
+with the unpack fused in) for timing beside the one the wrappers launch:
+``previous_body=True`` launches it. That argument is for measurement
+scripts only; nothing in the package sets it.
 
 Exactness: products are 0/1 and sums are int32, exact for M < 2³¹
 (``EngineConfig.validate``). ``variant`` ("concat" or "planes") selects
@@ -32,7 +38,12 @@ import torch
 
 from stormtpu_torch.config import EngineConfig, default_config
 from stormtpu_torch.kernels.xla import int8_dot_nt, unpack_to_int8
-from stormtpu_torch.utils import assemble_triangular, round_up, triangular_tile_ids
+from stormtpu_torch.utils import (
+    assemble_triangular_torch,
+    download,
+    round_up,
+    triangular_tile_ids,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -97,6 +108,22 @@ def _check_cuda_ids(device: torch.device, **ids: torch.Tensor) -> None:
     for name, t in ids.items():
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 on {device}")
+
+
+def _launch_k2(entry: str, device: torch.device, previous_body: bool, *args) -> None:
+    """Launch C function ``entry`` of ``csrc/k2_mxu.cu`` (or ``entry_prev``,
+    the same on the previous tile body) on ``device``'s current stream;
+    raises on a CUDA error."""
+    from stormtpu_torch.kernels._build import library
+
+    if previous_body:
+        entry += "_prev"
+    with torch.cuda.device(device):
+        err = getattr(library("k2_mxu"), entry)(
+            *args, torch.cuda.current_stream().cuda_stream
+        )
+    if err:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
 
 
 def _unpack_step(packed: torch.Tensor, k0: int, tile_words: int) -> torch.Tensor:
@@ -167,6 +194,7 @@ def count_tiles_pallas_mxu(
     tile_rows: int,
     tile_words: int,
     variant: str = "concat",
+    previous_body: bool = False,
 ) -> torch.Tensor:
     """T count tiles int32 [T, TI, TI] for row-block pairs (ibs[t], jbs[t])
     of a padded packed matrix int32 [N_pad, W_pad]."""
@@ -185,17 +213,11 @@ def count_tiles_pallas_mxu(
     out = torch.empty((t, tile_rows, tile_rows), dtype=torch.int32, device=packed.device)
     if t == 0:
         return out
-    from stormtpu_torch.kernels._build import library
-
-    lib = library("k2_mxu")
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k2_tri_launch(
-            packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), out.data_ptr(),
-            t, tile_rows, packed.shape[1], stream,
-        )
-    if err:
-        raise RuntimeError(f"k2_tri_launch failed: CUDA error {err}")
+    _launch_k2(
+        "k2_tri_launch", packed.device, previous_body,
+        packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), out.data_ptr(),
+        t, tile_rows, packed.shape[1],
+    )
     LAUNCHES["k2_tri"] += 1
     return out
 
@@ -207,6 +229,7 @@ def _count_block_padded(
     tile_rows: int,
     tile_words: int,
     variant: str,
+    previous_body: bool = False,
 ) -> torch.Tensor:
     """Rectangular counts int32 [Na_pad, Nb_pad] of two padded packed
     matrices int32 [Na_pad, W_pad] and [Nb_pad, W_pad]."""
@@ -227,17 +250,13 @@ def _count_block_padded(
     nb = b_pad.shape[0]
     from stormtpu_torch.kernels._build import library
 
-    lib = library("k2_mxu")
-    if -(-na // lib.k2_block_rows()) > 65535:
+    if -(-na // library("k2_mxu").k2_block_rows()) > 65535:
         raise ValueError(f"_count_block_padded: Na_pad={na} exceeds the grid limit")
     out = torch.empty((na, nb), dtype=torch.int32, device=a_pad.device)
-    with torch.cuda.device(a_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k2_rect_launch(
-            a_pad.data_ptr(), b_pad.data_ptr(), out.data_ptr(), na, nb, w_pad, stream
-        )
-    if err:
-        raise RuntimeError(f"k2_rect_launch failed: CUDA error {err}")
+    _launch_k2(
+        "k2_rect_launch", a_pad.device, previous_body,
+        a_pad.data_ptr(), b_pad.data_ptr(), out.data_ptr(), na, nb, w_pad,
+    )
     LAUNCHES["k2_rect"] += 1
     return out
 
@@ -297,7 +316,8 @@ def count_matrix_pallas_mxu(
     variant: Optional[str] = None,
 ) -> np.ndarray:
     """Full N×N exact counts int32 (numpy) via the K2 triangular walk and
-    the host-side symmetric mirror."""
+    the symmetric mirror on the tiles' device (one download of the
+    finished matrix)."""
     cfg = config or default_config()
     variant = variant or cfg.k2_variant
     n, w = packed.shape
@@ -314,4 +334,4 @@ def count_matrix_pallas_mxu(
         tile_words=wk,
         variant=variant,
     )
-    return assemble_triangular(tiles.cpu().numpy(), ibs, jbs, nb, n)
+    return download(assemble_triangular_torch(tiles, ibs, jbs, nb, n))

@@ -1,17 +1,23 @@
 from stormtpu_torch.utils.backend import resolve_device
 from stormtpu_torch.utils.tiling import (
     assemble_triangular,
+    assemble_triangular_torch,
+    download,
     next_pow2,
     quantize_bucket,
     round_up,
+    triangular_assembly_bytes,
     triangular_tile_ids,
 )
 
 __all__ = [
     "assemble_triangular",
+    "assemble_triangular_torch",
+    "download",
     "next_pow2",
     "quantize_bucket",
     "resolve_device",
     "round_up",
+    "triangular_assembly_bytes",
     "triangular_tile_ids",
 ]

@@ -3,12 +3,18 @@
 Copies of the JAX package's host helpers (``stormtpu/utils/tiling.py``):
 the (ib, jb ≥ ib) row-block pair walk that drives the K2 triangular
 kernel, and the host-side mirror that turns its upper-triangular tiles
-into the full symmetric N×N matrix.
+into the full symmetric N×N matrix. :func:`assemble_triangular_torch` is
+the same mirror on the tiles' own device, so that the all-pairs paths
+download one finished matrix instead of the tile stack.
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
+
 import numpy as np
+import torch
 
 __all__ = [
     "round_up",
@@ -16,6 +22,11 @@ __all__ = [
     "quantize_bucket",
     "triangular_tile_ids",
     "assemble_triangular",
+    "assemble_triangular_torch",
+    "triangular_assembly_bytes",
+    "download",
+    "MIRROR_CHUNK_TILES",
+    "PINNED_RESULT_BYTES_MAX",
 ]
 
 
@@ -57,3 +68,98 @@ def assemble_triangular(
     upper = np.triu(full)
     out = upper + np.triu(full, 1).T
     return out[:n, :n]
+
+
+# Tiles the mirror moves at a time: bounds its temporaries (the chunk's
+# off-diagonal tiles and their transposed copy) beside the matrix.
+MIRROR_CHUNK_TILES = 256
+
+# Page-locked host bytes that live downloaded results may hold together; a
+# result that would pass it is copied into pageable memory instead.
+PINNED_RESULT_BYTES_MAX = 2 << 30
+
+_pinned_live_bytes = 0
+_pinned_lock = threading.Lock()
+
+
+def assemble_triangular_torch(
+    tiles: torch.Tensor, ibs, jbs, nb: int, n: int
+) -> torch.Tensor:
+    """:func:`assemble_triangular` on the tiles' device: T upper-triangular
+    [TI, TI] count tiles (``ibs[t] <= jbs[t]``, each pair at most once)
+    into the symmetric matrix, returned as the [:n, :n] view of a
+    [nb·TI, nb·TI] tensor. Tile t is written at block (ibs[t], jbs[t])
+    and, for ibs[t] != jbs[t], transposed at (jbs[t], ibs[t]); block pairs
+    with no tile stay zero. Equal to the numpy form entry for entry as
+    long as diagonal tiles are symmetric, which exact counts of a row
+    block against itself are. The mirror goes ``MIRROR_CHUNK_TILES`` tiles
+    at a time, so its temporaries stay small beside the matrix."""
+    t, ti, tj = tiles.shape
+    if ti != tj:
+        raise ValueError(f"tiles must be square, got {ti} x {tj}")
+    full = torch.zeros((nb * ti, nb * ti), dtype=tiles.dtype, device=tiles.device)
+    grid = full.view(nb, ti, nb, ti)
+    ib = torch.as_tensor(np.asarray(ibs), device=tiles.device).long()
+    jb = torch.as_tensor(np.asarray(jbs), device=tiles.device).long()
+    if ib.shape != (t,) or jb.shape != (t,):
+        raise ValueError("ibs and jbs must hold one id per tile")
+    for s in range(0, t, MIRROR_CHUNK_TILES):
+        e = s + MIRROR_CHUNK_TILES
+        i, j, part = ib[s:e], jb[s:e], tiles[s:e]
+        grid[i, :, j, :] = part
+        off = i != j
+        grid[j[off], :, i[off], :] = part[off].transpose(1, 2)
+    return full[:n, :n]
+
+
+def triangular_assembly_bytes(n_tiles: int, ti: int, nb: int, n: int) -> int:
+    """Device bytes of a triangular walk's results: the int32 tile stack
+    and the assembled matrix together, the mirror's temporaries (one
+    chunk's off-diagonal tiles and their transposed copy), and the
+    contiguous copy of a ragged [:n, :n] view made for the download."""
+    side = nb * ti
+    chunk = 2 * min(n_tiles, MIRROR_CHUNK_TILES) * ti * ti
+    return 4 * (n_tiles * ti * ti + side * side + chunk + (n * n if n != side else 0))
+
+
+def _release_pinned(nbytes: int) -> None:
+    global _pinned_live_bytes
+    with _pinned_lock:
+        _pinned_live_bytes -= nbytes
+
+
+def download(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array on the host, in one copy.
+
+    A CUDA tensor goes into a page-locked buffer from PyTorch's caching
+    host allocator, which the returned array keeps alive: at 16384 × 16384
+    int32 that copy beats a pageable ``.cpu()`` even with the buffer's
+    allocation counted, and by far once the cache holds a buffer
+    (``scripts/torch_assembly_d2h.py`` times both). Page-locked memory is
+    taken from what the host can swap, so it is bounded: the buffers of
+    results alive at once (each rounded up to a power of two, as that
+    allocator sizes them) hold at most ``PINNED_RESULT_BYTES_MAX``, and a
+    result that would pass that goes through ``.cpu()`` into pageable
+    memory. When a result dies its buffer returns to PyTorch's host cache,
+    which keeps it page-locked for the next download of its size class."""
+    global _pinned_live_bytes
+    if t.device.type != "cuda":
+        return t.numpy()
+    nbytes = 1 << max(0, t.numel() * t.element_size() - 1).bit_length()
+    with _pinned_lock:
+        pinned = _pinned_live_bytes + nbytes <= PINNED_RESULT_BYTES_MAX
+        if pinned:
+            _pinned_live_bytes += nbytes
+    if not pinned:
+        return t.cpu().numpy()
+    try:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        out = host.numpy()
+    except BaseException:
+        _release_pinned(nbytes)
+        raise
+    # on the array, not the tensor object: views of the array keep it, and
+    # with it the buffer, alive
+    weakref.finalize(out, _release_pinned, nbytes)
+    return out

@@ -19,6 +19,7 @@ from stormtpu.config import EngineConfig as JaxConfig
 from stormtpu_torch.config import EngineConfig
 from stormtpu_torch.layout import to_device_words
 from stormtpu_torch.oracle import oracle_count_matrix
+from stormtpu_torch.utils import triangular_assembly_bytes
 
 from conftest import DENSITY_SWEEP
 
@@ -165,7 +166,11 @@ def test_unvisited_slot_is_zero_and_plain_launches_nothing():
 def test_clustered_budget_guard_uses_the_plan(monkeypatch):
     _, bt = _pair(_block_diagonal(96, 12800, 4, 0.35, seed=9))
     plan = tc.build_clustered_plan(bt, CFG)
-    need = 4 * plan.n_pad * plan.w_pad + 4 * plan.n_slots * plan.ti * plan.ti
+    # the padded operand, the count tiles, the matrix assembled beside them
+    # and the mirror's two temporaries of the tiles' size
+    need = 4 * plan.n_pad * plan.w_pad + triangular_assembly_bytes(
+        plan.n_slots, plan.ti, plan.nb, bt.n)
+    assert need == 4 * (plan.n_pad * plan.w_pad + 3 * plan.n_slots * plan.ti**2 + 96 * 96)
     monkeypatch.setenv("STORMTPU_DEVICE_REFUSE_BUDGET_BYTES", str(need - 1))
     with pytest.raises(ValueError, match="K5 operand"):
         st.intersect_count_matrix(bt, strategy="clustered", config=CFG, device="cpu")

@@ -18,7 +18,12 @@ from stormtpu_torch.config import EngineConfig
 from stormtpu_torch.kernels import clustered, dense, launch_counts, mxu, reset_launches
 from stormtpu_torch.layout import to_device_words
 from stormtpu_torch.oracle import oracle_count_block, oracle_count_matrix
-from stormtpu_torch.utils import round_up, triangular_tile_ids
+from stormtpu_torch.utils import (
+    assemble_triangular,
+    assemble_triangular_torch,
+    round_up,
+    triangular_tile_ids,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -176,3 +181,121 @@ def test_clustered_and_dense_entry_points_launch_their_kernels(cuda):
     got = intersect_count_matrix(bm, strategy="pallas_dense", config=cfg)
     assert np.array_equal(got, oracle_count_matrix(bm.packed))
     assert launch_counts()["k1"] == 1
+
+
+def _full_worklist(nb, ng, device):
+    """Every (upper-triangular tile pair, K-group) as a sorted work list:
+    (ibs, jbs, gsel, slots, first) and the number of slots."""
+    pairs = [(i, j, g) for i in range(nb) for j in range(i, nb) for g in range(ng)]
+    cols = ([p[0] for p in pairs], [p[1] for p in pairs], [p[2] for p in pairs],
+            [k // ng for k in range(len(pairs))], [int(k % ng == 0) for k in range(len(pairs))])
+    return [torch.tensor(c, dtype=torch.int32, device=device) for c in cols], len(pairs) // ng
+
+
+@pytest.mark.parametrize("density", (0.001, 0.5, 1.0))
+@pytest.mark.parametrize("steps", (1, 3))
+@pytest.mark.parametrize("wk", (8, 256))
+@pytest.mark.parametrize("ti", (32, 160, 256))
+@pytest.mark.parametrize("n", (37, 2053))
+def test_k2_body_through_all_wrappers_equals_plain(cuda, n, ti, wk, steps, density):
+    """The tile body the wrappers launch, through K2-tri, K2-rect and K5, at
+    small, odd and full tile rows, the smallest and the default K step, a
+    width of one K step and of several, and N below and above one tile."""
+    w = wk * steps
+    packed = _words(n, w, density, seed=n + ti + wk)
+    xp = np.zeros((round_up(n, ti), w), np.uint32)
+    xp[:n] = packed
+    nb = xp.shape[0] // ti
+    ibs, jbs = triangular_tile_ids(nb)
+    x = to_device_words(xp, cuda)
+    ids = (torch.from_numpy(ibs).to(cuda), torch.from_numpy(jbs).to(cuda))
+    want = mxu.count_tiles_plain(x, *ids, tile_rows=ti, tile_words=wk)
+    got = mxu.count_tiles_pallas_mxu(x, *ids, tile_rows=ti, tile_words=wk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    a = x[: min(x.shape[0], 2 * ti)]
+    got = mxu._count_block_padded(a, x, tile_rows=ti, tile_words=wk, variant="planes")
+    torch.cuda.synchronize()
+    assert torch.equal(got, mxu.count_block_plain(a, x, tile_words=wk))
+    if nb <= 16:  # the plain work list walks its items one by one in Python
+        work, n_slots = _full_worklist(nb, steps, cuda)
+        got = clustered.count_tiles_worklist(x, *work, n_slots=n_slots, tile_rows=ti,
+                                             tile_words=wk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)  # all groups of every pair: K2's tiles
+
+
+def test_k2_body_all_ones_at_the_int32_edge(cuda):
+    m = 1 << 27
+    ones = torch.full((128, m // 32), -1, dtype=torch.int32, device=cuda)
+    ids = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = mxu.count_tiles_pallas_mxu(ones, ids, ids, tile_rows=128, tile_words=256)
+    assert bool((got == m).all())
+    got = mxu._count_block_padded(ones[:32], ones, tile_rows=32, tile_words=256,
+                                  variant="planes")
+    assert bool((got == m).all())
+    ng = ones.shape[1] // 256
+    zeros = torch.zeros(ng, dtype=torch.int32, device=cuda)
+    first = zeros.clone()
+    first[0] = 1
+    got = clustered.count_tiles_worklist(
+        ones, zeros, zeros, torch.arange(ng, dtype=torch.int32, device=cuda), zeros, first,
+        n_slots=1, tile_rows=128, tile_words=256)
+    assert bool((got == m).all())
+
+
+def test_previous_tile_body_equals_plain_and_the_build_has_no_spills(cuda):
+    """The int8 body kept for timing, through all three wrappers, at odd
+    tile rows and a K step that is no multiple of a chunk."""
+    from stormtpu_torch.kernels._build import kernel_resources
+
+    used = kernel_resources("k2_mxu")
+    assert len(used) == 6  # k2_tri, k2_rect, k5 on the tile body and the previous one
+    assert all(v["spill_bytes"] == 0 for v in used.values())
+    xp = np.zeros((320, 72), np.uint32)
+    xp[:300, :70] = _words(300, 70, 0.5, seed=3)
+    x = to_device_words(xp, cuda)
+    ibs, jbs = triangular_tile_ids(2)
+    ids = (torch.from_numpy(ibs).to(cuda), torch.from_numpy(jbs).to(cuda))
+    want = mxu.count_tiles_plain(x, *ids, tile_rows=160, tile_words=24)
+    work, n_slots = _full_worklist(2, 3, cuda)
+    for previous in (False, True):
+        got = mxu.count_tiles_pallas_mxu(x, *ids, tile_rows=160, tile_words=24,
+                                         previous_body=previous)
+        assert torch.equal(got, want)
+        got = clustered.count_tiles_worklist(x, *work, n_slots=n_slots, tile_rows=160,
+                                             tile_words=24, previous_body=previous)
+        assert torch.equal(got, want)
+        got = mxu._count_block_padded(x[:160], x, tile_rows=160, tile_words=24,
+                                      variant="concat", previous_body=previous)
+        assert torch.equal(got, mxu.count_block_plain(x[:160], x, tile_words=24))
+
+
+def test_download_bounds_the_page_locked_bytes_of_live_results(cuda, monkeypatch):
+    from stormtpu_torch.utils import download, tiling
+
+    t = torch.arange(1 << 16, dtype=torch.int32, device=cuda).view(256, 256)  # 256 KiB
+    monkeypatch.setattr(tiling, "PINNED_RESULT_BYTES_MAX", 2 * (1 << 18))
+    base = tiling._pinned_live_bytes
+    held = [download(t) for _ in range(3)]
+    assert all(np.array_equal(h, t.cpu().numpy()) for h in held)
+    assert tiling._pinned_live_bytes - base == 2 * (1 << 18)  # the third is pageable
+    view = held[0][3:5]
+    del held
+    assert tiling._pinned_live_bytes - base == 1 << 18  # a view keeps its buffer counted
+    del view
+    assert tiling._pinned_live_bytes == base
+
+
+@pytest.mark.parametrize("nb,ti,n", [(1, 32, 20), (5, 32, 137), (3, 160, 480), (9, 256, 2053)])
+def test_device_assembly_on_card_equals_numpy(cuda, nb, ti, n):
+    rng = np.random.default_rng(nb)
+    ibs, jbs = triangular_tile_ids(nb)
+    keep = np.sort(rng.permutation(ibs.size)[: max(1, ibs.size * 2 // 3)])
+    ibs, jbs = ibs[keep], jbs[keep]
+    tiles = rng.integers(0, 1 << 30, size=(keep.size, ti, ti)).astype(np.int32)
+    for t in np.flatnonzero(ibs == jbs):
+        tiles[t] = np.triu(tiles[t]) + np.triu(tiles[t], 1).T
+    got = assemble_triangular_torch(torch.from_numpy(tiles).to(cuda), ibs, jbs, nb, n)
+    assert got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), assemble_triangular(tiles, ibs, jbs, nb, n))
