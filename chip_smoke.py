@@ -30,9 +30,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 7. hold K5 (work list), K1 (AND + popcount tiles) and K0 (pair stream)
    against their plain versions, exactly: K5 on plans of block-diagonal
    inputs at three tile configurations (pad slots, tail pad items, slots
-   fed by several K-groups) and on an all-ones 128 × 2^27 work list; K1 at
-   ragged N and M, densities 0.001 / 0.5 / 1.0 and all ones at 2^27; K0
-   at ragged W with salt 0 and 0xDEADBEEF and all ones;
+   fed by several K-groups), through the wrapper's read-back route and
+   through the work list checked at plan time, on an all-ones 128 × 2^27
+   work list, and a malformed list must raise on both routes; K1 at ragged
+   N and M, densities 0.001 / 0.5 / 1.0, all ones at 2^27, and at tile
+   rows 8 / 40 / 128 / 136 on i-major, shuffled and odd-length tile lists,
+   the previous (CUDA-core) kernel held to the same plain version; K0 at
+   ragged W with salt 0 and 0xDEADBEEF and all ones;
 8. the clustered path: ``intersect_count_matrix`` with ``strategy="auto"``
    on a 16384 × 1,048,576-bit LD-block panel (16 blocks, boundaries drawn
    from the seed); D1 must choose ``clustered``, K5 must launch and K2 must
@@ -42,7 +46,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 9. the ``pallas_dense`` path at the main-path shape: K1 must launch and the
    matrix must equal phase 3's exactly;
 10. K0 on 16384 pairs of 1,048,576 bits, sampled rows checked;
-11. timings of K5, K1 and K0 as in phase 6.
+11. timings of K5, K1 and K0 as in phase 6; K5's launch alone, its wrapper
+    with the checked work list and with the read-back, apart; K1 beside its
+    previous kernel, against the bound of the instruction it issues.
 
 The lines before the last are a ``kernels`` JSON object and the card's
 ``name, power.limit``; the last line is the result object.
@@ -51,6 +57,7 @@ The lines before the last are a ``kernels`` JSON object and the card's
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -83,6 +90,8 @@ K5_CASES = (
     ("ti160", 160, 128, 997, 150_001, 4),
 )
 K1_NS = (37, 300, 2053)
+K1_TILE_ROWS = (8, 40, 128, 136)
+K1_LIST_BLOCKS = 5      # row blocks of the tile lists K1 is checked on: 15 tiles
 K1_MS = (100_003, 262_161)
 K0_CASES = ((37, 1001), (1000, 4093), (1000, 32_771))
 LD_N, LD_M, LD_BLOCKS, LD_DENSITY = 16384, 1 << 20, 16, 0.3
@@ -217,13 +226,22 @@ def main(argv=None) -> int:
         for symbol, used in _build.kernel_resources(name).items():
             print(f"[build] {name}: {symbol}: {used['registers']} registers, "
                   f"{used['spill_bytes']} spill bytes")
-    # registers a thread of K2's and K5's kernels, on the tile body the wrappers
-    # launch ("now": B1Wgmma in csrc/k2_mxu.cu) and on the previous one (S8Body)
-    used = _build.kernel_resources("k2_mxu")
-    regs = {body: {k: next(v["registers"] for sym, v in used.items()
-                           if f"{k}_kernel" in sym and struct in sym)
-                   for k in ("k2_tri", "k2_rect", "k5")}
-            for body, struct in (("now", "B1Wgmma"), ("previous", "S8Body"))}
+    # registers a thread of K2's, K5's and K1's kernels: those the wrappers launch
+    # ("now": on B1Wgmma, csrc/tile_body.cuh) and the previous ones (S8Body;
+    # K1's CUDA-core kernel)
+    used = {**_build.kernel_resources("k2_mxu"), **_build.kernel_resources("k1_dense")}
+
+    def registers(kernel: str, struct: str = "") -> int:
+        return next(v["registers"] for sym, v in used.items() if kernel in sym and struct in sym)
+
+    regs = {"now": {"k2_tri": registers("k2_tri_kernel", "B1Wgmma"),
+                    "k2_rect": registers("k2_rect_kernel", "B1Wgmma"),
+                    "k5": registers("k5_stream_kernel", "B1Wgmma"),
+                    "k1": registers("k1_pair_kernel", "B1Wgmma")},
+            "previous": {"k2_tri": registers("k2_tri_kernel", "S8Body"),
+                         "k2_rect": registers("k2_rect_kernel", "S8Body"),
+                         "k5": registers("k5_kernel", "S8Body"),
+                         "k1": registers("k1_tri_kernel_prev")}}
     rates = tc_rate.issue_rates(dev)
     for r in rates:
         print(f"[rate] {r['name']} issued back to back on every SM: {r['macs_per_s']:.4g} "
@@ -496,8 +514,30 @@ def main(argv=None) -> int:
         want = clustered.count_tiles_worklist_plain(*args5, **kw5)
         torch.cuda.synchronize()
         max_err["k5"] = max(max_err["k5"], exact_diff(torch, got, want))
+        # the path's route: the plan's real items, checked on the host at plan time
+        work5 = clustered.device_worklist(plan5, dev)
+        kw5 = dict(n_slots=p5, tile_rows=plan5.ti, tile_words=plan5.wk)
+        got = clustered.count_tiles_worklist(args5[0], *work5, checked=work5, **kw5)
+        torch.cuda.synchronize()
+        max_err["k5"] = max(max_err["k5"], exact_diff(torch, got, want[:p5]))
         print(f"[kernel vs plain] k5 {label}: N={n} M={m} tile={plan5.ti}x{plan5.wk} "
-              f"items={plan5.n_work}/{plan5.ibs_w.size} slots={p5}/{plan5.n_slots} exact")
+              f"items={plan5.n_work}/{plan5.ibs_w.size} slots={p5}/{plan5.n_slots} exact, "
+              f"with the read-back and with the work list checked at plan time")
+    # a malformed list (its slots reversed) must raise on both routes into the wrapper
+    broken = dataclasses.replace(plan5, slots_w=np.ascontiguousarray(plan5.slots_w[::-1]))
+    for route, call in (
+            ("plan time", lambda: clustered.device_worklist(broken, dev)),
+            ("read-back", lambda: clustered.count_tiles_worklist(
+                args5[0], *(torch.from_numpy(np.ascontiguousarray(x[: plan5.n_work])).to(dev)
+                            for x in (broken.ibs_w, broken.jbs_w, broken.gsel_w,
+                                      broken.slots_w, broken.first_w)), **kw5))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"a malformed work list did not raise at {route}")
+    print("[kernel vs plain] k5: a malformed work list raises at plan time and on the "
+          "read-back route")
     if not all(seen.values()):
         raise AssertionError(f"K5 cases did not cover {seen}")
     ones = torch.full((ALL_ONES_N, ALL_ONES_M // 32), -1, dtype=torch.int32, device=dev)
@@ -533,6 +573,8 @@ def main(argv=None) -> int:
         want1 = dense.count_tiles_dense_plain(*args1, **kw1)
         torch.cuda.synchronize()
         max_err["k1"] = max(max_err["k1"], exact_diff(torch, got1, want1))
+        exact_diff(torch, dense.count_tiles_pallas_dense(*args1, previous_body=True, **kw1),
+                   want1)
         n = words.shape[0]
         if expect_all is not None and not bool((got1[0, :n, :n] == expect_all).all()):
             raise AssertionError(f"k1 {label}: counts are not all {expect_all}")
@@ -545,6 +587,29 @@ def main(argv=None) -> int:
                 check_k1(f"M={m} density={density}", random_words(rng, n, m, density))
     check_k1("all-ones", np.full((ALL_ONES_N, ALL_ONES_M // 32), 0xFFFFFFFF, np.uint32),
              expect_all=ALL_ONES_M)
+    # tile rows that fill part of a block's half (8, 40), all of it (128) and two
+    # sub-tile rows (136: the second 8 rows tall); tile lists whose neighbours
+    # share their A rows (i-major), mostly do not (shuffled), and of odd length
+    for ti1 in K1_TILE_ROWS:
+        xp1 = padded(random_words(rng, K1_LIST_BLOCKS * ti1 - 3, 70 * 32, 0.5),
+                     K1_LIST_BLOCKS * ti1, 72)
+        ibs1, jbs1 = triangular_tile_ids(K1_LIST_BLOCKS)
+        perm = rng.permutation(ibs1.size)
+        for order, (ib, jb) in (("i-major", (ibs1, jbs1)),
+                                ("shuffled", (ibs1[perm], jbs1[perm])),
+                                ("odd length", (ibs1[:-2], jbs1[:-2]))):
+            ids1 = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (ib, jb)]
+            alone = int((dense.pair_units(ids1[0]) >= 0).sum()) * 2 - ib.size
+            want1 = dense.count_tiles_dense_plain(xp1, *ids1, tile_rows=ti1, tile_words=24)
+            for previous in (False, True):
+                got1 = dense.count_tiles_pallas_dense(xp1, *ids1, tile_rows=ti1, tile_words=24,
+                                                      previous_body=previous)
+                torch.cuda.synchronize()
+                err = exact_diff(torch, got1, want1)
+                if not previous:
+                    max_err["k1"] = max(max_err["k1"], err)
+            print(f"[kernel vs plain] k1 tile rows {ti1}, {order} list of {ib.size} tiles "
+                  f"({alone} without a partner): kernel and previous kernel exact")
 
     for r, w in K0_CASES:
         a = random_words(rng, r, w * 32, 0.5)
@@ -635,7 +700,8 @@ def main(argv=None) -> int:
     packed_ld = stage("operand_cached", lambda: clustered.device_operand(bm_ld, plan, dev))
     work = stage("worklist_h2d", lambda: clustered.device_worklist(plan, dev))
     kw5 = dict(n_slots=n_vis, tile_rows=plan.ti, tile_words=plan.wk)
-    tiles5 = stage("k5_kernel", lambda: clustered.count_tiles_worklist(packed_ld, *work, **kw5))
+    tiles5 = stage("k5_kernel", lambda: clustered.count_tiles_worklist(
+        packed_ld, *work, checked=work, **kw5))
     full5 = stage("device_assembly", lambda: assemble_triangular_torch(
         tiles5, plan.slot_ibs, plan.slot_jbs, plan.nb, LD_N))
     stage("matrix_d2h", lambda: download(full5))
@@ -709,20 +775,55 @@ def main(argv=None) -> int:
           f"{counts}; 256 sampled rows exact; wall {wall_k0:.3f} s")
 
     # ---------------------------------------------------- 11 timings
-    got = clustered.count_tiles_worklist(packed_ld, *work, **kw5)
+    def checked5():
+        return clustered.count_tiles_worklist(packed_ld, *work, checked=work, **kw5)
+
+    def bare5():  # the wrapper reads the list back, checks it and schedules it
+        return clustered.count_tiles_worklist(packed_ld, *work, **kw5)
+
+    got = checked5()
     want = clustered.count_tiles_worklist_plain(packed_ld, *work, **kw5)
     torch.cuda.synchronize()
     max_err["k5"] = max(max_err["k5"], exact_diff(torch, got, want))
+    exact_diff(torch, bare5(), want)
     exact_diff(torch, clustered.count_tiles_worklist(packed_ld, *work, previous_body=True,
                                                      **kw5), want)
+    ti5, wk5 = plan.ti, plan.wk
+    # the launch alone: the C entry with the wrapper's own arguments, the units
+    # longest first (the schedule) and in slot order (what the kernel's balance
+    # owes to the schedule)
+    out5 = torch.empty_like(got)
+    by_slot = work.units[torch.argsort(work.units[:, 2], stable=True)].contiguous()
+
+    def launch5(units):
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        mxu._launch_k2("k5_launch", dev, False, packed_ld.data_ptr(),
+                       *(t.data_ptr() for t in work.tensors[:3]), units.data_ptr(),
+                       counter.data_ptr(), out5.data_ptr(), units.shape[0],
+                       min(sms, units.shape[0]), ti5, wk5, packed_ld.shape[1])
+
+    for units in (work.units, by_slot):
+        out5.fill_(-1)
+        launch5(units)
+        torch.cuda.synchronize()
+        exact_diff(torch, out5, want)
     del got, want
     plain_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist_plain(packed_ld, *work, **kw5),
                        reps=1, warmup=0)
-    kern_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist(packed_ld, *work, **kw5),
-                      reps=10)
+    kern_ms = cuda_ms(torch, checked5, reps=20)
+    launch_ms = cuda_ms(torch, lambda: launch5(work.units), reps=20)
+    by_slot_ms = cuda_ms(torch, lambda: launch5(by_slot), reps=20)
+    bare_ms = cuda_ms(torch, bare5, reps=20)
     old_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist(
         packed_ld, *work, previous_body=True, **kw5), reps=5)
-    ti5, wk5 = plan.ti, plan.wk
+    host_ms = {}
+    for name, fn in (("checked", checked5), ("read-back", bare5)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host_ms[name] = (time.perf_counter() - t0) / 20 * 1e3  # not synchronised
+        torch.cuda.synchronize()
     # bytes: each distinct (row block, K-group) slab that an item reads, as
     # its A or its B operand, once; the five work-list arrays; each slot's tile
     k = plan.n_work
@@ -732,6 +833,9 @@ def main(argv=None) -> int:
     bounds = k2_bounds(2.0 * k * ti5 * ti5 * wk5 * 32,
                        4.0 * (slabs * ti5 * wk5 + 5 * k + n_vis * ti5 * ti5))
     timings["k5"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=None,
+                         launch_alone_ms=launch_ms, launch_alone_slot_order_ms=by_slot_ms,
+                         read_back_route_ms=bare_ms, wrapper_host_ms=host_ms["checked"],
+                         wrapper_host_read_back_ms=host_ms["read-back"],
                          previous_body_ms=old_ms,
                          registers=regs["now"]["k5"], distinct_slabs=slabs, **bounds,
                          library="none: no one PyTorch call computes a "
@@ -740,12 +844,15 @@ def main(argv=None) -> int:
                 for x in (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)]
     pad_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist(
         packed_ld, *pad_args, n_slots=plan.n_slots, tile_rows=ti5, tile_words=wk5), reps=10)
-    del pad_args
+    del pad_args, out5, by_slot
     print(f"[timing] k5 LD panel n_work={plan.n_work} slots={n_vis} tile={ti5}x{wk5}: kernel "
-          f"{kern_ms:.3f} ms ({regs['now']['k5']} registers a thread; with "
-          f"the plan's bucket padding, {plan.ibs_w.size} items into "
-          f"{plan.n_slots} slots: {pad_ms:.3f} ms), previous body {old_ms:.3f} ms "
-          f"({regs['previous']['k5']} registers), plain "
+          f"through its wrapper with the work list checked at plan time {kern_ms:.3f} ms "
+          f"({regs['now']['k5']} registers a thread), of which the wrapper holds the host "
+          f"{host_ms['checked']:.4f} ms a call; the launch alone {launch_ms:.3f} ms, with the "
+          f"units in slot order {by_slot_ms:.3f} ms; through the wrapper's read-back route "
+          f"{bare_ms:.3f} ms (host {host_ms['read-back']:.4f} ms a call; with the plan's "
+          f"bucket padding, {plan.ibs_w.size} items into {plan.n_slots} slots: {pad_ms:.3f} "
+          f"ms); previous body {old_ms:.3f} ms ({regs['previous']['k5']} registers), plain "
           f"{plain_ms:.3f} ms, bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, "
           f"{bounds['bound_rate']}; bytes alone {bounds['bytes_ms']:.3f} ms for {slabs} "
           f"distinct slabs of {ti5} rows x {wk5} words; at the int8 data-sheet rate "
@@ -758,9 +865,15 @@ def main(argv=None) -> int:
     t1 = args1[1].numel()
     n_pad1, w_pad1 = args1[0].shape
     ti1 = kw1["tile_rows"]
-    kern_ms = cuda_ms(torch, lambda: dense.count_tiles_pallas_dense(*args1, **kw1), reps=3)
-    b_ms, b_by = bound(float(t1) * ti1 * ti1 * w_pad1,
-                       4.0 * (n_pad1 * w_pad1 + 2 * t1 + t1 * ti1 * ti1), popc_per_s)
+    kern_ms = cuda_ms(torch, lambda: dense.count_tiles_pallas_dense(*args1, **kw1), reps=5)
+    old_ms = cuda_ms(torch, lambda: dense.count_tiles_pallas_dense(
+        *args1, previous_body=True, **kw1), reps=2)
+    # the work is K2's: 2 * pairs * M operations at the rate of the instruction
+    # the kernel issues; the previous kernel's bound (popcounts on the CUDA cores) beside it
+    nbytes1 = 4.0 * (n_pad1 * w_pad1 + 2 * t1 + t1 * ti1 * ti1)
+    bounds = k2_bounds(2.0 * t1 * ti1 * ti1 * w_pad1 * 32, nbytes1)
+    del bounds["bound_ms_int8"]
+    popc_ms = bound(float(t1) * ti1 * ti1 * w_pad1, nbytes1, popc_per_s)[0]
     del args1
     mid_args, mid_kw = k1_inputs(random_words(rng, MID_N, MID_M, 0.5))
     got = dense.count_tiles_pallas_dense(*mid_args, **mid_kw)
@@ -773,12 +886,17 @@ def main(argv=None) -> int:
     kern_mid_ms = cuda_ms(torch, lambda: dense.count_tiles_pallas_dense(*mid_args, **mid_kw),
                           reps=5)
     timings["k1"] = dict(ms=kern_ms, plain_ms=plain_mid_ms, library_ms=int_mm_square_ms,
-                         bound_ms=b_ms, bound_by=b_by,
+                         previous_body_ms=old_ms, registers=regs["now"]["k1"],
+                         bound_ms_popc=popc_ms, **bounds,
                          plain_shape=f"{MID_N} x {MID_M} bits", ms_at_plain_shape=kern_mid_ms,
                          library="torch._int_mm full square on unpacked int8 (phase 6)")
     print(f"[timing] k1 N_pad={n_pad1} W_pad={w_pad1} T={t1} tile={ti1}: kernel {kern_ms:.3f} "
-          f"ms, bound {b_ms:.3f} ms ({b_by}, {POPC_PER_CLOCK_PER_SM}/clock/SM x {sms} SMs x "
-          f"{clock_mhz:.0f} MHz), _int_mm full square {int_mm_square_ms:.3f} ms; at "
+          f"ms ({regs['now']['k1']} registers a thread; {kern_ms / timings['k2_tri']['ms']:.2f}x "
+          f"K2-tri's time on the same rows), previous kernel {old_ms:.3f} ms "
+          f"({regs['previous']['k1']} registers), bound {bounds['bound_ms']:.3f} ms "
+          f"({bounds['bound_by']}, {bounds['bound_rate']}; the previous kernel's, "
+          f"{POPC_PER_CLOCK_PER_SM} popcounts/clock/SM x {sms} SMs x {clock_mhz:.0f} MHz: "
+          f"{popc_ms:.3f} ms), _int_mm full square {int_mm_square_ms:.3f} ms; at "
           f"{MID_N} x {MID_M} bits (T={mid_args[1].numel()}): kernel {kern_mid_ms:.3f} ms, "
           f"plain {plain_mid_ms:.3f} ms")
     del mid_args

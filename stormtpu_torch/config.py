@@ -22,10 +22,10 @@ class EngineConfig:
 
     All sizes in elements unless noted. Every field of the JAX package's
     ``EngineConfig`` is kept, including those the port does not read yet
-    (K1, K3, K5, mesh), so the two configurations round-trip.
+    (K3, mesh), so the two configurations round-trip.
     """
 
-    # --- K1 tiles (AND + popcount; not ported yet) ---
+    # --- K1 tiles (AND + popcount: the ``pallas_dense`` strategy) ---
     k1_tile_rows: int = 128
     k1_tile_words: int = 2048
     k1_variant: str = "chunk"

@@ -5,9 +5,11 @@
 - ``mxu``       — K2: the tensor cores' binary product (AND + popcount)
   of the packed words (``csrc/k2_mxu.cu``), triangular and rectangular.
 - ``clustered`` — K5: the block-clustered work list (planner, dispatch
-  statistic, and a CUDA kernel sharing K2's tile body in ``csrc/k2_mxu.cu``).
-- ``dense``     — K1 (AND + popcount tiles) and K0 (row-wise pair stream),
-  CUDA-core kernels in ``csrc/k1_dense.cu``.
+  statistic, the host-side check and schedule, and a CUDA kernel on K2's
+  tile body in ``csrc/k2_mxu.cu``).
+- ``dense``     — K1 (AND + popcount tiles, on the same tile body:
+  ``csrc/tile_body.cuh``) and K0 (row-wise pair stream, CUDA cores), in
+  ``csrc/k1_dense.cu``.
 """
 
 from __future__ import annotations

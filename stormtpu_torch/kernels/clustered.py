@@ -13,11 +13,21 @@ planner and gives the same arrays.
 :func:`count_tiles_worklist` runs the items on the card with the K2 tile
 body (CUDA entry ``k5_launch`` in ``csrc/k2_mxu.cu``); a tensor on the CPU
 takes its plain version, :func:`count_tiles_worklist_plain`. The CUDA
-kernel gives each slot one block per 128×128 sub-tile that walks the
-slot's items with the sums in registers and stores once, so it needs the
-items sorted by slot and ``first`` marking each slot's first item (the
-wrapper checks both). A slot with no items comes out zero; the JAX kernel
-leaves such memory undefined, so no valid result changes.
+kernel runs "units": one 128×256 sub-tile of one slot, whose block walks
+the slot's items with the sums in registers and stores once. So it needs
+the items sorted by slot and ``first`` marking each slot's first item (the
+wrapper checks both). One block an SM takes unit after unit off a schedule
+built on the host from the slots' lengths (:func:`schedule_units`: longest
+first, so that the card's SMs end together) and keeps its loads running
+from one unit into the next. A slot with no items comes out zero; the JAX
+kernel leaves such memory undefined, so no valid result changes.
+
+The check and the schedule need the work list on the host. A caller with
+bare device tensors pays a read-back for them on every call. The path
+does not: :func:`device_worklist` checks the plan's numpy arrays and
+builds the schedule once, and hands the wrapper a :class:`DeviceWorklist`
+(``checked=``), which the wrapper accepts only for the very tensors that
+were checked.
 
 Exactness: as K2 (0/1 products, int32 sums, M < 2³¹); a dropped
 (tile pair, group) contributes zero by construction of the summary.
@@ -27,6 +37,7 @@ Exactness: as K2 (0/1 products, int32 sums, M < 2³¹); a dropped
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -55,7 +66,9 @@ from stormtpu_torch.utils import (
 __all__ = [
     "LAUNCHES",
     "ClusteredPlan",
+    "DeviceWorklist",
     "build_clustered_plan",
+    "check_worklist",
     "clustered_work_fraction",
     "count_matrix_clustered",
     "count_tiles_worklist",
@@ -63,6 +76,7 @@ __all__ = [
     "device_operand",
     "device_worklist",
     "reset_launches",
+    "schedule_units",
 ]
 
 # CUDA launches of the K5 wrapper; the plain version does not count.
@@ -231,28 +245,108 @@ def count_tiles_worklist_plain(
 
 
 # ------------------------------------------------------------- kernel wrapper
+def check_worklist(
+    ibs: np.ndarray, jbs: np.ndarray, gsel: np.ndarray, slots: np.ndarray,
+    first: np.ndarray, *, n_slots: int, nb: int, ng: int,
+) -> np.ndarray:
+    """Check a work list (numpy arrays on the host) and return each slot's
+    first item, int32 [n_slots + 1] (slot s owns items [start[s],
+    start[s+1])). Raises on ids out of range, slots not ascending, or
+    ``first`` flags that do not mark exactly each slot's first item."""
+    if not ibs.shape == jbs.shape == gsel.shape == slots.shape == first.shape or ibs.ndim != 1:
+        raise ValueError("work-list arrays must be 1-D of equal length")
+    if ibs.size:
+        for name, ids, hi in (("ibs", ibs, nb), ("jbs", jbs, nb), ("gsel", gsel, ng),
+                              ("slots", slots, n_slots)):
+            if ids.min() < 0 or ids.max() >= hi:
+                raise ValueError(f"{name} must lie in [0, {hi})")
+        if np.any(slots[1:] < slots[:-1]):
+            raise ValueError("work-list slots must be ascending")
+        want = np.ones(slots.size, dtype=bool)
+        want[1:] = slots[1:] != slots[:-1]
+        if not np.array_equal(first, want.astype(first.dtype)):
+            raise ValueError("first must flag exactly each slot's first item")
+    return np.searchsorted(slots, np.arange(n_slots + 1)).astype(np.int32)
+
+
 def _slot_starts(
     ibs, jbs, gsel, slots, first, *, n_slots: int, nb: int, ng: int
 ) -> np.ndarray:
-    """Check a work list and return each slot's first item, int32
-    [n_slots + 1] (slot s owns items [start[s], start[s+1])). Raises on
-    ids out of range, slots not ascending, or ``first`` flags that do not
-    mark exactly each slot's first item."""
-    ib, jb, gs, sl, fi = (x.cpu().numpy() for x in (ibs, jbs, gsel, slots, first))
-    if not ib.shape == jb.shape == gs.shape == sl.shape == fi.shape or ib.ndim != 1:
-        raise ValueError("work-list arrays must be 1-D of equal length")
-    if ib.size:
-        for name, ids, hi in (("ibs", ib, nb), ("jbs", jb, nb), ("gsel", gs, ng),
-                              ("slots", sl, n_slots)):
-            if ids.min() < 0 or ids.max() >= hi:
-                raise ValueError(f"{name} must lie in [0, {hi})")
-        if np.any(sl[1:] < sl[:-1]):
-            raise ValueError("work-list slots must be ascending")
-        want = np.ones(sl.size, dtype=bool)
-        want[1:] = sl[1:] != sl[:-1]
-        if not np.array_equal(fi, want.astype(fi.dtype)):
-            raise ValueError("first must flag exactly each slot's first item")
-    return np.searchsorted(sl, np.arange(n_slots + 1)).astype(np.int32)
+    """:func:`check_worklist` of work-list tensors: reads them back to the
+    host (five synchronising copies when they lie on the card)."""
+    return check_worklist(
+        *(x.cpu().numpy() for x in (ibs, jbs, gsel, slots, first)),
+        n_slots=n_slots, nb=nb, ng=ng,
+    )
+
+
+def schedule_units(starts: np.ndarray, n_sub: int) -> np.ndarray:
+    """The CUDA kernel's schedule, int32 [n_slots · n_sub, 4]: one unit
+    (first item, items, slot, sub-tile) per sub-tile of every slot, a slot
+    with no items included (it stores zeros), longest first; slots of
+    equal length keep their order and a slot's sub-tiles stay together.
+    The kernel's blocks, one an SM, take units in this order as they fall
+    free, so the longest start first and the short ones fill the end."""
+    n_slots = starts.size - 1
+    items = np.diff(starts)
+    order = np.argsort(-items, kind="stable")
+    units = np.empty((n_slots, n_sub, 4), dtype=np.int32)
+    units[:, :, 0] = starts[order, None]
+    units[:, :, 1] = items[order, None]
+    units[:, :, 2] = order[:, None]
+    units[:, :, 3] = np.arange(n_sub)
+    return units.reshape(-1, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceWorklist:
+    """A work list on a device that :func:`check_worklist` passed on the
+    host, with what the check and the schedule were made for.
+    :func:`count_tiles_worklist` takes it as ``checked=`` in place of its
+    own read-back and check."""
+
+    tensors: tuple          # (ibs, jbs, gsel, slots, first) on the device
+    versions: tuple         # each tensor's in-place version when checked
+    n_slots: int
+    tile_rows: int          # tile size the schedule's sub-tiles are for
+    nb: int                 # row blocks the ids were checked against
+    ng: int                 # K-groups the ids were checked against
+    starts: np.ndarray      # int32 [n_slots + 1], host
+    units: Optional[torch.Tensor]   # schedule_units on the device; None on the CPU
+
+    def __iter__(self):
+        return iter(self.tensors)
+
+    def starts_for(
+        self, tensors, *, n_slots: int, tile_rows: int, nb: int, ng: int
+    ) -> np.ndarray:
+        """``starts`` if ``tensors`` are the tensors that were checked,
+        unchanged since, against this geometry; raises otherwise."""
+        if not (len(tensors) == len(self.tensors)
+                and all(a is b for a, b in zip(tensors, self.tensors))):
+            raise ValueError("checked= belongs to other work-list tensors")
+        if tuple(t._version for t in tensors) != self.versions:
+            raise ValueError("a work-list tensor was written to after its check")
+        if (n_slots, tile_rows, nb, ng) != (self.n_slots, self.tile_rows, self.nb, self.ng):
+            raise ValueError(
+                f"checked= was made for n_slots={self.n_slots}, tile_rows={self.tile_rows}, "
+                f"{self.nb} row blocks, {self.ng} K-groups; got {n_slots}, {tile_rows}, "
+                f"{nb}, {ng}"
+            )
+        return self.starts
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _k2_sub_tiles(tile_rows: int, previous_body: bool = False) -> int:
+    """Blocks per tile_rows × tile_rows output tile of the CUDA tile body."""
+    from stormtpu_torch.kernels._build import library
+
+    lib = library("k2_mxu")
+    return (lib.k2_sub_tiles_prev if previous_body else lib.k2_sub_tiles)(tile_rows)
 
 
 def count_tiles_worklist(
@@ -268,21 +362,27 @@ def count_tiles_worklist(
     tile_words: int,
     variant: str = "planes",
     previous_body: bool = False,
+    checked: Optional[DeviceWorklist] = None,
 ) -> torch.Tensor:
     """``n_slots`` count tiles int32 [n_slots, TI, TI]: work item t adds
     the (ibs[t], jbs[t]) row-block pair over K-group gsel[t] (words
     ``[gsel·WK, gsel·WK + WK)``) into slot slots[t]. Items must be sorted
     by slot with ``first`` marking each slot's first item; a slot no item
-    visits is zero."""
+    visits is zero. The list is checked on every call, after a read-back
+    to the host, unless ``checked`` (from :func:`device_worklist`) says
+    that these very tensors were checked when they were made."""
     _check_variant(variant)
     _check_geometry("count_tiles_worklist", packed, tile_rows, tile_words)
     if n_slots < 0:
         raise ValueError(f"n_slots={n_slots} must be >= 0")
     n_pad, w_pad = packed.shape
-    starts = _slot_starts(
-        ibs, jbs, gsel, slots, first, n_slots=n_slots,
-        nb=n_pad // tile_rows, ng=w_pad // tile_words,
-    )
+    geometry = dict(n_slots=n_slots, nb=n_pad // tile_rows, ng=w_pad // tile_words)
+    if checked is None:
+        starts = _slot_starts(ibs, jbs, gsel, slots, first, **geometry)
+    else:
+        starts = checked.starts_for(
+            (ibs, jbs, gsel, slots, first), tile_rows=tile_rows, **geometry
+        )
     kw = dict(n_slots=n_slots, tile_rows=tile_rows, tile_words=tile_words)
     if packed.device.type == "cpu":
         return count_tiles_worklist_plain(packed, ibs, jbs, gsel, slots, first, **kw)
@@ -294,12 +394,24 @@ def count_tiles_worklist(
                       device=packed.device)
     if n_slots == 0:
         return out
-    slot_start = torch.from_numpy(starts).to(packed.device)
-    _launch_k2(
-        "k5_launch", packed.device, previous_body,
-        packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), gsel.data_ptr(),
-        slot_start.data_ptr(), out.data_ptr(), n_slots, tile_rows, tile_words, w_pad,
-    )
+    if checked is not None and checked.units is not None and not previous_body:
+        units = checked.units
+    else:
+        units = torch.from_numpy(
+            schedule_units(starts, _k2_sub_tiles(tile_rows, previous_body))
+        ).to(packed.device)
+    args = (packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), gsel.data_ptr(),
+            units.data_ptr())
+    n_units = units.shape[0]
+    if previous_body:
+        _launch_k2("k5_launch", packed.device, True, *args, out.data_ptr(), n_units,
+                   tile_rows, tile_words, w_pad)
+    else:
+        # the blocks' shared position in the schedule; one block an SM
+        counter = torch.zeros(1, dtype=torch.int32, device=packed.device)
+        _launch_k2("k5_launch", packed.device, False, *args, counter.data_ptr(),
+                   out.data_ptr(), n_units, min(_sm_count(packed.device), n_units),
+                   tile_rows, tile_words, w_pad)
     LAUNCHES["k5"] += 1
     return out
 
@@ -318,9 +430,11 @@ def device_operand(bm, plan: ClusteredPlan, device) -> torch.Tensor:
     return bm.device_cached(("padded2dz", plan.n_pad, plan.w_pad), build, device)
 
 
-def device_worklist(plan: ClusteredPlan, device) -> list[torch.Tensor]:
+def device_worklist(plan: ClusteredPlan, device) -> DeviceWorklist:
     """The plan's real work items (ibs, jbs, gsel, slots, first) on
-    ``device``, for ``plan.slot_ibs.size`` slots.
+    ``device``, for ``plan.slot_ibs.size`` slots: checked here, on the
+    plan's host arrays, and on the card scheduled for the kernel, so that
+    :func:`count_tiles_worklist` reads nothing back.
 
     The plan's bucket padding (one filler item per pad slot, then no-op
     tail items into the last slot) bounds the JAX package's compile
@@ -328,8 +442,20 @@ def device_worklist(plan: ClusteredPlan, device) -> list[torch.Tensor]:
     visits, so the padding is pure cost here, and a serial one: every
     tail item lands in the last slot, whose blocks walk them one by one."""
     k = plan.n_work
-    return [torch.from_numpy(a[:k]).to(device)
-            for a in (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)]
+    host = [a[:k] for a in (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)]
+    n_slots = plan.slot_ibs.size
+    # ids up to the operand's pad group (device_operand) are in range
+    geometry = dict(n_slots=n_slots, nb=plan.nb, ng=plan.w_pad // plan.wk)
+    starts = check_worklist(*host, **geometry)
+    dev = torch.device(device)
+    tensors = tuple(torch.from_numpy(a).to(dev) for a in host)
+    units = None
+    if dev.type == "cuda":
+        units = torch.from_numpy(schedule_units(starts, _k2_sub_tiles(plan.ti))).to(dev)
+    return DeviceWorklist(
+        tensors=tensors, versions=tuple(t._version for t in tensors),
+        tile_rows=plan.ti, starts=starts, units=units, **geometry,
+    )
 
 
 def count_matrix_clustered(
@@ -358,10 +484,11 @@ def count_matrix_clustered(
             bm.device_padded(bm.n, device=dev), config=cfg, variant=variant
         )
 
+    work = device_worklist(plan, dev)
     tiles = count_tiles_worklist(
-        device_operand(bm, plan, dev), *device_worklist(plan, dev),
+        device_operand(bm, plan, dev), *work,
         n_slots=plan.slot_ibs.size, tile_rows=plan.ti,
-        tile_words=plan.wk, variant=variant,
+        tile_words=plan.wk, variant=variant, checked=work,
     )
     return download(
         assemble_triangular_torch(tiles, plan.slot_ibs, plan.slot_jbs, plan.nb, bm.n)

@@ -1,5 +1,6 @@
-// K1 and K0 for Hopper: exact intersection counts of packed bit rows by
-// word-wise AND and population count on the CUDA cores.
+// K1 and K0 for Hopper: exact intersection counts of packed bit rows by AND
+// and population count. K1 takes the tensor cores' binary product (which IS
+// AND + popcount); K0 the CUDA cores.
 //
 // Replaces the JAX package's Pallas kernels:
 //   stormtpu/kernels/dense.py  _k1_kernel / _k1_kernel_chunk
@@ -8,22 +9,31 @@
 //                              (row-wise pair stream, pair_count_stream_pallas)
 //
 // K1 computes out[t, r, c] = popcount(A[r] & B[c]) for the TI x TI tile of
-// row blocks ibs[t] x jbs[t]: one __popc per (pair, word). What bounds it:
-// the popcount issue rate, T·TI²·W popcounts at 16 per clock per SM
-// (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
-// capability 9.0) on 132 SMs. Bytes are far below that bound: each word
-// staged in shared memory is used by 64 output columns. What the design
-// does about it:
-//  - One block owns a 64 x 64 sub-tile of one tile pair and loops over all
-//    of K inside the block, the sums in registers: no atomics, no
-//    cross-block sums, exact by construction.
-//  - A and B words are staged in shared memory, KW words a stage, with an
-//    odd row stride (KW + 1) so that the 16 rows a half-warp reads in one
-//    step fall in 16 different banks.
-//  - Each thread keeps a 4 x 4 register tile (rows ty + 16i, columns
-//    tx + 16j): 8 shared loads feed 16 AND + popcount + add.
-//  - TI is any multiple of 8: rows >= TI of a sub-tile load as zero and are
-//    not stored; words >= W load as zero (W is a multiple of 4).
+// row blocks ibs[t] x jbs[t], TI any multiple of 8. That is what
+// wgmma .b1 .and.popc computes, so K1 launches the tile body K2 and K5 use
+// (tile::B1Wgmma, csrc/tile_body.cuh). What bounds it: 2·T·TI²·M bit
+// operations at that instruction's issue rate, and before that the packed
+// operand's trips from L2 into shared memory, which fall as a block's tile
+// grows. What the design does about it:
+//  - K1's tiles are at most half the body's 128 x 256 block, so a block
+//    run on one tile would multiply zero-filled B rows half of the time.
+//    One block therefore takes TWO tiles that share their A row block
+//    (neighbours in an i-major tile list): B rows 0..127 come from the
+//    first tile's B row block, 128..255 from the second's, and the store
+//    sends each half of the columns to its own tile. The L2 traffic per
+//    pair is then K2's. The wrapper hands the kernel the list of leading
+//    tiles ("units", built on the device from ibs, no read-back): a tile
+//    leads when an even number of tiles before it, back to back, share its
+//    A row block, and it takes the next tile along when that one shares it
+//    too. A tile without a partner runs with the upper half empty.
+//  - Rows >= TI of a sub-tile load as zero and are not stored; words >= W
+//    load as zero (W is a multiple of 4: the loader reads 16-byte vectors).
+//    TI % 8 == 0 makes every stored row 8-byte aligned and every column
+//    count even, which the body's int2 stores need.
+//  - The previous kernel (k1_tri_kernel_prev: one __popc per pair and word
+//    on the CUDA cores, 64 x 64 outputs a block, a 4 x 4 register tile a
+//    thread, at 97% of the popcount issue rate and sixty times slower)
+//    stays for timing beside it only (chip_smoke.py).
 //
 // K0 computes out[r] = sum over words of popcount((A[r] ^ salt) & B[r]).
 // What bounds it: bytes, each word of A and B read once (2·R·W·4 bytes at
@@ -38,8 +48,70 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tile_body.cuh"
+
 namespace {
 
+// --------------------------------------------- K1 on the binary product
+// K1: one A row block against two B row blocks, b_lo for the lower half of
+// the body's B rows and b_hi (hi_rows of them; 0: none, b_hi is not read)
+// for the upper half, over words [0, k_len).
+struct SplitBSource {
+  static constexpr bool SPLIT_B = true;
+  const uint32_t* a;
+  const uint32_t* b_lo;
+  const uint32_t* b_hi;
+  int hi_rows;
+  int k_len;
+  __device__ int chunks() const { return (k_len + tile::KW - 1) / tile::KW; }
+  __device__ void chunk(int f, const uint32_t*& pa, const uint32_t*& pb,
+                        int& valid) const {
+    pa = a + f * tile::KW;
+    pb = b_lo + f * tile::KW;
+    valid = k_len - f * tile::KW;
+  }
+  __device__ const uint32_t* hi(const uint32_t* pb) const {
+    return b_hi + (pb - b_lo);
+  }
+};
+
+// blockIdx.x = unit u, blockIdx.y = 128 x 128 sub-tile (si, sj) of the
+// TI x TI tiles. Unit u is tile t = units[u] (< 0: no unit, the block
+// leaves) and, when ibs[t + 1] == ibs[t], tile t + 1 beside it: the block
+// counts sub-tile (si, sj) of both, A rows shared.
+template <class Body>
+__global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
+    k1_pair_kernel(const uint32_t* __restrict__ packed,
+                   const int* __restrict__ ibs, const int* __restrict__ jbs,
+                   const int* __restrict__ units, int* __restrict__ out,
+                   int n_tiles, int ti, int64_t w) {
+  extern __shared__ __align__(1024) uint32_t smem_dyn[];
+  constexpr int SUB = Body::BM;
+  static_assert(Body::BN == 2 * SUB, "two tiles' columns side by side");
+  const int t = units[blockIdx.x];
+  if (t < 0) return;
+  const bool paired = t + 1 < n_tiles && ibs[t + 1] == ibs[t];
+  const int nsub = (ti + SUB - 1) / SUB;
+  const int si = blockIdx.y / nsub;
+  const int sj = blockIdx.y % nsub;
+  const int a_rows = min(SUB, ti - si * SUB);
+  const int b_rows = min(SUB, ti - sj * SUB);
+  const uint32_t* a = packed + (static_cast<int64_t>(ibs[t]) * ti + si * SUB) * w;
+  const uint32_t* b_lo = packed + (static_cast<int64_t>(jbs[t]) * ti + sj * SUB) * w;
+  const uint32_t* b_hi =
+      paired ? packed + (static_cast<int64_t>(jbs[t + 1]) * ti + sj * SUB) * w : b_lo;
+  typename Body::Acc acc;
+  tile::zero_frags(acc.v);
+  const SplitBSource src{a, b_lo, b_hi, paired ? b_rows : 0,
+                               static_cast<int>(w)};
+  Body::accumulate(acc, src, a_rows, b_rows, w, smem_dyn);
+  int* o = out + static_cast<int64_t>(t) * ti * ti +
+           static_cast<int64_t>(si) * SUB * ti + sj * SUB;
+  Body::store_split(acc, a_rows, b_rows, paired ? b_rows : 0, o,
+                    o + static_cast<int64_t>(ti) * ti, ti);
+}
+
+// ------------------------------- the previous K1: __popc on the CUDA cores
 constexpr int SUB = 64;               // output rows and columns per block
 constexpr int KW = 32;                // packed words per shared-memory stage
 constexpr int LDS = KW + 1;           // odd row stride: conflict-free reads
@@ -73,7 +145,7 @@ __device__ __forceinline__ void load_stage(uint32_t* sm,
 // blockIdx.x = tile pair t, blockIdx.y = SUB x SUB sub-tile of the TI x TI
 // tile; out is int32 [T, ti, ti].
 __global__ void __launch_bounds__(THREADS)
-    k1_tri_kernel(const uint32_t* __restrict__ packed,
+    k1_tri_kernel_prev(const uint32_t* __restrict__ packed,
                   const int* __restrict__ ibs, const int* __restrict__ jbs,
                   int* __restrict__ out, int ti, int64_t w) {
   __shared__ uint32_t sa[SUB * LDS];
@@ -169,16 +241,31 @@ __global__ void __launch_bounds__(K0_THREADS)
 
 extern "C" {
 
-// Sub-tile edge the wrappers may rely on for grid limits.
-int k1_block_rows() { return SUB; }
+// Output rows per block: the wrapper's grid-limit check.
+int k1_block_rows() { return tile::B1Wgmma::BM; }
 
 // packed: int32/uint32 [n_pad, w], w % 4 == 0; ibs, jbs: int32 [t];
-// out: int32 [t, ti, ti].
+// units: int32 [t], the leading tiles first and -1 after them;
+// out: int32 [t, ti, ti], ti % 8 == 0.
 int k1_tri_launch(const void* packed, const void* ibs, const void* jbs,
-                  void* out, int t, int ti, long long w, void* stream) {
+                  const void* units, void* out, int t, int ti, long long w,
+                  void* stream) {
+  using Body = tile::B1Wgmma;
+  const int nsub = (ti + Body::BM - 1) / Body::BM;
+  const dim3 grid(static_cast<unsigned>(t), static_cast<unsigned>(nsub * nsub));
+  return tile::launch<Body>(
+      k1_pair_kernel<Body>, grid, stream, static_cast<const uint32_t*>(packed),
+      static_cast<const int*>(ibs), static_cast<const int*>(jbs),
+      static_cast<const int*>(units), static_cast<int*>(out), t, ti,
+      static_cast<int64_t>(w));
+}
+
+// The previous kernel, for timing beside the above.
+int k1_tri_launch_prev(const void* packed, const void* ibs, const void* jbs,
+                       void* out, int t, int ti, long long w, void* stream) {
   const int nsub = (ti + SUB - 1) / SUB;
   const dim3 grid(static_cast<unsigned>(t), static_cast<unsigned>(nsub * nsub));
-  k1_tri_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  k1_tri_kernel_prev<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(packed), static_cast<const int*>(ibs),
       static_cast<const int*>(jbs), static_cast<int*>(out), ti, w);
   return static_cast<int>(cudaGetLastError());

@@ -29,7 +29,7 @@
 //    sequential K grid axis becomes this loop.
 //  - The K range comes from a "source": a flat list of chunks of KW = 32
 //    words of an A row block and a B row block. K2's source is one
-//    row-block pair over all words; K5's is its slot's work items one after
+//    row-block pair over all words; K5's is a slot's work items one after
 //    another (one K-group each), so the load pipeline runs across a slot's
 //    items and the slot is stored once: no zeroing, no atomics.
 //  - Chunks arrive through a ring of shared-memory stages filled by
@@ -38,14 +38,18 @@
 //    zero bits add nothing), so one loader serves every tile size and K5's
 //    K-groups; a tensor map per operand (TMA) would save the address
 //    arithmetic but not the L2 traffic that sets the pace.
-//  - The tile body (B1Wgmma) is 128 x 256 a block, the widest tile whose
-//    sums fit the registers: two warpgroups, each issuing
-//    wgmma.m64n256k256 with both operands read from shared memory through
-//    matrix descriptors, so no fragment passes through registers and the
-//    threads only issue loads and products. The stage layout is the
-//    128-byte swizzle the descriptors name.
-//  - Any consistent permutation of the K axis is exact, so a body lays
-//    bits out as its instruction likes, the same way for A and B.
+//  - The tile body (tile::B1Wgmma in csrc/tile_body.cuh, which K1 shares)
+//    is 128 x 256 a block, the widest tile whose sums fit the registers:
+//    two warpgroups, each issuing wgmma.m64n256k256 with both operands read
+//    from shared memory through matrix descriptors, so no fragment passes
+//    through registers and the threads only issue loads and products. The
+//    stage layout is the 128-byte swizzle the descriptors name.
+//  - K5's slots differ in length by an order of magnitude (one item to
+//    dozens), and a block holds a whole SM (192 KiB of stages). The host
+//    hands the kernel a schedule of "units" (a slot's sub-tile and its
+//    items), longest first; one block an SM takes them off it as it falls
+//    free and streams them through the ring without a drain between units;
+//    see the K5 kernels below.
 //  - The previous body (S8Body) stays for timing beside it only
 //    (chip_smoke.py): the int8 mma.sync.m16n8k32 with the unpack fused into
 //    the fragment load, which the integer pipe held at a quarter of the
@@ -58,36 +62,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "wgmma.cuh"
+#include "tile_body.cuh"
 
 namespace {
 
-constexpr int KW = 32;  // packed words of a row per chunk (one stage)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using namespace tile;
 
 // ------------------------------------------------------------- K sources
 // K2: rows a[0..], b[0..] (row stride ld) over words [0, k_len).
 struct RowPairSource {
+  static constexpr bool SPLIT_B = false;
   const uint32_t* a;
   const uint32_t* b;
   int k_len;
@@ -100,9 +84,10 @@ struct RowPairSource {
   }
 };
 
-// K5: items [t0, t0 + n_items) of the work list; item t is row blocks
-// ibs[t] x jbs[t] (rows off_a, off_b into the tile) over K-group gsel[t]:
-// words [gsel*wk, gsel*wk + wk) of a row of w words.
+// K5 on the previous body: items [t0, t0 + n_items) of the work list; item t
+// is row blocks ibs[t] x jbs[t] (rows off_a, off_b into the tile) over
+// K-group gsel[t]: words [gsel*wk, gsel*wk + wk) of a row of w words. (On
+// the tile body K5 walks its items with a UnitCursor, below.)
 struct WorkListSource {
   const uint32_t* packed;
   const int* ibs;
@@ -165,6 +150,7 @@ struct S8Body {
   static constexpr int BM = 128;
   static constexpr int BN = 128;
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int MIN_BLOCKS = 1;
   static constexpr int LDS = KW + 4;  // padded row stride in words: 16-B
                                       // aligned rows, conflict-free reads
   static constexpr int SMEM_BYTES = (BM + BN) * LDS * 4;
@@ -264,142 +250,13 @@ struct S8Body {
   }
 };
 
-
-// ----------------------------- the tile body: binary product by warpgroups
-// 128 x 256 a block: two warpgroups, each a 64 x 256 wgmma.m64n256k256 .b1
-// .and.popc whose operands come straight from shared memory, so no fragment
-// passes through registers. A stage holds KW = 32 words (128 bytes, four K
-// steps) of every A and B row in the 128-byte swizzle the matrix descriptors
-// name: 16-byte vector c of row r lies at r * 128 + ((c ^ (r % 8)) * 16).
-// All threads fill the ring with cp.async, AHEAD = STAGES - 2 chunks ahead:
-// one wgmma group stays in flight while the next is issued, so a stage is
-// free to refill only two chunks after its products were issued.
-struct B1Wgmma {
-  static constexpr int BM = 128;
-  static constexpr int BN = 256;
-  static constexpr int THREADS = 256;
-  static constexpr int STAGES = 4;
-  static constexpr int AHEAD = STAGES - 2;
-  static constexpr int ROW_WORDS = KW;  // 128 bytes a row
-  static constexpr int STAGE_WORDS = (BM + BN) * ROW_WORDS;
-  static constexpr int SMEM_BYTES = STAGES * STAGE_WORDS * 4;
-
-  struct Acc {
-    int v[BN / 2];
-  };
-
-  template <int ROWS>
-  static __device__ __forceinline__ void load_rows(uint32_t* tile,
-                                                   const uint32_t* g, int rows,
-                                                   int64_t ld, int valid) {
-    constexpr int VEC = KW / 4;  // 8 vectors of 16 bytes a row
-    for (int v = threadIdx.x; v < ROWS * VEC; v += THREADS) {
-      const int r = v / VEC;
-      const int c = v % VEC;
-      const bool ok = r < rows && c * 4 < valid;
-      const uint32_t* src = ok ? g + r * ld + c * 4 : g;
-      uint32_t* dst = tile + r * ROW_WORDS + ((c ^ (r & 7)) * 4);
-      cp_async16(smem_u32(dst), src, ok ? 16 : 0);
-    }
-  }
-
-  template <class Source>
-  static __device__ __forceinline__ void load_chunk(uint32_t* smem,
-                                                    const Source& src, int f,
-                                                    int n, int a_rows,
-                                                    int b_rows, int64_t ld) {
-    if (f < n) {
-      const uint32_t* pa;
-      const uint32_t* pb;
-      int valid;
-      src.chunk(f, pa, pb, valid);
-      uint32_t* st = smem + (f % STAGES) * STAGE_WORDS;
-      load_rows<BM>(st, pa, a_rows, ld, valid);
-      load_rows<BN>(st + BM * ROW_WORDS, pb, b_rows, ld, valid);
-    }
-    cp_async_commit();
-  }
-
-  template <class Source>
-  static __device__ __forceinline__ void accumulate(Acc& acc, const Source& src,
-                                                    int a_rows, int b_rows,
-                                                    int64_t ld,
-                                                    uint32_t* smem) {
-    const int n = src.chunks();
-    const uint32_t group_rows = (threadIdx.x >> 7) * 64;  // this warpgroup's A rows
-#pragma unroll
-    for (int s = 0; s < AHEAD; ++s)
-      load_chunk(smem, src, s, n, a_rows, b_rows, ld);
-    for (int f = 0; f < n; ++f) {
-      cp_async_wait<AHEAD - 1>();  // chunk f has landed (this thread's part)
-      // cp.async wrote through the generic proxy; wgmma reads through the
-      // async proxy
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();  // everyone's part; every group before f - 1 is done
-      load_chunk(smem, src, f + AHEAD, n, a_rows, b_rows, ld);
-      const uint32_t st = smem_u32(smem + (f % STAGES) * STAGE_WORDS);
-      const uint64_t da = wgmma_desc_sw128(st + group_rows * 128);
-      const uint64_t db = wgmma_desc_sw128(st + BM * 128);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < KW / 8; ++k)  // 32 bytes a K step: 2 descriptor units
-        wgmma_b1_n256(acc.v, da + 2 * k, db + 2 * k);
-      wgmma_commit();
-      wgmma_wait<1>();  // group f - 1 is done: its stage may be refilled
-    }
-    cp_async_wait<0>();
-    wgmma_wait<0>();
-  }
-
-  // m64nN accumulator layout: warp w of the group owns rows 16w..16w+15;
-  // v[4j], v[4j+1] at (row grp, columns 8j + 2q + {0,1}); v[4j+2], v[4j+3]
-  // at row grp + 8.
-  static __device__ __forceinline__ void store(const Acc& acc, int a_rows,
-                                               int b_rows, int* out,
-                                               int64_t ldo) {
-    const int lane = threadIdx.x & 31;
-    const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
-    const int q2 = (lane & 3) * 2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + h * 8;
-      if (r < a_rows) {
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int c = j * 8 + q2;
-          if (c < b_rows) {
-            *reinterpret_cast<int2*>(out + r * ldo + c) =
-                make_int2(acc.v[4 * j + 2 * h], acc.v[4 * j + 2 * h + 1]);
-          }
-        }
-      }
-    }
-  }
-};
-
 static_assert(S8Body::BM == B1Wgmma::BM, "k2_block_rows() speaks for both");
-
-template <int N>
-__device__ __forceinline__ void zero_frags(int (&acc)[N]) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) acc[e] = 0;
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_frags(int (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-}
 
 // Triangular form: blockIdx.x = tile pair t, blockIdx.y = BM x BN sub-tile
 // of the TI x TI output tile. Tile t counts row block ibs[t] against
 // jbs[t] (the same rows when ibs[t] == jbs[t]).
 template <class Body>
-__global__ void __launch_bounds__(Body::THREADS, 1)
+__global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
     k2_tri_kernel(const uint32_t* __restrict__ packed,
                   const int* __restrict__ ibs, const int* __restrict__ jbs,
                   int* __restrict__ out, int ti, int64_t w) {
@@ -423,10 +280,177 @@ __global__ void __launch_bounds__(Body::THREADS, 1)
               ti);
 }
 
-// Rectangular form: blockIdx.y = BM-row block of A, blockIdx.x = BN-row
-// block of B; out is [na, nb] row-major.
+// ------------------------------------------------------------- K5 kernels
+// One unit of K5's schedule, an int4 in memory: items [x, x + y) of the work
+// list add into BM x BN sub-tile w of output slot z's TI x TI tile. A unit
+// with no items stores zeros. Every (slot, sub-tile) is in exactly one
+// unit, so blocks store without zeroing or atomics. The host orders the
+// units longest first.
+//
+// Per-unit form, which the previous body keeps: block b runs unit units[b].
 template <class Body>
-__global__ void __launch_bounds__(Body::THREADS, 1)
+__global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
+    k5_kernel(const uint32_t* __restrict__ packed,
+              const int* __restrict__ ibs, const int* __restrict__ jbs,
+              const int* __restrict__ gsel, const int4* __restrict__ units,
+              int* __restrict__ out, int ti, int wk, int64_t w) {
+  extern __shared__ __align__(1024) uint32_t smem_dyn[];
+  constexpr int BM = Body::BM, BN = Body::BN;
+  const int4 u = units[blockIdx.x];
+  const int nsub_n = (ti + BN - 1) / BN;
+  const int si = u.w / nsub_n;
+  const int sj = u.w % nsub_n;
+  const int a_rows = min(BM, ti - si * BM);
+  const int b_rows = min(BN, ti - sj * BN);
+  typename Body::Acc acc;
+  zero_frags(acc.v);
+  const WorkListSource src{packed, ibs, jbs, gsel, u.x, u.y,
+                           ti, si * BM, sj * BN, wk, w};
+  Body::accumulate(acc, src, a_rows, b_rows, w, smem_dyn);
+  Body::store(acc, a_rows, b_rows,
+              out + static_cast<int64_t>(u.z) * ti * ti +
+                  static_cast<int64_t>(si) * BM * ti + sj * BN,
+              ti);
+}
+
+// Where a block's loads stand in its run of units: chunk c of item t of
+// the block's j-th unit, with what stays the same for a whole unit (its
+// sub-tile) and for a whole item (its two row bases) worked out once. A
+// unit with no items counts as one chunk of zeros.
+//
+// Which unit is a block's j-th: the blocks take units off the schedule as
+// they fall free, through a counter in device memory, so the longest-first
+// order balances the SMs whatever their pace. A block's first unit is its
+// blockIdx. Thread 0 takes unit j + 1 when the block opens unit j and
+// leaves it in `taken` (shared memory, a ring of 8: the loads run at most
+// AHEAD units in front of the products); every unit has a chunk, hence a
+// barrier, before the next is opened.
+template <class Body>
+struct UnitCursor {
+  const uint32_t* packed;
+  const int* ibs;
+  const int* jbs;
+  const int* gsel;
+  const int4* units;
+  int* counter;  // units taken beyond each block's first
+  int* taken;    // shared: this block's unit ids by j % 8
+  int n_units, per_item, nsub_n, ti, wk;
+  int64_t w;
+  int j, k, t, t_end, c, a_rows, b_rows;
+  int64_t sub_a, sub_b;  // the unit's sub-tile, in words from a row block's start
+  const uint32_t* pa;
+  const uint32_t* pb;
+  __device__ int unit_id(int jj) const { return taken[jj & 7]; }
+  __device__ void open_item() {
+    if (t < t_end) {
+      const int64_t k0 = static_cast<int64_t>(gsel[t]) * wk;
+      pa = packed + sub_a + static_cast<int64_t>(ibs[t]) * ti * w + k0;
+      pb = packed + sub_b + static_cast<int64_t>(jbs[t]) * ti * w + k0;
+    }
+  }
+  __device__ void open() {
+    k = unit_id(j);
+    if (k < n_units) {
+      if (threadIdx.x == 0)
+        taken[(j + 1) & 7] = gridDim.x + atomicAdd(counter, 1);
+      const int4 u = units[k];
+      t = u.x;
+      t_end = u.x + u.y;
+      const int si = u.w / nsub_n;
+      const int sj = u.w % nsub_n;
+      a_rows = min(Body::BM, ti - si * Body::BM);
+      b_rows = min(Body::BN, ti - sj * Body::BN);
+      sub_a = static_cast<int64_t>(si) * Body::BM * w;
+      sub_b = static_cast<int64_t>(sj) * Body::BN * w;
+      c = 0;
+      pa = pb = packed;
+      open_item();
+    }
+  }
+  __device__ bool live() const { return k < n_units; }
+  // words of this chunk that exist (0: a unit with no items)
+  __device__ int valid() const { return t < t_end ? wk - c * KW : 0; }
+  __device__ void advance() {
+    if (t >= t_end || (c + 1 == per_item && t + 1 == t_end)) {
+      ++j;
+      open();
+    } else if (++c == per_item) {
+      c = 0;
+      ++t;
+      open_item();
+    }
+  }
+};
+
+// Streaming form, which the tile body launches: a block runs its units as
+// ONE chunk sequence. The cp.async ring never drains between units: the
+// loads run AHEAD chunks in front of the products, into the next unit when
+// this one ends, and after a unit's last chunk the block waits for its
+// products, stores the sums and zeroes them while the next unit's chunks
+// are already in flight. One block an SM; see UnitCursor for which units a
+// block runs.
+template <class Body>
+__global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
+    k5_stream_kernel(const uint32_t* __restrict__ packed,
+                     const int* __restrict__ ibs, const int* __restrict__ jbs,
+                     const int* __restrict__ gsel,
+                     const int4* __restrict__ units, int n_units,
+                     int* __restrict__ counter, int* __restrict__ out, int ti,
+                     int wk, int64_t w) {
+  extern __shared__ __align__(1024) uint32_t smem_dyn[];
+  __shared__ int taken[8];
+  constexpr int BM = Body::BM, BN = Body::BN;
+  if (threadIdx.x == 0) taken[0] = blockIdx.x;
+  __syncthreads();
+  UnitCursor<Body> lead{packed, ibs, jbs, gsel, units, counter, taken, n_units,
+                        (wk + KW - 1) / KW, (ti + BN - 1) / BN, ti, wk, w, 0};
+  lead.open();  // the loads' cursor; the products follow in the loops below
+
+  auto load_next = [&](int pos) {
+    if (lead.live()) {
+      Body::load_stage(smem_dyn, pos, lead.pa + lead.c * KW,
+                       lead.pb + lead.c * KW, lead.a_rows, lead.b_rows, w,
+                       lead.valid());
+      lead.advance();
+    }
+    cp_async_commit();
+  };
+
+  typename Body::Acc acc;
+  zero_frags(acc.v);
+#pragma unroll
+  for (int s = 0; s < Body::AHEAD; ++s) {
+    load_next(s);
+    __syncthreads();  // a unit opened here may be read by the next call
+  }
+  int f = 0;  // chunks behind the products, over all units
+  for (int j = 0;; ++j) {
+    const int k = lead.unit_id(j);
+    if (k >= n_units) break;
+    const int4 u = units[k];
+    // the sums are read only after the unit's last group is done, outside
+    // the chunk loop, so that the product groups overlap inside it (read
+    // inside it, the compiler puts a wait after every group)
+    for (int left = max(1, u.y * lead.per_item); left > 0; --left, ++f) {
+      Body::wait_chunk();
+      load_next(f + Body::AHEAD);
+      Body::issue(acc, smem_dyn, f);
+      wgmma_wait<1>();  // the group before is done: its stage may be refilled
+    }
+    wgmma_wait<0>();
+    const int si = u.w / lead.nsub_n;
+    const int sj = u.w % lead.nsub_n;
+    Body::store(acc, min(BM, ti - si * BM), min(BN, ti - sj * BN),
+                out + static_cast<int64_t>(u.z) * ti * ti +
+                    static_cast<int64_t>(si) * BM * ti + sj * BN,
+                ti);
+    zero_frags(acc.v);
+  }
+  cp_async_wait<0>();
+}
+
+template <class Body>
+__global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
     k2_rect_kernel(const uint32_t* __restrict__ a,
                    const uint32_t* __restrict__ b, int* __restrict__ out,
                    int64_t na, int64_t nb, int64_t w) {
@@ -443,50 +467,17 @@ __global__ void __launch_bounds__(Body::THREADS, 1)
   Body::store(acc, a_rows, b_rows, out + ra * nb + rb, nb);
 }
 
-// Work-list form: blockIdx.x = output slot s, blockIdx.y = BM x BN
-// sub-tile of its TI x TI tile. Items [slot_start[s], slot_start[s+1])
-// are the slot's (sorted by slot). A slot with no items stores zeros.
+// a: [na, w], b: [nb, w] words; out: int32 [na, nb].
 template <class Body>
-__global__ void __launch_bounds__(Body::THREADS, 1)
-    k5_kernel(const uint32_t* __restrict__ packed,
-              const int* __restrict__ ibs, const int* __restrict__ jbs,
-              const int* __restrict__ gsel,
-              const int* __restrict__ slot_start, int* __restrict__ out,
-              int ti, int wk, int64_t w) {
-  extern __shared__ __align__(1024) uint32_t smem_dyn[];
-  constexpr int BM = Body::BM, BN = Body::BN;
-  const int64_t s = blockIdx.x;
-  const int nsub_n = (ti + BN - 1) / BN;
-  const int si = blockIdx.y / nsub_n;
-  const int sj = blockIdx.y % nsub_n;
-  const int a_rows = min(BM, ti - si * BM);
-  const int b_rows = min(BN, ti - sj * BN);
-  typename Body::Acc acc;
-  zero_frags(acc.v);
-  const int t0 = slot_start[s];
-  const WorkListSource src{packed, ibs, jbs, gsel, t0, slot_start[s + 1] - t0,
-                           ti, si * BM, sj * BN, wk, w};
-  Body::accumulate(acc, src, a_rows, b_rows, w, smem_dyn);
-  Body::store(acc, a_rows, b_rows,
-              out + s * ti * ti + static_cast<int64_t>(si) * BM * ti + sj * BN,
-              ti);
-}
-
-template <class Body, class... KArgs, class... Args>
-int launch(void (*kernel)(KArgs...), dim3 grid, void* stream, Args... args) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(kernel),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Body::SMEM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, Body::THREADS, Body::SMEM_BYTES,
-           static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class Body>
-unsigned sub_tiles(int ti) {
-  return static_cast<unsigned>(((ti + Body::BM - 1) / Body::BM) *
-                               ((ti + Body::BN - 1) / Body::BN));
+int rect_launch(const void* a, const void* b, void* out, long long na,
+                long long nb, long long w, void* stream) {
+  const dim3 grid(static_cast<unsigned>((nb + Body::BN - 1) / Body::BN),
+                  static_cast<unsigned>((na + Body::BM - 1) / Body::BM));
+  return launch<Body>(k2_rect_kernel<Body>, grid, stream,
+                      static_cast<const uint32_t*>(a),
+                      static_cast<const uint32_t*>(b), static_cast<int*>(out),
+                      static_cast<int64_t>(na), static_cast<int64_t>(nb),
+                      static_cast<int64_t>(w));
 }
 
 // packed: int32/uint32 [n_pad, w]; ibs, jbs: int32 [t]; out: int32 [t, ti, ti].
@@ -501,41 +492,16 @@ int tri_launch(const void* packed, const void* ibs, const void* jbs, void* out,
                       static_cast<int64_t>(w));
 }
 
-// a: [na, w], b: [nb, w] words; out: int32 [na, nb].
-template <class Body>
-int rect_launch(const void* a, const void* b, void* out, long long na,
-                long long nb, long long w, void* stream) {
-  const dim3 grid(static_cast<unsigned>((nb + Body::BN - 1) / Body::BN),
-                  static_cast<unsigned>((na + Body::BM - 1) / Body::BM));
-  return launch<Body>(k2_rect_kernel<Body>, grid, stream,
-                      static_cast<const uint32_t*>(a),
-                      static_cast<const uint32_t*>(b), static_cast<int*>(out),
-                      static_cast<int64_t>(na), static_cast<int64_t>(nb),
-                      static_cast<int64_t>(w));
-}
-
-// packed: int32/uint32 [n_pad, w]; ibs, jbs, gsel: int32 [t_work];
-// slot_start: int32 [n_slots + 1]; out: int32 [n_slots, ti, ti].
-template <class Body>
-int worklist_launch(const void* packed, const void* ibs, const void* jbs,
-                    const void* gsel, const void* slot_start, void* out,
-                    int n_slots, int ti, int wk, long long w, void* stream) {
-  const dim3 grid(static_cast<unsigned>(n_slots), sub_tiles<Body>(ti));
-  return launch<Body>(k5_kernel<Body>, grid, stream,
-                      static_cast<const uint32_t*>(packed),
-                      static_cast<const int*>(ibs),
-                      static_cast<const int*>(jbs),
-                      static_cast<const int*>(gsel),
-                      static_cast<const int*>(slot_start),
-                      static_cast<int*>(out), ti, wk, static_cast<int64_t>(w));
-}
-
 }  // namespace
 
 extern "C" {
 
 // Output rows per block (of either body): the wrappers' grid-limit check.
 int k2_block_rows() { return B1Wgmma::BM; }
+
+// Sub-tiles (blocks) of a ti x ti output tile: the sub-tile ids of K5's units.
+int k2_sub_tiles(int ti) { return static_cast<int>(sub_tiles<B1Wgmma>(ti)); }
+int k2_sub_tiles_prev(int ti) { return static_cast<int>(sub_tiles<S8Body>(ti)); }
 
 int k2_tri_launch(const void* packed, const void* ibs, const void* jbs,
                   void* out, int t, int ti, long long w, void* stream) {
@@ -547,14 +513,28 @@ int k2_rect_launch(const void* a, const void* b, void* out, long long na,
   return rect_launch<B1Wgmma>(a, b, out, na, nb, w, stream);
 }
 
+// packed: int32/uint32 [n_pad, w]; ibs, jbs, gsel: int32 [t_work]; units:
+// int32 [n_units, 4]; counter: one int32, 0 at the launch; out: int32
+// [n_slots, ti, ti]. n_blocks <= n_units blocks (one an SM) stream the
+// units, taking them in order as they fall free.
 int k5_launch(const void* packed, const void* ibs, const void* jbs,
-              const void* gsel, const void* slot_start, void* out,
-              int n_slots, int ti, int wk, long long w, void* stream) {
-  return worklist_launch<B1Wgmma>(packed, ibs, jbs, gsel, slot_start, out,
-                                  n_slots, ti, wk, w, stream);
+              const void* gsel, const void* units, void* counter, void* out,
+              int n_units, int n_blocks, int ti, int wk, long long w,
+              void* stream) {
+  return launch<B1Wgmma>(k5_stream_kernel<B1Wgmma>,
+                         dim3(static_cast<unsigned>(n_blocks)), stream,
+                         static_cast<const uint32_t*>(packed),
+                         static_cast<const int*>(ibs),
+                         static_cast<const int*>(jbs),
+                         static_cast<const int*>(gsel),
+                         static_cast<const int4*>(units), n_units,
+                         static_cast<int*>(counter), static_cast<int*>(out),
+                         ti, wk, static_cast<int64_t>(w));
 }
 
-// The same three on the previous body, for timing beside the above.
+// K2's two kernels on the previous body, for timing beside the above, and
+// K5 on it with one block per unit, in the order of units (whose sub-tiles
+// are that body's: k2_sub_tiles_prev).
 int k2_tri_launch_prev(const void* packed, const void* ibs, const void* jbs,
                        void* out, int t, int ti, long long w, void* stream) {
   return tri_launch<S8Body>(packed, ibs, jbs, out, t, ti, w, stream);
@@ -566,10 +546,15 @@ int k2_rect_launch_prev(const void* a, const void* b, void* out, long long na,
 }
 
 int k5_launch_prev(const void* packed, const void* ibs, const void* jbs,
-                   const void* gsel, const void* slot_start, void* out,
-                   int n_slots, int ti, int wk, long long w, void* stream) {
-  return worklist_launch<S8Body>(packed, ibs, jbs, gsel, slot_start, out,
-                                 n_slots, ti, wk, w, stream);
+                   const void* gsel, const void* units, void* out, int n_units,
+                   int ti, int wk, long long w, void* stream) {
+  return launch<S8Body>(k5_kernel<S8Body>, dim3(static_cast<unsigned>(n_units)),
+                        stream, static_cast<const uint32_t*>(packed),
+                        static_cast<const int*>(ibs),
+                        static_cast<const int*>(jbs),
+                        static_cast<const int*>(gsel),
+                        static_cast<const int4*>(units), static_cast<int*>(out),
+                        ti, wk, static_cast<int64_t>(w));
 }
 
 }  // extern "C"

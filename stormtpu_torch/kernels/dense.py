@@ -1,5 +1,5 @@
-"""K1 and K0 — exact counts by word-wise AND and population count (port
-of ``stormtpu/kernels/dense.py``).
+"""K1 and K0 — exact counts by AND and population count (port of
+``stormtpu/kernels/dense.py``).
 
 Two kernel wrappers, each with its plain PyTorch version beside it and a
 launch counter (``LAUNCHES``):
@@ -13,10 +13,13 @@ A tensor on the CPU takes the plain version; a tensor on the card
 launches the CUDA kernel, or raises. There is no fall back from one to
 the other.
 
-K1 runs on the CUDA cores (one ``__popc`` per pair and word), not the
-tensor cores, so it is slower than K2 by design; D1 never picks it and it
-stays an explicit strategy (``strategy="pallas_dense"``). K0 is bound by
-the bytes of its two operands.
+K1 runs on the tensor cores: AND + popcount of packed words is what their
+binary product computes, so K1 launches the tile body K2 uses, two of its
+tiles a block (:func:`pair_units` says which). D1 never picks K1 and it
+stays an explicit strategy (``strategy="pallas_dense"``). ``csrc/k1_dense.cu``
+also keeps the previous K1 (one ``__popc`` per pair and word on the CUDA
+cores) for timing beside it: ``previous_body=True`` launches it, for
+measurement scripts only. K0 is bound by the bytes of its two operands.
 
 Exactness: a word's popcount is ≤ 32 and sums are int32, exact for
 M < 2³¹ (``EngineConfig.validate``). ``variant`` ("rows"/"chunk") selects
@@ -55,6 +58,7 @@ __all__ = [
     "k1_tile_shape",
     "pair_count_stream_pallas",
     "pair_count_stream_plain",
+    "pair_units",
     "reset_launches",
 ]
 
@@ -129,6 +133,29 @@ def pair_count_stream_plain(
 
 
 # ------------------------------------------------------------- kernel wrappers
+def pair_units(ibs: torch.Tensor) -> torch.Tensor:
+    """Which tiles of a tile list lead a block of the K1 kernel, int32 [T]
+    on ``ibs``'s device: the leading tiles' indices in ascending order,
+    then -1. A block counts its leading tile t and, when ``ibs[t + 1] ==
+    ibs[t]``, tile t + 1 with it (the two share their A rows). Tile t
+    leads when the tiles before it that share its ``ibs``, back to back,
+    are even in number: every run of equal ``ibs`` is cut into pairs from
+    its start, and a run of odd length ends in a tile that runs alone. Any
+    list is taken; a list sorted by ``ibs`` pairs best. Nothing is read
+    back to the host."""
+    t = ibs.numel()
+    idx = torch.arange(t, device=ibs.device)
+    starts_run = torch.ones(t, dtype=torch.bool, device=ibs.device)
+    starts_run[1:] = ibs[1:] != ibs[:-1]
+    run_start = torch.cummax(torch.where(starts_run, idx, 0), dim=0).values
+    leads = (idx - run_start) % 2 == 0
+    rank = torch.cumsum(leads, dim=0) - 1
+    units = torch.full((t + 1,), -1, dtype=torch.int32, device=ibs.device)
+    # a tile that does not lead writes into the spare last element
+    units.scatter_(0, torch.where(leads, rank, t), idx.to(torch.int32))
+    return units[:t]
+
+
 def count_tiles_pallas_dense(
     packed: torch.Tensor,
     ibs: torch.Tensor,
@@ -137,6 +164,7 @@ def count_tiles_pallas_dense(
     tile_rows: int,
     tile_words: int,
     variant: str = "rows",
+    previous_body: bool = False,
 ) -> torch.Tensor:
     """T count tiles int32 [T, TI, TI] for row-block pairs (ibs[t], jbs[t])
     of a padded packed matrix int32 [N_pad, W_pad]. TI is any positive
@@ -174,10 +202,17 @@ def count_tiles_pallas_dense(
         return out
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k1_tri_launch(
-            packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), out.data_ptr(),
-            t, tile_rows, w_pad, stream,
-        )
+        if previous_body:
+            err = lib.k1_tri_launch_prev(
+                packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), out.data_ptr(),
+                t, tile_rows, w_pad, stream,
+            )
+        else:
+            units = pair_units(ibs)
+            err = lib.k1_tri_launch(
+                packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), units.data_ptr(),
+                out.data_ptr(), t, tile_rows, w_pad, stream,
+            )
     if err:
         raise RuntimeError(f"k1_tri_launch failed: CUDA error {err}")
     LAUNCHES["k1"] += 1

@@ -153,6 +153,120 @@ def test_worklist_wrapper_refuses_bad_lists():
         tc.count_tiles_worklist(packed, *map(torch.from_numpy, work), variant="rows", **kw)
 
 
+BAD_LISTS = {
+    "unsorted": lambda plan, k: dict(
+        slots_w=np.concatenate([plan.slots_w[:k][::-1], plan.slots_w[k:]])),
+    "first": lambda plan, k: dict(
+        first_w=np.concatenate([[0], plan.first_w[1:]]).astype(np.int32)),
+    "gsel": lambda plan, k: dict(gsel_w=np.full_like(plan.gsel_w, plan.ng + 1)),
+    "ibs": lambda plan, k: dict(ibs_w=np.full_like(plan.ibs_w, plan.nb)),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_LISTS))
+def test_bad_worklist_raises_on_both_routes_into_the_wrapper(bad):
+    """A malformed list is refused where it is checked: by the wrapper for
+    bare tensors, at plan time for the path's checked work list."""
+    plan, xp, _ = _plan_inputs(_block_diagonal(100, 9000, 2, 0.35, seed=7))
+    k = plan.n_work
+    broken = dataclasses.replace(plan, **BAD_LISTS[bad](plan, k))
+    with pytest.raises(ValueError):
+        tc.device_worklist(broken, "cpu")
+    arrays = [torch.from_numpy(np.ascontiguousarray(a[:k])) for a in (
+        broken.ibs_w, broken.jbs_w, broken.gsel_w, broken.slots_w, broken.first_w)]
+    with pytest.raises(ValueError):
+        tc.count_tiles_worklist(to_device_words(xp, "cpu"), *arrays,
+                                n_slots=plan.slot_ibs.size, tile_rows=plan.ti,
+                                tile_words=plan.wk)
+
+
+@pytest.mark.parametrize("name", ("block_diagonal", "ragged"))
+def test_plan_time_slot_starts_equal_the_read_back_route(name, monkeypatch):
+    _, bt = _pair(PLAN_INPUTS[name]())
+    plan = tc.build_clustered_plan(bt, CFG)
+    work = tc.device_worklist(plan, "cpu")
+    geometry = dict(n_slots=plan.slot_ibs.size, nb=plan.nb, ng=plan.ng + 1)
+    want = tc._slot_starts(*work, **geometry)
+    assert work.starts.dtype == np.int32 and np.array_equal(work.starts, want)
+    assert len(work.tensors) == 5 and all(
+        np.array_equal(t.numpy(), a[: plan.n_work]) for t, a in zip(
+            work, (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)))
+    # the checked route never reads the list back
+    packed = tc.device_operand(bt, plan, "cpu")
+    kw = dict(n_slots=plan.slot_ibs.size, tile_rows=plan.ti, tile_words=plan.wk)
+    bare = tc.count_tiles_worklist(packed, *work, **kw)
+
+    def no_read_back(*a, **k):
+        raise AssertionError("the checked route read the work list back")
+
+    monkeypatch.setattr(tc, "_slot_starts", no_read_back)
+    got = tc.count_tiles_worklist(packed, *work, checked=work, **kw)
+    assert torch.equal(got, bare)
+    assert np.array_equal(tc.count_matrix_clustered(bt, config=CFG, device="cpu"),
+                          oracle_count_matrix(bt.packed))
+
+
+def test_checked_worklist_vouches_only_for_what_was_checked():
+    _, bt = _pair(PLAN_INPUTS["block_diagonal"]())
+    plan = tc.build_clustered_plan(bt, CFG)
+    work = tc.device_worklist(plan, "cpu")
+    packed = tc.device_operand(bt, plan, "cpu")
+    kw = dict(n_slots=plan.slot_ibs.size, tile_rows=plan.ti, tile_words=plan.wk)
+    with pytest.raises(ValueError, match="other work-list tensors"):
+        tc.count_tiles_worklist(packed, *(t.clone() for t in work), checked=work, **kw)
+    with pytest.raises(ValueError, match="n_slots"):
+        tc.count_tiles_worklist(packed, *work, checked=work, **{**kw, "n_slots": kw["n_slots"] + 1})
+    with pytest.raises(ValueError, match="K-groups"):
+        tc.count_tiles_worklist(packed[:, : -plan.wk].contiguous(), *work, checked=work, **kw)
+    work.tensors[3].add_(0)  # an in-place write, whatever it wrote
+    with pytest.raises(ValueError, match="written to"):
+        tc.count_tiles_worklist(packed, *work, checked=work, **kw)
+
+
+@pytest.mark.parametrize("n_sub", (1, 2, 4))
+@pytest.mark.parametrize("lengths", [(3, 0, 7, 1, 7, 2), (1,), (0, 0), (5, 5, 5)])
+def test_schedule_units_cover_every_sub_tile_once_longest_first(lengths, n_sub):
+    starts = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    units = tc.schedule_units(starts, n_sub)
+    assert units.dtype == np.int32 and units.shape == (len(lengths) * n_sub, 4)
+    assert units.flags.c_contiguous
+    # every (slot, sub-tile) once, with its slot's items
+    seen = sorted((int(u[2]), int(u[3])) for u in units)
+    assert seen == [(s, b) for s in range(len(lengths)) for b in range(n_sub)]
+    for first, items, slot, _ in units:
+        assert first == starts[slot] and items == lengths[slot]
+    assert np.all(np.diff(units[:, 1]) <= 0)             # longest first
+    per_slot = units[::n_sub, 2]
+    assert all(np.all(np.diff(per_slot[units[::n_sub, 1] == n]) > 0)   # ties in slot order
+               for n in set(lengths))
+    assert np.array_equal(np.repeat(per_slot, n_sub), units[:, 2])     # sub-tiles together
+
+
+def test_longest_first_order_leaves_the_plain_result_unchanged():
+    """The schedule is a permutation of the slots; run as a work list in
+    that order (slots renumbered, so that they ascend) it gives the same
+    tiles, permuted."""
+    plan, xp, _ = _plan_inputs(_block_diagonal(70, 13000, 2, 0.35, seed=5))  # 1 to 4 items a slot
+    k, p = plan.n_work, plan.slot_ibs.size
+    work = [a[:k] for a in (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)]
+    starts = tc.check_worklist(*work, n_slots=p, nb=plan.nb, ng=plan.ng + 1)
+    order = tc.schedule_units(starts, 1)[:, 2]
+    assert np.array_equal(np.sort(order), np.arange(p)) and not np.array_equal(order, np.arange(p))
+    items = np.concatenate([np.arange(starts[s], starts[s + 1]) for s in order])
+    rank = np.empty(p, np.int32)
+    rank[order] = np.arange(p, dtype=np.int32)
+    permuted = [a[items] for a in work[:3]] + [rank[work[3][items]], work[4][items]]
+    packed = to_device_words(xp, "cpu")
+    kw = dict(n_slots=p, tile_rows=plan.ti, tile_words=plan.wk)
+    want = tc.count_tiles_worklist_plain(packed, *map(torch.from_numpy, work), **kw)
+    got = tc.count_tiles_worklist_plain(
+        packed, *(torch.from_numpy(np.ascontiguousarray(a)) for a in permuted), **kw)
+    assert torch.equal(got, want[torch.from_numpy(order.astype(np.int64))])
+    # and the wrapper takes the permuted list as a valid one
+    assert torch.equal(tc.count_tiles_worklist(
+        packed, *(torch.from_numpy(np.ascontiguousarray(a)) for a in permuted), **kw), got)
+
+
 def test_unvisited_slot_is_zero_and_plain_launches_nothing():
     plan, xp, work = _plan_inputs(_block_diagonal(100, 9000, 2, 0.35, seed=8))
     tc.reset_launches()

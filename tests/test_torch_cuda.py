@@ -160,6 +160,117 @@ def test_k1_kernel_equals_plain(cuda, n, w, ti, wk, density):
     assert torch.equal(got, want)
 
 
+def _k1_tile_list(nb, order, seed):
+    """A K1 tile list over nb row blocks: the whole triangle i-major (every
+    run of equal ibs but one is cut into pairs), that list shuffled (most
+    tiles then run alone), or with its last tile dropped (odd length)."""
+    ibs, jbs = triangular_tile_ids(nb)
+    if order == "shuffled":
+        perm = np.random.default_rng(seed).permutation(ibs.size)
+        ibs, jbs = ibs[perm], jbs[perm]
+    elif order == "odd":
+        keep = ibs.size - 1 if ibs.size % 2 == 0 else ibs.size - 2
+        ibs, jbs = ibs[:keep], jbs[:keep]
+        assert ibs.size % 2 == 1
+    return np.ascontiguousarray(ibs), np.ascontiguousarray(jbs)
+
+
+@pytest.mark.parametrize("previous", (False, True))
+@pytest.mark.parametrize("order", ("i-major", "shuffled", "odd"))
+@pytest.mark.parametrize("ti", (8, 40, 128, 136))
+def test_k1_kernel_tile_sizes_and_tile_lists_equal_plain(cuda, ti, order, previous):
+    """K1 pairs tiles that share their A rows. TI = 8 and 40 fill part of a
+    block's half, 128 all of it, 136 takes two sub-tile rows (the second 8
+    rows tall); a shuffled list leaves most tiles without a partner."""
+    nb, w, wk = 5, 72, 24
+    xp = np.zeros((nb * ti, w), np.uint32)
+    xp[: nb * ti - 3, :70] = _words(nb * ti - 3, 70, 0.5, seed=ti)
+    ibs, jbs = _k1_tile_list(nb, order, seed=ti)
+    args = (to_device_words(xp, cuda), torch.from_numpy(ibs).to(cuda),
+            torch.from_numpy(jbs).to(cuda))
+    got = dense.count_tiles_pallas_dense(*args, tile_rows=ti, tile_words=wk,
+                                         previous_body=previous)
+    want = dense.count_tiles_dense_plain(*args, tile_rows=ti, tile_words=wk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    units = dense.pair_units(args[1])
+    leads = units[units >= 0].cpu().numpy()
+    assert np.array_equal(leads, _brute_force_leads(ibs))
+
+
+def _brute_force_leads(ibs):
+    leads, t = [], 0
+    while t < len(ibs):
+        leads.append(t)
+        t += 2 if t + 1 < len(ibs) and ibs[t + 1] == ibs[t] else 1
+    return np.asarray(leads, dtype=np.int32)
+
+
+def test_k1_all_ones_at_the_int32_edge(cuda):
+    m = 1 << 27
+    ones = torch.full((128, m // 32), -1, dtype=torch.int32, device=cuda)
+    ids = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = dense.count_tiles_pallas_dense(ones, ids, ids, tile_rows=128, tile_words=2048)
+    assert bool((got == m).all())
+
+
+def test_k1_build_has_no_spills(cuda):
+    from stormtpu_torch.kernels._build import kernel_resources
+
+    used = kernel_resources("k1_dense")
+    assert any("k1_pair_kernel" in sym for sym in used)
+    assert all(v["spill_bytes"] == 0 for v in used.values())
+
+
+def test_k5_checked_worklist_launches_without_a_read_back(cuda, monkeypatch):
+    cfg = EngineConfig(k2_tile_rows=160, k2_tile_words=128)
+    bm = _block_diagonal(301, 100_003, 6, 0.3, seed=11)
+    plan = clustered.build_clustered_plan(bm, cfg)
+    packed = clustered.device_operand(bm, plan, cuda)
+    work = clustered.device_worklist(plan, cuda)
+    kw = dict(n_slots=plan.slot_ibs.size, tile_rows=plan.ti, tile_words=plan.wk)
+    want = clustered.count_tiles_worklist_plain(packed, *work, **kw)
+    bare = clustered.count_tiles_worklist(packed, *work, **kw)
+
+    def no_read_back(*a, **k):
+        raise AssertionError("the checked route read the work list back")
+
+    monkeypatch.setattr(clustered, "_slot_starts", no_read_back)
+    got = clustered.count_tiles_worklist(packed, *work, checked=work, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(bare, want)
+    clones = [t.clone() for t in work]
+    with pytest.raises(ValueError, match="other work-list tensors"):
+        clustered.count_tiles_worklist(packed, *clones, checked=work, **kw)
+    work.tensors[3].add_(0)  # an in-place write, whatever it wrote
+    with pytest.raises(ValueError, match="written to"):
+        clustered.count_tiles_worklist(packed, *work, checked=work, **kw)
+
+
+@pytest.mark.parametrize("bad", ("unsorted", "first", "range"))
+def test_k5_bad_worklist_raises_on_the_card(cuda, bad):
+    import dataclasses
+
+    cfg = EngineConfig(k2_tile_rows=32, k2_tile_words=128)
+    bm = _block_diagonal(100, 9000, 2, 0.35, seed=7)
+    plan = clustered.build_clustered_plan(bm, cfg)
+    k = plan.n_work
+    swap = {
+        "unsorted": dict(slots_w=np.concatenate([plan.slots_w[:k][::-1], plan.slots_w[k:]])),
+        "first": dict(first_w=np.concatenate([[0], plan.first_w[1:]]).astype(np.int32)),
+        "range": dict(gsel_w=np.full_like(plan.gsel_w, plan.ng + 1)),
+    }[bad]
+    broken = dataclasses.replace(plan, **swap)
+    with pytest.raises(ValueError):
+        clustered.device_worklist(broken, cuda)
+    packed = clustered.device_operand(bm, plan, cuda)
+    arrays = [torch.from_numpy(np.ascontiguousarray(a[:k])).to(cuda) for a in (
+        broken.ibs_w, broken.jbs_w, broken.gsel_w, broken.slots_w, broken.first_w)]
+    with pytest.raises(ValueError):
+        clustered.count_tiles_worklist(packed, *arrays, n_slots=plan.slot_ibs.size,
+                                       tile_rows=plan.ti, tile_words=plan.wk)
+
+
 @pytest.mark.parametrize("salt", (0, 0xDEADBEEF))
 @pytest.mark.parametrize("r,w", [(37, 1001), (1000, 4096), (3, 5)])
 def test_k0_kernel_equals_plain(cuda, r, w, salt):
@@ -250,7 +361,7 @@ def test_previous_tile_body_equals_plain_and_the_build_has_no_spills(cuda):
     from stormtpu_torch.kernels._build import kernel_resources
 
     used = kernel_resources("k2_mxu")
-    assert len(used) == 6  # k2_tri, k2_rect, k5 on the tile body and the previous one
+    assert len(used) == 6  # k2_tri, k2_rect, k5 on the tile body (k5 streaming) and the previous one
     assert all(v["spill_bytes"] == 0 for v in used.values())
     xp = np.zeros((320, 72), np.uint32)
     xp[:300, :70] = _words(300, 70, 0.5, seed=3)

@@ -50,6 +50,74 @@ def test_k1_tiles_equal_jax_interpret(n, ti, variant):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+def _tile_list(nb, order, seed):
+    """A tile list over nb row blocks: the whole triangle i-major, that
+    list shuffled (neighbours then rarely share a row block), or with its
+    tail cut to an odd length."""
+    ibs, jbs = triangular_tile_ids(nb)
+    if order == "shuffled":
+        perm = np.random.default_rng(seed).permutation(ibs.size)
+        ibs, jbs = ibs[perm], jbs[perm]
+    elif order == "odd":
+        keep = ibs.size - 1 if ibs.size % 2 == 0 else ibs.size - 2
+        ibs, jbs = ibs[:keep], jbs[:keep]
+    return np.ascontiguousarray(ibs), np.ascontiguousarray(jbs)
+
+
+@pytest.mark.parametrize("order", ("i-major", "shuffled", "odd"))
+@pytest.mark.parametrize("ti", (8, 40, 136))
+def test_k1_tile_rows_and_tile_lists_equal_jax_interpret(ti, order):
+    # the tile rows the CUDA kernel treats apart: part of a block's half
+    # (8, 40) and two sub-tile rows (136); any tile list is taken
+    nb, wk = 3, 128
+    xp = np.zeros((nb * ti, wk), np.uint32)
+    xp[: nb * ti - 3, :100] = _words(nb * ti - 3, 100, 0.4, seed=ti)
+    ibs, jbs = _tile_list(nb, order, seed=ti)
+    want = jd.count_tiles_pallas_dense(
+        jnp.asarray(xp), jnp.asarray(ibs), jnp.asarray(jbs),
+        tile_rows=ti, tile_words=wk, interpret=True, variant="rows",
+    )
+    got = td.count_tiles_pallas_dense(
+        _t(xp), torch.from_numpy(ibs), torch.from_numpy(jbs), tile_rows=ti, tile_words=wk,
+    )
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def _brute_force_units(ibs):
+    """Walk the list once: a tile leads, and takes the next tile along when
+    that one has the same row block."""
+    leads, t = [], 0
+    while t < len(ibs):
+        leads.append(t)
+        t += 2 if t + 1 < len(ibs) and ibs[t + 1] == ibs[t] else 1
+    return leads + [-1] * (len(ibs) - len(leads))
+
+
+@pytest.mark.parametrize("blocks", (1, 2, 5))
+@pytest.mark.parametrize("n", (0, 1, 2, 5, 37, 200))
+@pytest.mark.parametrize("order", ("sorted", "random"))
+def test_pair_units_equal_a_brute_force_pairing(n, blocks, order):
+    ibs = np.random.default_rng(n + blocks).integers(0, blocks, n).astype(np.int32)
+    if order == "sorted":
+        ibs = np.sort(ibs)
+    units = td.pair_units(torch.from_numpy(ibs))
+    assert units.dtype == torch.int32 and units.shape == (n,) and units.is_contiguous()
+    assert units.tolist() == _brute_force_units(ibs.tolist())
+
+
+def test_pair_units_of_the_triangle_fill_every_block_but_one_a_row():
+    nb = 9
+    ibs, _ = triangular_tile_ids(nb)
+    units = td.pair_units(torch.from_numpy(ibs)).numpy()
+    leads = units[units >= 0]
+    paired = np.array([t + 1 < ibs.size and ibs[t + 1] == ibs[t] for t in leads])
+    # row block i has nb - i tiles: one runs alone where that is odd
+    assert (~paired).sum() == sum((nb - i) % 2 for i in range(nb))
+    covered = np.concatenate([leads, leads[paired] + 1])
+    assert np.array_equal(np.sort(covered), np.arange(ibs.size))
+
+
 @pytest.mark.parametrize("n,w,density,cfg", [
     (1, 5, 0.5, EngineConfig()),
     (24, 22, 1.0, EngineConfig()),
