@@ -49,6 +49,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 11. timings of K5, K1 and K0 as in phase 6; K5's launch alone, its wrapper
     with the checked work list and with the read-back, apart; K1 beside its
     previous kernel, against the bound of the instruction it issues.
+12. ``BASELINE.json`` config 4 at full scale through the checksum sink: an
+    operand of 100,000 × 1,048,576 bits made on the card from the seed
+    (12.5 GiB padded), ``stream_count_checksums`` at superblock 4096: 325
+    stripes, 325 K2 launches, every sampled (i, j, count) triple equal to
+    the popcount of the two rows' AND (on the card, and for 64 of them by
+    numpy on downloaded rows); wall time, K2 time by CUDA events, G-pairs/s
+    and the share of the operation bound;
+13. ``stream_count_histogram`` on the same operand (mass n(n−1)/2), and on
+    its last four superblocks against a histogram built from one K2-rect
+    call on those rows;
+14. the disk route on phase 8's LD panel into temporary directories,
+    superblock 4096, uncompressed: ``kernel="mxu"`` with the operand
+    resident, the same with operand streaming (every stripe equal), each
+    recorded stage by stage and once more as a user runs it (stripe files
+    written by background threads while the walk goes on),
+    ``kernel="auto"`` (must resolve to ``clustered``: K5 launches, K2 does
+    not); all three load to phase 8's matrix; resume after deleting two
+    stripe files launches twice; a directory of the first 14,000 rows
+    extended to 16,384 recomputes four stripes; ``[breakdown]`` of each
+    route's stages as mean seconds a stripe;
+15. ``stream_count_checksums_clustered`` on the LD panel, stripe for stripe
+    equal to ``stream_count_checksums`` on the same padded operand.
 
 The lines before the last are a ``kernels`` JSON object and the card's
 ``name, power.limit``; the last line is the result object.
@@ -59,8 +81,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -96,6 +120,12 @@ K1_MS = (100_003, 262_161)
 K0_CASES = ((37, 1001), (1000, 4093), (1000, 32_771))
 LD_N, LD_M, LD_BLOCKS, LD_DENSITY = 16384, 1 << 20, 16, 0.3
 STREAM_R, STREAM_M = 16384, 1 << 20
+# BASELINE.json config 4, and the disk route's superblock and extend shapes
+CFG4_N, CFG4_M = 100_000, 1 << 20
+SUPERBLOCK = 4096
+CFG4_NUMPY_SAMPLES = 64
+HIST_BINS = 64
+EXTEND_OLD_N = 14_000
 
 
 def random_words(rng, n: int, m_bits: int, density: float) -> np.ndarray:
@@ -185,6 +215,282 @@ def exact_diff(torch, got, want) -> int:
     if err:
         raise AssertionError(f"kernel differs from its plain version by up to {err}")
     return err
+
+
+def breakdown(label: str, rec, per: int) -> None:
+    """One ``[breakdown]`` line: a recorded walk's stages as mean seconds
+    over ``per`` stripes (host clock, the device synchronised around each
+    stage, each stripe's file awaited), the kernel stage also by CUDA events."""
+    order = ("plan", "upload", "kernel", "assembly", "reduce", "read_back", "download", "save")
+    parts = [f"{k} {rec.seconds[k] / per:.5f}" for k in order if k in rec.seconds]
+    total = sum(rec.seconds.values())
+    holder = max(rec.seconds, key=rec.seconds.get)
+    print(f"[breakdown] {label}: mean s a stripe over {per} stripes: " + ", ".join(parts)
+          + f"; sum {total / per:.5f}; kernel by CUDA events "
+          f"{rec.device_ms.get('kernel', 0.0) / per:.3f} ms; the stage that holds a stripe: "
+          f"{holder} ({rec.seconds[holder] / total:.0%})")
+
+
+def stream_phases(torch, dev, cfg, rng, seed, bm_ld, ld_ref, k2_ops_per_s) -> dict:
+    """Phases 12 to 15: the streaming walks. Returns the launches of the
+    config-4 checksum walk (K2) and of the clustered disk route (K5)."""
+    import stormtpu_torch as st
+    from stormtpu_torch import stream
+    from stormtpu_torch.kernels import clustered, launch_counts, mxu, reset_launches
+    from stormtpu_torch.kernels.xla import pair_count_batch_xla
+    from stormtpu_torch.utils import round_up
+
+    sb = SUPERBLOCK
+    w4 = CFG4_M // 32
+
+    def expect_launches(what: str, **want) -> dict:
+        got = launch_counts()
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+        return got
+
+    # ------------------------------------------- 12 config 4, checksum sink
+    n4 = CFG4_N
+    need = 4 * round_up(n4, sb) * w4 + 4 * 4 * sb * sb + (1 << 30)
+    free = torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev) \
+        - torch.cuda.memory_allocated(dev)
+    if need > free:
+        n4 = int((free - 4 * 4 * sb * sb - (1 << 30)) // (4 * w4 * sb)) * sb
+        print(f"[config 4] the card has {free / 2**30:.1f} GiB free, the operand and a stripe's "
+              f"working set need {need / 2**30:.1f} GiB: taking {n4} rows instead of {CFG4_N}")
+        if n4 < sb:
+            raise AssertionError("not one superblock of 1,048,576 bits fits the card")
+    n4_pad = round_up(n4, sb)
+    n_super = n4_pad // sb
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    xd = torch.zeros((n4_pad, w4), dtype=torch.int32, device=dev)
+    for r in range(0, n4, sb):
+        rows = min(sb, n4 - r)
+        xd[r : r + rows] = torch.randint(-(1 << 31), 1 << 31, (rows, w4), dtype=torch.int32,
+                                         device=dev, generator=gen)
+    torch.cuda.synchronize()
+    print(f"[config 4] operand {n4} x {CFG4_M} bits, padded to {n4_pad} x {w4} words "
+          f"({xd.numel() * 4 / 2**30:.2f} GiB), made on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    stripes = n_super * (n_super + 1) // 2
+    tps = sb // cfg.k2_tile_rows
+    tiles4 = n_super * tps * (tps + 1) // 2 + (stripes - n_super) * tps * tps
+    ops4 = 2.0 * tiles4 * cfg.k2_tile_rows**2 * CFG4_M
+    bound4 = ops4 / k2_ops_per_s
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    man = stream.stream_count_checksums(xd, n4, CFG4_M, superblock_rows=sb, device=dev)
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    launches4 = expect_launches("config 4 checksum walk", k2_tri=stripes)["k2_tri"]
+    if len(man["stripes"]) != stripes or man["n_super"] != n_super:
+        raise AssertionError(f"config 4: {len(man['stripes'])} stripes, want {stripes}")
+    ii = torch.from_numpy(man["sample_ii"].astype(np.int64)).to(dev)
+    jj = torch.from_numpy(man["sample_jj"].astype(np.int64)).to(dev)
+    want = torch.cat([pair_count_batch_xla(xd[ii[s : s + 256]], xd[jj[s : s + 256]])
+                      for s in range(0, ii.numel(), 256)]).cpu().numpy()
+    if not np.array_equal(man["sample_vals"], want):
+        raise AssertionError("config 4: sampled counts differ from popcount(row AND row)")
+    pick = rng.choice(ii.numel(), size=min(CFG4_NUMPY_SAMPLES, ii.numel()), replace=False)
+    ah = xd[ii[pick]].cpu().numpy().view(np.uint32)
+    bh = xd[jj[pick]].cpu().numpy().view(np.uint32)
+    if not np.array_equal(man["sample_vals"][pick].astype(np.int64),
+                          np.bitwise_count(ah & bh).sum(axis=1, dtype=np.int64)):
+        raise AssertionError("config 4: sampled counts differ from numpy")
+    with stream.record_stages() as rec:
+        again = stream.stream_count_checksums(xd, n4, CFG4_M, superblock_rows=sb, device=dev)
+    if again["stripes"] != man["stripes"]:
+        raise AssertionError("config 4: a second walk gave other checksums")
+    k2_s = rec.device_ms["kernel"] / 1e3
+    pairs4 = n4 * (n4 - 1) // 2
+    print(f"[config 4] stream_count_checksums {n4} x {CFG4_M} bits at superblock {sb}: "
+          f"{stripes} stripes, k2_tri launches {launches4}, {tiles4} tiles; "
+          f"{ii.numel()} sampled triples exact on the card, {pick.size} of them by numpy; wall "
+          f"{wall4:.3f} s = {pairs4 / wall4 / 1e9:.3f} G-pairs/s; K2 summed by CUDA events "
+          f"{k2_s:.3f} s (recorded walk); bound {bound4:.3f} s (operations at the measured "
+          f"{k2_ops_per_s:.4g} op/s): the kernels stand at {bound4 / k2_s:.1%} of it, the walk "
+          f"at {bound4 / wall4:.1%}")
+    breakdown("config 4 checksum sink (recorded walk)", rec, rec.stripes)
+
+    # ------------------------------------------------- 13 histogram sink
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = stream.stream_count_histogram(xd, n4, CFG4_M, n_bins=HIST_BINS, superblock_rows=sb,
+                                         device=dev)
+    torch.cuda.synchronize()
+    wall_h = time.perf_counter() - t0
+    expect_launches("config 4 histogram walk", k2_tri=stripes)
+    if int(hist["hist"].sum()) != pairs4 or hist["pairs"] != pairs4:
+        raise AssertionError("config 4 histogram: mass is not n(n-1)/2")
+    # the last four superblocks (the ragged end of n among them) against one
+    # K2-rect call on those rows
+    r0 = max(0, n_super - 4) * sb
+    sub, n_sub = xd[r0:], n4 - r0
+    got = stream.stream_count_histogram(sub, n_sub, CFG4_M, n_bins=HIST_BINS,
+                                        superblock_rows=sb, device=dev)
+    full = mxu._count_block_padded(sub, sub, tile_rows=cfg.k2_tile_rows,
+                                   tile_words=cfg.k2_tile_words, variant=cfg.k2_variant)
+    idx = torch.arange(sub.shape[0], device=dev)
+    upper = (idx[:, None] < idx[None, :]) & (idx[None, :] < n_sub)
+    own = torch.bincount(torch.clamp(full[upper] // hist["bin_width"], max=HIST_BINS - 1),
+                         minlength=HIST_BINS).cpu().numpy()
+    if not np.array_equal(got["hist"], own):
+        raise AssertionError("histogram of the last superblocks differs from the K2-rect one")
+    top = int(np.argmax(hist["hist"]))
+    print(f"[config 4] stream_count_histogram: {HIST_BINS} bins of width {hist['bin_width']}, "
+          f"mass {pairs4} = n(n-1)/2, fullest bin {top} ({int(hist['hist'][top])} pairs); rows "
+          f"{r0}.. ({got['n_super'] * (got['n_super'] + 1) // 2} stripes, n {n_sub}) equal a "
+          f"histogram of one K2-rect call; wall {wall_h:.3f} s = "
+          f"{pairs4 / wall_h / 1e9:.3f} G-pairs/s")
+    del xd, sub, full, upper, ii, jj
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- 14 the disk route
+    n_ld = bm_ld.n
+    ld_super = round_up(n_ld, sb) // sb
+    ld_stripes = ld_super * (ld_super + 1) // 2
+
+    def loads_to_reference(label: str, out: str) -> None:
+        t0 = time.perf_counter()
+        if not np.array_equal(stream.load_streamed_matrix(out), ld_ref):
+            raise AssertionError(f"{label}: the loaded matrix differs from the clustered path's")
+        print(f"[disk route] {label}: load_streamed_matrix equals the clustered path's "
+              f"{n_ld} x {n_ld} matrix ({time.perf_counter() - t0:.2f} s)")
+
+    with tempfile.TemporaryDirectory() as resident, tempfile.TemporaryDirectory() as streamed:
+        walls = {}
+        for label, out, streaming in (("mxu, operand resident", resident, False),
+                                      ("mxu, operand streaming", streamed, True)):
+            reset_launches()
+            t0 = time.perf_counter()
+            with stream.record_stages() as rec:
+                man = stream.stream_count_matrix(
+                    bm_ld, out, superblock_rows=sb, kernel="mxu", compress=False,
+                    operand_streaming=streaming, device=dev)
+            walls[label] = time.perf_counter() - t0
+            expect_launches(label, k2_tri=ld_stripes, k5=0)
+            if man["operand_streaming"] is not streaming or len(man["completed"]) != ld_stripes:
+                raise AssertionError(f"{label}: manifest {man}")
+            breakdown(f"stream_count_matrix {label}, compress off", rec, rec.stripes)
+            with tempfile.TemporaryDirectory() as plain:  # the same walk, not recorded
+                t0 = time.perf_counter()
+                stream.stream_count_matrix(
+                    bm_ld, plain, superblock_rows=sb, kernel="mxu", compress=False,
+                    operand_streaming=streaming, device=dev)
+                wall_plain = time.perf_counter() - t0
+            print(f"[disk route] {label}: {ld_stripes} stripes of {sb} x {sb} int32 in "
+                  f"{walls[label]:.2f} s recorded, {wall_plain:.2f} s not recorded "
+                  f"({ld_stripes * 4 * sb * sb / wall_plain / 1e9:.2f} GB/s of stripes)")
+        for i in range(ld_super):
+            for j in range(i, ld_super):
+                with np.load(stream.stripe_path(resident, i, j)) as a, \
+                        np.load(stream.stripe_path(streamed, i, j)) as b:
+                    if not np.array_equal(a["counts"], b["counts"]):
+                        raise AssertionError(f"stripe ({i}, {j}) differs under operand streaming")
+        loads_to_reference("mxu, operand resident", resident)
+        loads_to_reference("mxu, operand streaming", streamed)
+        # resume: two stripes gone, two launches; compress on for those two
+        for i, j in ((0, 1), (ld_super - 1, ld_super - 1)):
+            os.remove(stream.stripe_path(resident, i, j))
+        reset_launches()
+        with stream.record_stages() as rec:
+            stream.stream_count_matrix(bm_ld, resident, superblock_rows=sb, kernel="mxu",
+                                       compress=True, operand_streaming=False, device=dev)
+        expect_launches("resume", k2_tri=2, k5=0)
+        breakdown("stream_count_matrix resume of 2 stripes, compress on", rec, rec.stripes)
+        for i, j in ((0, 1), (ld_super - 1, ld_super - 1)):
+            with np.load(stream.stripe_path(resident, i, j)) as a, \
+                    np.load(stream.stripe_path(streamed, i, j)) as b:
+                if not np.array_equal(a["counts"], b["counts"]):
+                    raise AssertionError(f"resumed stripe ({i}, {j}) differs")
+        print("[disk route] resume: 2 deleted stripes recomputed with 2 K2 launches, equal to "
+              "the streamed directory's")
+
+    with tempfile.TemporaryDirectory() as auto:
+        reset_launches()
+        t0 = time.perf_counter()
+        with stream.record_stages() as rec:
+            man = stream.stream_count_matrix(bm_ld, auto, superblock_rows=sb, kernel="auto",
+                                             compress=False, device=dev)
+        wall_c = time.perf_counter() - t0
+        if man["kernel"] != "clustered" or rec.launched < 1:
+            raise AssertionError(f"kernel='auto' resolved to {man['kernel']}, "
+                                 f"{rec.launched} stripes launched")
+        launches_k5 = expect_launches("auto (clustered)", k5=rec.launched, k2_tri=0)["k5"]
+        breakdown("stream_count_matrix auto -> clustered, compress off, a non-empty stripe "
+                  "(the empty stripes' work lists and saves are in the sums)", rec, rec.launched)
+        busy = sum(rec.seconds.values())
+        print(f"[disk route] auto -> clustered: {ld_stripes} stripes, {rec.launched} non-empty "
+              f"(k5 launches {launches_k5}), {man['work_items']} work items, {wall_c:.2f} s "
+              f"(recorded walk); K5's host side (work list, check, schedule, upload) "
+              f"{rec.seconds['plan'] / rec.launched * 1e3:.3f} ms a non-empty stripe against "
+              f"{rec.device_ms['kernel'] / rec.launched:.3f} ms of kernel: "
+              f"{rec.seconds['plan'] / busy:.1%} of the walk's stages")
+        loads_to_reference("auto -> clustered", auto)
+
+    with tempfile.TemporaryDirectory() as grown:
+        head = st.BitMatrix.from_packed(np.ascontiguousarray(bm_ld.packed[:EXTEND_OLD_N]),
+                                        bm_ld.m_bits)
+        old = stream.stream_count_matrix(head, grown, superblock_rows=sb, kernel="mxu",
+                                         compress=False, device=dev)
+        head.clear_device_cache()
+        last = EXTEND_OLD_N // sb
+        stale = sum(1 for i in range(old["n_super"]) for j in range(i, old["n_super"])
+                    if last in (i, j)) if EXTEND_OLD_N % sb else 0
+        fresh = ld_stripes - old["n_super"] * (old["n_super"] + 1) // 2
+        reset_launches()
+        man = stream.extend_streamed_matrix(bm_ld, grown, kernel="mxu", compress=False,
+                                            device=dev)
+        expect_launches("extend", k2_tri=stale + fresh, k5=0)
+        if man["n"] != n_ld:
+            raise AssertionError(f"extend: manifest {man}")
+        print(f"[disk route] extend {EXTEND_OLD_N} -> {n_ld} rows: {stale} stale and {fresh} "
+              f"new stripes recomputed with {stale + fresh} K2 launches")
+        loads_to_reference("extended directory", grown)
+
+    # ------------------------------------- 15 the clustered checksum sink
+    reset_launches()
+    t0 = time.perf_counter()
+    man_c = stream.stream_count_checksums_clustered(bm_ld, superblock_rows=sb, device=dev)
+    torch.cuda.synchronize()
+    wall_cc = time.perf_counter() - t0
+    ran = sum(not r["skipped"] for r in man_c["stripes"])
+    expect_launches("clustered checksum sink", k5=ran, k2_tri=0)
+    ti5, wk5 = mxu.k2_tile_shape(cfg, bm_ld.n, bm_ld.n_words)
+    w_pad5 = (-(-bm_ld.n_words // wk5) + 1) * wk5
+    same = clustered.padded_operand(bm_ld, round_up(n_ld, sb), w_pad5, dev)
+    t0 = time.perf_counter()
+    man_d = stream.stream_count_checksums(same, n_ld, bm_ld.m_bits, superblock_rows=sb,
+                                          device=dev)
+    torch.cuda.synchronize()
+    wall_cd = time.perf_counter() - t0
+    if [(r["i"], r["j"], r["checksum"]) for r in man_c["stripes"]] != \
+            [(r["i"], r["j"], r["checksum"]) for r in man_d["stripes"]]:
+        raise AssertionError("the two checksum sinks differ")
+    if any(r["checksum"] for r in man_c["stripes"] if r["skipped"]):
+        raise AssertionError("a skipped stripe reports a checksum other than 0")
+    for m in (man_c, man_d):
+        if not np.array_equal(m["sample_vals"], ld_ref_samples(ld_ref, m)):
+            raise AssertionError(f"{m['kernel']} checksum sink: samples differ from the matrix")
+    print(f"[checksum sinks] LD panel at superblock {sb}: clustered sink {wall_cc:.3f} s "
+          f"({ran} of {len(man_c['stripes'])} stripes ran K5, {man_c['work_items']} items), K2 "
+          f"sink {wall_cd:.3f} s on the same padded operand: checksums equal stripe for stripe, "
+          f"skipped stripes 0, all samples equal the clustered path's matrix")
+    return {"k2_tri": launches4, "k5": launches_k5}
+
+
+def ld_ref_samples(ref: np.ndarray, man: dict) -> np.ndarray:
+    """The reference matrix at a checksum manifest's sample coordinates
+    (rows past n are padding: count 0)."""
+    n = ref.shape[0]
+    ii, jj = man["sample_ii"], man["sample_jj"]
+    inside = (ii < n) & (jj < n)
+    out = np.zeros(ii.size, dtype=np.int32)
+    out[inside] = ref[ii[inside], jj[inside]]
+    return out
 
 
 def main(argv=None) -> int:
@@ -686,6 +992,8 @@ def main(argv=None) -> int:
           f"{plan.n_slots}, tile {plan.ti}x{plan.wk}, {plan.nb} row blocks x {plan.ng} "
           f"K-groups; {half} within-block + {half} cross-block sampled pairs, diagonal, "
           f"symmetry exact; first call wall {wall_ld:.3f} s")
+    # kept for the disk routes of phase 14, as a pageable copy (see main_out)
+    ld_ref = ld_out.copy()
     t0 = time.perf_counter()
     again = st.intersect_count_matrix(bm_ld, device=dev)
     wall_ld_fresh = time.perf_counter() - t0
@@ -922,6 +1230,9 @@ def main(argv=None) -> int:
     del sa, sb, pc
     torch.cuda.empty_cache()
 
+    stream_launches = stream_phases(torch, dev, cfg, rng, args.seed, bm_ld, ld_ref, k2_ops_per_s)
+    del ld_ref
+
     src_k2 = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
     src_k1 = "stormtpu_torch/kernels/csrc/k1_dense.cu"
     int_mm_note = "torch._int_mm on unpacked int8"
@@ -929,13 +1240,14 @@ def main(argv=None) -> int:
         dict(name="k2_tri", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/mxu.py:202", launches=launches_tri,
              max_abs_err=max_err["k2_tri"], library=int_mm_note + ", full square",
-             **timings["k2_tri"]),
+             stream_launches=stream_launches["k2_tri"], **timings["k2_tri"]),
         dict(name="k2_rect", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/mxu.py:248", launches=launches_rect,
              max_abs_err=max_err["k2_rect"], library=int_mm_note, **timings["k2_rect"]),
         dict(name="k5", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/clustered.py:165", launches=launches_k5,
-             max_abs_err=max_err["k5"], **timings["k5"]),
+             max_abs_err=max_err["k5"], stream_launches=stream_launches["k5"],
+             **timings["k5"]),
         dict(name="k1", route="cuda", source=src_k1,
              replaces="stormtpu/kernels/dense.py:140", launches=launches_k1,
              max_abs_err=max_err["k1"], **timings["k1"]),

@@ -4,9 +4,11 @@ bitmap intersection-count engine, for one NVIDIA H100.
 Same surface as the JAX package ``stormtpu`` (which it never imports):
 build a :class:`BitMatrix`, then :func:`intersect_count_matrix`,
 :func:`count_block` or :func:`pair_count`. Entry points run on the CUDA
-card unless the caller passes ``device="cpu"``; the K2 kernel is a
-hand-written sm_90a CUDA kernel (``kernels/csrc/k2_mxu.cu``), built with
-``nvcc`` on first use.
+card unless the caller passes ``device="cpu"``; the kernels are
+hand-written sm_90a CUDA kernels (``kernels/csrc/``), built with ``nvcc``
+on first use. Matrices whose N×N result cannot be one array go through
+``stormtpu_torch.stream`` (superblock stripes on disk, resumable; its
+directories are interchangeable with ``stormtpu.stream``'s).
 """
 
 from stormtpu_torch.api import count_block, intersect_count_matrix, pair_count

@@ -113,7 +113,13 @@ def intersect_count_matrix(
             f"strategy {strategy!r} is not ported to stormtpu_torch yet "
             f"(ROADMAP.md, {_NOT_PORTED[strategy]})"
         )
-    from stormtpu_torch.stream import STREAM_NOT_PORTED, require_device_budget
+    from stormtpu_torch.stream import require_device_budget
+
+    stream_hint = (
+        "use stormtpu_torch.stream.stream_count_matrix (resumable stripes; "
+        "kernel='auto' keeps the clustered skip); the stream_query reduced "
+        "queries are not yet ported to stormtpu_torch"
+    )
 
     if strategy == "clustered":
         # K5 pads and caches its own operand and skips empty K-groups per
@@ -137,7 +143,7 @@ def intersect_count_matrix(
                     plan.n_slots, plan.ti, plan.nb, bm.n
                 )
                 what = "the K5 operand, the work-list count tiles and the N² count matrix"
-            require_device_budget(need, f"N={bm.n}: {what}", STREAM_NOT_PORTED, device=dev)
+            require_device_budget(need, f"N={bm.n}: {what}", stream_hint, device=dev)
         return count_matrix_clustered(bm, config=cfg, plan=plan, device=dev)
 
     if bm.n > 2:
@@ -156,7 +162,7 @@ def intersect_count_matrix(
         else:
             need = 4 * bm.n * bm.n + 4 * bm.n * bm.n_words
             what = "the N² count matrix plus operand"
-        require_device_budget(need, f"N={bm.n}: {what}", STREAM_NOT_PORTED, device=dev)
+        require_device_budget(need, f"N={bm.n}: {what}", stream_hint, device=dev)
     packed_np = bm.packed
     if bm.n > 1:
         # Clustered-sparsity compaction: drop all-empty word columns

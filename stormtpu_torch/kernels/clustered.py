@@ -67,7 +67,9 @@ __all__ = [
     "LAUNCHES",
     "ClusteredPlan",
     "DeviceWorklist",
+    "StripeWorklist",
     "build_clustered_plan",
+    "build_stripe_worklist",
     "check_worklist",
     "clustered_work_fraction",
     "count_matrix_clustered",
@@ -75,6 +77,7 @@ __all__ = [
     "count_tiles_worklist_plain",
     "device_operand",
     "device_worklist",
+    "padded_operand",
     "reset_launches",
     "schedule_units",
 ]
@@ -211,6 +214,86 @@ def build_clustered_plan(
         ibs_w=ibs_w, jbs_w=jbs_w, gsel_w=gsel_w, slots_w=slots_w,
         first_w=first_w, n_slots=n_slots, n_work=n_work,
         work_fraction=work_fraction,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class StripeWorklist:
+    """Work list for ONE superblock stripe of the streaming walk
+    (``stream.py``): the summary-AND skip at streaming scale, where the
+    N×N result cannot be one matrix and :class:`ClusteredPlan` does not
+    apply. A copy of the JAX package's, bucket padding included (slot and
+    item counts padded to 1/8-octave buckets: padding slots are
+    zero-written by one filler item each, tail items are exact no-ops into
+    the last slot); :func:`device_worklist` hands the card the real items
+    ``[:n_work]`` and ``n_vis`` slots only."""
+
+    ibs: np.ndarray        # int32 [T_pad] GLOBAL row-block ids
+    jbs: np.ndarray        # int32 [T_pad]
+    gsel: np.ndarray       # int32 [T_pad] K-group (ng = zero pad group)
+    slots: np.ndarray      # int32 [T_pad] ascending
+    first: np.ndarray      # int32 [T_pad]
+    vis_loc_i: np.ndarray  # int32 [n_vis] visited LOCAL tile coords
+    vis_loc_j: np.ndarray  # int32 [n_vis]
+    n_slots: int           # bucket-padded output slots
+    n_vis: int             # real visited pairs (prefix of the slots)
+    n_work: int            # real items
+
+
+def build_stripe_worklist(
+    occ: np.ndarray, base_i: int, base_j: int, tps: int, triangular: bool
+) -> Optional[StripeWorklist]:
+    """Summary-AND work list for the superblock stripe whose row blocks
+    are ``[base_i, base_i+tps)`` × ``[base_j, base_j+tps)`` of the global
+    per-tile-block occupancy ``occ`` (bool [nb, ng]). ``triangular``
+    restricts to local upper-triangular pairs (diagonal stripes — the
+    caller mirrors at assembly). None when no (pair, group) co-occupies:
+    the stripe is exactly zero and need not touch the device."""
+    ng = occ.shape[1]
+    if triangular:
+        loc_i, loc_j = np.triu_indices(tps)
+        loc_i = loc_i.astype(np.int32)
+        loc_j = loc_j.astype(np.int32)
+    else:
+        loc_i, loc_j = np.meshgrid(
+            np.arange(tps, dtype=np.int32),
+            np.arange(tps, dtype=np.int32),
+            indexing="ij",
+        )
+        loc_i, loc_j = loc_i.ravel(), loc_j.ravel()
+    gi = base_i + loc_i
+    gj = base_j + loc_j
+    co = occ[gi] & occ[gj]                     # [P, ng] summary AND
+    pair_idx, group_idx = np.nonzero(co)       # sorted pair-major
+    n_work = pair_idx.size
+    if n_work == 0:
+        return None
+    visited, slot_of_item = np.unique(pair_idx, return_inverse=True)
+    n_vis = visited.size
+    first = np.empty(n_work, dtype=np.int32)
+    first[0] = 1
+    first[1:] = (slot_of_item[1:] != slot_of_item[:-1]).astype(np.int32)
+
+    n_slots = quantize_bucket(n_vis)
+    n_fill = n_slots - n_vis
+    t_pad = quantize_bucket(n_work + n_fill)
+    ibs = np.full(t_pad, gi[visited[-1]], dtype=np.int32)
+    jbs = np.full(t_pad, gj[visited[-1]], dtype=np.int32)
+    gsel = np.full(t_pad, ng, dtype=np.int32)
+    slots = np.full(t_pad, n_slots - 1, dtype=np.int32)
+    first_w = np.zeros(t_pad, dtype=np.int32)
+    ibs[:n_work] = gi[pair_idx]
+    jbs[:n_work] = gj[pair_idx]
+    gsel[:n_work] = group_idx
+    slots[:n_work] = slot_of_item
+    first_w[:n_work] = first
+    if n_fill:
+        slots[n_work : n_work + n_fill] = np.arange(n_vis, n_slots, dtype=np.int32)
+        first_w[n_work : n_work + n_fill] = 1
+    return StripeWorklist(
+        ibs=ibs, jbs=jbs, gsel=gsel, slots=slots, first=first_w,
+        vis_loc_i=loc_i[visited], vis_loc_j=loc_j[visited],
+        n_slots=n_slots, n_vis=n_vis, n_work=n_work,
     )
 
 
@@ -417,44 +500,70 @@ def count_tiles_worklist(
 
 
 # ------------------------------------------------------------------ the path
-def device_operand(bm, plan: ClusteredPlan, device) -> torch.Tensor:
-    """``bm.packed`` zero-padded to the plan's [n_pad, w_pad] (the last
-    K-group all zero) as int32 words on ``device``, padded there and
-    cached on the matrix: repeated calls do not upload it again."""
+def padded_operand(bm, n_pad: int, w_pad: int, device) -> torch.Tensor:
+    """``bm.packed`` zero-padded to [n_pad, w_pad] as int32 words on
+    ``device``, padded there and cached on the matrix: repeated calls do
+    not upload it again."""
 
     def build():
-        xp = torch.zeros((plan.n_pad, plan.w_pad), dtype=torch.int32, device=device)
+        xp = torch.zeros((n_pad, w_pad), dtype=torch.int32, device=device)
         xp[: bm.n, : bm.n_words] = to_device_words(bm.packed, device)
         return xp
 
-    return bm.device_cached(("padded2dz", plan.n_pad, plan.w_pad), build, device)
+    return bm.device_cached(("padded2dz", n_pad, w_pad), build, device)
 
 
-def device_worklist(plan: ClusteredPlan, device) -> DeviceWorklist:
-    """The plan's real work items (ibs, jbs, gsel, slots, first) on
-    ``device``, for ``plan.slot_ibs.size`` slots: checked here, on the
-    plan's host arrays, and on the card scheduled for the kernel, so that
-    :func:`count_tiles_worklist` reads nothing back.
+def device_operand(bm, plan: ClusteredPlan, device) -> torch.Tensor:
+    """:func:`padded_operand` at the plan's [n_pad, w_pad] (the last
+    K-group all zero)."""
+    return padded_operand(bm, plan.n_pad, plan.w_pad, device)
 
-    The plan's bucket padding (one filler item per pad slot, then no-op
-    tail items into the last slot) bounds the JAX package's compile
-    shapes. The CUDA kernel compiles once and zeroes a slot no item
-    visits, so the padding is pure cost here, and a serial one: every
-    tail item lands in the last slot, whose blocks walk them one by one."""
+
+def device_worklist(
+    plan, device, *, nb: Optional[int] = None, ng: Optional[int] = None,
+    tile_rows: Optional[int] = None, ibs_shift: int = 0, jbs_shift: int = 0,
+) -> DeviceWorklist:
+    """The real work items (ibs, jbs, gsel, slots, first) of a
+    :class:`ClusteredPlan` or a :class:`StripeWorklist` on ``device``, for
+    its visited slots only: checked here, on the host arrays, and on the
+    card scheduled for the kernel, so that :func:`count_tiles_worklist`
+    reads nothing back. The five arrays go up in one copy.
+
+    A stripe's work list carries no geometry: ``nb``, ``ng`` (row blocks
+    and K-groups of the operand it will run on, the zero pad group
+    included) and ``tile_rows`` say it, and ``ibs_shift`` / ``jbs_shift``
+    are subtracted from its global row-block ids where that operand is a
+    slice of the matrix (operand streaming: the two-slice buffer).
+
+    The bucket padding (one filler item per pad slot, then no-op tail
+    items into the last slot) bounds the JAX package's compile shapes. The
+    CUDA kernel compiles once and zeroes a slot no item visits, so the
+    padding is pure cost here, and a serial one: every tail item lands in
+    the last slot, whose blocks walk them one by one."""
     k = plan.n_work
-    host = [a[:k] for a in (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)]
-    n_slots = plan.slot_ibs.size
-    # ids up to the operand's pad group (device_operand) are in range
-    geometry = dict(n_slots=n_slots, nb=plan.nb, ng=plan.w_pad // plan.wk)
+    if isinstance(plan, ClusteredPlan):
+        arrays = (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)
+        n_slots, tile_rows, nb = plan.slot_ibs.size, plan.ti, plan.nb
+        # ids up to the operand's pad group (device_operand) are in range
+        ng = plan.w_pad // plan.wk
+    else:
+        if nb is None or ng is None or tile_rows is None:
+            raise ValueError("a stripe work list needs nb, ng and tile_rows")
+        arrays = (plan.ibs, plan.jbs, plan.gsel, plan.slots, plan.first)
+        n_slots = plan.n_vis
+    host = np.stack([a[:k] for a in arrays])
+    host[0] -= ibs_shift
+    host[1] -= jbs_shift
+    geometry = dict(n_slots=n_slots, nb=nb, ng=ng)
     starts = check_worklist(*host, **geometry)
     dev = torch.device(device)
-    tensors = tuple(torch.from_numpy(a).to(dev) for a in host)
+    tensors = tuple(torch.from_numpy(host).to(dev))
     units = None
     if dev.type == "cuda":
-        units = torch.from_numpy(schedule_units(starts, _k2_sub_tiles(plan.ti))).to(dev)
+        units = torch.from_numpy(schedule_units(starts, _k2_sub_tiles(tile_rows))).to(dev)
     return DeviceWorklist(
         tensors=tensors, versions=tuple(t._version for t in tensors),
-        tile_rows=plan.ti, starts=starts, units=units, **geometry,
+        tile_rows=tile_rows, starts=starts, units=units, **geometry,
     )
 
 

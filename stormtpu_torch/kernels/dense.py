@@ -37,9 +37,10 @@ import torch
 
 from stormtpu_torch.config import EngineConfig, default_config
 from stormtpu_torch.kernels.mxu import (
+    DeviceTileIds,
     _check_cuda_ids,
     _check_cuda_operand,
-    _check_tile_ids,
+    _check_ids,
     _pad,
 )
 from stormtpu_torch.kernels.xla import popcount32
@@ -165,11 +166,13 @@ def count_tiles_pallas_dense(
     tile_words: int,
     variant: str = "rows",
     previous_body: bool = False,
+    checked: Optional[DeviceTileIds] = None,
 ) -> torch.Tensor:
     """T count tiles int32 [T, TI, TI] for row-block pairs (ibs[t], jbs[t])
     of a padded packed matrix int32 [N_pad, W_pad]. TI is any positive
     multiple of 8; WK a positive multiple of 4 words (the kernel reads
-    16-byte vectors)."""
+    16-byte vectors). ``checked`` (from ``mxu.device_tile_ids``) stands in
+    for the id check, which otherwise reads back from the card."""
     if variant not in _VARIANTS:
         raise ValueError(f"unknown K1 variant {variant!r}; want one of {_VARIANTS}")
     n_pad, w_pad = packed.shape
@@ -182,7 +185,7 @@ def count_tiles_pallas_dense(
             f"shape {tuple(packed.shape)} is not a multiple of the tile "
             f"({tile_rows}, {tile_words})"
         )
-    _check_tile_ids("count_tiles_pallas_dense", ibs, jbs, n_pad // tile_rows)
+    _check_ids("count_tiles_pallas_dense", ibs, jbs, n_pad // tile_rows, checked)
     if packed.device.type == "cpu":
         return count_tiles_dense_plain(
             packed, ibs, jbs, tile_rows=tile_rows, tile_words=tile_words

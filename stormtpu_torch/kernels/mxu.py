@@ -31,6 +31,7 @@ and has no effect here — both compute the same counts.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -47,6 +48,8 @@ from stormtpu_torch.utils import (
 
 __all__ = [
     "LAUNCHES",
+    "DeviceTileIds",
+    "device_tile_ids",
     "k2_tile_shape",
     "count_tiles_pallas_mxu",
     "count_tiles_plain",
@@ -102,6 +105,63 @@ def _check_tile_ids(name, ibs: torch.Tensor, jbs: torch.Tensor, nb: int) -> None
         and max(int(ibs.max()), int(jbs.max())) < nb
     ):
         raise ValueError(f"{name}: tile ids must lie in [0, {nb})")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceTileIds:
+    """A tile list (ibs, jbs) on a device whose ids were checked on the
+    host before the upload, with the row-block count they were checked
+    against. The K2 and K1 tile wrappers take it as ``checked=`` in place
+    of their own check, which reads four values back from the device."""
+
+    ibs: torch.Tensor
+    jbs: torch.Tensor
+    versions: tuple         # each tensor's in-place version when checked
+    nb: int                 # row blocks the ids were checked against
+
+    def __iter__(self):
+        return iter((self.ibs, self.jbs))
+
+    def vouch(self, name, ibs: torch.Tensor, jbs: torch.Tensor, nb: int) -> None:
+        """Raise unless ``ibs`` and ``jbs`` are the tensors that were
+        checked, unchanged since, and ``nb`` the count they were checked
+        against."""
+        if ibs is not self.ibs or jbs is not self.jbs:
+            raise ValueError(f"{name}: checked= belongs to other tile-id tensors")
+        if (ibs._version, jbs._version) != self.versions:
+            raise ValueError(f"{name}: a tile-id tensor was written to after its check")
+        if nb != self.nb:
+            raise ValueError(
+                f"{name}: checked= was made for {self.nb} row blocks, the operand has {nb}"
+            )
+
+
+def device_tile_ids(ibs: np.ndarray, jbs: np.ndarray, nb: int, device) -> DeviceTileIds:
+    """Check a tile list on the host (1-D, equal length, ids in
+    ``[0, nb)``; raises ``ValueError`` otherwise) and upload it to
+    ``device`` in one copy, as int32."""
+    ibs = np.ascontiguousarray(ibs, dtype=np.int32)
+    jbs = np.ascontiguousarray(jbs, dtype=np.int32)
+    if ibs.shape != jbs.shape or ibs.ndim != 1:
+        raise ValueError("device_tile_ids: ibs and jbs must be 1-D of equal length")
+    if ibs.size and not (
+        0 <= min(ibs.min(), jbs.min()) and max(ibs.max(), jbs.max()) < nb
+    ):
+        raise ValueError(f"device_tile_ids: tile ids must lie in [0, {nb})")
+    both = torch.from_numpy(np.stack([ibs, jbs])).to(device)
+    return DeviceTileIds(
+        ibs=both[0], jbs=both[1], versions=(both[0]._version, both[1]._version), nb=nb
+    )
+
+
+def _check_ids(name, ibs, jbs, nb: int, checked: Optional[DeviceTileIds]) -> None:
+    """The tile wrappers' id check: ``checked`` vouches for ids that were
+    checked on the host; bare tensors are checked here, with a read-back
+    when they lie on the card."""
+    if checked is None:
+        _check_tile_ids(name, ibs, jbs, nb)
+    else:
+        checked.vouch(name, ibs, jbs, nb)
 
 
 def _check_cuda_ids(device: torch.device, **ids: torch.Tensor) -> None:
@@ -195,12 +255,16 @@ def count_tiles_pallas_mxu(
     tile_words: int,
     variant: str = "concat",
     previous_body: bool = False,
+    checked: Optional[DeviceTileIds] = None,
 ) -> torch.Tensor:
     """T count tiles int32 [T, TI, TI] for row-block pairs (ibs[t], jbs[t])
-    of a padded packed matrix int32 [N_pad, W_pad]."""
+    of a padded packed matrix int32 [N_pad, W_pad]. The ids are checked on
+    every call, after a read-back when they lie on the card, unless
+    ``checked`` (from :func:`device_tile_ids`) says that these very tensors
+    were checked on the host before their upload."""
     _check_variant(variant)
     _check_geometry("count_tiles_pallas_mxu", packed, tile_rows, tile_words)
-    _check_tile_ids("count_tiles_pallas_mxu", ibs, jbs, packed.shape[0] // tile_rows)
+    _check_ids("count_tiles_pallas_mxu", ibs, jbs, packed.shape[0] // tile_rows, checked)
     if packed.device.type == "cpu":
         return count_tiles_plain(
             packed, ibs, jbs, tile_rows=tile_rows, tile_words=tile_words

@@ -1,25 +1,95 @@
-"""Device-memory refusal guard (the only part of the JAX package's
-``stream.py`` ported so far).
+"""Streaming all-pairs walk with checkpoint/resume (port of
+``stormtpu/stream.py``).
 
-The streaming route itself — superblock stripes, checkpoint/resume,
-operand streaming — is not ported yet, so a refusal here names it as
-such instead of pointing at a route the port does not have.
+For large N the N×N count matrix cannot be one array (100k rows → 40 GB of
+int32), so results are produced as **superblock stripes** written to disk
+one by one, keyed by (row superblock, column superblock). A re-run resumes
+at stripe granularity by skipping the stripe files that exist.
+
+Output format, shared with the JAX package file for file (a directory
+half written by one package is resumed, loaded and extended by the other):
+one ``stripe_{I:05d}_{J:05d}.npz`` per superblock pair (upper triangle
+only; mirror at read time) plus ``manifest.json``. A dense stripe holds
+``counts, i, j``; a clustered one its visited tiles ``tiles, loc_i,
+loc_j, i, j``; the JAX package's ``sparse_outer`` stripes (``coo_i, coo_j,
+coo_v, i, j``) are loaded too, though that walk itself waits for the K4
+host tier.
+
+On the card a stripe's tiles come from the hand-written kernels through
+their wrappers (K2 for ``kernel="mxu"``, K1 for ``"dense"``, K5 for
+``"clustered"``), the stripe is assembled there and downloaded once; the
+tile ids and work lists are checked on the host before their upload, so
+nothing is read back from the card between a stripe's launch and its
+download. Every entry point takes ``device=None`` (the card;
+``RuntimeError`` without one) or ``device="cpu"``, where each wrapper
+takes its plain version.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import contextlib
+import json
 import os
+import time
+from typing import Callable, Iterator, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["require_device_budget"]
-
-STREAM_NOT_PORTED = (
-    "the streaming route (stormtpu.stream / stormtpu.stream_query in the "
-    "JAX package) is not yet ported to stormtpu_torch"
+from stormtpu_torch.config import EngineConfig, default_config
+from stormtpu_torch.layout import BitMatrix, to_device_words
+from stormtpu_torch.utils import (
+    assemble_stripe,
+    assemble_stripe_torch,
+    download,
+    resolve_device,
+    round_up,
+    triangular_tile_ids,
 )
 
+__all__ = [
+    "stream_count_matrix",
+    "stream_count_checksums",
+    "stream_count_checksums_clustered",
+    "stream_count_histogram",
+    "extend_streamed_matrix",
+    "load_streamed_matrix",
+    "stripe_path",
+    "require_device_budget",
+    "record_stages",
+]
 
+# Stripe files are written on background threads while the walk goes on
+# (``_StripeWriter``): at most this many at once, holding at most this many
+# bytes of finished stripes between them.
+_WRITERS = 4
+_WRITE_AHEAD_BYTES = 1 << 30
+
+_STREAM_KERNELS = ("mxu", "dense", "xla_int8", "xla_popcount", "clustered", "sparse_outer")
+
+
+def stripe_path(out_dir: str, i: int, j: int) -> str:
+    return os.path.join(out_dir, f"stripe_{i:05d}_{j:05d}.npz")
+
+
+def _content_fingerprint(bm: BitMatrix) -> str:
+    """Cheap content key for resume/extend directories: shape alone is
+    not identity (a regenerated same-shape matrix must NOT silently
+    reuse stale stripes). Row popcounts catch any bit-count change; the
+    boundary-row CRCs catch same-popcount edits at the ends. Not
+    cryptographic — a safety net, not a proof."""
+    import zlib
+
+    h = zlib.crc32(np.ascontiguousarray(bm.row_nnz).tobytes())
+    if bm.n:
+        h = zlib.crc32(np.ascontiguousarray(bm.packed[0]).tobytes(), h)
+        h = zlib.crc32(np.ascontiguousarray(bm.packed[-1]).tobytes(), h)
+    return f"{int(bm.nnz)}-{h:08x}"
+
+
+# ------------------------------------------------------------ device budgets
 def _device_refuse_budget(device) -> int:
     """Bytes a single-shot route may allocate on ``device``.
 
@@ -50,3 +120,1147 @@ def require_device_budget(
             f"{what} (~{need_bytes / (1 << 30):.1f} GiB) exceeds the "
             f"device budget ({budget / (1 << 30):.1f} GiB); {hint}"
         )
+
+
+def _wants_operand_streaming(n_pad: int, w_pad: int, sb: int, device) -> bool:
+    """Whether the walk should keep only two superblock slices on the
+    device: when the padded operand and a stripe's working set (its tile
+    stack, the assembled stripe, two slices) pass what the device has
+    free. ``STORMTPU_DEVICE_OPERAND_BUDGET_BYTES`` (the variable the JAX
+    package reads) instead sets a ceiling for the operand alone."""
+    operand = 4 * n_pad * w_pad
+    env = os.environ.get("STORMTPU_DEVICE_OPERAND_BUDGET_BYTES")
+    if env:
+        return operand > int(env)
+    working = 4 * (2 * sb * sb + 2 * sb * w_pad)
+    return operand + working > _device_refuse_budget(device)
+
+
+# ------------------------------------------------------------- stage timing
+class StageTimes:
+    """What :func:`record_stages` collects over the walks run inside it,
+    summed over their stripes: ``seconds[stage]`` on the host clock with
+    the device synchronised at both ends of the stage, ``device_ms[stage]``
+    by CUDA events around the same stage (card only), ``stripes`` computed
+    (resumed ones are not) and ``launched``, those that ran a kernel."""
+
+    def __init__(self) -> None:
+        self.seconds: dict[str, float] = {}
+        self.device_ms: dict[str, float] = {}
+        self.stripes = 0
+        self.launched = 0
+
+
+_recorder: Optional[StageTimes] = None
+
+
+@contextlib.contextmanager
+def record_stages() -> Iterator[StageTimes]:
+    """Measure the stages of every walk run in this context. A measuring
+    tool: a recorded walk runs its stages one after another (it
+    synchronises the device around each stage and waits for each stripe's
+    file before it goes on), so it is slower than a plain one."""
+    global _recorder
+    previous, _recorder = _recorder, StageTimes()
+    try:
+        yield _recorder
+    finally:
+        _recorder = previous
+
+
+@contextlib.contextmanager
+def _stage(name: str, dev: torch.device):
+    rec = _recorder
+    if rec is None:
+        yield
+        return
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    yield
+    if on_card:
+        stop.record()
+        torch.cuda.synchronize(dev)
+        rec.device_ms[name] = rec.device_ms.get(name, 0.0) + start.elapsed_time(stop)
+    rec.seconds[name] = rec.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
+def _count_stripe(launched: bool) -> None:
+    if _recorder is not None:
+        _recorder.stripes += 1
+        _recorder.launched += bool(launched)
+
+
+# ------------------------------------------------------------- host helpers
+def default_hist_bin_width(m_bits: int, n_bins: int) -> int:
+    """Uniform bin width covering [0, m_bits] in ``n_bins`` (a pair
+    count can equal m_bits)."""
+    return max(1, -(-(m_bits + 1) // n_bins))
+
+
+def cap_hist_superblock(sb: int, unit: int) -> int:
+    """Largest multiple of ``unit`` ≤ ``sb`` whose square stays below
+    2³¹ (the JAX package's histogram sinks hold a stripe's bin partials
+    in int32, and the port keeps its geometry). Raises when ``unit``
+    itself is too large to satisfy the bound."""
+    cap = (46340 // unit) * unit  # floor(sqrt(2^31 − 1)) = 46340
+    if cap <= 0:
+        raise ValueError(
+            f"histogram stripe unit {unit} already exceeds the int32 "
+            f"pair-count bound (unit² ≥ 2³¹) — use fewer row shards or "
+            f"the ring route"
+        )
+    return min(max(sb, unit), cap)
+
+
+def _host_superblock(
+    packed: np.ndarray, n: int, superblock_rows: int, w_pad: int, i: int,
+    out: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Zero-padded host slice [superblock_rows, w_pad] of row-superblock
+    ``i`` of a packed uint32 [n, W] matrix, written into ``out`` (every
+    element of it) when given."""
+    if out is None:
+        out = np.empty((superblock_rows, w_pad), dtype=np.uint32)
+    r0 = i * superblock_rows
+    k = max(0, min(n, r0 + superblock_rows) - r0)
+    w = packed.shape[1]
+    out[:k, :w] = packed[r0 : r0 + k]
+    out[:k, w:] = 0
+    out[k:] = 0
+    return out
+
+
+def _superblock_pairs(n_super: int) -> Iterator[tuple[int, int]]:
+    for i in range(n_super):
+        for j in range(i, n_super):
+            yield i, j
+
+
+def _stripe_tile_ids(tps: int, diagonal: bool) -> tuple[np.ndarray, np.ndarray]:
+    """Local tile coordinates int32 of a stripe's tile list: the upper
+    triangle of a diagonal stripe, the whole tps × tps grid otherwise."""
+    if diagonal:
+        return triangular_tile_ids(tps)
+    loc_i, loc_j = np.meshgrid(
+        np.arange(tps, dtype=np.int32), np.arange(tps, dtype=np.int32), indexing="ij"
+    )
+    return loc_i.ravel(), loc_j.ravel()
+
+
+def _auto_stream_kernel(m_bits: int) -> str:
+    """The dense stripe kernel ``auto`` starts from: the JAX package's rule
+    without a tuning table (the port has none yet). The plain forms unpack
+    8× operands or broadcast a whole stripe, so they serve small M only."""
+    from stormtpu_torch.kernels import MXU_XLA_MAX_BITS
+
+    return "xla_int8" if m_bits <= MXU_XLA_MAX_BITS else "mxu"
+
+
+def _resolve_stream_kernel(bm: BitMatrix, kernel: str, cfg: EngineConfig) -> str:
+    """The streaming walk's kernel-resolution policy, factored out so
+    callers that must PREDICT the geometry (``extend_streamed_matrix``)
+    resolve identically to the walk itself. ``auto`` never names
+    ``sparse_outer`` (the port has no native host tier yet)."""
+    if kernel == "auto":
+        kernel = _auto_stream_kernel(bm.m_bits)
+        # summary-AND skip at streaming scale: when most (tile pair,
+        # K-group) cells are co-empty the work-list stripes win by about
+        # 1/fraction over any dense stripe walk — the single-matrix
+        # dispatch's statistic
+        from stormtpu_torch.kernels.clustered import clustered_work_fraction
+
+        wf = clustered_work_fraction(bm, cfg)
+        if wf is not None and wf < cfg.clustered_work_fraction_threshold:
+            kernel = "clustered"
+    if kernel not in _STREAM_KERNELS:
+        # an unknown string would silently run the K1 branch
+        raise ValueError(
+            f"unknown kernel {kernel!r}; want 'auto' or one of "
+            f"('mxu', 'dense', 'xla_int8', 'xla_popcount', 'clustered', "
+            f"'sparse_outer')"
+        )
+    if kernel == "sparse_outer":
+        raise NotImplementedError(
+            "kernel='sparse_outer' is not ported to stormtpu_torch yet "
+            "(ROADMAP.md §1 items 1 and 6: the C++ host tier and K4)"
+        )
+    return kernel
+
+
+def _stream_tile_modulus(kernel: str, cfg: EngineConfig) -> int:
+    """The row modulus a resolved stream kernel rounds superblock_rows
+    to (mxu/clustered/sparse_outer tile by k2 rows; dense and the xla_*
+    whole-stripe forms by k1 rows)."""
+    if kernel in ("mxu", "clustered", "sparse_outer"):
+        return cfg.k2_tile_rows
+    return cfg.k1_tile_rows
+
+
+def _save_stripe(path: str, compress: bool, members: dict) -> None:
+    """Write a stripe file so that it appears only complete."""
+    tmp = path + ".tmp.npz"
+    (np.savez_compressed if compress else np.savez)(tmp, **members)
+    os.replace(tmp, path)
+
+
+class _StripeWriter:
+    """The walk's sink: saves stripe files on ``_WRITERS`` background
+    threads, so that the next stripe's upload and kernel run while the last
+    ones are written (the write, and zlib when ``compress`` is on, release
+    the interpreter lock). Stripes complete in the walk's order: the
+    manifest's ``completed`` list and the ``progress`` calls keep the order
+    and the meaning they have in an in-order walk (a stripe counts once its
+    file is in place). At most ``_WRITE_AHEAD_BYTES`` of finished stripes
+    wait at a time; the walk blocks in :meth:`save` beyond that. Leaving
+    the context waits for every write, so no thread outlives the walk."""
+
+    def __init__(self, manifest: dict, total: int, compress: bool,
+                 progress: Optional[Callable[[int, int], None]]):
+        self.manifest, self.total, self.compress, self.progress = (
+            manifest, total, compress, progress)
+        self.done = 0
+        self.held = 0       # bytes of the stripes waiting to be written
+        self.writing = 0    # stripes handed to the threads and not yet completed
+        self.pending: collections.deque = collections.deque()
+        self.pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=_WRITERS, thread_name_prefix="stripe-save")
+
+    def __enter__(self) -> "_StripeWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        try:
+            while self.pending:
+                try:
+                    self._complete_oldest()
+                except Exception:
+                    if exc_type is None:
+                        raise
+                    # the walk already failed: its error is the one reported
+        finally:
+            self.pool.shutdown(wait=True)
+
+    def _complete_oldest(self) -> None:
+        i, j, future, nbytes = self.pending.popleft()
+        self.held -= nbytes
+        if future is not None:
+            self.writing -= 1
+            future.result()
+        self.manifest["completed"].append([i, j])
+        self.done += 1
+        if future is not None and self.progress is not None:
+            self.progress(self.done, self.total)
+
+    def _oldest_is_done(self) -> bool:
+        future = self.pending[0][2]
+        return future is None or future.done()
+
+    def resumed(self, i: int, j: int) -> None:
+        """Stripe (i, j) was found on disk: it completes in its turn."""
+        self.pending.append((i, j, None, 0))
+        while self.pending and self._oldest_is_done():
+            self._complete_oldest()
+
+    def save(self, path: str, **members) -> None:
+        """Write stripe (``members["i"]``, ``members["j"]``) to ``path``."""
+        nbytes = sum(getattr(m, "nbytes", 0) for m in members.values())
+        while self.pending and (
+            self.writing >= _WRITERS
+            or self.held + nbytes > _WRITE_AHEAD_BYTES
+            or self._oldest_is_done()
+        ):
+            self._complete_oldest()
+        future = self.pool.submit(_save_stripe, path, self.compress, members)
+        self.writing += 1
+        self.pending.append((members["i"], members["j"], future, nbytes))
+        self.held += nbytes
+        if _recorder is not None:  # a recorded walk takes its stages in order
+            while self.pending:
+                self._complete_oldest()
+
+
+def _wrap_int32(x: int) -> int:
+    """``x`` reduced to int32's range as two's-complement addition wraps
+    it: the JAX package sums a stripe's checksum in int32."""
+    return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+# --------------------------------------------------------- operand streaming
+class _SliceBuffer:
+    """The two superblock slices operand streaming keeps on the device,
+    as ONE [2·SB, w_pad] buffer: the i slice lives in its first half
+    across its row of stripes, the j slice is copied into the second, and
+    an off-diagonal stripe's tile walk runs on the whole buffer with local
+    ids (no concatenation a stripe). On the card each half has a pinned
+    staging buffer, reused for the whole walk; a staging buffer is refilled
+    only after its last copy to the card has completed."""
+
+    def __init__(self, bm: BitMatrix, sb: int, w_pad: int, dev: torch.device):
+        self.bm, self.sb, self.dev = bm, sb, dev
+        self.buf = torch.zeros((2 * sb, w_pad), dtype=torch.int32, device=dev)
+        self.loaded = [-1, -1]
+        self.staging: list = [None, None]
+        self.copied: list = [None, None]
+
+    def load(self, half: int, i: int) -> None:
+        """Row superblock ``i`` into half ``half`` (0: the i slice)."""
+        if self.loaded[half] == i:
+            return
+        sb = self.sb
+        dst = self.buf[half * sb : (half + 1) * sb]
+        if self.dev.type == "cpu":
+            host = dst
+        else:
+            if self.staging[half] is None:
+                self.staging[half] = torch.empty(dst.shape, dtype=torch.int32, pin_memory=True)
+            else:
+                self.copied[half].synchronize()
+            host = self.staging[half]
+        _host_superblock(self.bm.packed, self.bm.n, sb, dst.shape[1], i,
+                         out=host.numpy().view(np.uint32))
+        if host is not dst:
+            dst.copy_(host, non_blocking=True)
+            self.copied[half] = torch.cuda.Event()
+            self.copied[half].record()
+        self.loaded[half] = i
+
+    def stripe_operand(self, i: int, j: int) -> torch.Tensor:
+        """Upload what stripe (i, j) needs and return its operand: the
+        first half for a diagonal stripe, else the whole buffer."""
+        with _stage("upload", self.dev):
+            self.load(0, i)
+            if i != j:
+                self.load(1, j)
+        return self.buf[: self.sb] if i == j else self.buf
+
+
+# ------------------------------------------------------------- dense stripes
+def _tile_wrapper(kernel: str):
+    if kernel == "mxu":
+        from stormtpu_torch.kernels.mxu import count_tiles_pallas_mxu as count_tiles
+    else:
+        from stormtpu_torch.kernels.dense import count_tiles_pallas_dense as count_tiles
+    return count_tiles
+
+
+def _tile_stripe(
+    x: torch.Tensor, ibs: np.ndarray, jbs: np.ndarray, loc_i: np.ndarray, loc_j: np.ndarray,
+    tps: int, tile_rows: int, tile_words: int, kernel: str, diagonal: bool,
+) -> torch.Tensor:
+    """The [SB, SB] stripe on ``x``'s device from the tile kernel's tiles
+    for row-block pairs (ibs, jbs) of ``x``, placed at (loc_i, loc_j)."""
+    from stormtpu_torch.kernels.mxu import device_tile_ids
+
+    dev = x.device
+    with _stage("plan", dev):
+        ids = device_tile_ids(ibs, jbs, x.shape[0] // tile_rows, dev)
+    with _stage("kernel", dev):
+        tiles = _tile_wrapper(kernel)(
+            x, *ids, tile_rows=tile_rows, tile_words=tile_words, checked=ids
+        )
+    with _stage("assembly", dev):
+        return assemble_stripe_torch(tiles, loc_i, loc_j, tps, tile_rows, diagonal)
+
+
+def _block_stripe(xi: torch.Tensor, xj: torch.Tensor, kernel: str) -> torch.Tensor:
+    from stormtpu_torch.kernels import xla as kx
+
+    with _stage("kernel", xi.device):
+        if kernel == "xla_int8":
+            return kx.count_block_int8_xla(xi, xj)
+        return kx.count_block_popcount_xla(xi, xj)
+
+
+def _compute_stripe(
+    xp: torch.Tensor,
+    sb_i: int,
+    sb_j: int,
+    tiles_per_super: int,
+    tile_rows: int,
+    tile_words: int,
+    kernel: str,
+) -> torch.Tensor:
+    """Counts int32 [SB, SB], on ``xp``'s device, for superblock pair
+    (sb_i, sb_j) of the padded packed matrix, from the tile kernels' pair
+    lists (or a whole-stripe plain form for the xla_* choices)."""
+    if kernel in ("xla_int8", "xla_popcount"):
+        sb = tiles_per_super * tile_rows
+        return _block_stripe(
+            xp[sb_i * sb : (sb_i + 1) * sb], xp[sb_j * sb : (sb_j + 1) * sb], kernel
+        )
+    loc_i, loc_j = _stripe_tile_ids(tiles_per_super, sb_i == sb_j)
+    return _tile_stripe(
+        xp, loc_i + sb_i * tiles_per_super, loc_j + sb_j * tiles_per_super, loc_i, loc_j,
+        tiles_per_super, tile_rows, tile_words, kernel, sb_i == sb_j,
+    )
+
+
+def _compute_stripe_pair(
+    x: torch.Tensor,
+    tiles_per_super: int,
+    tile_rows: int,
+    tile_words: int,
+    kernel: str,
+) -> torch.Tensor:
+    """Operand-streaming twin of ``_compute_stripe``: the stripe of what
+    ``_SliceBuffer.stripe_operand`` returned — one slice [SB, w_pad] (its
+    diagonal stripe) or the two-slice buffer [2·SB, w_pad] (first half
+    against second, with local tile ids). Nothing else of the matrix is on
+    the device."""
+    tps = tiles_per_super
+    sb = tps * tile_rows
+    diagonal = x.shape[0] == sb
+    if kernel in ("xla_int8", "xla_popcount"):
+        return _block_stripe(x[:sb], x[:sb] if diagonal else x[sb:], kernel)
+    loc_i, loc_j = _stripe_tile_ids(tps, diagonal)
+    jbs = loc_j if diagonal else loc_j + tps
+    return _tile_stripe(x, loc_i, jbs, loc_i, loc_j, tps, tile_rows, tile_words, kernel,
+                        diagonal)
+
+
+def stream_count_matrix(
+    bm: BitMatrix,
+    out_dir: str,
+    *,
+    superblock_rows: int = 4096,
+    kernel: str = "mxu",
+    config: Optional[EngineConfig] = None,
+    resume: bool = True,
+    compress: bool = True,
+    operand_streaming: Optional[bool] = None,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device=None,
+) -> dict:
+    """Compute all upper-triangular superblock stripes of the count matrix,
+    writing each to ``out_dir`` as it completes. Returns the manifest.
+
+    ``resume=True`` skips stripes whose file already exists (resume at
+    stripe granularity after interruption).
+
+    ``kernel``: ``"mxu"`` (K2), ``"dense"`` (K1), ``"xla_int8"`` /
+    ``"xla_popcount"`` (plain whole-stripe forms, small M), ``"clustered"``
+    (K5 work lists; stripe files hold only the visited tiles) or
+    ``"auto"``. ``"sparse_outer"`` raises ``NotImplementedError``.
+
+    ``operand_streaming`` (default auto): when the padded packed matrix and
+    a stripe's working set do not fit the device, keep only two superblock
+    slices there per stripe, so N is bounded by host memory. Upload volume
+    is one row superblock per stripe (the i slice is reused across its row
+    of stripes): about N²·W·4 / (2·superblock_rows) bytes in all — pick
+    large superblocks to amortize.
+    """
+    dev = resolve_device(device)
+    cfg = config or default_config()
+    cfg.validate(bm.m_bits)
+    kernel = _resolve_stream_kernel(bm, kernel, cfg)
+    if kernel == "clustered":
+        return _stream_clustered(
+            bm, out_dir, superblock_rows=superblock_rows, config=cfg,
+            resume=resume, compress=compress,
+            operand_streaming=operand_streaming, progress=progress, device=dev,
+        )
+    tile_rows = cfg.k2_tile_rows if kernel == "mxu" else cfg.k1_tile_rows
+    tile_words = cfg.k2_tile_words if kernel == "mxu" else cfg.k1_tile_words
+    superblock_rows = round_up(superblock_rows, tile_rows)
+    tiles_per_super = superblock_rows // tile_rows
+
+    n_pad = round_up(bm.n, superblock_rows)
+    w_pad = round_up(bm.n_words, tile_words)
+    if operand_streaming is None:
+        operand_streaming = _wants_operand_streaming(n_pad, w_pad, superblock_rows, dev)
+    n_super = n_pad // superblock_rows
+
+    os.makedirs(out_dir, exist_ok=True)
+    manifest = {
+        "n": bm.n,
+        "content": _content_fingerprint(bm),
+        "m_bits": bm.m_bits,
+        "superblock_rows": superblock_rows,
+        "n_super": n_super,
+        "kernel": kernel,
+        "operand_streaming": bool(operand_streaming),
+        "completed": [],
+    }
+    total = n_super * (n_super + 1) // 2
+    # the operand goes up lazily: a fully resumed run uploads nothing
+    xp = slices = None
+    with _StripeWriter(manifest, total, compress, progress) as writer:
+        for i, j in _superblock_pairs(n_super):
+            path = stripe_path(out_dir, i, j)
+            if resume and os.path.exists(path):
+                writer.resumed(i, j)
+                continue
+            if operand_streaming:
+                if slices is None:
+                    slices = _SliceBuffer(bm, superblock_rows, w_pad, dev)
+                stripe_d = _compute_stripe_pair(
+                    slices.stripe_operand(i, j), tiles_per_super, tile_rows, tile_words, kernel
+                )
+            else:
+                if xp is None:
+                    from stormtpu_torch.kernels.clustered import padded_operand
+
+                    with _stage("upload", dev):
+                        xp = padded_operand(bm, n_pad, w_pad, dev)
+                stripe_d = _compute_stripe(
+                    xp, i, j, tiles_per_super, tile_rows, tile_words, kernel
+                )
+            with _stage("download", dev):
+                stripe = download(stripe_d)
+            with _stage("save", dev):
+                writer.save(path, counts=stripe, i=i, j=j)
+            del stripe, stripe_d
+            _count_stripe(True)
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    return manifest
+
+
+# --------------------------------------------------------- clustered stripes
+def _stripe_occupancy(bm: BitMatrix, cfg: EngineConfig, superblock_rows: int):
+    """Geometry of the clustered stripe walks: the per-tile-block K-group
+    occupancy padded to whole superblocks (padding rows have zero
+    occupancy: never listed, their tiles exactly zero), or None for a
+    single K-group."""
+    from stormtpu_torch.kernels.clustered import _block_occupancy
+
+    geo = _block_occupancy(bm, cfg)
+    if geo is None:
+        return None
+    occ, ti, wk, _n_pad, nb, ng = geo
+    superblock_rows = round_up(superblock_rows, ti)
+    n_sb_pad = round_up(bm.n, superblock_rows)
+    nb_sb = n_sb_pad // ti
+    if nb_sb > nb:
+        occ = np.concatenate([occ, np.zeros((nb_sb - nb, ng), dtype=bool)], axis=0)
+    # w_pad: a trailing all-zero pad K-group, as the one-matrix K5 operand has
+    return occ, ti, wk, ng, superblock_rows, n_sb_pad, (ng + 1) * wk
+
+
+def _stream_clustered(
+    bm: BitMatrix,
+    out_dir: str,
+    *,
+    superblock_rows: int,
+    config: EngineConfig,
+    resume: bool,
+    compress: bool,
+    operand_streaming: Optional[bool],
+    progress: Optional[Callable[[int, int], None]],
+    device: torch.device,
+) -> dict:
+    """K5 at streaming scale: per-stripe summary-AND work lists over the
+    global per-tile-block K-group occupancy. Stripes whose summaries
+    co-occupy nothing never touch the device; the rest run only their
+    co-occupied (tile pair, K-group) items, and their stripe files store
+    only the visited tiles.
+
+    Stripe format: ``tiles`` int32 [n_vis, ti, ti] + local tile coords
+    (``loc_i``/``loc_j``); ``load_streamed_matrix`` scatter-assembles.
+    Zero stripes write an n_vis=0 file, keeping the resume-by-file
+    contract of the dense path.
+
+    ``operand_streaming`` works as in the dense walk (the work list's
+    row-block ids shift to the two-slice buffer's frame); summary-zero
+    stripes skip the upload too.
+    """
+    from stormtpu_torch.kernels.clustered import (
+        build_stripe_worklist,
+        count_tiles_worklist,
+        device_worklist,
+        padded_operand,
+    )
+
+    cfg, dev = config, device
+    geo = _stripe_occupancy(bm, cfg, superblock_rows)
+    if geo is None:
+        # single K-group: nothing to skip — the dense stripe walk is exact
+        return stream_count_matrix(
+            bm, out_dir, superblock_rows=superblock_rows, kernel="mxu",
+            config=cfg, resume=resume, compress=compress,
+            operand_streaming=operand_streaming, progress=progress, device=dev,
+        )
+    occ, ti, wk, ng, superblock_rows, n_sb_pad, w_pad = geo
+    tps = superblock_rows // ti
+    n_super = n_sb_pad // superblock_rows
+    if operand_streaming is None:
+        operand_streaming = _wants_operand_streaming(n_sb_pad, w_pad, superblock_rows, dev)
+
+    os.makedirs(out_dir, exist_ok=True)
+    manifest = {
+        "n": bm.n,
+        "content": _content_fingerprint(bm),
+        "m_bits": bm.m_bits,
+        "superblock_rows": superblock_rows,
+        "n_super": n_super,
+        "kernel": "clustered",
+        "tile_rows": ti,
+        "operand_streaming": bool(operand_streaming),
+        "work_items": 0,
+        "completed": [],
+    }
+    total = n_super * (n_super + 1) // 2
+    packed_d = slices = None
+    with _StripeWriter(manifest, total, compress, progress) as writer:
+        for i, j in _superblock_pairs(n_super):
+            path = stripe_path(out_dir, i, j)
+            if resume and os.path.exists(path):
+                writer.resumed(i, j)
+                continue
+            with _stage("plan", dev):
+                wl = build_stripe_worklist(occ, i * tps, j * tps, tps, i == j)
+            if wl is None:
+                tiles = np.zeros((0, ti, ti), dtype=np.int32)
+                loc_i = loc_j = np.zeros(0, dtype=np.int32)
+            else:
+                if operand_streaming:
+                    # summary-zero stripes never reach this branch, so they
+                    # cost no upload either; the i slice persists across its row
+                    if slices is None:
+                        slices = _SliceBuffer(bm, superblock_rows, w_pad, dev)
+                    x = slices.stripe_operand(i, j)
+                    shift = dict(ibs_shift=i * tps,
+                                 jbs_shift=i * tps if i == j else (j - 1) * tps)
+                else:
+                    if packed_d is None:
+                        with _stage("upload", dev):
+                            packed_d = padded_operand(bm, n_sb_pad, w_pad, dev)
+                    x, shift = packed_d, {}
+                with _stage("plan", dev):
+                    work = device_worklist(wl, dev, nb=x.shape[0] // ti, ng=ng + 1,
+                                           tile_rows=ti, **shift)
+                with _stage("kernel", dev):
+                    out = count_tiles_worklist(
+                        x, *work, n_slots=wl.n_vis, tile_rows=ti, tile_words=wk,
+                        variant=cfg.k2_variant, checked=work,
+                    )
+                with _stage("download", dev):
+                    tiles = download(out)
+                loc_i, loc_j = wl.vis_loc_i, wl.vis_loc_j
+                manifest["work_items"] += wl.n_work
+            with _stage("save", dev):
+                writer.save(path, tiles=tiles, loc_i=loc_i, loc_j=loc_j, i=i, j=j)
+            del tiles
+            _count_stripe(wl is not None)
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    return manifest
+
+
+# ------------------------------------------------------------ reduced sinks
+def _as_device_words(xd, dev: torch.device) -> torch.Tensor:
+    """``xd`` as int32 words on ``dev``: a host uint32 array is uploaded,
+    a tensor must already be there."""
+    if isinstance(xd, np.ndarray):
+        return to_device_words(xd, dev)
+    if xd.dtype != torch.int32:
+        raise TypeError(f"xd: want int32 bit-view words, got {xd.dtype}")
+    if xd.device.type != dev.type:
+        raise ValueError(f"xd lies on {xd.device}, the walk runs on {dev}")
+    return xd
+
+
+def _sink_geometry(xd: torch.Tensor, n: int, cfg: EngineConfig, superblock_rows: int,
+                   histogram: bool = False):
+    """Tile geometry of the K2 sinks, with ``xd`` re-padded to it. The
+    tile-rows rule is the clustered sink's (``k2_tile_shape``): a stripe's
+    checksum is a sum over the LISTED tiles, so the sinks compare only at
+    identical tile geometry. The rule can shrink the tile below
+    ``k2_tile_rows`` at small n, and the rounded superblock may then not
+    divide the caller's padding: zero rows are appended (exact)."""
+    tile_rows = min(cfg.k2_tile_rows, round_up(max(n, 32), 32))
+    tile_words = cfg.k2_tile_words
+    superblock_rows = round_up(superblock_rows, tile_rows)
+    if histogram:
+        superblock_rows = cap_hist_superblock(superblock_rows, tile_rows)
+    n_pad, w_pad = xd.shape
+    if w_pad % tile_words:
+        raise ValueError("xd must be word-padded to a tile_words multiple")
+    if n_pad % superblock_rows:
+        grow = round_up(n_pad, superblock_rows) - n_pad
+        xd = torch.cat([xd, torch.zeros((grow, w_pad), dtype=xd.dtype, device=xd.device)])
+        n_pad += grow
+    return xd, tile_rows, tile_words, superblock_rows, n_pad // superblock_rows
+
+
+def _checksum_and_samples(tiles: torch.Tensor, st, sr, sc) -> tuple[int, np.ndarray]:
+    """A stripe's checksum ``sum(tiles % 251)`` wrapped to int32, and the
+    sampled entries ``tiles[st, sr, sc]``, in one read-back."""
+    dev = tiles.device
+    with _stage("reduce", dev):
+        idx = torch.from_numpy(np.stack([st, sr, sc]).astype(np.int64)).to(dev)
+        chk = (tiles % 251).sum(dtype=torch.int64)
+        both = torch.cat([chk.reshape(1), tiles[idx[0], idx[1], idx[2]].to(torch.int64)])
+    with _stage("read_back", dev):
+        host = both.cpu().numpy()
+    return _wrap_int32(int(host[0])), host[1:].astype(np.int32)
+
+
+def stream_count_checksums(
+    xd,
+    n: int,
+    m_bits: int,
+    *,
+    superblock_rows: int = 4096,
+    config: Optional[EngineConfig] = None,
+    samples_per_stripe: int = 8,
+    sample_seed: int = 0,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device=None,
+) -> dict:
+    """Drive EVERY superblock stripe of the count matrix through the K2
+    tile walk on a DEVICE-RESIDENT padded packed matrix, fetching only a
+    per-stripe nonlinear checksum plus sampled entries — never the stripes
+    themselves: the full-scale validation mode. The compute path is
+    ``stream_count_matrix(kernel="mxu")``'s; only the sink differs.
+    Returns a manifest with per-stripe checksums and the sampled
+    (i, j, count) triples for cross-path verification. A checksum is the
+    sum of ``tiles % 251`` over the stripe's listed tiles, wrapped to
+    int32 as the JAX package's int32 sum wraps.
+
+    ``xd``: int32 bit-view words [n_pad, w_pad] on the device (or a host
+    uint32 array, uploaded), rows ≥ n zero, words beyond ceil(m_bits/32)
+    zero, n_pad a multiple of ``superblock_rows`` and w_pad a multiple of
+    the K2 tile_words.
+    """
+    from stormtpu_torch.kernels.mxu import count_tiles_pallas_mxu, device_tile_ids
+
+    dev = resolve_device(device)
+    cfg = config or default_config()
+    cfg.validate(m_bits)
+    xd, tile_rows, tile_words, superblock_rows, n_super = _sink_geometry(
+        _as_device_words(xd, dev), n, cfg, superblock_rows
+    )
+    tiles_per_super = superblock_rows // tile_rows
+    nb = xd.shape[0] // tile_rows
+
+    rng = np.random.default_rng(sample_seed)
+    stripes = []
+    sample_ii: list[np.ndarray] = []
+    sample_jj: list[np.ndarray] = []
+    sample_vals: list[np.ndarray] = []
+    total = n_super * (n_super + 1) // 2
+    done = 0
+    for i, j in _superblock_pairs(n_super):
+        loc_i, loc_j = _stripe_tile_ids(tiles_per_super, i == j)
+        ibs = (loc_i + i * tiles_per_super).astype(np.int32)
+        jbs = (loc_j + j * tiles_per_super).astype(np.int32)
+        # three draws a stripe, in this order: the samples must equal the
+        # JAX package's for the same seed
+        st = rng.integers(0, ibs.size, samples_per_stripe).astype(np.int32)
+        sr = rng.integers(0, tile_rows, samples_per_stripe).astype(np.int32)
+        sc = rng.integers(0, tile_rows, samples_per_stripe).astype(np.int32)
+        with _stage("plan", dev):
+            ids = device_tile_ids(ibs, jbs, nb, dev)
+        with _stage("kernel", dev):
+            tiles = count_tiles_pallas_mxu(
+                xd, *ids, tile_rows=tile_rows, tile_words=tile_words,
+                variant=cfg.k2_variant, checked=ids,
+            )
+        chk, vals = _checksum_and_samples(tiles, st, sr, sc)
+        del tiles
+        _count_stripe(True)
+        stripes.append({"i": i, "j": j, "checksum": chk})
+        sample_ii.append(ibs[st] * tile_rows + sr)
+        sample_jj.append(jbs[st] * tile_rows + sc)
+        sample_vals.append(vals)
+        done += 1
+        if progress is not None:
+            progress(done, total)
+    return {
+        "n": n,
+        "m_bits": m_bits,
+        "superblock_rows": superblock_rows,
+        "n_super": n_super,
+        "kernel": "mxu",
+        "sink": "checksum",
+        "stripes": stripes,
+        "sample_ii": np.concatenate(sample_ii),
+        "sample_jj": np.concatenate(sample_jj),
+        "sample_vals": np.concatenate(sample_vals),
+    }
+
+
+def stream_count_checksums_clustered(
+    bm: BitMatrix,
+    *,
+    superblock_rows: int = 4096,
+    config: Optional[EngineConfig] = None,
+    samples_per_stripe: int = 8,
+    sample_seed: int = 0,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device=None,
+) -> dict:
+    """The checksum sink for the CLUSTERED stripe walk: every stripe runs
+    its summary-AND work list through K5, fetching only a per-stripe
+    checksum plus sampled entries. Checksums are comparable to
+    ``stream_count_checksums``'s on the same input and superblock size:
+    skipped (co-empty) tiles are exactly zero, so they contribute 0 to
+    ``sum(tiles % 251)`` either way. Samples are drawn over the FULL local
+    tile grid — a sample landing on a skipped tile reports 0 without
+    touching the device (that IS the skip's claim; the caller's oracle
+    check validates it).
+    """
+    from stormtpu_torch.kernels.clustered import (
+        build_stripe_worklist,
+        count_tiles_worklist,
+        device_worklist,
+        padded_operand,
+    )
+
+    dev = resolve_device(device)
+    cfg = config or default_config()
+    cfg.validate(bm.m_bits)
+    geo = _stripe_occupancy(bm, cfg, superblock_rows)
+    if geo is None:
+        raise ValueError(
+            "clustered checksum sink needs >=2 K-groups; use "
+            "stream_count_checksums for single-group shapes"
+        )
+    occ, ti, wk, ng, superblock_rows, n_sb_pad, w_pad = geo
+    tps = superblock_rows // ti
+    n_super = n_sb_pad // superblock_rows
+    packed_d = padded_operand(bm, n_sb_pad, w_pad, dev)
+
+    rng = np.random.default_rng(sample_seed)
+    stripes = []
+    sample_ii: list[np.ndarray] = []
+    sample_jj: list[np.ndarray] = []
+    sample_vals: list[np.ndarray] = []
+    total = n_super * (n_super + 1) // 2
+    done = 0
+    work_items = 0
+    for i, j in _superblock_pairs(n_super):
+        if i == j:
+            li, lj = np.triu_indices(tps)
+        else:
+            li, lj = np.meshgrid(np.arange(tps), np.arange(tps), indexing="ij")
+            li, lj = li.ravel(), lj.ravel()
+        # samples over the FULL local tile list (skipped tiles included),
+        # drawn before the stripe is known to be skipped or not: the order
+        # of draws must equal the JAX package's
+        st = rng.integers(0, li.size, samples_per_stripe)
+        sr = rng.integers(0, ti, samples_per_stripe).astype(np.int32)
+        sc = rng.integers(0, ti, samples_per_stripe).astype(np.int32)
+        sample_ii.append(((li[st] + i * tps) * ti + sr).astype(np.int64))
+        sample_jj.append(((lj[st] + j * tps) * ti + sc).astype(np.int64))
+
+        with _stage("plan", dev):
+            wl = build_stripe_worklist(occ, i * tps, j * tps, tps, i == j)
+        if wl is None:
+            stripes.append({"i": i, "j": j, "checksum": 0, "skipped": True})
+            sample_vals.append(np.zeros(samples_per_stripe, dtype=np.int32))
+            _count_stripe(False)
+            done += 1
+            if progress is not None:
+                progress(done, total)
+            continue
+        # map each sampled tile to its slot if visited, else it is an
+        # exact zero by the summary argument — no device round trip
+        vis_key = wl.vis_loc_i.astype(np.int64) * tps + wl.vis_loc_j
+        smp_key = li[st].astype(np.int64) * tps + lj[st]
+        slot_idx = np.searchsorted(vis_key, smp_key)
+        slot_idx = np.clip(slot_idx, 0, wl.n_vis - 1)
+        hit = vis_key[slot_idx] == smp_key
+        with _stage("plan", dev):
+            work = device_worklist(wl, dev, nb=n_sb_pad // ti, ng=ng + 1, tile_rows=ti)
+        with _stage("kernel", dev):
+            tiles = count_tiles_worklist(
+                packed_d, *work, n_slots=wl.n_vis, tile_rows=ti, tile_words=wk,
+                variant=cfg.k2_variant, checked=work,
+            )
+        chk, vals = _checksum_and_samples(tiles, slot_idx, sr, sc)
+        del tiles
+        _count_stripe(True)
+        vals = np.where(hit, vals, 0).astype(np.int32)
+        stripes.append({"i": i, "j": j, "checksum": chk, "skipped": False})
+        sample_vals.append(vals)
+        work_items += wl.n_work
+        done += 1
+        if progress is not None:
+            progress(done, total)
+    return {
+        "n": bm.n,
+        "m_bits": bm.m_bits,
+        "superblock_rows": superblock_rows,
+        "n_super": n_super,
+        "kernel": "clustered",
+        "sink": "checksum",
+        "work_items": work_items,
+        "stripes": stripes,
+        "sample_ii": np.concatenate(sample_ii),
+        "sample_jj": np.concatenate(sample_jj),
+        "sample_vals": np.concatenate(sample_vals),
+    }
+
+
+def stream_count_histogram(
+    xd,
+    n: int,
+    m_bits: int,
+    *,
+    n_bins: int = 64,
+    bin_width: Optional[int] = None,
+    superblock_rows: int = 4096,
+    config: Optional[EngineConfig] = None,
+    occupancy: Optional[np.ndarray] = None,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device=None,
+) -> dict:
+    """Exact histogram of the off-diagonal pair counts C[i<j] — the
+    distribution sink for the K2 stripe walk: the aggregate a user wants
+    at scales where C itself can never be materialized or fetched.
+
+    Same stripe walk as :func:`stream_count_checksums` (each unordered
+    pair visited exactly once: triangular tile list on diagonal
+    superblocks, square off-diagonal). A stripe's reduction is one masked
+    bin count on the device (``torch.bincount``), added into a device
+    total that is read back once, at the end. Bins are uniform: bin b
+    counts pairs with ``b*bin_width <= C[ij] < (b+1)*bin_width``, with the
+    last bin clamped to absorb the tail up to ``m_bits``. Integer binning
+    of exact int32 counts — the result is exact, and mass conservation
+    (``hist.sum() == n*(n-1)/2``) is asserted before returning.
+
+    ``occupancy``: per-superblock K-group summary bool [n_super, G] — the
+    summary skip for this sink: a co-empty stripe's counts are all exactly
+    zero, so its entire valid-pair mass lands in bin 0 by arithmetic
+    (``vi·vj`` pairs, ``vi·(vi−1)/2`` on the diagonal) with zero device
+    work.
+
+    ``xd`` contract is :func:`stream_count_checksums`'s.
+    """
+    from stormtpu_torch.kernels.mxu import count_tiles_pallas_mxu, device_tile_ids
+    from stormtpu_torch.stream_hist import _hist_manifest, _stripe_pair_mass
+
+    dev = resolve_device(device)
+    cfg = config or default_config()
+    cfg.validate(m_bits)
+    if n_bins < 1:
+        raise ValueError("n_bins must be >= 1")
+    if bin_width is None:
+        bin_width = default_hist_bin_width(m_bits, n_bins)
+    if bin_width < 1:
+        raise ValueError("bin_width must be >= 1")
+    xd, tile_rows, tile_words, superblock_rows, n_super = _sink_geometry(
+        _as_device_words(xd, dev), n, cfg, superblock_rows, histogram=True
+    )
+    tiles_per_super = superblock_rows // tile_rows
+    nb = xd.shape[0] // tile_rows
+    if occupancy is not None and occupancy.shape[0] != n_super:
+        raise ValueError(
+            f"occupancy has {occupancy.shape[0]} superblocks, walk has "
+            f"{n_super} — compute it with the same superblock_rows "
+            f"({superblock_rows} after tile rounding)"
+        )
+
+    lane = torch.arange(tile_rows, dtype=torch.int32, device=dev)
+    hist_d = torch.zeros(n_bins, dtype=torch.int64, device=dev)
+    skipped_mass = 0
+    total = n_super * (n_super + 1) // 2
+    done = 0
+    for i, j in _superblock_pairs(n_super):
+        if occupancy is not None and not (occupancy[i] & occupancy[j]).any():
+            # every pair in this stripe counts exactly 0 → its valid-pair
+            # mass goes to bin 0 arithmetically
+            skipped_mass += _stripe_pair_mass(n, superblock_rows, i, j)
+            _count_stripe(False)
+            done += 1
+            if progress is not None:
+                progress(done, total)
+            continue
+        loc_i, loc_j = _stripe_tile_ids(tiles_per_super, i == j)
+        with _stage("plan", dev):
+            ids = device_tile_ids(
+                loc_i + i * tiles_per_super, loc_j + j * tiles_per_super, nb, dev
+            )
+        with _stage("kernel", dev):
+            tiles = count_tiles_pallas_mxu(
+                xd, *ids, tile_rows=tile_rows, tile_words=tile_words,
+                variant=cfg.k2_variant, checked=ids,
+            )
+        with _stage("reduce", dev):
+            rows_g = ids.ibs[:, None] * tile_rows + lane[None, :]
+            cols_g = ids.jbs[:, None] * tile_rows + lane[None, :]
+            # strict upper triangle within n: gi < gj < n (gi < n follows);
+            # zero-padding rows/tiles fail it, diagonal tiles keep r < c
+            valid = (rows_g[:, :, None] < cols_g[:, None, :]) & (cols_g[:, None, :] < n)
+            bins = torch.clamp(tiles // bin_width, max=n_bins - 1)
+            # invalid entries go to a spare bin past the last, then dropped
+            binned = torch.where(valid, bins, n_bins).flatten()
+            hist_d += torch.bincount(binned, minlength=n_bins + 1)[:n_bins]
+        del tiles, valid, bins, binned
+        _count_stripe(True)
+        done += 1
+        if progress is not None:
+            progress(done, total)
+    with _stage("read_back", dev):
+        hist_total = hist_d.cpu().numpy()
+    hist_total[0] += skipped_mass
+    return _hist_manifest(n, m_bits, superblock_rows, n_super, "mxu",
+                          n_bins, bin_width, hist_total)
+
+
+# ------------------------------------------------------------- load, extend
+def load_streamed_matrix(out_dir: str) -> np.ndarray:
+    """Reassemble the full symmetric N×N matrix from stripes, on the host
+    (moderate N only — intended for tests and downstream tooling). Reads
+    the directories of both packages, all three stripe formats."""
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    n = manifest["n"]
+    sb = manifest["superblock_rows"]
+    n_super = manifest["n_super"]
+    full = np.zeros((n_super * sb, n_super * sb), dtype=np.int32)
+    for i in range(n_super):
+        for j in range(i, n_super):
+            with np.load(stripe_path(out_dir, i, j)) as z:
+                if "tiles" in z.files:  # clustered sparse-tile stripes
+                    ti = manifest["tile_rows"]
+                    stripe = assemble_stripe(
+                        z["tiles"], z["loc_i"], z["loc_j"], sb // ti, ti, i == j
+                    )
+                elif "coo_i" in z.files:  # sparse_outer nonzero stripes
+                    stripe = np.zeros((sb, sb), dtype=np.int32)
+                    stripe[z["coo_i"], z["coo_j"]] = z["coo_v"]
+                else:
+                    stripe = z["counts"]
+            full[i * sb : (i + 1) * sb, j * sb : (j + 1) * sb] = stripe
+            if i != j:
+                full[j * sb : (j + 1) * sb, i * sb : (i + 1) * sb] = stripe.T
+    return full[:n, :n]
+
+
+def extend_streamed_matrix(
+    bm: BitMatrix,
+    out_dir: str,
+    *,
+    mesh=None,
+    kernel: str = "auto",
+    config: Optional[EngineConfig] = None,
+    compress: bool = True,
+    progress: Optional[Callable[[int, int], None]] = None,
+    device=None,
+) -> dict:
+    """Grow a completed streamed count-matrix directory to ``bm``'s larger
+    row count WITHOUT recomputing the old quadratic work.
+
+    A count stripe's content depends only on its two row superblocks, so
+    appending rows (a panel gains samples or variants) invalidates nothing
+    inside the unchanged row range:
+
+    - stripes wholly inside the old COMPLETE superblocks are reused as-is
+      (their files are not even opened);
+    - stripes touching the old PARTIAL last superblock — whose zero-padded
+      rows now hold data — are deleted and recomputed;
+    - stripes involving new superblocks are computed fresh.
+
+    Pair-work cost ≈ old·new + new²/2 instead of (old+new)²/2.
+
+    Safety: ``bm``'s first ``old_n`` rows must be byte-identical to the
+    original panel. The manifest's content fingerprint is checked against
+    the head slice; directories written before the fingerprint existed are
+    extended on the caller's word. ``m_bits`` must match exactly; the
+    superblock geometry comes from the manifest and must be compatible
+    with the active tile config (else stripes from the two runs would
+    misalign under the same file names — refused up front).
+
+    ``mesh``: the JAX package extends through its distributed walk; the
+    port has none yet and raises ``NotImplementedError``. Returns the new
+    manifest.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "extend_streamed_matrix(mesh=...) is not ported to stormtpu_torch "
+            "yet (ROADMAP.md §1 item 10: parallel/)"
+        )
+    dev = resolve_device(device)
+    man_path = os.path.join(out_dir, "manifest.json")
+    with open(man_path) as f:
+        old = json.load(f)
+    old_n = int(old["n"])
+    sb = int(old["superblock_rows"])
+    if bm.m_bits != old["m_bits"]:
+        raise ValueError(
+            f"extend: m_bits {bm.m_bits} != directory's {old['m_bits']} — "
+            f"a changed universe invalidates every stripe"
+        )
+    if bm.n < old_n:
+        raise ValueError(
+            f"extend: N={bm.n} < directory's n={old_n} (rows can only be "
+            f"appended; shrinking needs a fresh directory)"
+        )
+    cfg = config or default_config()
+    # predict the walk's kernel with the walk's own policy so the modulus
+    # check matches exactly what the resumed run will round by
+    resolved = _resolve_stream_kernel(bm, kernel, cfg)
+    mod = _stream_tile_modulus(resolved, cfg)
+    if sb % mod:
+        raise ValueError(
+            f"extend: superblock_rows={sb} is not a multiple of the "
+            f"resumed walk's tile geometry ({mod}) — it would re-round "
+            f"and misalign reused stripe files"
+        )
+    # stripe-FORMAT compatibility: 'tiles'-format stripe files assemble
+    # under the manifest's tile_rows, so a grown panel that resolves to a
+    # different kernel family must not drop (or silently change) that key
+    # while old tiles files remain on disk
+    old_ti = old.get("tile_rows")
+    if resolved == "clustered":
+        from stormtpu_torch.kernels.mxu import k2_tile_shape
+
+        new_ti = k2_tile_shape(cfg, bm.n, bm.n_words)[0]
+        # a 'distributed' directory of the JAX package only ever holds
+        # EMPTY tiles records, which assemble identically under any ti —
+        # only a genuine clustered→clustered ti change misassembles
+        if (old_ti is not None and old_ti != new_ti
+                and old.get("kernel") == "clustered"):
+            raise ValueError(
+                f"extend: the grown panel resolves to a clustered walk "
+                f"with tile_rows={new_ti}, but the directory's existing "
+                f"tiles-format stripes were written at tile_rows="
+                f"{old_ti} — the two assemble differently under one "
+                f"manifest; use a fresh directory (or match the config)"
+            )
+    old_fp = old.get("content")
+    if old_fp is not None and old_n:
+        head = BitMatrix.from_packed(
+            np.ascontiguousarray(bm.packed[:old_n]), bm.m_bits
+        )
+        if _content_fingerprint(head) != old_fp:
+            raise ValueError(
+                "extend: the first rows differ from the panel this "
+                "directory was computed from (content fingerprint "
+                "mismatch) — reusing its stripes would splice two "
+                "different matrices"
+            )
+    if old_n % sb:
+        # the old last superblock was partial: its zero-padded rows now
+        # hold data, so every stripe touching it is stale
+        last = old_n // sb
+        n_super_old = int(old["n_super"])
+        for i in range(n_super_old):
+            for j in range(i, n_super_old):
+                if i == last or j == last:
+                    p = stripe_path(out_dir, i, j)
+                    if os.path.exists(p):
+                        os.remove(p)
+    man = stream_count_matrix(
+        bm, out_dir, superblock_rows=sb, kernel=kernel, config=cfg,
+        resume=True, compress=compress, progress=progress, device=dev,
+    )
+    carry = old_ti is not None and man.get("tile_rows") != old_ti and (
+        man.get("tile_rows") is None  # new walk dropped the key entirely
+        # clustered→clustered ti drift was refused above; over a clustered
+        # directory the old NONZERO tiles' ti must win
+        or old.get("kernel") == "clustered"
+    )
+    if carry:
+        man["tile_rows"] = old_ti
+        with open(man_path, "w") as f:
+            json.dump(man, f, default=int)
+    return man

@@ -1,5 +1,7 @@
 from stormtpu_torch.utils.backend import resolve_device
 from stormtpu_torch.utils.tiling import (
+    assemble_stripe,
+    assemble_stripe_torch,
     assemble_triangular,
     assemble_triangular_torch,
     download,
@@ -11,6 +13,8 @@ from stormtpu_torch.utils.tiling import (
 )
 
 __all__ = [
+    "assemble_stripe",
+    "assemble_stripe_torch",
     "assemble_triangular",
     "assemble_triangular_torch",
     "download",

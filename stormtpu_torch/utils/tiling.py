@@ -23,6 +23,8 @@ __all__ = [
     "triangular_tile_ids",
     "assemble_triangular",
     "assemble_triangular_torch",
+    "assemble_stripe",
+    "assemble_stripe_torch",
     "triangular_assembly_bytes",
     "download",
     "MIRROR_CHUNK_TILES",
@@ -110,6 +112,57 @@ def assemble_triangular_torch(
         off = i != j
         grid[j[off], :, i[off], :] = part[off].transpose(1, 2)
     return full[:n, :n]
+
+
+def assemble_stripe(
+    tiles: np.ndarray,
+    loc_i: np.ndarray,
+    loc_j: np.ndarray,
+    tps: int,
+    tile_rows: int,
+    diagonal: bool,
+) -> np.ndarray:
+    """Dense [SB, SB] stripe (SB = tps·tile_rows) of the streaming walk
+    from count tiles at local tile coordinates, on the host. ``diagonal``
+    mirrors the strictly upper tiles transposed (a diagonal stripe lists
+    its upper triangle only). Unlisted tiles are zero, which the clustered
+    stripes rely on."""
+    grid = np.zeros((tps, tps, tile_rows, tile_rows), dtype=np.int32)
+    if tiles.size:
+        grid[loc_i, loc_j] = tiles
+        if diagonal:
+            off = loc_i != loc_j
+            grid[loc_j[off], loc_i[off]] = tiles[off].transpose(0, 2, 1)
+    sb = tps * tile_rows
+    return grid.transpose(0, 2, 1, 3).reshape(sb, sb)
+
+
+def assemble_stripe_torch(
+    tiles: torch.Tensor, loc_i, loc_j, tps: int, tile_rows: int, diagonal: bool
+) -> torch.Tensor:
+    """:func:`assemble_stripe` on the tiles' device: the [SB, SB] stripe
+    is written once, in place, and the mirror goes ``MIRROR_CHUNK_TILES``
+    tiles at a time. ``loc_i`` / ``loc_j`` are host arrays: which tiles
+    the mirror moves is decided on the host and uploaded with the
+    coordinates in one copy, so nothing is read back from the device."""
+    t = tiles.shape[0]
+    loc_i = np.asarray(loc_i, dtype=np.int64)
+    loc_j = np.asarray(loc_j, dtype=np.int64)
+    if tiles.shape[1:] != (tile_rows, tile_rows) or loc_i.shape != (t,) or loc_j.shape != (t,):
+        raise ValueError("want [T, tile_rows, tile_rows] tiles and one coordinate pair per tile")
+    sb = tps * tile_rows
+    full = torch.zeros((sb, sb), dtype=tiles.dtype, device=tiles.device)
+    if t == 0:
+        return full
+    off = np.flatnonzero(loc_i != loc_j) if diagonal else np.zeros(0, dtype=np.int64)
+    idx = torch.from_numpy(np.concatenate([loc_i, loc_j, off])).to(tiles.device)
+    li, lj, off_d = idx[:t], idx[t : 2 * t], idx[2 * t :]
+    grid = full.view(tps, tile_rows, tps, tile_rows)
+    grid[li, :, lj, :] = tiles
+    for s in range(0, off.size, MIRROR_CHUNK_TILES):
+        sel = off_d[s : s + MIRROR_CHUNK_TILES]
+        grid[lj[sel], :, li[sel], :] = tiles[sel].transpose(1, 2)
+    return full
 
 
 def triangular_assembly_bytes(n_tiles: int, ti: int, nb: int, n: int) -> int:

@@ -410,3 +410,196 @@ def test_device_assembly_on_card_equals_numpy(cuda, nb, ti, n):
     got = assemble_triangular_torch(torch.from_numpy(tiles).to(cuda), ibs, jbs, nb, n)
     assert got.device.type == "cuda"
     assert np.array_equal(got.cpu().numpy(), assemble_triangular(tiles, ibs, jbs, nb, n))
+
+
+# ------------------------------------------------------- the streaming walks
+def _same_stripe_files(got_dir, want_dir):
+    import json
+    import os
+
+    with open(os.path.join(got_dir, "manifest.json")) as f, \
+            open(os.path.join(want_dir, "manifest.json")) as g:
+        assert json.load(f) == json.load(g)
+    names = sorted(p for p in os.listdir(want_dir) if p.endswith(".npz"))
+    assert sorted(p for p in os.listdir(got_dir) if p.endswith(".npz")) == names
+    for name in names:
+        with np.load(os.path.join(got_dir, name)) as a, np.load(os.path.join(want_dir, name)) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for member in b.files:
+                assert a[member].dtype == b[member].dtype
+                assert np.array_equal(a[member], b[member]), (name, member)
+
+
+def _stream_case(kernel):
+    """(matrix, config, superblock rows): small shapes with two tiles a
+    superblock side; the clustered one has empty and non-empty
+    off-diagonal stripes."""
+    if kernel == "clustered":
+        return (_block_diagonal(250, 40_000, 5, 0.3, seed=3),
+                EngineConfig(k2_tile_rows=32, k2_tile_words=128), 64)
+    rng = np.random.default_rng(4)
+    bm = BitMatrix.from_dense((rng.random((150, 9000)) < 0.3).astype(np.uint8))
+    return bm, EngineConfig(k1_tile_rows=40, k1_tile_words=128, k2_tile_rows=32,
+                            k2_tile_words=64), 64
+
+
+@pytest.mark.parametrize("operand_streaming", (False, True), ids=("resident", "streaming"))
+@pytest.mark.parametrize("kernel", ("mxu", "dense", "xla_int8", "xla_popcount", "clustered"))
+def test_stream_directory_on_card_equals_the_cpu_route(cuda, tmp_path, kernel,
+                                                       operand_streaming):
+    from stormtpu_torch import stream
+
+    bm, cfg, sb = _stream_case(kernel)
+    kw = dict(superblock_rows=sb, kernel=kernel, config=cfg, compress=False,
+              operand_streaming=operand_streaming)
+    reset_launches()
+    man = stream.stream_count_matrix(bm, str(tmp_path / "card"), **kw)
+    counts = launch_counts()
+    stream.stream_count_matrix(bm, str(tmp_path / "cpu"), device="cpu", **kw)
+    assert launch_counts() == counts  # the CPU route launches nothing
+    _same_stripe_files(str(tmp_path / "card"), str(tmp_path / "cpu"))
+    assert np.array_equal(stream.load_streamed_matrix(str(tmp_path / "card")),
+                          oracle_count_matrix(bm.packed))
+    stripes = man["n_super"] * (man["n_super"] + 1) // 2
+    key = {"mxu": "k2_tri", "dense": "k1", "clustered": "k5"}.get(kernel)
+    if kernel == "clustered":
+        assert 0 < counts["k5"] < stripes and counts["k2_tri"] == 0
+    elif key:
+        assert counts[key] == stripes
+
+
+@pytest.mark.parametrize("kernel", ("mxu", "dense", "clustered"))
+def test_stripe_walk_reads_nothing_back_before_the_download(cuda, tmp_path, monkeypatch,
+                                                            kernel):
+    """Between a stripe's launch and its download nothing comes back from
+    the card: the wrappers' own checks (which read back) are not run, and
+    no CUDA tensor is asked for ``cpu()``, ``item()`` or ``tolist()``
+    outside ``download``."""
+    from stormtpu_torch import stream
+
+    bm, cfg, sb = _stream_case(kernel)
+    want = oracle_count_matrix(bm.packed)
+
+    def refuse(what):
+        def raising(*a, **k):
+            raise AssertionError(f"the stripe walk called {what}")
+        return raising
+
+    monkeypatch.setattr(mxu, "_check_tile_ids", refuse("_check_tile_ids"))
+    monkeypatch.setattr(clustered, "_slot_starts", refuse("_slot_starts"))
+    allowed = []
+    for name in ("cpu", "item", "tolist"):
+        real = getattr(torch.Tensor, name)
+
+        def guarded(self, *a, _real=real, _name=name, **k):
+            if self.is_cuda and not allowed:
+                raise AssertionError(f"a CUDA tensor's {_name}() outside download")
+            return _real(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, guarded)
+    real_download = stream.download
+
+    def download(t):
+        allowed.append(1)
+        try:
+            return real_download(t)
+        finally:
+            allowed.pop()
+
+    monkeypatch.setattr(stream, "download", download)
+    for streaming in (False, True):
+        out = str(tmp_path / f"s{int(streaming)}")
+        stream.stream_count_matrix(bm, out, superblock_rows=sb, kernel=kernel, config=cfg,
+                                   compress=False, operand_streaming=streaming)
+        assert np.array_equal(stream.load_streamed_matrix(out), want)
+
+
+@pytest.mark.parametrize("wrapper", ("k2", "k1"))
+def test_tile_ids_checked_on_the_host_on_the_card(cuda, wrapper, monkeypatch):
+    xp = np.zeros((128, 64), np.uint32)
+    xp[:100, :60] = _words(100, 60, 0.5, seed=9)
+    x = to_device_words(xp, cuda)
+    call = mxu.count_tiles_pallas_mxu if wrapper == "k2" else dense.count_tiles_pallas_dense
+    plain = mxu.count_tiles_plain if wrapper == "k2" else dense.count_tiles_dense_plain
+    ibs, jbs = triangular_tile_ids(4)
+    ids = mxu.device_tile_ids(ibs, jbs, 4, cuda)
+    assert ids.ibs.is_cuda and ids.ibs.is_contiguous() and ids.jbs.is_contiguous()
+    want = plain(x, *ids, tile_rows=32, tile_words=16)
+    bad = np.array([0, 4], np.int32)
+    for route in ("host", "card"):
+        with pytest.raises(ValueError, match=r"\[0, 4\)"):
+            if route == "host":
+                mxu.device_tile_ids(bad, bad, 4, cuda)
+            else:
+                t = torch.from_numpy(bad).to(cuda)
+                call(x, t, t, tile_rows=32, tile_words=16)
+
+    def no_read_back(*a, **k):
+        raise AssertionError("the checked route read the tile ids back")
+
+    call(x, *ids, tile_rows=32, tile_words=16, checked=ids)  # builds the library
+    monkeypatch.setattr(mxu, "_check_tile_ids", no_read_back)
+    for name in ("cpu", "item", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, no_read_back)
+    got = call(x, *ids, tile_rows=32, tile_words=16, checked=ids)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="other tile-id tensors"):
+        call(x, ids.ibs.clone(), ids.jbs, tile_rows=32, tile_words=16, checked=ids)
+    ids.ibs.add_(0)
+    with pytest.raises(ValueError, match="written to"):
+        call(x, *ids, tile_rows=32, tile_words=16, checked=ids)
+
+
+@pytest.mark.parametrize("kernel", ("mxu", "dense", "xla_int8"))
+def test_two_slice_buffer_gives_the_resident_operands_stripe(cuda, kernel):
+    from stormtpu_torch import stream
+
+    bm, cfg, sb = _stream_case(kernel)
+    ti, wk = ((cfg.k2_tile_rows, cfg.k2_tile_words) if kernel == "mxu"
+              else (cfg.k1_tile_rows, cfg.k1_tile_words))
+    sb = round_up(sb, ti)
+    n_pad, w_pad = round_up(bm.n, sb), round_up(bm.n_words, wk)
+    xp = clustered.padded_operand(bm, n_pad, w_pad, cuda)
+    slices = stream._SliceBuffer(bm, sb, w_pad, cuda)
+    n_super = n_pad // sb
+    assert n_super >= 2
+    pairs = [(i, j) for i in range(n_super) for j in range(i, n_super)]
+    for i, j in pairs + [(0, 1)]:
+        want = stream._compute_stripe(xp, i, j, sb // ti, ti, wk, kernel)
+        got = stream._compute_stripe_pair(slices.stripe_operand(i, j), sb // ti, ti, wk, kernel)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (i, j)
+    assert slices.buf.shape == (2 * sb, w_pad) and slices.staging[0].is_pinned()
+
+
+def test_stream_sinks_on_card_equal_the_cpu_route(cuda):
+    from stormtpu_torch import stream
+
+    bm, cfg, sb = _stream_case("clustered")
+    ti, wk = mxu.k2_tile_shape(cfg, bm.n, bm.n_words)
+    w_pad = (-(-bm.n_words // wk) + 1) * wk
+    xp = np.zeros((round_up(bm.n, sb), w_pad), np.uint32)
+    xp[: bm.n, : bm.n_words] = bm.packed
+    kw = dict(superblock_rows=sb, config=cfg)
+    reset_launches()
+    card = stream.stream_count_checksums(to_device_words(xp, cuda), bm.n, bm.m_bits, **kw)
+    assert launch_counts()["k2_tri"] == len(card["stripes"]) == 10
+    host = stream.stream_count_checksums(xp, bm.n, bm.m_bits, device="cpu", **kw)
+    card_c = stream.stream_count_checksums_clustered(bm, **kw)
+    host_c = stream.stream_count_checksums_clustered(bm, device="cpu", **kw)
+    for a, b in ((card, host), (card_c, host_c)):
+        assert a["stripes"] == b["stripes"]
+        for key in ("sample_ii", "sample_jj", "sample_vals"):
+            assert np.array_equal(a[key], b[key])
+    assert [r["checksum"] for r in card["stripes"]] == [r["checksum"] for r in card_c["stripes"]]
+    assert launch_counts()["k5"] == sum(not r["skipped"] for r in card_c["stripes"]) < 10
+    want = oracle_count_matrix(bm.packed)[np.triu_indices(bm.n, 1)]
+    for bins, width in ((64, None), (5, 7)):
+        got = stream.stream_count_histogram(to_device_words(xp, cuda), bm.n, bm.m_bits,
+                                            n_bins=bins, bin_width=width, **kw)
+        oracle = np.bincount(np.minimum(want // got["bin_width"], bins - 1), minlength=bins)
+        assert np.array_equal(got["hist"], oracle)
+    with pytest.raises(ValueError, match="lies on"):
+        stream.stream_count_checksums(to_device_words(xp, "cpu"), bm.n, bm.m_bits, **kw)
