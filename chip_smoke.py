@@ -70,7 +70,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     extended to 16,384 recomputes four stripes; ``[breakdown]`` of each
     route's stages as mean seconds a stripe;
 15. ``stream_count_checksums_clustered`` on the LD panel, stripe for stripe
-    equal to ``stream_count_checksums`` on the same padded operand.
+    equal to ``stream_count_checksums`` on the same padded operand;
+16. ``BASELINE.json`` config 3, 10,000 × 1,048,576 bits made with
+    ``BitMatrix.from_positions`` from positions drawn from the seed, in two
+    versions: A at density 0.5% (about 52.4M set bits: no COO cache) and B
+    at 1e-4 (about 1.05M: the COO cache kept); the C++ host tier must have
+    built; ingest timed on the host;
+17. on both versions, all exactly equal: ``intersect_count_matrix`` with
+    ``auto`` (D1's choice and the two estimates it compared are printed),
+    ``pallas_mxu`` (K2 must launch), ``sparse_outer`` (K4 on the host) and
+    ``sparse`` (K3 on the card) — on B at full size, on A for its first
+    1,024 rows against all 10,000 through ``count_block_sparse`` (A's
+    lists are about 5,400 long: the full matrix would take minutes);
+    sampled pairs, the diagonal and symmetry against numpy; K3, K2 and K4
+    timed (CUDA events on the card, the host clock for K4), K3 held against
+    its CPU form and K4 against its NumPy form;
+18. the streamed K4 walk at config 3's shape, superblock 4096 (3
+    superblocks, 6 stripes): a background at density 1e-4 and rows 0–4,095
+    at 0.05 over bits 0–262,143, so that stripe (0, 0) has about 5e9
+    emissions; at least one stripe must take K4 and one the dense walk, the
+    directory must load to the K2 matrix, and a resume after deleting one
+    stripe of each kind must write the same files and the same split;
+19. the ultra-sparse shape, 131,072 × 1,048,576 bits at density 1e-5,
+    ``stream_count_matrix(kernel="auto")`` at superblock 4096 (528 stripes):
+    ``auto`` must resolve to ``sparse_outer`` and every stripe file must
+    equal scipy's ``csr @ csr.T`` on that stripe (65,536 rows when the host
+    has under 48 GB available).
 
 The lines before the last are a ``kernels`` JSON object and the card's
 ``name, power.limit``; the last line is the result object.
@@ -126,6 +151,18 @@ SUPERBLOCK = 4096
 CFG4_NUMPY_SAMPLES = 64
 HIST_BINS = 64
 EXTEND_OLD_N = 14_000
+# BASELINE.json config 3 (phases 16 to 18): version A is config 3's density
+# bound, version B one below D1's sparse threshold
+CFG3_N, CFG3_M = 10_000, 1 << 20
+CFG3_VERSIONS = (("A", 0.005), ("B", 1e-4))
+K3_A_ROWS = 1024         # version A's K3 check: these rows against all
+K3_PLAIN_ROWS = 32       # K3's CPU form: these rows against all, for its time
+K4_PLAIN_ROWS = 2500     # K4 against its NumPy form on these rows of version B
+# phase 18: a dense corner in a sparse panel
+CORNER_ROWS, CORNER_BITS, CORNER_DENSITY, BACKGROUND_DENSITY = 4096, 1 << 18, 0.05, 1e-4
+# phase 19: the README's ultra-sparse shape, and its cut on a smaller host
+ULTRA_N, ULTRA_CUT_N, ULTRA_DENSITY = 131_072, 65_536, 1e-5
+ULTRA_MIN_AVAILABLE = 48 << 30
 
 
 def random_words(rng, n: int, m_bits: int, density: float) -> np.ndarray:
@@ -221,7 +258,8 @@ def breakdown(label: str, rec, per: int) -> None:
     """One ``[breakdown]`` line: a recorded walk's stages as mean seconds
     over ``per`` stripes (host clock, the device synchronised around each
     stage, each stripe's file awaited), the kernel stage also by CUDA events."""
-    order = ("plan", "upload", "kernel", "assembly", "reduce", "read_back", "download", "save")
+    order = ("plan", "upload", "kernel", "k4", "assembly", "reduce", "read_back", "download",
+             "save")
     parts = [f"{k} {rec.seconds[k] / per:.5f}" for k in order if k in rec.seconds]
     total = sum(rec.seconds.values())
     holder = max(rec.seconds, key=rec.seconds.get)
@@ -480,6 +518,350 @@ def stream_phases(torch, dev, cfg, rng, seed, bm_ld, ld_ref, k2_ops_per_s) -> di
           f"sink {wall_cd:.3f} s on the same padded operand: checksums equal stripe for stripe, "
           f"skipped stripes 0, all samples equal the clustered path's matrix")
     return {"k2_tri": launches4, "k5": launches_k5}
+
+
+def host_available_bytes() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable line")
+
+
+def column_emissions(bm) -> int:
+    """K4's emissions on a whole matrix: Σ over columns of occ·(occ+1)/2."""
+    _, indices = bm.positions_csr()
+    occ = np.bincount(indices, minlength=bm.m_bits).astype(np.int64)
+    return int((occ * (occ + 1) // 2).sum())
+
+
+def sparse_phases(torch, dev, cfg, rng) -> list:
+    """Phases 16 to 19: the sparse regime. Returns the ``kernels`` entries
+    of K3 and K4."""
+    import stormtpu_torch as st
+    from stormtpu_torch import native, stream
+    from stormtpu_torch.dispatch import choose_strategy, k4_estimates
+    from stormtpu_torch.kernels import launch_counts, mxu, reset_launches
+    from stormtpu_torch.kernels import sparse as ksp
+    from stormtpu_torch.layout import to_device_words
+    from stormtpu_torch.tuning import k4_constants
+    from stormtpu_torch.utils import round_up, triangular_tile_ids
+
+    n, m, sb = CFG3_N, CFG3_M, SUPERBLOCK
+    c_emit = k4_constants()["c_emit_s_per_emission"]
+
+    def padded(words: np.ndarray, ti: int, wk: int):
+        xp = np.zeros((round_up(words.shape[0], ti), round_up(words.shape[1], wk)), np.uint32)
+        xp[: words.shape[0], : words.shape[1]] = words
+        return to_device_words(xp, dev)
+
+    def k2_tri_ms(bm) -> float:
+        ti, wk = mxu.k2_tile_shape(cfg, bm.n, bm.n_words)
+        xp = padded(bm.packed, ti, wk)
+        ibs, jbs = triangular_tile_ids(xp.shape[0] // ti)
+        ids = mxu.device_tile_ids(ibs, jbs, xp.shape[0] // ti, dev)
+        ms = cuda_ms(torch, lambda: mxu.count_tiles_pallas_mxu(
+            xp, *ids, tile_rows=ti, tile_words=wk, checked=ids), reps=3)
+        del xp, ids
+        return ms
+
+    # ------------------------------------------------------- 16 config 3 ingest
+    if not native.have_native():
+        raise AssertionError(f"the C++ host tier did not build: {native.native_build_error()}")
+    mats = {}
+    for ver, density in CFG3_VERSIONS:
+        k = int(density * n * m)
+        rows, pos = rng.integers(0, n, k), rng.integers(0, m, k)
+        t0 = time.perf_counter()
+        bm = st.BitMatrix.from_positions(rows, pos, n, m)
+        ingest = time.perf_counter() - t0
+        del rows, pos
+        if (bm.coo is None) != (k > st.layout._COO_CACHE_MAX_NNZ):
+            raise AssertionError(f"config 3 {ver}: COO cache {bm.coo is not None} at {k} positions")
+        print(f"[config 3] version {ver}: {n} x {m} bits, {k} positions drawn at density "
+              f"{density}: nnz {bm.nnz} (density {bm.density:.6g}), longest row "
+              f"{int(bm.row_nnz.max())}, COO cache {'kept' if bm.coo is not None else 'over the cap'}; "
+              f"BitMatrix.from_positions {ingest:.3f} s on the host (C++ tier: "
+              f"{native.library_path().name})")
+        mats[ver] = bm
+
+    # ----------------------------------------------------- 17 config 3, one matrix
+    timing = {}
+    for ver, density in CFG3_VERSIONS:
+        bm = mats[ver]
+        chosen = choose_strategy(bm.n, bm.m_bits, bm.density, cfg, bm=bm, device=dev)
+        est_k4, est_k2 = k4_estimates(bm.n, bm.m_bits, bm.density)
+        print(f"[config 3] version {ver}: D1 chose {chosen} (K4 estimate {est_k4:.4f} s against "
+              f"K2 {est_k2:.4f} s; K4 is weighed below density "
+              f"{cfg.sparse_density_threshold})")
+        strategies = ("auto", "pallas_mxu", "sparse_outer") + (("sparse",) if ver == "B" else ())
+        outs, walls, launched = {}, {}, {}
+        for strategy in strategies:
+            reset_launches()
+            t0 = time.perf_counter()
+            outs[strategy] = st.intersect_count_matrix(bm, strategy=strategy, device=dev)
+            torch.cuda.synchronize()
+            walls[strategy] = time.perf_counter() - t0
+            launched[strategy] = {k: v for k, v in launch_counts().items() if v}
+        ran = dict(pallas_mxu="k2_tri", sparse_outer="k4", sparse="k3", clustered="k5")
+        for strategy in strategies:
+            want = ran[chosen if strategy == "auto" else strategy]
+            if launched[strategy].get(want, 0) < 1 or (want != "k2_tri" and "k2_tri" in launched[strategy]):
+                raise AssertionError(f"config 3 {ver} {strategy}: launches {launched[strategy]}, "
+                                     f"want {want}")
+        ref = outs["pallas_mxu"]
+        for strategy, out in outs.items():
+            if out.shape != (n, n) or out.dtype != np.int32 or not np.array_equal(out, ref):
+                raise AssertionError(f"config 3 {ver}: {strategy} differs from pallas_mxu")
+        i, j = rng.integers(0, n, N_SAMPLES), rng.integers(0, n, N_SAMPLES)
+        if not np.array_equal(ref[i, j], sampled_counts(bm.packed, bm.packed, i, j)):
+            raise AssertionError(f"config 3 {ver}: sampled pairs differ from numpy")
+        if not np.array_equal(np.diagonal(ref), bm.row_nnz) or not np.array_equal(ref, ref.T):
+            raise AssertionError(f"config 3 {ver}: diagonal or symmetry")
+        emissions = column_emissions(bm)
+        t = timing[ver] = dict(walls=walls, launched=launched, emissions=emissions,
+                               k4_s=walls["sparse_outer"], k2_tri_ms=k2_tri_ms(bm))
+        print(f"[config 3] version {ver}: " + ", ".join(
+            f"{s} {walls[s]:.3f} s ({launched[s]})" for s in strategies)
+            + f": all {n} x {n} matrices equal; {N_SAMPLES} sampled pairs, the diagonal and "
+            f"symmetry exact; K4 {emissions} emissions in {t['k4_s']:.3f} s on the host = "
+            f"{emissions / t['k4_s']:.4g} emissions/s; K2 triangle {t['k2_tri_ms']:.3f} ms "
+            f"(CUDA events)")
+        del outs
+        pos = torch.from_numpy(ksp.padded_position_lists(bm)).to(dev)
+        t["l_pad"] = pos.shape[1]
+        if ver == "A":
+            # K3 on the first rows against all, and K2's rectangle on the same block
+            reset_launches()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            blk = ksp.count_block_sparse(pos[:K3_A_ROWS], pos, sentinel=m)
+            stop.record()
+            torch.cuda.synchronize()
+            t["k3_ms"] = start.elapsed_time(stop)
+            if launch_counts()["k3"] < 1 or not np.array_equal(blk.cpu().numpy(), ref[:K3_A_ROWS]):
+                raise AssertionError("config 3 A: K3's block differs from the K2 matrix")
+            ti, wk = mxu.k2_tile_shape(cfg, n, bm.n_words)
+            xa, xb = padded(bm.packed[:K3_A_ROWS], ti, wk), padded(bm.packed, ti, wk)
+            rect = mxu._count_block_padded(xa, xb, tile_rows=ti, tile_words=wk,
+                                           variant=cfg.k2_variant)
+            if not torch.equal(rect[:K3_A_ROWS, :n], blk):
+                raise AssertionError("config 3 A: K2's rectangle differs from K3's block")
+            t["k2_rect_ms"] = cuda_ms(torch, lambda: mxu._count_block_padded(
+                xa, xb, tile_rows=ti, tile_words=wk, variant=cfg.k2_variant), reps=3)
+            print(f"[config 3] version A: K3 on rows 0..{K3_A_ROWS - 1} against all {n} (lists "
+                  f"of {pos.shape[1]}) {t['k3_ms']:.3f} ms, equal to the K2 matrix's rows; K2's "
+                  f"rectangle on the same block {t['k2_rect_ms']:.3f} ms (CUDA events)")
+            del blk, rect, xa, xb
+        else:
+            t["k3_ms"] = cuda_ms(torch, lambda: ksp.count_block_sparse(pos, pos, sentinel=m),
+                                 reps=1, warmup=0)
+            sub_cpu = pos[:K3_PLAIN_ROWS].cpu()
+            all_cpu = pos.cpu()
+            t0 = time.perf_counter()
+            plain = ksp.count_block_sparse(sub_cpu, all_cpu, sentinel=m)
+            t["k3_plain_ms"] = (time.perf_counter() - t0) * 1e3
+            t["k3_err"] = exact_diff(torch, ksp.count_block_sparse(pos[:K3_PLAIN_ROWS], pos,
+                                                                   sentinel=m).cpu(), plain)
+            t["k3_sub_ms"] = cuda_ms(torch, lambda: ksp.count_block_sparse(
+                pos[:K3_PLAIN_ROWS], pos, sentinel=m), reps=3)
+            # K4 against its NumPy form on the first rows (the whole matrix
+            # takes the NumPy form about 10 s)
+            rows_c, cols_c = bm.coo
+            head = rows_c < K4_PLAIN_ROWS
+            sub = st.BitMatrix.from_positions(rows_c[head], cols_c[head], K4_PLAIN_ROWS, m)
+            t0 = time.perf_counter()
+            plain4 = ksp.count_matrix_sparse_outer_plain(sub)
+            t["k4_plain_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            native4 = ksp.count_matrix_sparse_outer(sub)
+            t["k4_sub_s"] = time.perf_counter() - t0
+            if not (np.array_equal(plain4, native4)
+                    and np.array_equal(native4, ref[:K4_PLAIN_ROWS, :K4_PLAIN_ROWS])):
+                raise AssertionError("config 3 B: K4's NumPy form differs")
+            del plain4, native4, sub
+            t["k4_library_ms"] = None
+            try:  # one PyTorch call for X·Xᵀ: a sparse product on the card, float32 (exact here)
+                keys = np.unique(bm.coo[0] * m + bm.coo[1])
+                idx = torch.from_numpy(np.stack([keys // m, keys % m])).to(dev)
+                x = torch.sparse_coo_tensor(idx, torch.ones(keys.size, device=dev), (n, m)
+                                            ).coalesce().to_sparse_csr()
+                xt = x.to_sparse_coo().t().coalesce().to_sparse_csr()
+                prod = torch.sparse.mm(x, xt).to_dense()
+                if not np.array_equal(prod.to(torch.int32).cpu().numpy(), ref):
+                    raise AssertionError("config 3 B: torch.sparse.mm differs from K4")
+                del prod
+                t["k4_library_ms"] = cuda_ms(torch, lambda: torch.sparse.mm(x, xt), reps=3)
+                del x, xt, idx
+            except RuntimeError as e:
+                print(f"[config 3] version B: torch.sparse.mm on the card raised: {e}")
+            print(f"[config 3] version B: K3 on all {n} rows (lists of {pos.shape[1]}) "
+                  f"{t['k3_ms']:.3f} ms against K2's triangle {t['k2_tri_ms']:.3f} ms (CUDA "
+                  f"events); on {K3_PLAIN_ROWS} rows against all: card {t['k3_sub_ms']:.3f} ms, "
+                  f"its CPU form {t['k3_plain_ms']:.1f} ms, equal; K4 on rows "
+                  f"0..{K4_PLAIN_ROWS - 1}: {t['k4_sub_s']:.3f} s, its NumPy form "
+                  f"{t['k4_plain_s']:.3f} s, equal; torch.sparse.mm (float32) on all rows "
+                  f"{t['k4_library_ms']} ms")
+        del pos
+        torch.cuda.empty_cache()
+
+    # ------------------------------------- 18 the streamed K4 walk, both kinds
+    bg = int(BACKGROUND_DENSITY * n * m)
+    kd = int(CORNER_DENSITY * CORNER_ROWS * CORNER_BITS)
+    rows = np.concatenate([rng.integers(0, n, bg), rng.integers(0, CORNER_ROWS, kd)])
+    pos = np.concatenate([rng.integers(0, m, bg), rng.integers(0, CORNER_BITS, kd)])
+    bm18 = st.BitMatrix.from_positions(rows, pos, n, m)
+    del rows, pos
+    want = st.intersect_count_matrix(bm18, strategy="pallas_mxu", device=dev)
+    n_super = round_up(n, sb) // sb
+    with tempfile.TemporaryDirectory() as out:
+        reset_launches()
+        t0 = time.perf_counter()
+        with stream.record_stages() as rec:
+            man = stream.stream_count_matrix(bm18, out, superblock_rows=sb, kernel="sparse_outer",
+                                             compress=False, device=dev)
+        wall18 = time.perf_counter() - t0
+        split = man["stripe_kernels"]
+        launched18 = {k: v for k, v in launch_counts().items() if v}
+        if split["k4"] < 1 or split["dense"] < 1 or launched18.get("k2_tri") != split["dense"]:
+            raise AssertionError(f"streamed K4 walk: split {split}, launches {launched18}")
+        if not np.array_equal(stream.load_streamed_matrix(out), want):
+            raise AssertionError("streamed K4 walk: the directory differs from the K2 matrix")
+        kinds = {(i, j): stream._stripe_kind(stream.stripe_path(out, i, j))
+                 for i, j in man["completed"]}
+        print(f"[config 3 stream] {n} x {m} bits, background {BACKGROUND_DENSITY}, rows "
+              f"0..{CORNER_ROWS - 1} at {CORNER_DENSITY} over bits 0..{CORNER_BITS - 1}: "
+              f"{len(kinds)} stripes at superblock {sb}, split {split} "
+              f"({', '.join(f'{k}: {v}' for k, v in sorted(kinds.items()))}), launches "
+              f"{launched18}; loads to the K2 matrix; {wall18:.3f} s (recorded walk)")
+        breakdown("streamed K4 walk, compress off (K4 and dense stripes together)", rec,
+                  rec.stripes)
+        gone = [next(s for s, k in kinds.items() if k == "k4"),
+                next(s for s, k in kinds.items() if k == "dense")]
+        kept = {}
+        for i, j in gone:
+            with np.load(stream.stripe_path(out, i, j)) as z:
+                kept[(i, j)] = {name: z[name] for name in z.files}
+            os.remove(stream.stripe_path(out, i, j))
+        reset_launches()
+        again = stream.stream_count_matrix(bm18, out, superblock_rows=sb, kernel="sparse_outer",
+                                           compress=False, device=dev)
+        if again != man or launch_counts()["k2_tri"] != 1:
+            raise AssertionError(f"resume: manifest {again} against {man}")
+        for (i, j), members in kept.items():
+            with np.load(stream.stripe_path(out, i, j)) as z:
+                if sorted(z.files) != sorted(members) or any(
+                        not np.array_equal(z[k], v) for k, v in members.items()):
+                    raise AssertionError(f"resume: stripe ({i}, {j}) differs")
+        print(f"[config 3 stream] resume after deleting stripes {gone} (one of each kind): the "
+              f"same files, the same split {again['stripe_kernels']}")
+    del want, bm18
+
+    # ------------------------------------------- 19 the ultra-sparse shape
+    import scipy.sparse
+
+    avail = host_available_bytes()
+    n19 = ULTRA_N if avail >= ULTRA_MIN_AVAILABLE else ULTRA_CUT_N
+    if n19 != ULTRA_N:
+        print(f"[ultra-sparse] the host has {avail / 2**30:.1f} GiB available, under "
+              f"{ULTRA_MIN_AVAILABLE / 2**30:.0f}: taking {n19} rows instead of {ULTRA_N}")
+    k = int(ULTRA_DENSITY * n19 * m)
+    rows, pos = rng.integers(0, n19, k), rng.integers(0, m, k)
+    t0 = time.perf_counter()
+    bm19 = st.BitMatrix.from_positions(rows, pos, n19, m)
+    ingest19 = time.perf_counter() - t0
+    del rows, pos
+    n_super = round_up(n19, sb) // sb
+    with tempfile.TemporaryDirectory() as out:
+        reset_launches()
+        t0 = time.perf_counter()
+        man = stream.stream_count_matrix(bm19, out, superblock_rows=sb, kernel="auto", device=dev)
+        wall19 = time.perf_counter() - t0
+        launched19 = {k: v for k, v in launch_counts().items() if v}
+        stripes = n_super * (n_super + 1) // 2
+        if man["kernel"] != "sparse_outer" or len(man["completed"]) != stripes:
+            raise AssertionError(f"ultra-sparse: kernel {man['kernel']}, "
+                                 f"{len(man['completed'])} of {stripes} stripes")
+        t0 = time.perf_counter()
+        if bm19.coo is not None:  # the positions as drawn, duplicates dropped
+            keys = np.unique(bm19.coo[0] * m + bm19.coo[1])
+            x = scipy.sparse.csr_matrix((np.ones(keys.size, np.int64), (keys // m, keys % m)),
+                                        shape=(n19, m))
+        else:
+            indptr, indices = bm19.positions_csr()
+            x = scipy.sparse.csr_matrix((np.ones(indices.size, np.int64), indices, indptr),
+                                        shape=(n19, m))
+        c = (x @ x.T).tocoo()
+        si, sj = c.row // sb, c.col // sb
+        up = si <= sj
+        key = (si * n_super + sj)[up]
+        local = ((c.row % sb) * sb + c.col % sb)[up]
+        vals = c.data[up]
+        order = np.lexsort((local, key))
+        key, local, vals = key[order], local[order], vals[order]
+        bounds = np.searchsorted(key, np.arange(n_super * n_super + 1))
+        for i in range(n_super):
+            for j in range(i, n_super):
+                lo, hi = bounds[i * n_super + j], bounds[i * n_super + j + 1]
+                with np.load(stream.stripe_path(out, i, j)) as z:
+                    if "coo_i" not in z.files:
+                        got_l = np.flatnonzero(z["counts"])
+                        got_v = z["counts"].ravel()[got_l]
+                    else:
+                        got_l = z["coo_i"].astype(np.int64) * sb + z["coo_j"]
+                        got_v = z["coo_v"]
+                if not (np.array_equal(got_l, local[lo:hi]) and np.array_equal(got_v, vals[lo:hi])):
+                    raise AssertionError(f"ultra-sparse: stripe ({i}, {j}) differs from scipy")
+        check19 = time.perf_counter() - t0
+    pairs = n19 * (n19 - 1) // 2
+    print(f"[ultra-sparse] {n19} x {m} bits at density {ULTRA_DENSITY} (nnz {bm19.nnz}, "
+          f"from_positions {ingest19:.3f} s): stream_count_matrix(kernel='auto') resolved to "
+          f"{man['kernel']}; {stripes} stripes, split {man['stripe_kernels']}, launches "
+          f"{launched19}; wall {wall19:.3f} s = {wall19 / stripes * 1e3:.3f} ms a stripe = "
+          f"{pairs / wall19:.4g} pairs/s; every stripe equals scipy's csr @ csr.T "
+          f"({c.nnz} nonzeros, {check19:.2f} s to check)")
+    del bm19, x, c
+
+    # ------------------------------------------------------ the kernels line
+    a, b = timing["A"], timing["B"]
+    # K3's bound: one int32 probe (4 bytes) a lookup at the HBM rate, or its
+    # inputs read once and its output written once, whichever is longer
+    lookups = float(n) * n * b["l_pad"]
+    lookup_ms = 4.0 * lookups / PEAK_BYTES_PER_S * 1e3
+    bytes_once_ms = (4.0 * (n * b["l_pad"] + n * n)) / PEAK_BYTES_PER_S * 1e3
+    k3 = dict(name="k3", route="torch", source="stormtpu_torch/kernels/sparse.py",
+              replaces="stormtpu/kernels/sparse.py:60", launches=b["launched"]["sparse"]["k3"],
+              max_abs_err=b["k3_err"], ms=b["k3_ms"], plain_ms=b["k3_plain_ms"],
+              bound_ms=max(lookup_ms, bytes_once_ms),
+              bound_by="operations" if lookup_ms >= bytes_once_ms else "bytes",
+              library_ms=b["k2_tri_ms"],
+              library="K2's triangle (k2_tri) on the same matrix, by CUDA events",
+              shape=f"{n} x {n} pairs, lists of {b['l_pad']} (config 3, version B)",
+              bound_rule="one int32 probe read (4 bytes) a lookup at the HBM rate; "
+                         f"bytes read once and written once: {bytes_once_ms:.4f} ms",
+              plain_shape=f"{K3_PLAIN_ROWS} x {n} pairs on the CPU",
+              ms_at_plain_shape=b["k3_sub_ms"],
+              version_a=dict(shape=f"{K3_A_ROWS} x {n} pairs, lists of {a['l_pad']}",
+                             ms=a["k3_ms"], k2_rect_ms=a["k2_rect_ms"]))
+    k4 = dict(name="k4", route="host", source="stormtpu_torch/native/packer.cpp",
+              replaces="stormtpu/native/packer.cpp:123",
+              launches=a["launched"]["sparse_outer"]["k4"] + b["launched"]["sparse_outer"]["k4"],
+              max_abs_err=0, ms=b["k4_s"] * 1e3, plain_ms=b["k4_plain_s"] * 1e3,
+              plain_shape=f"rows 0..{K4_PLAIN_ROWS - 1} of version B",
+              ms_at_plain_shape=b["k4_sub_s"] * 1e3,
+              bound_ms=b["emissions"] * c_emit * 1e3, bound_by="operations",
+              library_ms=b["k4_library_ms"],
+              library="torch.sparse.mm of X and its transpose, float32 CSR on the card",
+              shape=f"config 3 version B, {b['emissions']} emissions (COO route)",
+              bound_rule="emissions x the measured host emission cost "
+                         f"(tuning.K4_DEFAULTS: {c_emit:.4g} s)",
+              emissions_per_s=b["emissions"] / b["k4_s"], k2_tri_ms=b["k2_tri_ms"],
+              version_a=dict(ms=a["k4_s"] * 1e3, emissions=a["emissions"],
+                             emissions_per_s=a["emissions"] / a["k4_s"],
+                             bound_ms=a["emissions"] * c_emit * 1e3, k2_tri_ms=a["k2_tri_ms"],
+                             route="packed words (no COO cache)"))
+    return [k3, k4]
 
 
 def ld_ref_samples(ref: np.ndarray, man: dict) -> np.ndarray:
@@ -1231,7 +1613,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     stream_launches = stream_phases(torch, dev, cfg, rng, args.seed, bm_ld, ld_ref, k2_ops_per_s)
-    del ld_ref
+    del ld_ref, bm_ld
+    sparse_kernels = sparse_phases(torch, dev, cfg, rng)
 
     src_k2 = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
     src_k1 = "stormtpu_torch/kernels/csrc/k1_dense.cu"
@@ -1254,6 +1637,7 @@ def main(argv=None) -> int:
         dict(name="k0", route="cuda", source=src_k1,
              replaces="stormtpu/kernels/dense.py:239", launches=launches_k0,
              max_abs_err=max_err["k0"], **timings["k0"]),
+        *sparse_kernels,
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from stormtpu_torch.config import EngineConfig, default_config
-from stormtpu_torch.dispatch import PORTED, STRATEGIES, choose_strategy, dense_strategy
+from stormtpu_torch.dispatch import STRATEGIES, choose_strategy
 from stormtpu_torch.kernels import xla as kx
 from stormtpu_torch.layout import BitMatrix, to_device_words
 from stormtpu_torch.utils import resolve_device, round_up, triangular_assembly_bytes
@@ -24,12 +24,6 @@ from stormtpu_torch.utils import resolve_device, round_up, triangular_assembly_b
 __all__ = ["pair_count", "intersect_count_matrix", "count_block"]
 
 MatrixLike = Union[BitMatrix, np.ndarray]
-
-# the ROADMAP.md queue item each unported strategy waits on
-_NOT_PORTED = {
-    "sparse": "module queue: kernels/sparse.py K3",
-    "sparse_outer": "module queue: kernels/sparse.py K4",
-}
 
 
 def _as_bitmatrix(x: MatrixLike) -> BitMatrix:
@@ -82,12 +76,11 @@ def intersect_count_matrix(
 ) -> np.ndarray:
     """Exact N×N pairwise intersection-count matrix, numpy int32.
 
-    ``strategy``: "auto" (D1 dispatch) or one of ``dispatch.STRATEGIES``.
-    Explicitly requesting a strategy that is not ported yet (``sparse``,
-    ``sparse_outer``) raises ``NotImplementedError``; "auto" never lands on
-    one — where D1 names one, the dense choice for the shape runs instead
-    (every strategy gives the same exact counts). Where D1 names
-    ``"clustered"``, "auto" runs the K5 work list.
+    ``strategy``: "auto" (D1 dispatch) or one of ``dispatch.STRATEGIES``;
+    every strategy gives the same exact counts. ``"sparse_outer"`` (K4)
+    runs on the host: it refuses N > 32768 (``ValueError``), and where
+    K4's NumPy fallback refuses (no C++ tier) the K2 walk runs instead.
+    ``"sparse"`` (K3) runs on ``device``.
 
     Host memory: on the card, the tile-walk strategies (``pallas_mxu``,
     ``pallas_dense``, ``clustered``) return an array that lives in a
@@ -104,16 +97,23 @@ def intersect_count_matrix(
         strategy = choose_strategy(
             bm.n, bm.m_bits, bm.density, cfg, bm=bm, device=dev
         )
-        if strategy not in PORTED:
-            strategy = dense_strategy(bm.n, bm.m_bits, cfg)
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; want one of {STRATEGIES}")
-    if strategy not in PORTED:
-        raise NotImplementedError(
-            f"strategy {strategy!r} is not ported to stormtpu_torch yet "
-            f"(ROADMAP.md, {_NOT_PORTED[strategy]})"
-        )
     from stormtpu_torch.stream import require_device_budget
+
+    if strategy == "sparse_outer":
+        # on the host: no compaction scan and no upload
+        from stormtpu_torch.kernels.sparse import check_k4_rows, count_matrix_sparse_outer
+
+        # an explicit request must see K4's refusal, not a multi-GB dense
+        # matrix in its place
+        check_k4_rows(bm.n)
+        try:
+            return count_matrix_sparse_outer(bm, config=cfg)
+        except ValueError:
+            # the NumPy fallback's capacity refusals (no C++ tier): every
+            # strategy is exact, so the K2 walk takes over
+            strategy = "pallas_mxu"
 
     stream_hint = (
         "use stormtpu_torch.stream.stream_count_matrix (resumable stripes; "
@@ -145,6 +145,19 @@ def intersect_count_matrix(
                 what = "the K5 operand, the work-list count tiles and the N² count matrix"
             require_device_budget(need, f"N={bm.n}: {what}", stream_hint, device=dev)
         return count_matrix_clustered(bm, config=cfg, plan=plan, device=dev)
+
+    if strategy == "sparse":
+        from stormtpu_torch.kernels.sparse import K3_BYTES_PER_LOOKUP, count_matrix_sparse
+
+        if bm.n > 2:
+            # on the device together: the position lists, the N² int32
+            # output and at least one row's block of lookups
+            l_pad = round_up(max(int(bm.row_nnz.max()), 1), 128)
+            need = 4 * bm.n * l_pad + 4 * bm.n * bm.n + K3_BYTES_PER_LOOKUP * bm.n * l_pad
+            require_device_budget(
+                need, f"N={bm.n}: the K3 position lists, the N² count matrix and "
+                "one row block of lookups", stream_hint, device=dev)
+        return count_matrix_sparse(bm, config=cfg, device=dev)
 
     if bm.n > 2:
         # on the device together: the packed operand and the N² int32

@@ -5,17 +5,22 @@ A pure host decision over (N, M, density, device) that names a strategy.
 It must be semantics-free: every strategy returns the identical exact
 count matrix. The strategy names are the JAX package's.
 
-Differences from the JAX package, all temporary (ROADMAP.md):
+Below ``sparse_density_threshold`` D1 names ``"sparse"`` (K3) on the CPU,
+as the JAX package does off the TPU. On the card it weighs K4 on the host
+against the dense K2 walk with the JAX package's estimate
+(:func:`k4_estimates`), and names ``"sparse_outer"`` when K4 is cheaper,
+N ≤ 32768 and the C++ host tier is built.
 
-- no measured tuning table and no K4 cost fit is consulted — the port has
-  measured neither on its card yet;
-- on CUDA, the density < ``sparse_density_threshold`` branch falls
-  through to the dense choice until K3/K4 are ported (on the CPU it
-  returns ``"sparse"``, as the JAX package does off the TPU).
+Differences from the JAX package:
+
+- the K4 constants are the port's own, measured on the H100 and its host
+  (``tuning.K4_DEFAULTS``), and nothing is read from a tuning cache;
+- no measured dense-crossover table is consulted (ROADMAP.md §1 item 3):
+  the dense choice is by shape alone (:func:`dense_strategy`).
 
 The block-clustered choice (``"clustered"``, K5) is made as the JAX
-package makes it, and runs: ``"auto"`` takes it on the card and on the
-CPU. ``"pallas_dense"`` (K1) runs when asked for; D1 never picks it.
+package makes it. ``"pallas_dense"`` (K1) runs when asked for; D1 never
+picks it.
 """
 
 from __future__ import annotations
@@ -24,18 +29,17 @@ from typing import Optional
 
 import torch
 
+from stormtpu_torch import native
 from stormtpu_torch.config import EngineConfig, default_config
 from stormtpu_torch.kernels import MXU_XLA_MAX_BITS
 
-__all__ = ["choose_strategy", "dense_strategy", "STRATEGIES", "PORTED"]
+__all__ = ["choose_strategy", "dense_strategy", "k4_estimates", "STRATEGIES"]
 
+# every one of them runs in the port
 STRATEGIES = (
     "popcount", "mxu", "pallas_dense", "pallas_mxu", "sparse",
     "sparse_outer", "clustered",
 )
-
-# strategies the port can run; the rest name their ROADMAP item
-PORTED = ("popcount", "mxu", "pallas_dense", "pallas_mxu", "clustered")
 
 
 def dense_strategy(n: int, m_bits: int, config: Optional[EngineConfig] = None) -> str:
@@ -45,6 +49,21 @@ def dense_strategy(n: int, m_bits: int, config: Optional[EngineConfig] = None) -
     if n < cfg.mxu_min_rows:
         return "popcount"
     return "mxu" if m_bits <= MXU_XLA_MAX_BITS else "pallas_mxu"
+
+
+def k4_estimates(n: int, m_bits: int, density: float) -> tuple[float, float]:
+    """Seconds D1 expects of (K4 on the host, the K2 walk on the card) for
+    an N×M matrix at ``density``: K4 sorts nnz keys, fills and mirrors an
+    N² buffer and emits about nnz·N·density pairs; K2 does N²·M at the
+    measured rate plus the warm call's fixed cost."""
+    from stormtpu_torch.tuning import k4_constants
+
+    fit = k4_constants()
+    nnz = n * m_bits * density
+    est_k4 = (fit["c_sort_s_per_nnz"] * nnz + fit["c_n2_s_per_elem"] * n * n
+              + fit["c_emit_s_per_emission"] * nnz * n * density)
+    est_k2 = n * n * m_bits / fit["k2_int8_ops_per_s"] + fit["dispatch_floor_s"]
+    return est_k4, est_k2
 
 
 def choose_strategy(
@@ -67,8 +86,15 @@ def choose_strategy(
     cfg = config or default_config()
     cfg.validate(m_bits)
     on_cpu = torch.device("cuda" if device is None else device).type == "cpu"
-    if density < cfg.sparse_density_threshold and n >= 2 and on_cpu:
-        return "sparse"
+    if density < cfg.sparse_density_threshold and n >= 2:
+        if on_cpu:
+            return "sparse"
+        from stormtpu_torch.kernels.sparse import K4_MAX_N
+
+        if n <= K4_MAX_N and native.have_native():
+            est_k4, est_k2 = k4_estimates(n, m_bits, density)
+            if est_k4 < est_k2:
+                return "sparse_outer"
     winner = dense_strategy(n, m_bits, cfg)
     if bm is not None and winner in ("mxu", "pallas_mxu"):
         from stormtpu_torch.kernels.clustered import clustered_work_fraction

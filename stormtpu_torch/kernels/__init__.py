@@ -10,6 +10,9 @@
 - ``dense``     — K1 (AND + popcount tiles, on the same tile body:
   ``csrc/tile_body.cuh``) and K0 (row-wise pair stream, CUDA cores), in
   ``csrc/k1_dense.cu``.
+- ``sparse``    — K3 (sorted-list intersections by ``torch.searchsorted``
+  on the caller's device) and K4 (the inverted index, on the host in the
+  C++ tier ``stormtpu_torch.native``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 # package's routing constant, kept so both packages route alike.
 MXU_XLA_MAX_BITS = 1 << 17
 
-from stormtpu_torch.kernels import clustered, dense, mxu  # noqa: E402
+from stormtpu_torch import native  # noqa: E402
+from stormtpu_torch.kernels import clustered, dense, mxu, sparse  # noqa: E402
 from stormtpu_torch.kernels.clustered import (  # noqa: E402
     ClusteredPlan,
     build_clustered_plan,
@@ -48,12 +52,13 @@ __all__ = [
     "reset_launches",
 ]
 
-_COUNTED = (mxu, clustered, dense)
+_COUNTED = (mxu, clustered, dense, sparse, native)
 
 
 def launch_counts() -> dict[str, int]:
-    """CUDA launches of every kernel wrapper since the last reset, by
-    kernel (``k2_tri``, ``k2_rect``, ``k5``, ``k1``, ``k0``)."""
+    """Launches of every kernel wrapper since the last reset, by kernel:
+    on the card ``k2_tri``, ``k2_rect``, ``k5``, ``k1``, ``k0`` and ``k3``
+    (a block of rows), on the host ``k4`` (a run of the C++ K4)."""
     return {k: v for m in _COUNTED for k, v in m.LAUNCHES.items()}
 
 

@@ -1,9 +1,12 @@
 """Bit-matrix layout: packing, containers, density statistics.
 
-The port's copy of ``stormtpu/layout.py`` (NumPy paths only; the C++
-host tier is not ported yet). The primary representation is the
-contiguous packed matrix ``uint32[N, W]`` on the host, with per-row nnz
-and the global density that D1 dispatches on.
+The port's copy of ``stormtpu/layout.py``. The primary representation is
+the contiguous packed matrix ``uint32[N, W]`` on the host, with per-row
+nnz and the global density that D1 dispatches on, and, for matrices built
+from positions, the ingest-time COO (``BitMatrix.coo``) that K4 reads.
+Packing, unpacking, row popcounts and CSR extraction go through the C++
+host tier (``stormtpu_torch.native``) and fall back to NumPy with the same
+result when it is unavailable.
 
 Bit order: bit ``p`` of row ``i`` lives at ``packed[i, p >> 5]`` bit
 ``(p & 31)`` (LSB-first within a uint32 word).
@@ -22,7 +25,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from stormtpu_torch import native as _native
 from stormtpu_torch.config import WORD_BITS, EngineConfig, default_config
+
+# from_positions keeps its COO (for K4) only up to this many entries
+# (about 512 MB of int64 pairs): above it the cache would pin more host
+# memory than it saves.
+_COO_CACHE_MAX_NNZ = 1 << 25
 
 __all__ = [
     "BitMatrixBuilder",
@@ -62,6 +71,9 @@ def pack_bits(dense01: np.ndarray) -> np.ndarray:
         raise ValueError(f"expected 2-D {{0,1}} matrix, got shape {dense01.shape}")
     n, m = dense01.shape
     w = words_for_bits(m)
+    out = _native.pack_bits_native(dense01, w)
+    if out is not None:
+        return out
     # np.packbits packs MSB-first per byte; request little bit order then
     # view 4 bytes as one little-endian uint32 → LSB-first per word.
     padded_bits = _round_up(m, WORD_BITS)
@@ -74,6 +86,9 @@ def pack_bits(dense01: np.ndarray) -> np.ndarray:
 def unpack_bits(packed: np.ndarray, m_bits: int) -> np.ndarray:
     """Inverse of :func:`pack_bits` → uint8 {0,1} matrix [N, m_bits]."""
     packed = np.ascontiguousarray(np.asarray(packed, dtype=np.uint32))
+    out = _native.unpack_bits_native(packed, m_bits)
+    if out is not None:
+        return out
     n, w = packed.shape
     bytes_ = packed.reshape(n, w, 1).view("<u1").reshape(n, w * 4)
     bits = np.unpackbits(bytes_, axis=1, bitorder="little")
@@ -96,6 +111,9 @@ def pack_positions(
     if row_ids.size and (row_ids.min() < 0 or row_ids.max() >= n):
         raise ValueError("row id out of range")
     w = words_for_bits(m_bits)
+    out = _native.pack_positions_native(row_ids, positions, n, m_bits, w)
+    if out is not None:
+        return out
     packed = np.zeros((n, w), dtype=np.uint32)
     np.bitwise_or.at(
         packed,
@@ -136,6 +154,13 @@ class BitMatrix:
     n: int
     m_bits: int
     row_nnz: np.ndarray       # int64 [N] set-bit count per row
+    # The ingest-time COO (row_ids, positions; int64, duplicates allowed)
+    # that from_positions keeps: K4 then skips the O(N·W) packed scan. It
+    # repeats what ``packed`` holds, so equality, the device cache and the
+    # content fingerprint ignore it.
+    coo: Optional[tuple[np.ndarray, np.ndarray]] = dataclasses.field(
+        default=None, compare=False, repr=False
+    )
 
     # ------------------------------------------------------------------ build
     @classmethod
@@ -156,16 +181,26 @@ class BitMatrix:
         tail = m_bits % WORD_BITS
         if tail and n and np.any(packed[:, -1] >> tail):
             raise ValueError("set bits beyond m_bits in final word")
-        row_nnz = np.bitwise_count(packed).sum(axis=1, dtype=np.int64)
+        row_nnz = _native.row_popcounts_native(packed)
+        if row_nnz is None:
+            row_nnz = np.bitwise_count(packed).sum(axis=1, dtype=np.int64)
         return cls(packed=packed, n=n, m_bits=m_bits, row_nnz=row_nnz)
 
     @classmethod
     def from_positions(
         cls, row_ids: np.ndarray, positions: np.ndarray, n: int, m_bits: int
     ) -> "BitMatrix":
-        return cls.from_packed(
+        bm = cls.from_packed(
             pack_positions(row_ids, positions, n, m_bits), m_bits=m_bits
         )
+        # copies, not views: the caller may change its arrays afterwards,
+        # and K4 must see what was packed
+        if np.size(positions) <= _COO_CACHE_MAX_NNZ:
+            bm.coo = (
+                np.array(row_ids, dtype=np.int64, copy=True),
+                np.array(positions, dtype=np.int64, copy=True),
+            )
+        return bm
 
     @classmethod
     def from_position_lists(
@@ -228,7 +263,12 @@ class BitMatrix:
         self.__dict__.pop("_device_cache", None)
 
     def positions_csr(self) -> tuple[np.ndarray, np.ndarray]:
-        """(indptr int64 [N+1], indices int32 [nnz]) sorted per row."""
+        """(indptr int64 [N+1], indices int32 [nnz]) sorted per row: two
+        passes of the C++ tier over the packed words. The NumPy fallback
+        unpacks the whole matrix (N·M bytes)."""
+        res = _native.positions_csr_native(self.packed, self.m_bits)
+        if res is not None:
+            return res
         dense = self.to_dense()
         rows, cols = np.nonzero(dense)
         indptr = np.zeros(self.n + 1, dtype=np.int64)

@@ -11,16 +11,16 @@ half written by one package is resumed, loaded and extended by the other):
 one ``stripe_{I:05d}_{J:05d}.npz`` per superblock pair (upper triangle
 only; mirror at read time) plus ``manifest.json``. A dense stripe holds
 ``counts, i, j``; a clustered one its visited tiles ``tiles, loc_i,
-loc_j, i, j``; the JAX package's ``sparse_outer`` stripes (``coo_i, coo_j,
-coo_v, i, j``) are loaded too, though that walk itself waits for the K4
-host tier.
+loc_j, i, j``; a ``sparse_outer`` walk's K4 stripe its nonzero counts
+``coo_i, coo_j, coo_v, i, j``.
 
 On the card a stripe's tiles come from the hand-written kernels through
 their wrappers (K2 for ``kernel="mxu"``, K1 for ``"dense"``, K5 for
 ``"clustered"``), the stripe is assembled there and downloaded once; the
 tile ids and work lists are checked on the host before their upload, so
 nothing is read back from the card between a stripe's launch and its
-download. Every entry point takes ``device=None`` (the card;
+download. ``kernel="sparse_outer"`` decides each stripe between K4 on the
+host (the C++ tier) and the K2 walk on the card. Every entry point takes ``device=None`` (the card;
 ``RuntimeError`` without one) or ``device="cpu"``, where each wrapper
 takes its plain version.
 """
@@ -38,7 +38,9 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from stormtpu_torch import native
 from stormtpu_torch.config import EngineConfig, default_config
+from stormtpu_torch.kernels.sparse import unique_int64
 from stormtpu_torch.layout import BitMatrix, to_device_words
 from stormtpu_torch.utils import (
     assemble_stripe,
@@ -264,30 +266,31 @@ def _auto_stream_kernel(m_bits: int) -> str:
 def _resolve_stream_kernel(bm: BitMatrix, kernel: str, cfg: EngineConfig) -> str:
     """The streaming walk's kernel-resolution policy, factored out so
     callers that must PREDICT the geometry (``extend_streamed_matrix``)
-    resolve identically to the walk itself. ``auto`` never names
-    ``sparse_outer`` (the port has no native host tier yet)."""
+    resolve identically to the walk itself."""
     if kernel == "auto":
-        kernel = _auto_stream_kernel(bm.m_bits)
-        # summary-AND skip at streaming scale: when most (tile pair,
-        # K-group) cells are co-empty the work-list stripes win by about
-        # 1/fraction over any dense stripe walk — the single-matrix
-        # dispatch's statistic
-        from stormtpu_torch.kernels.clustered import clustered_work_fraction
+        if (bm.n >= 2 and bm.density < cfg.sparse_density_threshold
+                and native.have_native()):
+            # the per-superblock inverted-index walk; checked before the
+            # clustered skip, as D1 checks it: a stripe where K4 loses
+            # takes the dense walk anyway
+            kernel = "sparse_outer"
+        else:
+            kernel = _auto_stream_kernel(bm.m_bits)
+            # summary-AND skip at streaming scale: when most (tile pair,
+            # K-group) cells are co-empty the work-list stripes win by about
+            # 1/fraction over any dense stripe walk — the single-matrix
+            # dispatch's statistic
+            from stormtpu_torch.kernels.clustered import clustered_work_fraction
 
-        wf = clustered_work_fraction(bm, cfg)
-        if wf is not None and wf < cfg.clustered_work_fraction_threshold:
-            kernel = "clustered"
+            wf = clustered_work_fraction(bm, cfg)
+            if wf is not None and wf < cfg.clustered_work_fraction_threshold:
+                kernel = "clustered"
     if kernel not in _STREAM_KERNELS:
         # an unknown string would silently run the K1 branch
         raise ValueError(
             f"unknown kernel {kernel!r}; want 'auto' or one of "
             f"('mxu', 'dense', 'xla_int8', 'xla_popcount', 'clustered', "
             f"'sparse_outer')"
-        )
-    if kernel == "sparse_outer":
-        raise NotImplementedError(
-            "kernel='sparse_outer' is not ported to stormtpu_torch yet "
-            "(ROADMAP.md §1 items 1 and 6: the C++ host tier and K4)"
         )
     return kernel
 
@@ -544,8 +547,9 @@ def stream_count_matrix(
 
     ``kernel``: ``"mxu"`` (K2), ``"dense"`` (K1), ``"xla_int8"`` /
     ``"xla_popcount"`` (plain whole-stripe forms, small M), ``"clustered"``
-    (K5 work lists; stripe files hold only the visited tiles) or
-    ``"auto"``. ``"sparse_outer"`` raises ``NotImplementedError``.
+    (K5 work lists; stripe files hold only the visited tiles),
+    ``"sparse_outer"`` (K4 on the host or the K2 walk, chosen per stripe;
+    needs the C++ tier, else ``RuntimeError``) or ``"auto"``.
 
     ``operand_streaming`` (default auto): when the padded packed matrix and
     a stripe's working set do not fit the device, keep only two superblock
@@ -558,6 +562,16 @@ def stream_count_matrix(
     cfg = config or default_config()
     cfg.validate(bm.m_bits)
     kernel = _resolve_stream_kernel(bm, kernel, cfg)
+    if kernel == "sparse_outer":
+        if not native.have_native():
+            raise RuntimeError(
+                "kernel='sparse_outer' needs the native C++ tier "
+                f"(stormtpu_torch/native did not build: {native.native_build_error()})"
+            )
+        return _stream_sparse_outer(
+            bm, out_dir, superblock_rows=superblock_rows, config=cfg,
+            resume=resume, compress=compress, progress=progress, device=dev,
+        )
     if kernel == "clustered":
         return _stream_clustered(
             bm, out_dir, superblock_rows=superblock_rows, config=cfg,
@@ -747,6 +761,247 @@ def _stream_clustered(
                 writer.save(path, tiles=tiles, loc_i=loc_i, loc_j=loc_j, i=i, j=j)
             del tiles
             _count_stripe(wl is not None)
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    return manifest
+
+
+# ------------------------------------------------------------ sparse stripes
+def _superblock_coo(
+    bm: BitMatrix, superblock_rows: int, n_super: int
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Per row superblock I, its set bits as (cols int64, local rows int32)
+    sorted by (column, row): the order the C++ run walks need. Duplicates
+    are dropped (packing ORs them, so counts must too). One sort of the
+    keys (superblock, column, local row) orders every superblock at once;
+    the keys come from the ingest-time COO, else from the CSR extraction
+    (duplicate-free)."""
+    sb, m = superblock_rows, bm.m_bits
+    if bm.coo is not None:
+        rows, cols = bm.coo
+    else:
+        indptr, indices = bm.positions_csr()
+        rows = np.repeat(np.arange(bm.n, dtype=np.int64), np.diff(indptr))
+        cols = indices.astype(np.int64)
+    sup = rows // sb
+    keys = (sup * m + cols) * sb + (rows - sup * sb)
+    keys = unique_int64(keys) if bm.coo is not None else np.sort(keys)
+    bounds = np.searchsorted(keys, np.arange(n_super + 1, dtype=np.int64) * m * sb)
+    subs = []
+    for i in range(n_super):
+        k = keys[bounds[i] : bounds[i + 1]]
+        subs.append(((k // sb) % m, (k % sb).astype(np.int32)))
+    return subs
+
+
+class _SparseStripePlan:
+    """The per-superblock K4 machinery of the ``sparse_outer`` walk: the
+    column-sorted sub-COO of each superblock, its column histogram (exact
+    emission counts E(I, J)), the cost model's K4-or-dense choice a stripe,
+    and K4's evaluation of a stripe."""
+
+    def __init__(self, bm: BitMatrix, superblock_rows: int, n_super: int):
+        from stormtpu_torch.tuning import k4_constants
+
+        self.bm = bm
+        self.sb = superblock_rows
+        self.subs = _superblock_coo(bm, superblock_rows, n_super)
+        self.hists = [unique_int64(cols, presorted=True, return_counts=True)
+                      for cols, _ in self.subs]
+        self._segment_cache: tuple = (None, None)
+        fit = k4_constants()
+        self._c_n2 = fit["c_n2_s_per_elem"]
+        self._c_emit = fit["c_emit_s_per_emission"]
+        self._sb2 = superblock_rows * superblock_rows
+        self._est_dense_s = (
+            self._sb2 * bm.m_bits / fit["k2_int8_ops_per_s"] + fit["dispatch_floor_s"]
+        )
+        # an off-diagonal dense stripe also uploads its j slice (the i slice
+        # serves its whole row of stripes)
+        self._est_upload_s = superblock_rows * bm.n_words * 4 / fit["h2d_bytes_per_s"]
+
+    def emissions(self, i: int, j: int) -> int:
+        """K4's emissions for stripe (i, j) as the cost model counts them:
+        Σ_c occ_I(c)·occ_J(c), on the diagonal occ·(occ+1)/2."""
+        cu_i, cnt_i = self.hists[i]
+        if i == j:
+            return int((cnt_i.astype(np.int64) * (cnt_i + 1) // 2).sum())
+        cu_j, cnt_j = self.hists[j]
+        _, ia, ja = np.intersect1d(cu_i, cu_j, return_indices=True, assume_unique=True)
+        return int(cnt_i[ia].astype(np.int64) @ cnt_j[ja])
+
+    def _segments(self, i: int, j: int):
+        """(off_a, p, off_b, q): start and length of each shared column's
+        row run in the two sub-COO lists (i == j: every occupied column).
+        The last stripe's are kept: the walk asks for them up to three
+        times a stripe."""
+        if self._segment_cache[0] != (i, j):
+            self._segment_cache = ((i, j), self._find_segments(i, j))
+        return self._segment_cache[1]
+
+    def _find_segments(self, i: int, j: int):
+        cols_i, _ = self.subs[i]
+        cu_i, cnt_i = self.hists[i]
+        off_i = np.searchsorted(cols_i, cu_i).astype(np.int64)
+        if i == j:
+            return off_i, cnt_i.astype(np.int64), off_i, cnt_i.astype(np.int64)
+        cols_j, _ = self.subs[j]
+        cu_j, cnt_j = self.hists[j]
+        off_j = np.searchsorted(cols_j, cu_j).astype(np.int64)
+        _, ia, ja = np.intersect1d(cu_i, cu_j, return_indices=True, assume_unique=True)
+        return (off_i[ia], cnt_i[ia].astype(np.int64),
+                off_j[ja], cnt_j[ja].astype(np.int64))
+
+    def emissions_square(self, i: int, j: int) -> int:
+        """Σ_c p_c·q_c with the diagonal not halved: what
+        :meth:`stripe_coo` emits."""
+        _, p, _, q = self._segments(i, j)
+        return int(p @ q)
+
+    def emission_eligible(self, i: int, j: int) -> bool:
+        """Whether stripe (i, j) takes :meth:`stripe_coo` (no sb² buffer):
+        its emissions are far below the buffer's size."""
+        return self.emissions_square(i, j) * 8 <= self._sb2
+
+    def use_k4(self, i: int, j: int) -> bool:
+        """The cost model: K4 on the host (its sb² buffer unless the stripe
+        takes :meth:`stripe_coo`, and its emissions) against the K2 stripe
+        on the card (with the j slice's upload off the diagonal)."""
+        if self.emission_eligible(i, j):
+            cost = self._c_emit * self.emissions_square(i, j)
+        else:
+            cost = self._c_n2 * self._sb2 + self._c_emit * self.emissions(i, j)
+        return cost < self._est_dense_s + (self._est_upload_s if i != j else 0.0)
+
+    def stripe_coo(self, i: int, j: int):
+        """(coo_i, coo_j, coo_v) int32 of stripe (i, j) without the sb²
+        buffer: every pair of each shared column's row runs, aggregated by
+        one sort (``unique_int64``). A diagonal stripe is the full square
+        with the self counts, as the mirrored C++ stripe is."""
+        oa, p, ob, q = self._segments(i, j)
+        _, rows_i = self.subs[i]
+        rows_j = rows_i if i == j else self.subs[j][1]
+        pq = p * q
+        e_tot = int(pq.sum())
+        if e_tot == 0:
+            z = np.zeros(0, dtype=np.int32)
+            return z, z, z
+        estart = np.zeros(pq.size + 1, dtype=np.int64)
+        np.cumsum(pq, out=estart[1:])
+        cid = np.repeat(np.arange(pq.size), pq)
+        e = np.arange(e_tot, dtype=np.int64) - estart[cid]
+        qq = q[cid]
+        a = rows_i[oa[cid] + e // qq].astype(np.int64)
+        b = rows_j[ob[cid] + e % qq].astype(np.int64)
+        key, counts = unique_int64(a * self.sb + b, return_counts=True)
+        return ((key // self.sb).astype(np.int32), (key % self.sb).astype(np.int32),
+                counts.astype(np.int32))
+
+    def stripe_counts(self, i: int, j: int) -> np.ndarray:
+        """int32 [sb, sb] local counts of stripe (i, j) by the C++ run walks
+        (a diagonal stripe mirrored to the full square)."""
+        cols_i, rows_i = self.subs[i]
+        if i == j:
+            stripe = native.sparse_outer_runs_native(cols_i, rows_i, self.sb)
+            native.mirror_upper_native(stripe)
+            return stripe
+        cols_j, rows_j = self.subs[j]
+        return native.sparse_outer_runs_cross_native(
+            cols_i, rows_i, cols_j, rows_j, self.sb, self.sb)
+
+
+def _stripe_kind(path: str) -> str:
+    """``"k4"`` or ``"dense"``: a stripe file's kind, from its member list
+    (nothing is decompressed)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        return "k4" if "coo_i.npy" in zf.namelist() else "dense"
+
+
+def _stream_sparse_outer(
+    bm: BitMatrix,
+    out_dir: str,
+    *,
+    superblock_rows: int,
+    config: EngineConfig,
+    resume: bool,
+    compress: bool,
+    progress: Optional[Callable[[int, int], None]],
+    device: torch.device,
+) -> dict:
+    """K4 at streaming scale: each stripe (I, J) is decided by the cost
+    model (:class:`_SparseStripePlan`) from its exact emission count. A K4
+    stripe is emitted on the host into a superblock² buffer (or, with few
+    emissions, without one) and stores its nonzero counts
+    (``coo_i``/``coo_j``/``coo_v``); a dense stripe runs the K2 walk on the
+    two superblock slices (``_SliceBuffer``: only they are on the device)
+    and stores ``counts``. The single-shot K4's N ≤ 32768 limit does not
+    apply: host memory bounds N, as in the other walks. The manifest's
+    ``stripe_kernels`` counts the stripes of each kind, resumed ones by
+    what their files hold."""
+    cfg, dev = config, device
+    tile_rows = cfg.k2_tile_rows
+    tile_words = cfg.k2_tile_words
+    superblock_rows = round_up(superblock_rows, tile_rows)
+    tiles_per_super = superblock_rows // tile_rows
+    n_super = round_up(bm.n, superblock_rows) // superblock_rows
+    w_pad = round_up(bm.n_words, tile_words)
+    # the K1 form never serves here: dense stripes share the walk's K2 tiles
+    dense_kernel = _auto_stream_kernel(bm.m_bits)
+
+    with _stage("plan", dev):
+        plan = _SparseStripePlan(bm, superblock_rows, n_super)
+
+    os.makedirs(out_dir, exist_ok=True)
+    manifest = {
+        "n": bm.n,
+        "content": _content_fingerprint(bm),
+        "m_bits": bm.m_bits,
+        "superblock_rows": superblock_rows,
+        "n_super": n_super,
+        "kernel": "sparse_outer",
+        "stripe_kernels": {"k4": 0, "dense": 0},
+        "completed": [],
+    }
+    total = n_super * (n_super + 1) // 2
+    slices = None
+    with _StripeWriter(manifest, total, compress, progress) as writer:
+        for i, j in _superblock_pairs(n_super):
+            path = stripe_path(out_dir, i, j)
+            if resume and os.path.exists(path):
+                manifest["stripe_kernels"][_stripe_kind(path)] += 1
+                writer.resumed(i, j)
+                continue
+            with _stage("plan", dev):
+                k4 = plan.use_k4(i, j)
+            if k4:
+                with _stage("k4", dev):
+                    if plan.emission_eligible(i, j):
+                        nz_i, nz_j, nz_v = plan.stripe_coo(i, j)
+                    else:
+                        stripe = plan.stripe_counts(i, j)
+                        nz_i, nz_j = np.nonzero(stripe)
+                        nz_i, nz_j = nz_i.astype(np.int32), nz_j.astype(np.int32)
+                        nz_v = stripe[nz_i, nz_j]
+                        del stripe
+                with _stage("save", dev):
+                    writer.save(path, coo_i=nz_i, coo_j=nz_j, coo_v=nz_v, i=i, j=j)
+                del nz_i, nz_j, nz_v
+            else:
+                if slices is None:
+                    slices = _SliceBuffer(bm, superblock_rows, w_pad, dev)
+                stripe_d = _compute_stripe_pair(
+                    slices.stripe_operand(i, j), tiles_per_super, tile_rows, tile_words,
+                    dense_kernel,
+                )
+                with _stage("download", dev):
+                    stripe = download(stripe_d)
+                with _stage("save", dev):
+                    writer.save(path, counts=stripe, i=i, j=j)
+                del stripe, stripe_d
+            manifest["stripe_kernels"]["k4" if k4 else "dense"] += 1
+            _count_stripe(not k4)
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     return manifest

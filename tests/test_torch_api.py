@@ -116,24 +116,77 @@ def test_choose_strategy_with_matrix_equals_jax():
         assert np.array_equal(got, oracle_count_matrix(bj.packed))
 
 
-def test_choose_strategy_sparse_branch_by_device():
-    # on the CPU both packages name K3; on CUDA the port falls through to
-    # the dense choice until K3/K4 are ported
+def test_choose_strategy_sparse_branch_by_device(monkeypatch):
+    # on the CPU both packages name K3; on CUDA the port weighs K4 against
+    # K2 with its own constants (K4_DEFAULTS, measured on the H100)
+    from stormtpu_torch import native
+    from stormtpu_torch.dispatch import k4_estimates
+
     assert jax_choose(500, 1 << 20, 0.0001) == "sparse"
     assert choose_strategy(500, 1 << 20, 0.0001, device="cpu") == "sparse"
-    assert choose_strategy(500, 1 << 20, 0.0001, device="cuda") == "pallas_mxu"
-    assert choose_strategy(500, 1 << 20, 0.0001) == "pallas_mxu"
-    assert choose_strategy(500, 1000, 0.0001, device="cuda") == "mxu"
+    for n, m in ((500, 1 << 20), (500, 1000)):
+        est_k4, est_k2 = k4_estimates(n, m, 0.0001)
+        dense = "pallas_mxu" if m > (1 << 17) else "mxu"
+        want = "sparse_outer" if est_k4 < est_k2 and native.have_native() else dense
+        assert choose_strategy(n, m, 0.0001, device="cuda") == want
+        assert choose_strategy(n, m, 0.0001) == want
     bj, bt = _pair(70, 3000, 0.0001, seed=17)
     assert np.array_equal(st.intersect_count_matrix(bt, device="cpu"),
                           stormtpu.intersect_count_matrix(bj))
 
 
+# cost constants under which K4 is cheap, and under which it is dear
+K4_CHEAP = dict(c_sort_s_per_nnz=1e-12, c_n2_s_per_elem=1e-12, c_emit_s_per_emission=1e-12,
+                k2_int8_ops_per_s=1e12, dispatch_floor_s=0.01)
+K4_DEAR = dict(c_sort_s_per_nnz=1.0, c_n2_s_per_elem=1.0, c_emit_s_per_emission=1.0,
+               k2_int8_ops_per_s=1e18, dispatch_floor_s=0.0)
+
+
+@pytest.mark.parametrize("consts", ("cheap", "dear"))
+@pytest.mark.parametrize("n,m,density", [
+    (500, 1 << 20, 0.0001), (500, 1000, 0.0005), (2, 4096, 0.0009), (32768, 1 << 20, 1e-6),
+    (32769, 1 << 20, 1e-6), (500, 1 << 20, 0.001), (1, 1 << 20, 0.0001),
+])
+def test_d1_on_cuda_weighs_k4_as_jax_does_on_its_chip(tmp_path, monkeypatch, n, m, density,
+                                                       consts):
+    """Scalar-only D1 on the card (no card needed: D1 only names a
+    strategy) against the JAX package's D1 as it runs on its chip, both
+    with the same constants: K4 below the density threshold where it is
+    cheaper, N <= 32768 and the C++ tier is built; the dense choice else."""
+    import json
+
+    import jax
+
+    import stormtpu.utils
+    from stormtpu import tuning as jtuning
+    from stormtpu_torch import native
+    from stormtpu_torch import tuning as ttuning
+
+    pinned = K4_CHEAP if consts == "cheap" else K4_DEAR
+    cache = tmp_path / "tuning.json"
+    cache.write_text(json.dumps({"device": str(jax.devices()[0]), "k4_cost_model": pinned}))
+    monkeypatch.setenv(jtuning.CACHE_ENV, str(cache))
+    monkeypatch.setattr(stormtpu.utils, "is_tpu_backend", lambda: True)
+    for k, v in pinned.items():
+        monkeypatch.setitem(ttuning.K4_DEFAULTS, k, v)
+    assert native.have_native(), native.native_build_error()
+    want = jax_choose(n, m, density)
+    assert choose_strategy(n, m, density, device="cuda") == want
+    k4 = consts == "cheap" and n <= 32768 and 2 <= n and density < 0.001
+    assert (want == "sparse_outer") == k4
+    monkeypatch.setattr(native, "_load", lambda: None)  # without the C++ tier: dense
+    assert choose_strategy(n, m, density, device="cuda") != "sparse_outer"
+
+
 @pytest.mark.parametrize("strategy", ("sparse", "sparse_outer"))
-def test_unported_strategies_raise(strategy):
-    _, bt = _pair(8, 200, 0.3, seed=18)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.intersect_count_matrix(bt, strategy=strategy, device="cpu")
+@pytest.mark.parametrize("n", (1, 2, 37, 150))
+def test_sparse_strategies_equal_jax(n, strategy):
+    bj, bt = _pair(n, 1001, 0.02, seed=18 + n)
+    got = st.intersect_count_matrix(bt, strategy=strategy, device="cpu")
+    want = stormtpu.intersect_count_matrix(bj, strategy=strategy)
+    assert got.dtype == np.int32 and got.shape == (n, n)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, oracle_count_matrix(bj.packed))
 
 
 def test_error_paths_match_jax(monkeypatch):

@@ -603,3 +603,41 @@ def test_stream_sinks_on_card_equal_the_cpu_route(cuda):
         assert np.array_equal(got["hist"], oracle)
     with pytest.raises(ValueError, match="lies on"):
         stream.stream_count_checksums(to_device_words(xp, "cpu"), bm.n, bm.m_bits, **kw)
+
+
+# ------------------------------------------------------------- K3, K4
+def _sparse_case(n, m, density, seed):
+    rng = np.random.default_rng(seed)
+    k = max(1, int(n * m * density))
+    return BitMatrix.from_positions(rng.integers(0, n, k), rng.integers(0, m, k), n, m)
+
+
+@pytest.mark.parametrize("block_rows", (None, 1, 7))
+@pytest.mark.parametrize("n,m,density", [(37, 5000, 0.01), (300, 1 << 16, 0.002), (129, 4096, 0.2)])
+def test_k3_on_card_equals_its_cpu_form(cuda, n, m, density, block_rows):
+    from stormtpu_torch.kernels import sparse
+
+    bm = _sparse_case(n, m, density, seed=n + m)
+    lists = torch.from_numpy(sparse.padded_position_lists(bm))
+    a = lists[: max(1, n // 3)]
+    reset_launches()
+    got = sparse.count_block_sparse(a.to(cuda), lists.to(cuda), sentinel=m, block_rows=block_rows)
+    torch.cuda.synchronize()
+    blocks = launch_counts()["k3"]
+    assert blocks == (1 if block_rows is None else -(-a.shape[0] // block_rows))
+    want = sparse.count_block_sparse(a, lists, sentinel=m, block_rows=block_rows)
+    assert launch_counts()["k3"] == blocks  # the CPU form is not a launch
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert np.array_equal(want.numpy(), oracle_count_block(bm.packed[: a.shape[0]], bm.packed))
+
+
+def test_sparse_strategies_on_the_card(cuda):
+    bm = _sparse_case(300, 1 << 18, 1e-4, seed=7)
+    want = oracle_count_matrix(bm.packed)
+    reset_launches()
+    assert np.array_equal(intersect_count_matrix(bm, strategy="sparse", device=cuda), want)
+    assert launch_counts()["k3"] >= 1 and launch_counts()["k2_tri"] == 0
+    reset_launches()
+    assert np.array_equal(intersect_count_matrix(bm, strategy="sparse_outer", device=cuda), want)
+    assert launch_counts()["k4"] == 1 and launch_counts()["k2_tri"] == 0
+    assert np.array_equal(intersect_count_matrix(bm, device=cuda), want)  # D1 on the card

@@ -670,13 +670,17 @@ def test_extend_clustered_tile_rows_drift_refused(tmp_path):
 def test_unported_routes_say_so_and_unknown_kernels_raise_as_jax(tmp_path):
     bj, bt = _pair(_uniform(40, 600, 0.3, seed=51))
     jcfg, cfg = _configs(DENSE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.stream_count_matrix(bt, str(tmp_path / "a"), kernel="sparse_outer", config=cfg,
-                               device="cpu")
+    # sparse_outer is ported: the walk and its extension run
+    man = ts.stream_count_matrix(bt, str(tmp_path / "a"), kernel="sparse_outer", config=cfg,
+                                 device="cpu")
+    assert man["kernel"] == "sparse_outer"
     _walk(ts, bt, tmp_path / "b", cfg, superblock_rows=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.extend_streamed_matrix(bt, str(tmp_path / "b"), kernel="sparse_outer", config=cfg,
-                                  device="cpu")
+    man = ts.extend_streamed_matrix(bt, str(tmp_path / "b"), kernel="sparse_outer", config=cfg,
+                                    device="cpu")
+    assert man["kernel"] == "sparse_outer"
+    for out in ("a", "b"):
+        assert np.array_equal(ts.load_streamed_matrix(str(tmp_path / out)),
+                              oracle_count_matrix(bj.packed))
     with pytest.raises(NotImplementedError, match="item 10"):
         ts.extend_streamed_matrix(bt, str(tmp_path / "b"), mesh=object(), config=cfg,
                                   device="cpu")
@@ -685,7 +689,7 @@ def test_unported_routes_say_so_and_unknown_kernels_raise_as_jax(tmp_path):
     with pytest.raises(ValueError, match="unknown kernel") as ref_err:
         js.stream_count_matrix(bj, str(tmp_path / "c"), kernel="mxU", config=jcfg)
     assert str(port_err.value) == str(ref_err.value)
-    assert not os.path.exists(tmp_path / "a") and not os.path.exists(tmp_path / "c")
+    assert not os.path.exists(tmp_path / "c")
 
 
 def test_stream_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
