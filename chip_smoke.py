@@ -95,7 +95,40 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``stream_count_matrix(kernel="auto")`` at superblock 4096 (528 stripes):
     ``auto`` must resolve to ``sparse_outer`` and every stripe file must
     equal scipy's ``csr @ csr.T`` on that stripe (65,536 rows when the host
-    has under 48 GB available).
+    has under 48 GB available);
+20. the analytics surface at the main-path shape, held to phase 3's
+    matrix C exactly: ``topk_neighbors(k=16)`` (the K2 tile walk: values
+    equal each row's top 16 of C off the diagonal, indices valid),
+    ``pairs_above`` by count (a threshold with 10^5-10^6 pairs: equal to
+    ``np.nonzero(np.triu(C >= t, 1))`` with values) and by Jaccard (equal
+    to the float64 filter of C), ``pair_counts`` of 10^6 pairs (K0),
+    ``similarity_matrix("r2")``, ``pairwise_cardinality("xor")``,
+    ``count_row_sums``, ``column_counts``, and ``count_histogram`` through
+    the operand-streaming walk (a lowered operand budget) and ``dense``;
+21. the LD panel of phase 8: ``pairs_above(measure="r2", threshold=0.5)``
+    and by count on the clustered host route (K5, no K2), ``clump`` on the
+    r2 screen, ``count_histogram`` on the clustered route, all equal to
+    phase 8's matrix;
+22. config 3 version B: ``count_histogram(method="sparse")`` equal to the
+    histogram of phase 17's K2 matrix;
+23. ``cross_topk_neighbors(k=8)`` and ``cross_pairs_above`` of phase 4's
+    rows held to phase 4's block; ``count_block``'s page-locked download
+    timed against the pageable copy it replaced; on 2,048 x 262,144 bits
+    with 5% of positions missing and pairs in strong LD,
+    ``similarity_matrix_complete("r2")``, ``pairs_above_complete`` and
+    ``cross_topk_neighbors(measure="r2")`` held to ``derive_similarity``
+    over four count blocks;
+24. config 4 at full scale, 100,000 x 1,048,576 bits of uniform words as a
+    host ``BitMatrix`` (fewer rows when the host or the card cannot hold
+    it, printed): ``count_histogram`` with the last bin starting 5.5 sd
+    above the mean, ``pairs_above`` at that bin's start (its hit count must
+    equal the bin, over all 5e9 pairs; each hit's count equal to numpy's),
+    ``topk_neighbors(k=8)`` (256 sampled rows equal to their K2-rect counts'
+    top 8).
+
+Phases 20-24 print each call's wall time and a ``[breakdown]`` of its
+stages (K2 by CUDA events, the screen, merge and bin passes, the summary
+and word downloads, the refine), and K2's share of its bound.
 
 The lines before the last are a ``kernels`` JSON object and the card's
 ``name, power.limit``; the last line is the result object.
@@ -163,6 +196,18 @@ CORNER_ROWS, CORNER_BITS, CORNER_DENSITY, BACKGROUND_DENSITY = 4096, 1 << 18, 0.
 # phase 19: the README's ultra-sparse shape, and its cut on a smaller host
 ULTRA_N, ULTRA_CUT_N, ULTRA_DENSITY = 131_072, 65_536, 1e-5
 ULTRA_MIN_AVAILABLE = 48 << 30
+# phases 20 to 24: the analytics surface
+TOPK_K = 16
+PAIR_COUNTS_P = 1_000_000
+SIM_CHECK_ROWS = 2048   # rows (and bit positions) checked exactly against numpy
+SCREEN_HITS = (100_000, 1_000_000)   # the count screens' thresholds give this many pairs
+LD_R2, LD_BIN_WIDTH = 0.5, 256
+CFG3_BINS = 8
+CROSS_K = 8
+COMPLETE_N, COMPLETE_M, COMPLETE_MISSING, COMPLETE_R2 = 2048, 1 << 18, 0.05, 0.5
+CFG4_BINS, CFG4_TAIL_SD = 64, 5.5
+CFG4_TOPK_K, CFG4_TOPK_ROWS = 8, 256
+CFG4_HOST_FACTOR = 2    # host bytes phase 24 needs per byte of its packed matrix
 
 
 def random_words(rng, n: int, m_bits: int, density: float) -> np.ndarray:
@@ -536,9 +581,10 @@ def column_emissions(bm) -> int:
     return int((occ * (occ + 1) // 2).sum())
 
 
-def sparse_phases(torch, dev, cfg, rng) -> list:
+def sparse_phases(torch, dev, cfg, rng) -> tuple:
     """Phases 16 to 19: the sparse regime. Returns the ``kernels`` entries
-    of K3 and K4."""
+    of K3 and K4, and version B of config 3 with its K2 matrix (for phase
+    22)."""
     import stormtpu_torch as st
     from stormtpu_torch import native, stream
     from stormtpu_torch.dispatch import choose_strategy, k4_estimates
@@ -629,6 +675,8 @@ def sparse_phases(torch, dev, cfg, rng) -> list:
             f"{emissions / t['k4_s']:.4g} emissions/s; K2 triangle {t['k2_tri_ms']:.3f} ms "
             f"(CUDA events)")
         del outs
+        if ver == "B":
+            cfg3_b = (bm, ref)
         pos = torch.from_numpy(ksp.padded_position_lists(bm)).to(dev)
         t["l_pad"] = pos.shape[1]
         if ver == "A":
@@ -861,7 +909,511 @@ def sparse_phases(torch, dev, cfg, rng) -> list:
                              emissions_per_s=a["emissions"] / a["k4_s"],
                              bound_ms=a["emissions"] * c_emit * 1e3, k2_tri_ms=a["k2_tri_ms"],
                              route="packed words (no COO cache)"))
-    return [k3, k4]
+    return [k3, k4], cfg3_b
+
+
+def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3_b) -> dict:
+    """Phases 20 to 24: the analytics surface (``setops``, ``query``,
+    ``cross``, ``clump``, ``stats``). Returns the launches of every kernel
+    over these phases' calls."""
+    import stormtpu_torch as st
+    from stormtpu_torch import query, stream
+    from stormtpu_torch.kernels import launch_counts, mxu, reset_launches
+    from stormtpu_torch.query import _pack_bit_rows
+    from stormtpu_torch.setops import derive_similarity
+    from stormtpu_torch.utils import round_up
+
+    total = dict.fromkeys(("k2_tri", "k2_rect", "k5", "k1", "k0", "k3", "k4"), 0)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run(label: str, fn, want=(), absent=(), again=False):
+        """A recorded call of ``fn``: (result, wall s, stages, launches).
+        Raises unless every kernel in ``want`` launched and none in
+        ``absent``; the launches add to the phases' totals. ``again``: a
+        second recorded call follows, and its wall and stages are returned
+        (the first call's wall is printed): the first call of a shape pays
+        for CUDA's module loads and the operand's upload."""
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        with stream.record_stages() as rec:
+            out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        if any(got[k] < 1 for k in want) or any(got[k] for k in absent):
+            raise AssertionError(f"{label}: launches {got}; want {want} and none of {absent}")
+        if again:
+            print(f"[query] {label}: first call {wall:.4f} s (recorded)")
+            sync()
+            t0 = time.perf_counter()
+            with stream.record_stages() as rec:
+                fn()
+            sync()
+            wall = time.perf_counter() - t0
+        return out, wall, rec, {k: v for k, v in got.items() if v}
+
+    def screen_ref(c: np.ndarray, nnz: np.ndarray, m: int, measure: str, threshold: float):
+        """The strict-upper-triangle pairs with measure >= threshold, row-major,
+        with their float64 values: the measure in float64 on the card as a
+        prefilter (a margin of 1e-9), then ``derive_similarity`` (NumPy) on the
+        candidates, exact."""
+        nz = torch.from_numpy(nnz.astype(np.float64)).to(dev)
+        cols = torch.arange(c.shape[0], device=dev)
+        out_i, out_j = [], []
+        for r0 in range(0, c.shape[0], 2048):
+            x = torch.from_numpy(c[r0 : r0 + 2048]).to(dev).to(torch.float64)
+            ca, cb = nz[r0 : r0 + x.shape[0], None], nz[None, :]
+            if measure == "jaccard":
+                v = x / (ca + cb - x)
+            else:  # r2
+                v = (m * x - ca * cb) ** 2 / (ca * cb * (m - ca) * (m - cb))
+            hit = (torch.nan_to_num(v, nan=0.0) >= threshold - 1e-9) & \
+                (cols[None, :] > cols[r0 : r0 + x.shape[0], None])
+            si, sj = (t.cpu().numpy() for t in torch.nonzero(hit, as_tuple=True))
+            out_i.append(si + r0)
+            out_j.append(sj)
+        ii, jj = np.concatenate(out_i), np.concatenate(out_j)
+        vals = derive_similarity(c[ii, jj], nnz[ii], nnz[jj], m, measure)
+        keep = vals >= threshold
+        return ii[keep].astype(np.int32), jj[keep].astype(np.int32), vals[keep]
+
+    def wall_of(fn) -> float:
+        """Host seconds of one call that is not recorded (its stages overlap)."""
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return time.perf_counter() - t0
+
+    def stages(label: str, rec, wall: float, chunks: int = 0, bound_s: float = 0.0) -> None:
+        """A ``[breakdown]`` line: each stage's host seconds (the device
+        synchronised around it) with its CUDA-event milliseconds, per chunk
+        where the call walks tile chunks, and K2's share of its bound."""
+        parts = []
+        for k, v in rec.seconds.items():
+            ms = rec.device_ms.get(k)
+            part = f"{k} {v:.4f} s" + (f" ({ms:.2f} ms by CUDA events" if ms is not None else "")
+            if ms is not None and chunks:
+                part += f", {ms / chunks:.3f} ms a chunk"
+            parts.append(part + (")" if ms is not None else ""))
+        line = f"[breakdown] {label}: wall {wall:.4f} s (recorded); " + ", ".join(parts)
+        kern = rec.device_ms.get("kernel")
+        if bound_s and kern:
+            line += (f"; K2 {kern / 1e3:.4f} s against its bound {bound_s:.4f} s: "
+                     f"{bound_s / (kern / 1e3):.1%} of it")
+        print(line)
+
+    def tri_hist(c: np.ndarray, width: int) -> np.ndarray:
+        """Counts of each value 0..width-1 over the strict upper triangle."""
+        out = np.zeros(width, dtype=np.int64)
+        cols = np.arange(c.shape[0])
+        for r0 in range(0, c.shape[0], 1024):
+            blk = c[r0 : r0 + 1024]
+            out += np.bincount(blk[cols[None, :] > cols[r0 : r0 + blk.shape[0], None]],
+                               minlength=width)
+        return out
+
+    def binned(full: np.ndarray, n_bins: int, bw: int) -> np.ndarray:
+        h = np.zeros(n_bins, dtype=np.int64)
+        np.add.at(h, np.minimum(np.arange(full.size) // bw, n_bins - 1), full)
+        return h
+
+    def same_pairs(label: str, got, want) -> None:
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not np.array_equal(g, w):
+                raise AssertionError(f"{label}: {got[0].size} pairs, want {want[0].size}, "
+                                     "or other pairs or values")
+
+    def topk_of(rows: np.ndarray, k: int, self_cols=None) -> np.ndarray:
+        """Each row's k largest values, descending (``self_cols``: a column a
+        row that is masked to -1 first)."""
+        rows = rows.astype(np.int64)
+        if self_cols is not None:
+            rows[np.arange(rows.shape[0]), self_cols] = -1
+        return -np.sort(-np.partition(rows, rows.shape[1] - k, axis=1)[:, -k:], axis=1)
+
+    def valid_indices(label: str, c_rows: np.ndarray, vals, idx, self_cols=None) -> None:
+        r = np.arange(idx.shape[0])[:, None]
+        s = np.sort(idx, axis=1)
+        if not (np.array_equal(c_rows[r, idx], vals) and (np.diff(s, axis=1) > 0).all()
+                and (self_cols is None or (idx != np.asarray(self_cols)[:, None]).all())):
+            raise AssertionError(f"{label}: an index does not realize its value, repeats, "
+                                 "or is the row itself")
+
+    # ----------------------------------------------- 20 the main-path shape
+    bm, c = main
+    n, m = bm.n, bm.m_bits
+    nnz = bm.row_nnz
+    ti, wk = mxu.k2_tile_shape(cfg, n, bm.n_words)
+    nb = round_up(n, ti) // ti
+    n_tiles = nb * (nb + 1) // 2
+    chunks = -(-n_tiles // query._tile_chunk(ti))
+    tri_bound = 2.0 * n_tiles * ti * ti * round_up(bm.n_words, wk) * 32 / k2_ops_per_s
+    t0 = time.perf_counter()
+    full = tri_hist(c, m + 1)
+    tail = np.cumsum(full[::-1])[::-1]  # tail[t]: pairs with count >= t
+    t_count = int(np.argmax(tail <= SCREEN_HITS[1] // 3))
+    hits_count = int(tail[t_count])
+    if not SCREEN_HITS[0] <= hits_count <= SCREEN_HITS[1]:
+        raise AssertionError(f"no count threshold gives {SCREEN_HITS} hits ({hits_count})")
+    print(f"[query] main path {n} x {m} bits: C's upper triangle binned on the host in "
+          f"{time.perf_counter() - t0:.2f} s; count threshold {t_count} holds {hits_count} pairs; "
+          f"tile walk {n_tiles} tiles of {ti} rows in {chunks} chunks of "
+          f"{query._tile_chunk(ti)}")
+
+    (vals, idx), wall, rec, launched = run(
+        "topk_neighbors", lambda: st.topk_neighbors(bm, TOPK_K, device=dev),
+        want=("k2_tri",), absent=("k2_rect", "k5"), again=True)
+    for r0 in range(0, n, 1024):
+        r = np.arange(r0, min(r0 + 1024, n))
+        if not np.array_equal(vals[r], topk_of(c[r], TOPK_K, r)):
+            raise AssertionError(f"topk_neighbors: rows {r0}.. differ from C's top {TOPK_K}")
+        valid_indices("topk_neighbors", c[r], vals[r], idx[r], r)
+    print(f"[query] topk_neighbors(k={TOPK_K}) {n} rows: tile walk, launches {launched}; values "
+          f"equal C's top {TOPK_K} off the diagonal, indices valid; warm wall {wall:.4f} s "
+          f"(recorded)")
+    stages(f"topk_neighbors {n} x {m}, k={TOPK_K}", rec, wall, chunks, tri_bound)
+
+    got, wall, rec, launched = run(
+        "pairs_above count", lambda: st.pairs_above(bm, t_count, device=dev),
+        want=("k2_tri", "k0"), again=True)
+    wi, wj = np.nonzero(np.triu(c >= t_count, 1))
+    same_pairs("pairs_above count", got, (wi.astype(np.int32), wj.astype(np.int32), c[wi, wj]))
+    print(f"[query] pairs_above(count >= {t_count}): {got[0].size} pairs, equal to "
+          f"np.nonzero(np.triu(C >= t, 1)) with values; launches {launched}; warm wall "
+          f"{wall:.4f} s (recorded)")
+    stages(f"pairs_above count {n} x {m}", rec, wall, chunks, tri_bound)
+
+    si, sj = rng.integers(0, n, 1 << 21), rng.integers(0, n, 1 << 21)
+    keep = si != sj
+    sample = derive_similarity(c[si[keep], sj[keep]], nnz[si[keep]], nnz[sj[keep]], m, "jaccard")
+    t_jac = float(np.quantile(sample, 1.0 - 2 * SCREEN_HITS[0] / (n * (n - 1) / 2)))
+    got, wall, rec, launched = run(
+        "pairs_above jaccard", lambda: st.pairs_above(bm, t_jac, measure="jaccard", device=dev),
+        want=("k2_tri", "k0"), again=True)
+    same_pairs("pairs_above jaccard", got, screen_ref(c, nnz, m, "jaccard", t_jac))
+    print(f"[query] pairs_above(jaccard >= {t_jac:.6f}): {got[0].size} pairs, equal to the "
+          f"float64 filter of C; launches {launched}; warm wall {wall:.4f} s (recorded)")
+    stages(f"pairs_above jaccard {n} x {m}", rec, wall, chunks, tri_bound)
+
+    pi, pj = rng.integers(0, n, PAIR_COUNTS_P), rng.integers(0, n, PAIR_COUNTS_P)
+    pc, wall, rec, launched = run("pair_counts", lambda: st.pair_counts(bm, pi, pj, device=dev),
+                                  want=("k0",), again=True)
+    if not np.array_equal(pc, c[pi, pj]):
+        raise AssertionError("pair_counts differs from C")
+    print(f"[query] pair_counts of {PAIR_COUNTS_P} pairs: equal to C[ii, jj]; launches "
+          f"{launched}; warm wall {wall:.4f} s")
+    del pc, pi, pj
+
+    sim, wall, _, launched = run("similarity_matrix r2",
+                                 lambda: st.similarity_matrix(bm, "r2", device=dev),
+                                 want=("k2_tri",))
+    xor, wall_x, _, _ = run("pairwise_cardinality xor",
+                            lambda: st.pairwise_cardinality(bm, "xor", device=dev),
+                            want=("k2_tri",))
+    # exact on sampled rows (the host's float64 pass over all of C takes
+    # as long again as the call)
+    rows = np.sort(rng.choice(n, min(n, SIM_CHECK_ROWS), replace=False))
+    if not np.array_equal(sim[rows], derive_similarity(c[rows], nnz[rows][:, None],
+                                                       nnz[None, :], m, "r2")):
+        raise AssertionError("similarity_matrix r2 differs from derive_similarity of C")
+    for r0 in range(0, n, 1024):
+        cb = c[r0 : r0 + 1024].astype(np.int64)
+        if not np.array_equal(xor[r0 : r0 + cb.shape[0]],
+                              nnz[r0 : r0 + cb.shape[0], None] + nnz[None, :] - 2 * cb):
+            raise AssertionError("pairwise_cardinality xor differs from C")
+    del sim, xor
+    rs, wall_rs, _, _ = run("count_row_sums", lambda: st.count_row_sums(bm, device=dev))
+    cc, wall_cc, _, _ = run("column_counts", lambda: st.column_counts(bm, device=dev))
+    if not np.array_equal(rs, c.sum(axis=1, dtype=np.int64)):
+        raise AssertionError("count_row_sums differs from C.sum(1)")
+    pos = rng.integers(0, m, SIM_CHECK_ROWS)
+    want_cc = ((bm.packed[:, pos >> 5] >> (pos & 31).astype(np.uint32)) & 1).sum(axis=0)
+    if not (np.array_equal(cc[pos], want_cc) and int(cc.sum(dtype=np.int64)) == bm.nnz):
+        raise AssertionError("column_counts differs from numpy")
+    print(f"[query] similarity_matrix(r2) {wall:.3f} s ({launched}) and pairwise_cardinality(xor) "
+          f"{wall_x:.3f} s equal derive_similarity on {SIM_CHECK_ROWS} sampled rows / the set "
+          f"identity on C; count_row_sums {wall_rs:.3f} s equals C.sum(1); column_counts "
+          f"{wall_cc:.3f} s equals numpy at {SIM_CHECK_ROWS} sampled positions, its sum nnz")
+
+    hist_want = binned(full, HIST_BINS, -(-(m + 1) // HIST_BINS))
+    os.environ["STORMTPU_DEVICE_OPERAND_BUDGET_BYTES"] = str(bm.packed.nbytes // 2)
+    try:
+        man_s, wall_s, rec_s, launched = run("count_histogram streamed",
+                                             lambda: st.count_histogram(bm, n_bins=HIST_BINS,
+                                                                        device=dev),
+                                             want=("k2_tri",))
+    finally:
+        del os.environ["STORMTPU_DEVICE_OPERAND_BUDGET_BYTES"]
+    man_d, wall_d, rec_d, _ = run("count_histogram dense",
+                                  lambda: st.count_histogram(bm, n_bins=HIST_BINS,
+                                                             method="dense", device=dev),
+                                  want=("k2_tri",))
+    if not (man_s.get("operand_streaming") and "operand_streaming" not in man_d):
+        raise AssertionError("count_histogram: the lowered budget did not stream the operand")
+    for man in (man_s, man_d):
+        if not np.array_equal(man["hist"], hist_want):
+            raise AssertionError(f"count_histogram ({man.get('operand_streaming')}) differs "
+                                 "from the histogram of C's upper triangle")
+    print(f"[query] count_histogram {HIST_BINS} bins: auto under a lowered operand budget took "
+          f"the operand-streaming walk ({man_s['n_super']} superblocks, {launched}) in "
+          f"{wall_s:.3f} s, method='dense' {wall_d:.3f} s; both equal C's upper-triangle "
+          f"histogram")
+    stripes = man_d["n_super"] * (man_d["n_super"] + 1) // 2
+    stages("count_histogram streamed", rec_s, wall_s, stripes)
+    stages("count_histogram dense", rec_d, wall_d, stripes)
+    del full, tail
+
+    # ---------------------------------------------------- 21 the LD panel
+    bm_ld, ld_ref = ld
+    n_ld = bm_ld.n
+    got, wall, rec, launched = run(
+        "LD r2 screen", lambda: st.pairs_above(bm_ld, LD_R2, measure="r2", device=dev),
+        want=("k5",), absent=("k2_tri",))
+    want_r = screen_ref(ld_ref, bm_ld.row_nnz, bm_ld.m_bits, "r2", LD_R2)
+    same_pairs("LD r2 screen", got, want_r)
+    print(f"[query] LD panel pairs_above(r2 >= {LD_R2}): clustered host route, launches "
+          f"{launched}, {got[0].size} pairs (the panel's bits are independent, so r2 stays "
+          f"near 0), equal to the float64 filter of phase 8's matrix; wall {wall:.3f} s")
+    stages("LD pairs_above r2 (K5 matrix, host filter)", rec, wall)
+    full_ld = tri_hist(ld_ref, int(ld_ref.max()) + 1)
+    tail = np.cumsum(full_ld[::-1])[::-1]
+    t_ld = int(np.argmax(tail <= SCREEN_HITS[1] // 3))
+    got, wall, _, launched = run("LD count screen", lambda: st.pairs_above(bm_ld, t_ld, device=dev),
+                                 want=("k5",), absent=("k2_tri",))
+    wi, wj = np.nonzero(np.triu(ld_ref >= t_ld, 1))
+    same_pairs("LD count screen", got, (wi.astype(np.int32), wj.astype(np.int32), ld_ref[wi, wj]))
+    print(f"[query] LD panel pairs_above(count >= {t_ld}): {got[0].size} pairs equal to phase "
+          f"8's matrix, launches {launched}; wall {wall:.3f} s")
+    stat = np.random.default_rng(seed).random(n_ld)
+    cl, wall, _, launched = run("clump", lambda: st.clump(bm_ld, stat, LD_R2, device=dev),
+                                want=("k5",))
+    want_cl = st.clump_from_pairs(want_r[0], want_r[1], stat, n=n_ld)
+    if not (np.array_equal(cl.leader, want_cl.leader)
+            and np.array_equal(cl.leaders, want_cl.leaders)):
+        raise AssertionError("clump differs from the grouping of the filtered pairs")
+    print(f"[query] LD panel clump(r2 >= {LD_R2}): {cl.n_clumps} clumps, equal to "
+          f"clump_from_pairs of the reference pairs; launches {launched}; wall {wall:.3f} s")
+    man, wall, rec, launched = run(
+        "LD count_histogram", lambda: st.count_histogram(bm_ld, n_bins=HIST_BINS,
+                                                         bin_width=LD_BIN_WIDTH, device=dev),
+        want=("k5",), absent=("k2_tri",))
+    if man["kernel"] != "clustered" or not np.array_equal(
+            man["hist"], binned(full_ld, HIST_BINS, LD_BIN_WIDTH)):
+        raise AssertionError(f"LD count_histogram ({man['kernel']}) differs from phase 8's matrix")
+    print(f"[query] LD panel count_histogram(auto): route {man['kernel']}, launches {launched}, "
+          f"{man['work_items']} work items, {man['stripes_skipped']} stripes skipped; equal to "
+          f"the histogram of phase 8's matrix; wall {wall:.3f} s")
+    stages("LD count_histogram (K5 work lists)", rec, wall)
+    del full_ld, tail
+
+    # -------------------------------------- 22 config 3, version B: K4 histogram
+    bm_b, ref_b = cfg3_b
+    man, wall, rec, launched = run(
+        "config 3 B count_histogram sparse",
+        lambda: st.count_histogram(bm_b, n_bins=CFG3_BINS, bin_width=1, method="sparse",
+                                   device=dev))
+    if not np.array_equal(man["hist"], binned(tri_hist(ref_b, int(ref_b.max()) + 1),
+                                              CFG3_BINS, 1)):
+        raise AssertionError("config 3 B: the sparse histogram differs from phase 17's matrix")
+    print(f"[query] config 3 version B count_histogram(method='sparse', {CFG3_BINS} bins of "
+          f"width 1): stripes {man['stripe_kernels']}, launches {launched}; equal to the "
+          f"histogram of phase 17's K2 matrix: {man['hist'].tolist()}; wall {wall:.3f} s")
+    stages("config 3 B sparse histogram", rec, wall)
+
+    # ---------------------------------------- 23 cross and missing data
+    bm_a, blk = block
+    (cv, ci), wall, rec, launched = run(
+        "cross_topk_neighbors", lambda: st.cross_topk_neighbors(bm_a, bm, CROSS_K, device=dev),
+        want=("k2_rect",), absent=("k2_tri",))
+    if not np.array_equal(cv, topk_of(blk, CROSS_K)):
+        raise AssertionError("cross_topk_neighbors differs from phase 4's block")
+    valid_indices("cross_topk_neighbors", blk, cv, ci)
+    print(f"[query] cross_topk_neighbors(k={CROSS_K}) {bm_a.n} x {n}: launches {launched}; "
+          f"values equal phase 4's block, indices valid; wall {wall:.3f} s")
+    stages("cross_topk_neighbors", rec, wall)
+    bc = np.bincount(blk.ravel())
+    tail = np.cumsum(bc[::-1])[::-1]
+    t_cross = int(np.argmax(tail <= SCREEN_HITS[1] // 3))
+    got, wall, rec, launched = run("cross_pairs_above",
+                                   lambda: st.cross_pairs_above(bm_a, bm, t_cross, device=dev),
+                                   want=("k2_rect",), absent=("k2_tri",))
+    wi, wj = np.nonzero(blk >= t_cross)
+    same_pairs("cross_pairs_above", got, (wi.astype(np.int32), wj.astype(np.int32), blk[wi, wj]))
+    print(f"[query] cross_pairs_above(count >= {t_cross}): {got[0].size} pairs equal to phase "
+          f"4's block; launches {launched}; wall {wall:.3f} s")
+    stages("cross_pairs_above", rec, wall)
+    # count_block's download: page-locked (utils.download) against the pageable copy it made
+    from stormtpu_torch.kernels import count_block_auto
+
+    walls = [wall_of(lambda: st.count_block(bm_a, bm, device=dev)) for _ in range(3)]
+    a_d, b_d = bm_a.device_padded(bm_a.n, device=dev), bm.device_padded(n, device=dev)
+    pageable = [wall_of(lambda: count_block_auto(a_d, b_d, config=cfg).cpu().numpy())
+                for _ in range(3)]
+    print(f"[query] count_block {bm_a.n} x {n} wall, three calls: page-locked download "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s; the same product with the pageable .cpu() "
+          f"download it had before {', '.join(f'{w:.4f}' for w in pageable)} s")
+    del bc, tail
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 23)
+    wc = COMPLETE_M // 32
+    d = torch.randint(-(1 << 31), 1 << 31, (COMPLETE_N, wc), dtype=torch.int32, device=dev,
+                      generator=gen)
+    # odd rows: the row before with a tenth of the words redrawn (strong LD)
+    redraw = torch.rand((COMPLETE_N // 2, wc), device=dev, generator=gen) < 0.1
+    d[1::2] = torch.where(redraw, d[1::2], d[0::2])
+    mask = torch.empty_like(d)
+    for r0 in range(0, COMPLETE_N, 256):
+        rows = min(256, COMPLETE_N - r0)
+        mask[r0 : r0 + rows] = _pack_bit_rows(
+            torch.rand((rows, COMPLETE_M), device=dev, generator=gen) >= COMPLETE_MISSING)
+    d &= mask
+    bm_d = st.BitMatrix.from_packed(d.cpu().numpy().view(np.uint32), COMPLETE_M)
+    bm_m = st.BitMatrix.from_packed(mask.cpu().numpy().view(np.uint32), COMPLETE_M)
+    del d, mask, redraw
+    four = {k: st.count_block(x, y, device=dev)
+            for k, (x, y) in dict(dd=(bm_d, bm_d), dm=(bm_d, bm_m), md=(bm_m, bm_d),
+                                  mm=(bm_m, bm_m)).items()}
+    i, j = rng.integers(0, COMPLETE_N, 64), rng.integers(0, COMPLETE_N, 64)
+    for k, (x, y) in dict(dd=(bm_d, bm_d), dm=(bm_d, bm_m), md=(bm_m, bm_d),
+                          mm=(bm_m, bm_m)).items():
+        if not np.array_equal(four[k][i, j], sampled_counts(x.packed, y.packed, i, j)):
+            raise AssertionError(f"pairwise-complete reference: count block {k} differs from numpy")
+    sim_want = derive_similarity(four["dd"], four["dm"], four["md"], four["mm"], "r2")
+    sim, wall, _, launched = run(
+        "similarity_matrix_complete",
+        lambda: st.similarity_matrix_complete(bm_d, bm_m, "r2", device=dev))
+    if not np.array_equal(sim, sim_want):
+        raise AssertionError("similarity_matrix_complete differs from the four count blocks")
+    print(f"[query] similarity_matrix_complete(r2) {COMPLETE_N} x {COMPLETE_M} bits, "
+          f"{COMPLETE_MISSING:.0%} missing: equal to derive_similarity over four count blocks; "
+          f"launches {launched}; wall {wall:.3f} s")
+    got, wall, rec, launched = run(
+        "pairs_above_complete",
+        lambda: st.pairs_above_complete(bm_d, bm_m, COMPLETE_R2, device=dev), want=("k2_rect",))
+    wi, wj = np.nonzero(np.triu(sim_want >= COMPLETE_R2, 1))
+    same_pairs("pairs_above_complete", got,
+               (wi.astype(np.int32), wj.astype(np.int32), sim_want[wi, wj]))
+    print(f"[query] pairs_above_complete(r2 >= {COMPLETE_R2}): {got[0].size} pairs equal to the "
+          f"reference; launches {launched}; wall {wall:.3f} s")
+    stages("pairs_above_complete", rec, wall)
+    a_rows = COMPLETE_N // 4
+    bm_q = st.BitMatrix.from_packed(bm_d.packed[:a_rows], COMPLETE_M)
+    (mv, mi), wall, _, launched = run(
+        "cross_topk_neighbors r2",
+        lambda: st.cross_topk_neighbors(bm_q, bm_d, CROSS_K, measure="r2", device=dev),
+        want=("k2_rect",))
+    r2 = derive_similarity(four["dd"][:a_rows], bm_q.row_nnz[:, None], bm_d.row_nnz[None, :],
+                           COMPLETE_M, "r2")
+    order = np.lexsort((np.broadcast_to(np.arange(COMPLETE_N), r2.shape), -r2), axis=1)[:, :CROSS_K]
+    if not (np.array_equal(mi, order) and np.array_equal(mv, np.take_along_axis(r2, order, 1))):
+        raise AssertionError("cross_topk_neighbors(r2) differs from the exact float64 top-k")
+    print(f"[query] cross_topk_neighbors(k={CROSS_K}, r2) {a_rows} x {COMPLETE_N}: values and "
+          f"indices equal the exact float64 top-k (ties to the lower index); launches "
+          f"{launched}; wall {wall:.3f} s")
+    del four, sim, sim_want, r2, bm_d, bm_m, bm_q
+
+    # -------------------------------- 24 config 4 at full scale
+    w4 = CFG4_M // 32
+    n4 = CFG4_N
+    avail = host_available_bytes()
+    if CFG4_HOST_FACTOR * 4 * n4 * w4 > avail:
+        n4 = int(avail // (CFG4_HOST_FACTOR * 4 * w4)) // SUPERBLOCK * SUPERBLOCK
+        print(f"[config 4 query] the host has {avail / 2**30:.1f} GiB available: taking {n4} "
+              f"rows instead of {CFG4_N}")
+    if on_card:
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        need = 4 * round_up(n4, SUPERBLOCK) * w4 + n4 * n4 // 8 + (6 << 30)
+        if need > free:
+            n4 = int((free - (6 << 30)) // (4 * w4 + n4 // 8)) // SUPERBLOCK * SUPERBLOCK
+            print(f"[config 4 query] the card has {free / 2**30:.1f} GiB free: taking {n4} rows")
+    gen.manual_seed(seed + 24)
+    t0 = time.perf_counter()
+    words4 = np.empty((n4, w4), dtype=np.uint32)
+    for r0 in range(0, n4, SUPERBLOCK):
+        rows = min(SUPERBLOCK, n4 - r0)
+        words4[r0 : r0 + rows] = torch.randint(
+            -(1 << 31), 1 << 31, (rows, w4), dtype=torch.int32, device=dev,
+            generator=gen).cpu().numpy().view(np.uint32)
+    bm4 = st.BitMatrix.from_packed(words4, CFG4_M)
+    make4 = time.perf_counter() - t0
+    mean, sd = CFG4_M / 4, (CFG4_M * 3 / 16) ** 0.5
+    bw4 = int(np.ceil((mean + CFG4_TAIL_SD * sd) / (CFG4_BINS - 1)))
+    t4 = bw4 * (CFG4_BINS - 1)
+    pairs4 = n4 * (n4 - 1) // 2
+    print(f"[config 4 query] {n4} x {CFG4_M} bits of uniform words, made on the card and "
+          f"downloaded to a {words4.nbytes / 2**30:.2f} GiB host BitMatrix in {make4:.2f} s; "
+          f"{pairs4} pairs; bins of width {bw4}, the last from {t4} = mean + "
+          f"{(t4 - mean) / sd:.2f} sd")
+    sb = SUPERBLOCK
+    n_super = round_up(n4, sb) // sb
+    tps = sb // cfg.k2_tile_rows
+    hist_tiles = n_super * tps * (tps + 1) // 2 + (n_super * (n_super - 1) // 2) * tps * tps
+    hist_bound = 2.0 * hist_tiles * cfg.k2_tile_rows ** 2 * CFG4_M / k2_ops_per_s
+    ti4, wk4 = mxu.k2_tile_shape(cfg, n4, w4)
+    nb4 = round_up(n4, ti4) // ti4
+    tiles4 = nb4 * (nb4 + 1) // 2
+    chunks4 = -(-tiles4 // query._tile_chunk(ti4))
+    tri_bound4 = 2.0 * tiles4 * ti4 * ti4 * round_up(w4, wk4) * 32 / k2_ops_per_s
+    man, wall_h, rec, launched = run(
+        "config 4 count_histogram",
+        lambda: st.count_histogram(bm4, n_bins=CFG4_BINS, bin_width=bw4, device=dev),
+        want=("k2_tri",), again=True)
+    hist4 = man["hist"]
+    if int(hist4.sum()) != pairs4:
+        raise AssertionError("config 4 count_histogram: mass is not n(n-1)/2")
+    print(f"[config 4 query] count_histogram: route {man['kernel']} (operand on the card), "
+          f"launches {launched}, mass {pairs4}; last bin {int(hist4[-1])} pairs; warm wall "
+          f"{wall_h:.3f} s (the first call, printed above, uploads the operand)")
+    stages("config 4 count_histogram", rec, wall_h, n_super * (n_super + 1) // 2, hist_bound)
+    got, wall_s, rec, launched = run("config 4 pairs_above",
+                                     lambda: st.pairs_above(bm4, t4, device=dev),
+                                     want=("k2_tri",), again=True)
+    if got[0].size != int(hist4[-1]):
+        raise AssertionError(f"config 4 pairs_above: {got[0].size} hits, the histogram's last "
+                             f"bin holds {int(hist4[-1])}")
+    if got[0].size:
+        want4 = np.bitwise_count(words4[got[0]] & words4[got[1]]).sum(axis=1, dtype=np.int64)
+        if not (np.array_equal(got[2], want4) and (got[0] < got[1]).all()):
+            raise AssertionError("config 4 pairs_above: a hit's count differs from numpy")
+    print(f"[config 4 query] pairs_above(count >= {t4}): {got[0].size} hits = the histogram's "
+          f"last bin over all {pairs4} pairs, every count equal to numpy's popcount; launches "
+          f"{launched}; warm wall {wall_s:.3f} s")
+    stages("config 4 pairs_above (tile screen)", rec, wall_s, chunks4, tri_bound4)
+    (v4, i4), wall_t, rec, launched = run(
+        "config 4 topk_neighbors", lambda: st.topk_neighbors(bm4, CFG4_TOPK_K, device=dev),
+        want=("k2_tri",), again=True)
+    rows = np.sort(rng.choice(n4, CFG4_TOPK_ROWS, replace=False))
+    buf = bm4.device_padded(n4, device=dev, reuse_larger=True)
+    b_rows = round_up(n4, ti4)
+    a_pad = torch.zeros((round_up(rows.size, ti4), buf.shape[1]), dtype=torch.int32, device=dev)
+    a_pad[: rows.size] = buf[torch.from_numpy(rows).to(dev)]
+    b_pad = buf[:b_rows] if buf.shape[0] >= b_rows else mxu._pad(buf, b_rows, buf.shape[1])
+    # the reference: K2-rect on those rows, a launch outside the path's calls
+    rect = mxu._count_block_padded(a_pad, b_pad, tile_rows=ti4, tile_words=wk4,
+                                   variant=cfg.k2_variant)[: rows.size, :n4].cpu().numpy()
+    if not np.array_equal(v4[rows], topk_of(rect, CFG4_TOPK_K, rows)):
+        raise AssertionError("config 4 topk_neighbors: sampled rows differ from count_block")
+    valid_indices("config 4 topk_neighbors", rect, v4[rows], i4[rows], rows)
+    print(f"[config 4 query] topk_neighbors(k={CFG4_TOPK_K}) {n4} rows: launches {launched}; "
+          f"{rows.size} sampled rows equal the top {CFG4_TOPK_K} of their K2-rect counts "
+          f"against all rows, indices valid; warm wall {wall_t:.3f} s")
+    stages("config 4 topk_neighbors (tile walk)", rec, wall_t, chunks4, tri_bound4)
+    bm4.clear_device_cache()
+    del bm4, words4, buf, a_pad, b_pad, rect, v4, i4
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"[query] phases 20-24 launches: {total}")
+    return total
 
 
 def ld_ref_samples(ref: np.ndarray, man: dict) -> np.ndarray:
@@ -1047,7 +1599,6 @@ def main(argv=None) -> int:
         raise AssertionError("count_block sampled pairs differ from numpy")
     print(f"[count_block] {BLOCK_NA} x {MAIN_N} rows at {MAIN_M} bits: k2_rect launches "
           f"{launches_rect}, {N_SAMPLES} sampled pairs exact; wall {wall_rect:.3f} s")
-    del blk
 
     # --------------------------------------------------------- 5 pair_count
     pa, pb = random_words(rng, 2, PAIR_M, 0.5)
@@ -1438,7 +1989,7 @@ def main(argv=None) -> int:
         raise AssertionError("pallas_dense matrix differs from the K2 main path's")
     print(f"[pallas_dense path] intersect_count_matrix {MAIN_N} x {MAIN_M} bits: launches "
           f"{counts}; equal to the K2 main path's matrix; wall {wall_k1:.3f} s")
-    del dense_out, main_out
+    del dense_out
 
     # ---------------------------------------------------- 10 K0 pair stream
     gen = torch.Generator(device=dev)
@@ -1613,8 +2164,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     stream_launches = stream_phases(torch, dev, cfg, rng, args.seed, bm_ld, ld_ref, k2_ops_per_s)
-    del ld_ref, bm_ld
-    sparse_kernels = sparse_phases(torch, dev, cfg, rng)
+    sparse_kernels, cfg3_b = sparse_phases(torch, dev, cfg, rng)
+    query_launches = query_phases(torch, dev, cfg, rng, args.seed, k2_ops_per_s,
+                                  main=(bm, main_out), block=(bm_a, blk), ld=(bm_ld, ld_ref),
+                                  cfg3_b=cfg3_b)
+    del main_out, blk, ld_ref, bm_ld, cfg3_b
 
     src_k2 = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
     src_k1 = "stormtpu_torch/kernels/csrc/k1_dense.cu"
@@ -1623,21 +2177,23 @@ def main(argv=None) -> int:
         dict(name="k2_tri", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/mxu.py:202", launches=launches_tri,
              max_abs_err=max_err["k2_tri"], library=int_mm_note + ", full square",
-             stream_launches=stream_launches["k2_tri"], **timings["k2_tri"]),
+             stream_launches=stream_launches["k2_tri"], query_launches=query_launches["k2_tri"],
+             **timings["k2_tri"]),
         dict(name="k2_rect", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/mxu.py:248", launches=launches_rect,
-             max_abs_err=max_err["k2_rect"], library=int_mm_note, **timings["k2_rect"]),
+             max_abs_err=max_err["k2_rect"], library=int_mm_note,
+             query_launches=query_launches["k2_rect"], **timings["k2_rect"]),
         dict(name="k5", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/clustered.py:165", launches=launches_k5,
              max_abs_err=max_err["k5"], stream_launches=stream_launches["k5"],
-             **timings["k5"]),
+             query_launches=query_launches["k5"], **timings["k5"]),
         dict(name="k1", route="cuda", source=src_k1,
              replaces="stormtpu/kernels/dense.py:140", launches=launches_k1,
-             max_abs_err=max_err["k1"], **timings["k1"]),
+             max_abs_err=max_err["k1"], query_launches=query_launches["k1"], **timings["k1"]),
         dict(name="k0", route="cuda", source=src_k1,
              replaces="stormtpu/kernels/dense.py:239", launches=launches_k0,
-             max_abs_err=max_err["k0"], **timings["k0"]),
-        *sparse_kernels,
+             max_abs_err=max_err["k0"], query_launches=query_launches["k0"], **timings["k0"]),
+        *(dict(k, query_launches=query_launches[k["name"]]) for k in sparse_kernels),
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -19,7 +19,7 @@ from stormtpu_torch.config import EngineConfig, default_config
 from stormtpu_torch.dispatch import STRATEGIES, choose_strategy
 from stormtpu_torch.kernels import xla as kx
 from stormtpu_torch.layout import BitMatrix, to_device_words
-from stormtpu_torch.utils import resolve_device, round_up, triangular_assembly_bytes
+from stormtpu_torch.utils import download, resolve_device, round_up, triangular_assembly_bytes
 
 __all__ = ["pair_count", "intersect_count_matrix", "count_block"]
 
@@ -212,7 +212,9 @@ def count_block(
     config: Optional[EngineConfig] = None,
     device=None,
 ) -> np.ndarray:
-    """Exact cross counts numpy int32 [Na, Nb] between two bitmap sets."""
+    """Exact cross counts numpy int32 [Na, Nb] between two bitmap sets.
+    On the card the result is downloaded into page-locked memory, as the
+    tile-walk results are (``utils.download``)."""
     dev = resolve_device(device)
     bm_a = _as_bitmatrix(a)
     bm_b = _as_bitmatrix(b)
@@ -227,4 +229,4 @@ def count_block(
         bm_b.device_padded(bm_b.n, device=dev),
         config=cfg,
     )
-    return out.cpu().numpy()
+    return download(out)

@@ -54,7 +54,6 @@ from stormtpu_torch.kernels.mxu import (
     k2_tile_shape,
 )
 from stormtpu_torch.kernels.xla import int8_dot_nt, unpack_to_int8
-from stormtpu_torch.layout import to_device_words
 from stormtpu_torch.utils import (
     assemble_triangular_torch,
     download,
@@ -502,15 +501,9 @@ def count_tiles_worklist(
 # ------------------------------------------------------------------ the path
 def padded_operand(bm, n_pad: int, w_pad: int, device) -> torch.Tensor:
     """``bm.packed`` zero-padded to [n_pad, w_pad] as int32 words on
-    ``device``, padded there and cached on the matrix: repeated calls do
-    not upload it again."""
-
-    def build():
-        xp = torch.zeros((n_pad, w_pad), dtype=torch.int32, device=device)
-        xp[: bm.n, : bm.n_words] = to_device_words(bm.packed, device)
-        return xp
-
-    return bm.device_cached(("padded2dz", n_pad, w_pad), build, device)
+    ``device``, padded there and cached on the matrix
+    (``BitMatrix.device_padded2d``): repeated calls do not upload it again."""
+    return bm.device_padded2d(n_pad, w_pad, device=device)
 
 
 def device_operand(bm, plan: ClusteredPlan, device) -> torch.Tensor:

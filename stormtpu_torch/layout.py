@@ -61,6 +61,23 @@ def to_device_words(packed: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+# rows a padded upload copies at a time: bounds the host staging copy
+_UPLOAD_ROW_BYTES = 1 << 28
+
+
+def _upload_padded(packed: np.ndarray, n_pad: int, w_pad: int, device) -> torch.Tensor:
+    """uint32 [N, W] host words zero-padded to [n_pad, w_pad] as int32 on
+    ``device``, zeroed and filled there in row chunks: no padded copy of
+    the matrix is made on the host, and the device holds one buffer."""
+    n, w = packed.shape
+    out = torch.zeros((n_pad, w_pad), dtype=torch.int32, device=device)
+    step = max(1, _UPLOAD_ROW_BYTES // max(4 * w, 1))
+    for r in range(0, n, step):
+        rows = packed[r : r + step]
+        out[r : r + rows.shape[0], :w] = to_device_words(rows, device)
+    return out
+
+
 def pack_bits(dense01: np.ndarray) -> np.ndarray:
     """Pack a {0,1} matrix [N, M] into uint32 words [N, ceil(M/32)].
 
@@ -240,22 +257,73 @@ class BitMatrix:
             cache[full_key] = buf
         return buf
 
-    def device_padded(self, n_pad: int, *, device):
+    def _cached_row_padded(self, n_pad: int, device, w_pad: Optional[int] = None):
+        """The smallest cached row-padded buffer ("padded" or "padded2d")
+        on ``device`` with at least ``n_pad`` rows and, unless ``w_pad`` is
+        None, exactly ``w_pad`` words a row; or None."""
+        cache = self.__dict__.get("_device_cache", {})
+        dev = str(torch.device(device))
+        keys = [
+            k for k in cache
+            if k[-1] == dev and k[0] in ("padded", "padded2d") and k[1] >= n_pad
+            and (w_pad is None or cache[k].shape[1] == w_pad)
+        ]
+        return cache[min(keys, key=lambda k: k[1])] if keys else None
+
+    def device_padded(self, n_pad: int, *, device, reuse_larger: bool = False):
         """``packed`` zero-padded to ``n_pad`` rows as an int32 bit-view
         tensor on ``device``, cached per (``n_pad``, device): repeated
         queries on one matrix reuse the device copy instead of uploading
-        O(N·W) bytes per call."""
+        O(N·W) bytes per call.
+
+        ``reuse_larger``: return any cached row-padded buffer with at
+        least ``n_pad`` rows instead of a new copy, the word-padded
+        ("padded2d") ones included — for callers whose row indices are
+        below N (gathers): extra zero rows are never read and extra zero
+        words add 0 to every popcount, so a second full copy is never
+        pinned beside the screen's."""
         if n_pad < self.n:
             raise ValueError(f"n_pad={n_pad} < N={self.n}")
+        if reuse_larger:
+            hit = self._cached_row_padded(n_pad, device)
+            if hit is not None:
+                return hit
 
         def build():
             if n_pad == self.n:
                 return to_device_words(self.packed, device)
-            xp = np.zeros((n_pad, self.packed.shape[1]), dtype=np.uint32)
-            xp[: self.n] = self.packed
-            return to_device_words(xp, device)
+            return _upload_padded(self.packed, n_pad, self.n_words, device)
 
         return self.device_cached(("padded", int(n_pad)), build, device)
+
+    def device_padded2d(self, n_pad: int, w_pad: int, *, device):
+        """``packed`` zero-padded to [``n_pad``, ``w_pad``] on ``device``,
+        cached under ("padded2d", n_pad, w_pad). A cached row-padded buffer
+        of ``w_pad`` words a row and at least ``n_pad`` rows serves as its
+        first ``n_pad`` rows (a contiguous view; the rows past N are zero
+        either way), so the tile walks, the histogram walk and the count
+        paths of one matrix share one device copy."""
+        if n_pad < self.n or w_pad < self.n_words:
+            raise ValueError(f"[{n_pad}, {w_pad}] is smaller than [{self.n}, {self.n_words}]")
+        hit = self._cached_row_padded(n_pad, device, w_pad)
+        if hit is not None:
+            return hit[:n_pad]
+        return self.device_cached(
+            ("padded2d", int(n_pad), int(w_pad)),
+            lambda: _upload_padded(self.packed, n_pad, w_pad, device), device)
+
+    def device_nnz(self, n_pad: int, *, device):
+        """int32 ``row_nnz`` zero-padded to ``n_pad`` rows on ``device``,
+        cached per (``n_pad``, device), as :meth:`device_padded`."""
+        if n_pad < self.n:
+            raise ValueError(f"n_pad={n_pad} < N={self.n}")
+
+        def build():
+            nz = np.zeros(n_pad, dtype=np.int32)
+            nz[: self.n] = self.row_nnz.astype(np.int32)
+            return torch.from_numpy(nz).to(device)
+
+        return self.device_cached(("nnz", int(n_pad)), build, device)
 
     def clear_device_cache(self) -> None:
         """Drop cached device tensors (frees device memory; REQUIRED

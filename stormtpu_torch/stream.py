@@ -124,18 +124,26 @@ def require_device_budget(
         )
 
 
+def _device_operand_budget(device, working: int = 0) -> int:
+    """Bytes a walk's whole padded operand may take on ``device`` before
+    the walk keeps only two superblock slices there: what
+    :func:`_device_refuse_budget` reads, less ``working`` (the bytes a
+    stripe needs beside the operand). ``STORMTPU_DEVICE_OPERAND_BUDGET_BYTES``
+    (the variable the JAX package reads) instead sets a ceiling for the
+    operand alone."""
+    env = os.environ.get("STORMTPU_DEVICE_OPERAND_BUDGET_BYTES")
+    if env:
+        return int(env)
+    return _device_refuse_budget(device) - working
+
+
 def _wants_operand_streaming(n_pad: int, w_pad: int, sb: int, device) -> bool:
     """Whether the walk should keep only two superblock slices on the
     device: when the padded operand and a stripe's working set (its tile
     stack, the assembled stripe, two slices) pass what the device has
-    free. ``STORMTPU_DEVICE_OPERAND_BUDGET_BYTES`` (the variable the JAX
-    package reads) instead sets a ceiling for the operand alone."""
-    operand = 4 * n_pad * w_pad
-    env = os.environ.get("STORMTPU_DEVICE_OPERAND_BUDGET_BYTES")
-    if env:
-        return operand > int(env)
+    free."""
     working = 4 * (2 * sb * sb + 2 * sb * w_pad)
-    return operand + working > _device_refuse_budget(device)
+    return 4 * n_pad * w_pad > _device_operand_budget(device, working)
 
 
 # ------------------------------------------------------------- stage timing
@@ -1274,7 +1282,7 @@ def stream_count_histogram(
     Same stripe walk as :func:`stream_count_checksums` (each unordered
     pair visited exactly once: triangular tile list on diagonal
     superblocks, square off-diagonal). A stripe's reduction is one masked
-    bin count on the device (``torch.bincount``), added into a device
+    bin count on the device (``stream_hist._bin_counts``), added into a device
     total that is read back once, at the end. Bins are uniform: bin b
     counts pairs with ``b*bin_width <= C[ij] < (b+1)*bin_width``, with the
     last bin clamped to absorb the tail up to ``m_bits``. Integer binning
@@ -1290,7 +1298,7 @@ def stream_count_histogram(
     ``xd`` contract is :func:`stream_count_checksums`'s.
     """
     from stormtpu_torch.kernels.mxu import count_tiles_pallas_mxu, device_tile_ids
-    from stormtpu_torch.stream_hist import _hist_manifest, _stripe_pair_mass
+    from stormtpu_torch.stream_hist import _bin_counts, _hist_manifest, _stripe_pair_mass
 
     dev = resolve_device(device)
     cfg = config or default_config()
@@ -1346,9 +1354,8 @@ def stream_count_histogram(
             valid = (rows_g[:, :, None] < cols_g[:, None, :]) & (cols_g[:, None, :] < n)
             bins = torch.clamp(tiles // bin_width, max=n_bins - 1)
             # invalid entries go to a spare bin past the last, then dropped
-            binned = torch.where(valid, bins, n_bins).flatten()
-            hist_d += torch.bincount(binned, minlength=n_bins + 1)[:n_bins]
-        del tiles, valid, bins, binned
+            hist_d += _bin_counts(torch.where(valid, bins, n_bins), n_bins + 1)[:n_bins]
+        del tiles, valid, bins
         _count_stripe(True)
         done += 1
         if progress is not None:

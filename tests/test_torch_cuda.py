@@ -641,3 +641,67 @@ def test_sparse_strategies_on_the_card(cuda):
     assert np.array_equal(intersect_count_matrix(bm, strategy="sparse_outer", device=cuda), want)
     assert launch_counts()["k4"] == 1 and launch_counts()["k2_tri"] == 0
     assert np.array_equal(intersect_count_matrix(bm, device=cuda), want)  # D1 on the card
+
+
+# ------------------------------------------------------------ queries
+def _query_case(n, m, seed):
+    return BitMatrix.from_packed(_words(n, -(-m // 32), 0.3, seed), -(-m // 32) * 32)
+
+
+@pytest.mark.parametrize("chunk_tiles", (1, 5, None))
+@pytest.mark.parametrize("n,ti,k", [(300, 64, 8), (129, 32, 40), (520, 256, 3)])
+def test_tile_topk_on_card_equals_its_cpu_form(cuda, monkeypatch, n, ti, k, chunk_tiles):
+    """The tile top-k (K2 tiles and the merge on the card) against the same
+    walk on the CPU: equal values, indices that realize them."""
+    import stormtpu_torch.config as tconf
+    from stormtpu_torch import dispatch, query
+
+    monkeypatch.setattr(tconf, "_DEFAULT", EngineConfig(k2_tile_rows=ti, k2_tile_words=128))
+    monkeypatch.setattr(dispatch, "choose_strategy", lambda *a, **k_: "pallas_mxu")
+    if chunk_tiles is not None:
+        monkeypatch.setattr(query, "_SCREEN_TILE_CHUNK_BYTES", chunk_tiles * 4 * ti * ti)
+    bm = _query_case(n, 3000, seed=n + ti)
+    reset_launches()
+    vals, idx = query.topk_neighbors(bm, k, device=cuda)
+    assert launch_counts()["k2_tri"] >= 1
+    want, _ = query.topk_neighbors(bm, k, device="cpu")
+    assert np.array_equal(vals, want)
+    c = oracle_count_matrix(bm.packed)
+    assert np.array_equal(c[np.arange(n)[:, None], idx], vals)
+    assert all(len(set(r.tolist())) == k and i not in r for i, r in enumerate(idx))
+
+
+@pytest.mark.parametrize("chunk_tiles", (3, None))
+@pytest.mark.parametrize("measure,threshold", [("count", 250), ("jaccard", 0.2), ("r2", 0.003)])
+def test_tile_screen_on_card_equals_its_cpu_form(cuda, monkeypatch, measure, threshold,
+                                                 chunk_tiles):
+    """The tile screen (K2 tiles, float32 screen and bit packing on the
+    card, the two-phase download, the K0 refine) against the CPU route."""
+    import stormtpu_torch.config as tconf
+    from stormtpu_torch import dispatch, query
+
+    monkeypatch.setattr(tconf, "_DEFAULT", EngineConfig(k2_tile_rows=64, k2_tile_words=128))
+    monkeypatch.setattr(dispatch, "choose_strategy", lambda *a, **k_: "pallas_mxu")
+    if chunk_tiles is not None:
+        monkeypatch.setattr(query, "_SCREEN_TILE_CHUNK_BYTES", chunk_tiles * 4 * 64 * 64)
+    bm = _query_case(333, 3000, seed=11)
+    reset_launches()
+    got = query.pairs_above(bm, threshold, measure=measure, device=cuda)
+    counts = launch_counts()
+    assert counts["k2_tri"] >= 1 and counts["k0"] >= 1
+    want = query.pairs_above(bm, threshold, measure=measure, device="cpu")
+    assert want[0].size > 0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_pair_counts_on_card_launch_k0(cuda):
+    from stormtpu_torch import pair_counts
+
+    bm = _query_case(200, 70_000, seed=3)
+    rng = np.random.default_rng(4)
+    ii, jj = rng.integers(0, 200, 5000), rng.integers(0, 200, 5000)
+    reset_launches()
+    got = pair_counts(bm, ii, jj, device=cuda)
+    assert launch_counts()["k0"] >= 1
+    assert np.array_equal(got, oracle_count_matrix(bm.packed)[ii, jj])

@@ -69,4 +69,7 @@ def test_package_modules_are_all_scanned():
     mods = {m.name for m in pkgutil.walk_packages(stormtpu_torch.__path__, "stormtpu_torch.")}
     assert {"stormtpu_torch.api", "stormtpu_torch.kernels.mxu",
             "stormtpu_torch.kernels._build", "stormtpu_torch.kernels.sparse",
-            "stormtpu_torch.native", "stormtpu_torch.tuning"} <= mods
+            "stormtpu_torch.native", "stormtpu_torch.tuning", "stormtpu_torch.setops",
+            "stormtpu_torch.query", "stormtpu_torch.cross", "stormtpu_torch.clump",
+            "stormtpu_torch.stats", "stormtpu_torch.stream_hist",
+            "stormtpu_torch.stream_query"} <= mods
