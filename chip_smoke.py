@@ -124,11 +124,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     above the mean, ``pairs_above`` at that bin's start (its hit count must
     equal the bin, over all 5e9 pairs; each hit's count equal to numpy's),
     ``topk_neighbors(k=8)`` (256 sampled rows equal to their K2-rect counts'
-    top 8).
+    top 8);
+25. the streamed queries (``stream_query``) on phase 24's matrix and its
+    device operand, superblock 4096 (325 stripes): ``stream_topk_neighbors(k=8)``
+    equal to phase 24's top-k on every row, ``stream_pairs_above`` equal to
+    its 65 hits, and ``topk_neighbors(measure="jaccard", k=8)``, which
+    takes the streamed walk above 32,768 rows: 256 sampled rows equal to
+    the float64 ranking of their K2-rect counts;
+26. the LD panel: ``stream_pairs_above`` and ``stream_topk_neighbors(k=8)``
+    with the operand resident, then on two slices (a lowered
+    ``STORMTPU_DEVICE_OPERAND_BUDGET_BYTES``) into a directory, a resume
+    after deleting two hit files (two stripes computed), and the extend of
+    a directory of the first 14,000 rows to 16,384: all equal to phase 8's
+    matrix;
+27. config 3 B through ``kernel="auto"`` (K4 on the host for the stripes
+    the cost model gives it) and ``kernel="mxu"``: top-k, a count screen
+    and an r2 screen equal across routes and to phase 17's matrix, each
+    route's stripe split printed;
+28. ``stream_pairs_above_complete`` on phase 23's panel at superblock 512
+    (ten stripes of four count grids) equal to ``pairs_above_complete``.
 
-Phases 20-24 print each call's wall time and a ``[breakdown]`` of its
+Phases 20-28 print each call's wall time and a ``[breakdown]`` of its
 stages (K2 by CUDA events, the screen, merge and bin passes, the summary
-and word downloads, the refine), and K2's share of its bound.
+and word downloads, the refine), and K2's share of its bound; phases 25-28
+also K2's and the reduction's milliseconds a stripe.
 
 The lines before the last are a ``kernels`` JSON object and the card's
 ``name, power.limit``; the last line is the result object.
@@ -205,6 +224,8 @@ LD_R2, LD_BIN_WIDTH = 0.5, 256
 CFG3_BINS = 8
 CROSS_K = 8
 COMPLETE_N, COMPLETE_M, COMPLETE_MISSING, COMPLETE_R2 = 2048, 1 << 18, 0.05, 0.5
+COMPLETE_SB = 512       # phase 28: four superblocks, ten stripes
+CFG3_R2 = 5e-5          # phase 27's r2 screen: pairs that share a bit
 CFG4_BINS, CFG4_TAIL_SD = 64, 5.5
 CFG4_TOPK_K, CFG4_TOPK_ROWS = 8, 256
 CFG4_HOST_FACTOR = 2    # host bytes phase 24 needs per byte of its packed matrix
@@ -930,13 +951,14 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
         if on_card:
             torch.cuda.synchronize()
 
-    def run(label: str, fn, want=(), absent=(), again=False):
+    def run(label: str, fn, want=(), absent=(), again=False, into=None):
         """A recorded call of ``fn``: (result, wall s, stages, launches).
         Raises unless every kernel in ``want`` launched and none in
-        ``absent``; the launches add to the phases' totals. ``again``: a
-        second recorded call follows, and its wall and stages are returned
-        (the first call's wall is printed): the first call of a shape pays
-        for CUDA's module loads and the operand's upload."""
+        ``absent``; the launches add to the phases' totals (``into``, else
+        these phases'). ``again``: a second recorded call follows, and its
+        wall and stages are returned (the first call's wall is printed):
+        the first call of a shape pays for CUDA's module loads and the
+        operand's upload."""
         reset_launches()
         sync()
         t0 = time.perf_counter()
@@ -946,7 +968,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
         wall = time.perf_counter() - t0
         got = launch_counts()
         for k, v in got.items():
-            total[k] += v
+            (total if into is None else into)[k] += v
         if any(got[k] < 1 for k in want) or any(got[k] for k in absent):
             raise AssertionError(f"{label}: launches {got}; want {want} and none of {absent}")
         if again:
@@ -1305,6 +1327,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
     print(f"[query] pairs_above_complete(r2 >= {COMPLETE_R2}): {got[0].size} pairs equal to the "
           f"reference; launches {launched}; wall {wall:.3f} s")
     stages("pairs_above_complete", rec, wall)
+    complete_pairs = got
     a_rows = COMPLETE_N // 4
     bm_q = st.BitMatrix.from_packed(bm_d.packed[:a_rows], COMPLETE_M)
     (mv, mi), wall, _, launched = run(
@@ -1319,7 +1342,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
     print(f"[query] cross_topk_neighbors(k={CROSS_K}, r2) {a_rows} x {COMPLETE_N}: values and "
           f"indices equal the exact float64 top-k (ties to the lower index); launches "
           f"{launched}; wall {wall:.3f} s")
-    del four, sim, sim_want, r2, bm_d, bm_m, bm_q
+    del four, sim, sim_want, r2, bm_q
 
     # -------------------------------- 24 config 4 at full scale
     w4 = CFG4_M // 32
@@ -1408,11 +1431,254 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
           f"{rows.size} sampled rows equal the top {CFG4_TOPK_K} of their K2-rect counts "
           f"against all rows, indices valid; warm wall {wall_t:.3f} s")
     stages("config 4 topk_neighbors (tile walk)", rec, wall_t, chunks4, tri_bound4)
+    del buf, a_pad, b_pad
+    print(f"[query] phases 20-24 launches: {total}")
+    streamed = stream_query_phases(
+        torch, dev, cfg, k2_ops_per_s, (run, stages, wall_of, same_pairs, topk_of, valid_indices),
+        cfg4=(bm4, got, v4, rows, rect, t4), ld=(bm_ld, ld_ref, t_ld), cfg3_b=cfg3_b,
+        complete=(bm_d, bm_m, complete_pairs))
     bm4.clear_device_cache()
-    del bm4, words4, buf, a_pad, b_pad, rect, v4, i4
+    del bm4, words4, rect, v4, i4, bm_d, bm_m
     if on_card:
         torch.cuda.empty_cache()
-    print(f"[query] phases 20-24 launches: {total}")
+    return total, streamed
+
+
+def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b,
+                        complete) -> dict:
+    """Phases 25 to 28: the streamed queries (``stream_query``) on the
+    matrices of phases 24, 21, 22 and 23, each result held to the resident
+    query's result or to the reference matrix. ``helpers`` are phases
+    20-24's (run, stages, wall_of, same_pairs, topk_of, valid_indices).
+    Returns the launches of every kernel over these phases' calls."""
+    import stormtpu_torch as st
+    from stormtpu_torch import stream_query as sq
+    from stormtpu_torch.setops import derive_similarity
+    from stormtpu_torch.utils import round_up
+
+    run, stages, wall_of, same_pairs, topk_of, valid_indices = helpers
+    total = dict.fromkeys(("k2_tri", "k2_rect", "k5", "k1", "k0", "k3", "k4"), 0)
+    sb = SUPERBLOCK
+    t_phases = time.perf_counter()
+
+    def per_stripe(label: str, rec, wall: float, plain: float = 0.0) -> None:
+        """Wall, and K2's and the reduction's CUDA-event ms a card stripe."""
+        on = max(rec.launched, 1)
+        kern, red = rec.device_ms.get("kernel", 0.0), rec.device_ms.get("reduce", 0.0)
+        line = (f"[stream query] {label}: wall {wall:.4f} s recorded"
+                + (f", {plain:.4f} s as a user runs it" if plain else "")
+                + f"; {rec.stripes} stripes computed, {rec.launched} on the card, "
+                f"{rec.stripes - rec.launched} by K4 on the host; K2 {kern / on:.3f} ms and "
+                f"reduction {red / on:.3f} ms a card stripe (CUDA events)")
+        print(line)
+
+    def walk_bound(n: int, m: int, sb_: int) -> float:
+        """K2's operation bound of a stripe walk over n rows of m bits."""
+        n_super = round_up(n, sb_) // sb_
+        tps = sb_ // cfg.k2_tile_rows
+        tiles = n_super * tps * (tps + 1) // 2 + n_super * (n_super - 1) // 2 * tps * tps
+        return 2.0 * tiles * cfg.k2_tile_rows ** 2 * m / k2_ops_per_s
+
+    # ------------------------------------- 25 config 4: the streamed queries
+    bm4, hits4, v4, rows4, rect4, t4 = cfg4
+    n4, m4 = bm4.n, bm4.m_bits
+    k = CFG4_TOPK_K
+    stripes4 = (round_up(n4, sb) // sb) * (round_up(n4, sb) // sb + 1) // 2
+    bound4 = walk_bound(n4, m4, sb)
+    (vals, idx), wall, rec, launched = run(
+        "config 4 stream_topk_neighbors",
+        lambda: sq.stream_topk_neighbors(bm4, k, superblock_rows=sb, device=dev),
+        want=("k2_tri",), absent=("k2_rect", "k4"), again=True, into=total)
+    if not np.array_equal(vals, v4):
+        raise AssertionError("config 4 stream_topk_neighbors: values differ from phase 24's")
+    valid_indices("config 4 stream_topk_neighbors", rect4, vals[rows4], idx[rows4], rows4)
+    plain = wall_of(lambda: sq.stream_topk_neighbors(bm4, k, superblock_rows=sb, device=dev))
+    print(f"[stream query] config 4 stream_topk_neighbors(k={k}) {n4} x {m4} bits at superblock "
+          f"{sb} ({stripes4} stripes): launches {launched}; values equal phase 24's "
+          f"topk_neighbors on all rows, indices valid on its {rows4.size} K2-rect rows")
+    per_stripe("config 4 stream_topk_neighbors", rec, wall, plain)
+    stages("config 4 stream_topk_neighbors (a chunk is a stripe)", rec, wall, rec.launched,
+           bound4)
+    got, wall, rec, launched = run(
+        "config 4 stream_pairs_above",
+        lambda: sq.stream_pairs_above(bm4, t4, superblock_rows=sb, device=dev),
+        want=("k2_tri",), absent=("k0", "k4"), again=True, into=total)
+    same_pairs("config 4 stream_pairs_above", got, hits4)
+    plain = wall_of(lambda: sq.stream_pairs_above(bm4, t4, superblock_rows=sb, device=dev))
+    print(f"[stream query] config 4 stream_pairs_above(count >= {t4}): {got[0].size} hits, "
+          f"equal to phase 24's pairs_above; launches {launched}")
+    per_stripe("config 4 stream_pairs_above", rec, wall, plain)
+    stages("config 4 stream_pairs_above (a chunk is a stripe)", rec, wall, rec.launched, bound4)
+    (jv, ji), wall, rec, launched = run(
+        "config 4 topk_neighbors jaccard",
+        lambda: st.topk_neighbors(bm4, k, measure="jaccard", device=dev),
+        want=("k2_tri",), into=total)
+    if not rec.stripes:
+        raise AssertionError("config 4 topk_neighbors(jaccard) did not take the streamed walk")
+    nnz4 = bm4.row_nnz
+    sim = derive_similarity(rect4, nnz4[rows4][:, None], nnz4[None, :], m4, "jaccard")
+    sim[np.arange(rows4.size), rows4] = -np.inf
+    want_j = -np.sort(-np.partition(sim, sim.shape[1] - k, axis=1)[:, -k:], axis=1)
+    if not (np.array_equal(jv[rows4], want_j)
+            and np.array_equal(sim[np.arange(rows4.size)[:, None], ji[rows4]], jv[rows4])):
+        raise AssertionError("config 4 topk_neighbors(jaccard): sampled rows differ from the "
+                             "float64 ranking of their K2-rect counts")
+    print(f"[stream query] config 4 topk_neighbors(k={k}, measure='jaccard') {n4} rows (above "
+          f"the host ceiling: the streamed walk): launches {launched}; {rows4.size} sampled rows "
+          f"equal the float64 ranking of their K2-rect counts against all rows, indices "
+          f"realize them")
+    per_stripe("config 4 topk_neighbors jaccard", rec, wall)
+    stages("config 4 topk_neighbors jaccard (a chunk is a stripe)", rec, wall, rec.launched,
+           bound4)
+    del sim, jv, ji, vals, idx
+
+    # ------------------ 26 the LD panel: operand streaming, out_dir, resume, extend
+    bm_ld, ld_ref, t_ld = ld
+    n_ld = bm_ld.n
+    wi, wj = np.nonzero(np.triu(ld_ref >= t_ld, 1))
+    want_ld = (wi.astype(np.int32), wj.astype(np.int32), ld_ref[wi, wj])
+    res, wall, rec, launched = run(
+        "LD stream_pairs_above resident",
+        lambda: sq.stream_pairs_above(bm_ld, t_ld, superblock_rows=sb, device=dev),
+        want=("k2_tri",), into=total)
+    same_pairs("LD stream_pairs_above resident", res, want_ld)
+    per_stripe("LD stream_pairs_above, operand resident", rec, wall)
+    (tv, ti_), _, _, _ = run(
+        "LD stream_topk resident",
+        lambda: sq.stream_topk_neighbors(bm_ld, k, superblock_rows=sb, device=dev),
+        want=("k2_tri",), into=total)
+    for r0 in range(0, n_ld, 2048):
+        r = np.arange(r0, min(r0 + 2048, n_ld))
+        if not np.array_equal(tv[r], topk_of(ld_ref[r], k, r)):
+            raise AssertionError(f"LD stream_topk_neighbors: rows {r0}.. differ from phase 8's")
+        valid_indices("LD stream_topk_neighbors", ld_ref[r], tv[r], ti_[r], r)
+    head = st.BitMatrix.from_packed(np.ascontiguousarray(bm_ld.packed[:EXTEND_OLD_N]),
+                                    bm_ld.m_bits)
+    os.environ["STORMTPU_DEVICE_OPERAND_BUDGET_BYTES"] = str(bm_ld.packed.nbytes // 4)
+    try:
+        walk = sq._resolve_stripe_config(bm_ld, sb, "auto", cfg, bitmap=True)
+        if not sq._wants_operand_streaming(walk.n_pad, walk.w_pad, walk.sb, dev):
+            raise AssertionError("LD panel: the lowered budget does not stream the operand")
+        with tempfile.TemporaryDirectory() as scr, tempfile.TemporaryDirectory() as grown, \
+                tempfile.TemporaryDirectory() as tk, tempfile.TemporaryDirectory() as tk_grown:
+            got, wall, rec, launched = run(
+                "LD stream_pairs_above streamed",
+                lambda: sq.stream_pairs_above(bm_ld, t_ld, superblock_rows=sb, out_dir=scr,
+                                              device=dev),
+                want=("k2_tri",), into=total)
+            same_pairs("LD stream_pairs_above streamed", got, want_ld)
+            per_stripe("LD stream_pairs_above, two slices, out_dir", rec, wall)
+            n_files = len([f for f in os.listdir(scr) if f.startswith("hits_")])
+            for name in ("hits_00000_00000.npz", "hits_00003_00003.npz"):
+                os.remove(os.path.join(scr, name))
+            got, wall, rec, launched = run(
+                "LD stream_pairs_above resumed",
+                lambda: sq.stream_pairs_above(bm_ld, t_ld, superblock_rows=sb, out_dir=scr,
+                                              device=dev),
+                want=("k2_tri",), into=total)
+            same_pairs("LD stream_pairs_above resumed", got, want_ld)
+            if rec.launched != 2:
+                raise AssertionError(f"LD resume computed {rec.launched} stripes, want 2")
+            sq.stream_pairs_above(head, t_ld, superblock_rows=sb, out_dir=grown, device=dev)
+            got, wall, rec, launched = run(
+                "LD extend_stream_pairs_above",
+                lambda: sq.extend_stream_pairs_above(bm_ld, grown, device=dev),
+                want=("k2_tri",), into=total)
+            same_pairs("LD extend_stream_pairs_above", got, want_ld)
+            print(f"[stream query] LD panel {n_ld} x {bm_ld.m_bits} bits, count >= {t_ld}: "
+                  f"{want_ld[0].size} pairs from the resident walk, the two-slice walk into "
+                  f"{n_files} hit files, a resume after deleting two of them (2 stripes "
+                  f"computed) and the extend of {EXTEND_OLD_N} -> {n_ld} rows ({rec.launched} "
+                  f"computed), all equal to phase 8's matrix")
+            per_stripe(f"LD extend_stream_pairs_above {EXTEND_OLD_N} -> {n_ld}", rec, wall)
+            (sv, si), wall, rec, _ = run(
+                "LD stream_topk streamed",
+                lambda: sq.stream_topk_neighbors(bm_ld, k, superblock_rows=sb, out_dir=tk,
+                                                 device=dev),
+                want=("k2_tri",), into=total)
+            sq.stream_topk_neighbors(head, k, superblock_rows=sb, out_dir=tk_grown, device=dev)
+            (ev, ei), wall_e, rec_e, _ = run(
+                "LD extend_stream_topk_neighbors",
+                lambda: sq.extend_stream_topk_neighbors(bm_ld, tk_grown, device=dev),
+                want=("k2_tri",), into=total)
+            for label, v, i in (("streamed", sv, si), ("extended", ev, ei)):
+                if not np.array_equal(v, tv):
+                    raise AssertionError(f"LD stream_topk_neighbors {label}: values differ "
+                                         "from the resident walk's")
+                for r0 in range(0, n_ld, 2048):
+                    r = np.arange(r0, min(r0 + 2048, n_ld))
+                    valid_indices(f"LD stream_topk {label}", ld_ref[r], v[r], i[r], r)
+            print(f"[stream query] LD panel stream_topk_neighbors(k={k}): resident, two-slice "
+                  f"with a checkpoint, and extended {EXTEND_OLD_N} -> {n_ld} rows: values equal "
+                  f"phase 8's top {k} on every row, indices valid")
+            per_stripe("LD stream_topk_neighbors, two slices, checkpoint", rec, wall)
+            per_stripe(f"LD extend_stream_topk_neighbors {EXTEND_OLD_N} -> {n_ld}", rec_e,
+                       wall_e)
+    finally:
+        del os.environ["STORMTPU_DEVICE_OPERAND_BUDGET_BYTES"]
+    del tv, ti_, sv, si, ev, ei
+
+    # ---------------------------------- 27 config 3 B: the sparse route against K2
+    bm_b, ref_b = cfg3_b
+    results = {}
+    for kern in ("auto", "mxu"):
+        (bv, bi), wall_t, rec_t, _ = run(
+            f"config 3 B stream_topk {kern}",
+            lambda: sq.stream_topk_neighbors(bm_b, k, superblock_rows=sb, kernel=kern,
+                                             device=dev), into=total)
+        scr, wall_s, rec_s, _ = run(
+            f"config 3 B stream_pairs_above {kern}",
+            lambda: sq.stream_pairs_above(bm_b, 1, superblock_rows=sb, kernel=kern, device=dev),
+            into=total)
+        r2s, _, _, _ = run(
+            f"config 3 B stream_pairs_above r2 {kern}",
+            lambda: sq.stream_pairs_above(bm_b, CFG3_R2, measure="r2", superblock_rows=sb,
+                                          kernel=kern, device=dev),
+            into=total)
+        results[kern] = (bv, bi, scr, r2s, rec_t, rec_s)
+        per_stripe(f"config 3 B stream_topk_neighbors(k={k}), kernel={kern!r}", rec_t, wall_t)
+        per_stripe(f"config 3 B stream_pairs_above(count >= 1), kernel={kern!r}", rec_s, wall_s)
+    auto, mxu_ = results["auto"], results["mxu"]
+    if auto[4].launched == auto[4].stripes or mxu_[4].launched != mxu_[4].stripes:
+        raise AssertionError("config 3 B: auto took no K4 stripe, or mxu took one")
+    if not np.array_equal(auto[0], mxu_[0]):
+        raise AssertionError("config 3 B: stream_topk_neighbors auto differs from mxu")
+    for r0 in range(0, bm_b.n, 2500):
+        r = np.arange(r0, min(r0 + 2500, bm_b.n))
+        if not np.array_equal(auto[0][r], topk_of(ref_b[r], k, r)):
+            raise AssertionError("config 3 B: stream_topk_neighbors differs from phase 17's")
+        for v, i in ((auto[0], auto[1]), (mxu_[0], mxu_[1])):
+            nz = v[r] > 0
+            if not (np.array_equal(ref_b[r][np.nonzero(nz)[0], i[r][nz]], v[r][nz])):
+                raise AssertionError("config 3 B: a top-k index does not realize its count")
+    wi, wj = np.nonzero(np.triu(ref_b >= 1, 1))
+    for kern in ("auto", "mxu"):
+        same_pairs(f"config 3 B stream_pairs_above {kern}", results[kern][2],
+                   (wi.astype(np.int32), wj.astype(np.int32), ref_b[wi, wj]))
+    same_pairs("config 3 B r2 screen auto vs mxu", auto[3], mxu_[3])
+    print(f"[stream query] config 3 B {bm_b.n} x {bm_b.m_bits} bits (density "
+          f"{bm_b.density:.3g}): kernel='auto' took K4 on {auto[4].stripes - auto[4].launched} "
+          f"of {auto[4].stripes} top-k stripes and {auto[5].stripes - auto[5].launched} of "
+          f"{auto[5].stripes} screen stripes, kernel='mxu' K2 on {mxu_[4].launched} and "
+          f"{mxu_[5].launched}; top-k values equal each other and phase 17's matrix, the count "
+          f"screen's {wi.size} pairs equal phase 17's matrix on both routes, the r2 >= "
+          f"{CFG3_R2} screen's {auto[3][0].size} pairs equal across routes")
+    del results, auto, mxu_, wi, wj
+
+    # ------------------------------ 28 the pairwise-complete streamed screen
+    bm_d, bm_m, want_c = complete
+    got, wall, rec, launched = run(
+        "stream_pairs_above_complete",
+        lambda: sq.stream_pairs_above_complete(bm_d, bm_m, COMPLETE_R2,
+                                               superblock_rows=COMPLETE_SB, device=dev),
+        want=("k2_tri",), absent=("k2_rect",), into=total)
+    same_pairs("stream_pairs_above_complete", got, want_c)
+    print(f"[stream query] stream_pairs_above_complete(r2 >= {COMPLETE_R2}) {bm_d.n} x "
+          f"{bm_d.m_bits} bits, {COMPLETE_MISSING:.0%} missing, superblock {COMPLETE_SB}: "
+          f"{got[0].size} pairs equal to phase 23's pairs_above_complete; launches {launched}")
+    per_stripe("stream_pairs_above_complete (four grids a stripe)", rec, wall)
+    print(f"[stream query] phases 25-28 launches: {total}; the phases took "
+          f"{time.perf_counter() - t_phases:.1f} s")
     return total
 
 
@@ -2165,9 +2431,9 @@ def main(argv=None) -> int:
 
     stream_launches = stream_phases(torch, dev, cfg, rng, args.seed, bm_ld, ld_ref, k2_ops_per_s)
     sparse_kernels, cfg3_b = sparse_phases(torch, dev, cfg, rng)
-    query_launches = query_phases(torch, dev, cfg, rng, args.seed, k2_ops_per_s,
-                                  main=(bm, main_out), block=(bm_a, blk), ld=(bm_ld, ld_ref),
-                                  cfg3_b=cfg3_b)
+    query_launches, sq_launches = query_phases(
+        torch, dev, cfg, rng, args.seed, k2_ops_per_s, main=(bm, main_out), block=(bm_a, blk),
+        ld=(bm_ld, ld_ref), cfg3_b=cfg3_b)
     del main_out, blk, ld_ref, bm_ld, cfg3_b
 
     src_k2 = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
@@ -2178,22 +2444,28 @@ def main(argv=None) -> int:
              replaces="stormtpu/kernels/mxu.py:202", launches=launches_tri,
              max_abs_err=max_err["k2_tri"], library=int_mm_note + ", full square",
              stream_launches=stream_launches["k2_tri"], query_launches=query_launches["k2_tri"],
+             stream_query_launches=sq_launches["k2_tri"],
              **timings["k2_tri"]),
         dict(name="k2_rect", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/mxu.py:248", launches=launches_rect,
              max_abs_err=max_err["k2_rect"], library=int_mm_note,
-             query_launches=query_launches["k2_rect"], **timings["k2_rect"]),
+             query_launches=query_launches["k2_rect"],
+             stream_query_launches=sq_launches["k2_rect"], **timings["k2_rect"]),
         dict(name="k5", route="cuda", source=src_k2,
              replaces="stormtpu/kernels/clustered.py:165", launches=launches_k5,
              max_abs_err=max_err["k5"], stream_launches=stream_launches["k5"],
-             query_launches=query_launches["k5"], **timings["k5"]),
+             query_launches=query_launches["k5"], stream_query_launches=sq_launches["k5"],
+             **timings["k5"]),
         dict(name="k1", route="cuda", source=src_k1,
              replaces="stormtpu/kernels/dense.py:140", launches=launches_k1,
-             max_abs_err=max_err["k1"], query_launches=query_launches["k1"], **timings["k1"]),
+             max_abs_err=max_err["k1"], query_launches=query_launches["k1"],
+             stream_query_launches=sq_launches["k1"], **timings["k1"]),
         dict(name="k0", route="cuda", source=src_k1,
              replaces="stormtpu/kernels/dense.py:239", launches=launches_k0,
-             max_abs_err=max_err["k0"], query_launches=query_launches["k0"], **timings["k0"]),
-        *(dict(k, query_launches=query_launches[k["name"]]) for k in sparse_kernels),
+             max_abs_err=max_err["k0"], query_launches=query_launches["k0"],
+             stream_query_launches=sq_launches["k0"], **timings["k0"]),
+        *(dict(k, query_launches=query_launches[k["name"]],
+               stream_query_launches=sq_launches[k["name"]]) for k in sparse_kernels),
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -117,8 +117,8 @@ def intersect_count_matrix(
 
     stream_hint = (
         "use stormtpu_torch.stream.stream_count_matrix (resumable stripes; "
-        "kernel='auto' keeps the clustered skip); the stream_query reduced "
-        "queries are not yet ported to stormtpu_torch"
+        "kernel='auto' keeps the clustered skip), or the "
+        "stormtpu_torch.stream_query reduced queries"
     )
 
     if strategy == "clustered":

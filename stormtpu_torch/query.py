@@ -147,10 +147,9 @@ def topk_neighbors(
     ("jaccard", "dice", "cosine", "overlap", "phi", "r2"): then (values
     float64 [N, k], indices int32 [N, k]), exact, ties toward the lower
     index. Similarity ranking materializes the N×N score matrix on the
-    host up to N = 32768. Above it the JAX package routes to its streamed
-    walk (``stream_query.stream_topk_neighbors``), which the port does not
-    have yet: ``on_host_limit="stream"`` raises ``NotImplementedError``,
-    ``"raise"`` the ``ValueError`` of the reference.
+    host up to N = 32768; above it ``on_host_limit="stream"`` takes the
+    streamed walk (``stream_query.stream_topk_neighbors``: exact values,
+    tie order the walk's), and ``"raise"`` raises ``ValueError``.
     """
     bm = _as_bitmatrix(x)
     if not 1 <= k < max(bm.n, 2):
@@ -169,11 +168,9 @@ def topk_neighbors(
                     f"N={bm.n}) and on_host_limit='raise' — use "
                     f"stream_topk_neighbors or on_host_limit='stream'"
                 )
-            raise NotImplementedError(
-                f"measure={measure!r} top-k above N={_MEASURE_HOST_N_CEILING} takes the "
-                f"streamed walk (stream_topk_neighbors), which stormtpu_torch.stream_query "
-                f"does not have yet; it comes in a later slice of the port"
-            )
+            from stormtpu_torch.stream_query import stream_topk_neighbors
+
+            return stream_topk_neighbors(bm, k, measure=measure, device=dev)
         from stormtpu_torch.setops import similarity_matrix
 
         if bm.n == 1:
@@ -190,7 +187,8 @@ def topk_neighbors(
         require_device_budget(
             4 * bm.n * bm.n_words,
             f"N={bm.n}: the packed operand",
-            "the streamed top-k (stream_query) is not ported to stormtpu_torch yet",
+            "use stormtpu_torch.stream_query.stream_topk_neighbors "
+            "(host-RAM-bounded)",
             device=dev,
         )
     from stormtpu_torch.dispatch import choose_strategy
@@ -710,7 +708,8 @@ def pairs_above(
         require_device_budget(
             4 * bm.n * bm.n_words + bm.n * bm.n // 8,
             f"N={bm.n}: the screen operand plus device hit bitmap",
-            "the streamed screen (stream_query) is not ported to stormtpu_torch yet",
+            "use stormtpu_torch.stream_query.stream_pairs_above "
+            "(host-RAM-bounded)",
             device=dev,
         )
     m_f = float(np.float32(bm.m_bits))

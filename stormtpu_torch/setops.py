@@ -288,6 +288,42 @@ def derive_similarity(inter, ca, cb, m_bits, measure: str):
         return np.where(denom > 0, inter / np.where(denom > 0, denom, 1.0), 0.0)
 
 
+def derive_similarity_torch(inter, ca, cb, m_bits, measure: str) -> torch.Tensor:
+    """:func:`derive_similarity` on tensors, float64 on their device, equal
+    to it bit for bit. On a card the formulas run as PyTorch operations in
+    the same order: CUDA's double add, multiply, divide and square root
+    round to nearest as IEEE 754 says, and each operation is a kernel of
+    its own (nothing is contracted), so the bits are NumPy's. PyTorch's CPU
+    square root and division are vectorized and can differ in the last
+    bit, so CPU tensors go through NumPy. ``m_bits`` is a number or a
+    broadcastable tensor."""
+    if inter.device.type != "cuda":
+        m = m_bits.numpy() if torch.is_tensor(m_bits) else m_bits
+        return torch.from_numpy(derive_similarity(inter.numpy(), ca.numpy(), cb.numpy(), m,
+                                                  measure))
+    inter = inter.to(torch.float64)
+    ca = ca.to(torch.float64)
+    cb = cb.to(torch.float64)
+    if measure == "jaccard":
+        denom = ca + cb - inter
+    elif measure == "dice":
+        inter = 2.0 * inter
+        denom = ca + cb
+    elif measure == "cosine":
+        denom = torch.sqrt(ca * cb)
+    elif measure in ("phi", "r2"):
+        m = m_bits.to(torch.float64) if torch.is_tensor(m_bits) else float(m_bits)
+        inter = m * inter - ca * cb
+        denom = torch.sqrt(ca * cb * (m - ca) * (m - cb))
+        if measure == "r2":
+            inter = inter * inter
+            denom = denom * denom
+    else:  # overlap
+        denom = torch.minimum(ca, cb)
+    pos = denom > 0
+    return torch.where(pos, inter / torch.where(pos, denom, 1.0), 0.0)
+
+
 def _column_partial(words: torch.Tensor) -> torch.Tensor:
     """int32 bit-view words [N, C] → int32 [C·32] per-position counts in
     position order (bit b of word c is position 32·c + b): one masked

@@ -76,19 +76,22 @@ def stripe_path(out_dir: str, i: int, j: int) -> str:
     return os.path.join(out_dir, f"stripe_{i:05d}_{j:05d}.npz")
 
 
-def _content_fingerprint(bm: BitMatrix) -> str:
+def _content_fingerprint(bm: BitMatrix, n: Optional[int] = None) -> str:
     """Cheap content key for resume/extend directories: shape alone is
     not identity (a regenerated same-shape matrix must NOT silently
     reuse stale stripes). Row popcounts catch any bit-count change; the
     boundary-row CRCs catch same-popcount edits at the ends. Not
-    cryptographic — a safety net, not a proof."""
+    cryptographic — a safety net, not a proof. ``n``: the key of the first
+    ``n`` rows alone (an extend's head), read in place."""
     import zlib
 
-    h = zlib.crc32(np.ascontiguousarray(bm.row_nnz).tobytes())
-    if bm.n:
+    n = bm.n if n is None else n
+    row_nnz = bm.row_nnz[:n]
+    h = zlib.crc32(np.ascontiguousarray(row_nnz).tobytes())
+    if n:
         h = zlib.crc32(np.ascontiguousarray(bm.packed[0]).tobytes(), h)
-        h = zlib.crc32(np.ascontiguousarray(bm.packed[-1]).tobytes(), h)
-    return f"{int(bm.nnz)}-{h:08x}"
+        h = zlib.crc32(np.ascontiguousarray(bm.packed[n - 1]).tobytes(), h)
+    return f"{int(row_nnz.sum())}-{h:08x}"
 
 
 # ------------------------------------------------------------ device budgets
@@ -871,14 +874,20 @@ class _SparseStripePlan:
         its emissions are far below the buffer's size."""
         return self.emissions_square(i, j) * 8 <= self._sb2
 
-    def use_k4(self, i: int, j: int) -> bool:
-        """The cost model: K4 on the host (its sb² buffer unless the stripe
-        takes :meth:`stripe_coo`, and its emissions) against the K2 stripe
-        on the card (with the j slice's upload off the diagonal)."""
-        if self.emission_eligible(i, j):
-            cost = self._c_emit * self.emissions_square(i, j)
+    def use_k4(self, i: int, j: int, extra_emissions: int = 0,
+               emission_path: bool = False) -> bool:
+        """The cost model: K4 on the host (its sb² buffer and its
+        emissions) against the K2 stripe on the card (with the j slice's
+        upload off the diagonal). ``extra_emissions`` charges the caller's
+        host work a candidate (the streamed queries' zero-intersection
+        staircase) at the emission rate. ``emission_path``: the caller takes
+        :meth:`stripe_coo` for an eligible stripe, so no sb² buffer is
+        charged, only the full square's emissions that it makes."""
+        if emission_path and self.emission_eligible(i, j):
+            cost = self._c_emit * (self.emissions_square(i, j) + extra_emissions)
         else:
-            cost = self._c_n2 * self._sb2 + self._c_emit * self.emissions(i, j)
+            cost = self._c_n2 * self._sb2 + self._c_emit * (
+                self.emissions(i, j) + extra_emissions)
         return cost < self._est_dense_s + (self._est_upload_s if i != j else 0.0)
 
     def stripe_coo(self, i: int, j: int):
@@ -982,7 +991,7 @@ def _stream_sparse_outer(
                 writer.resumed(i, j)
                 continue
             with _stage("plan", dev):
-                k4 = plan.use_k4(i, j)
+                k4 = plan.use_k4(i, j, emission_path=True)
             if k4:
                 with _stage("k4", dev):
                     if plan.emission_eligible(i, j):
@@ -1490,10 +1499,7 @@ def extend_streamed_matrix(
             )
     old_fp = old.get("content")
     if old_fp is not None and old_n:
-        head = BitMatrix.from_packed(
-            np.ascontiguousarray(bm.packed[:old_n]), bm.m_bits
-        )
-        if _content_fingerprint(head) != old_fp:
+        if _content_fingerprint(bm, old_n) != old_fp:
             raise ValueError(
                 "extend: the first rows differ from the panel this "
                 "directory was computed from (content fingerprint "

@@ -272,7 +272,7 @@ def stream_hist_sparse(
     done = 0
     for i, j in _superblock_pairs(n_super):
         mass = _stripe_pair_mass(n, sb, i, j)
-        if plan.use_k4(i, j):
+        if plan.use_k4(i, j, emission_path=True):
             with _stage("k4", dev):
                 if plan.emission_eligible(i, j):
                     ci, cj, cv = plan.stripe_coo(i, j)

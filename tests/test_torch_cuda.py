@@ -705,3 +705,117 @@ def test_pair_counts_on_card_launch_k0(cuda):
     got = pair_counts(bm, ii, jj, device=cuda)
     assert launch_counts()["k0"] >= 1
     assert np.array_equal(got, oracle_count_matrix(bm.packed)[ii, jj])
+
+
+# ------------------------------------------------------------ streamed queries
+def _stripe_case(cuda, n, seed, diagonal):
+    """A stripe's counts on the card and their CPU copy, with row offsets."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 60, (n, n), dtype=np.int64).astype(np.int32)
+    counts[rng.random((n, n)) < 0.2] = 0
+    if diagonal:
+        counts = np.triu(counts) + np.triu(counts, 1).T
+    nnz = rng.integers(60, 200, 2 * n).astype(np.int32)
+    return (torch.from_numpy(counts).to(cuda), torch.from_numpy(counts),
+            torch.from_numpy(nnz).to(cuda), torch.from_numpy(nnz))
+
+
+@pytest.mark.parametrize("diagonal", (True, False))
+@pytest.mark.parametrize("k", (1, 8, 20))
+def test_stripe_topk_on_card_equals_its_cpu_form(cuda, diagonal, k):
+    """The per-stripe top-k reduction (k passes of max, or torch.topk above
+    16) on the card against the same reduction on the CPU: the masked
+    values equal, each index realizing its value."""
+    from stormtpu_torch.stream_query import _stripe_topk
+
+    n, sb = 200, 96  # the last superblock is partial: rows from 192 are padding
+    c_d, c_h, _, _ = _stripe_case(cuda, sb, seed=k, diagonal=diagonal)
+    row0_i, row0_j = (96, 96) if diagonal else (0, 96)
+    got = _stripe_topk(c_d, row0_i, row0_j, n, k=k, diagonal=diagonal)
+    want = _stripe_topk(c_h, row0_i, row0_j, n, k=k, diagonal=diagonal)
+    rows = torch.arange(sb)[:, None] + row0_i
+    cols = torch.arange(sb)[None, :] + row0_j
+    masked = torch.where((rows < n) & (cols < n) & (rows != cols), c_h, -1)
+    for side, (v, i) in enumerate(((got[0], got[1]), (got[2], got[3]))):
+        if v is None:
+            assert diagonal and side == 1
+            continue
+        wv = want[2 * side]
+        m = masked if side == 0 else masked.T
+        assert torch.equal(v.cpu(), wv)
+        assert torch.equal(torch.gather(m, 1, i.cpu().long()), wv)
+
+
+@pytest.mark.parametrize("measure,threshold", [("count", 40), ("jaccard", 0.2), ("r2", 0.05)])
+def test_stripe_screen_on_card_equals_its_cpu_form(cuda, measure, threshold):
+    """The per-stripe screen (float32 values, the strict upper triangle,
+    the packed hit bits and their summary) on the card against the CPU."""
+    from stormtpu_torch.stream_query import _stripe_screen
+
+    n, sb = 180, 96
+    c_d, c_h, nz_d, nz_h = _stripe_case(cuda, sb, seed=7, diagonal=False)
+    args = (0, 96)
+    hits_d, summary_d = _stripe_screen(c_d, nz_d[:sb], nz_d[sb:], *args, n, threshold,
+                                       4096.0, measure=measure)
+    hits_h, summary_h = _stripe_screen(c_h, nz_h[:sb], nz_h[sb:], *args, n, threshold,
+                                       4096.0, measure=measure)
+    assert torch.equal(hits_d.cpu(), hits_h) and torch.equal(summary_d.cpu(), summary_h)
+    assert int((hits_h != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("kernel", ("mxu", "dense"))
+@pytest.mark.parametrize("streaming", (False, True))
+def test_streamed_queries_on_card_equal_the_cpu_route(cuda, monkeypatch, kernel, streaming):
+    """``stream_topk_neighbors`` (count and Jaccard), ``stream_pairs_above``
+    and ``stream_pairs_above_complete`` on the card, resident and on two
+    slices, against the same calls on the CPU; the tile kernel launches."""
+    from stormtpu_torch import stream_query as sq
+
+    cfg = EngineConfig(k1_tile_rows=32, k1_tile_words=128, k2_tile_rows=64,
+                       k2_tile_words=128)
+    bm = _query_case(300, 3000, seed=5)
+    kw = dict(superblock_rows=128, kernel=kernel, config=cfg)
+    if streaming:  # two slices on the card, one stripe's operand at a time
+        monkeypatch.setenv("STORMTPU_DEVICE_OPERAND_BUDGET_BYTES", "1000")
+    reset_launches()
+    for measure, k in (("count", 6), ("jaccard", 4)):
+        got = sq.stream_topk_neighbors(bm, k, measure=measure, device=cuda, **kw)
+        want = sq.stream_topk_neighbors(bm, k, measure=measure, device="cpu", **kw)
+        assert np.array_equal(got[0], want[0])
+    for measure, thr in (("count", 300), ("jaccard", 0.2)):
+        got = sq.stream_pairs_above(bm, thr, measure=measure, device=cuda, **kw)
+        want = sq.stream_pairs_above(bm, thr, measure=measure, device="cpu", **kw)
+        assert want[0].size > 0
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+    rng = np.random.default_rng(6)
+    obs = rng.random((300, 3000)) > 0.1
+    val = (rng.random((300, 3000)) < 0.4) & obs
+    d, m = (BitMatrix.from_dense(x.astype(np.uint8)) for x in (val, obs))
+    got = sq.stream_pairs_above_complete(d, m, 0.02, device=cuda, **kw)
+    want = sq.stream_pairs_above_complete(d, m, 0.02, device="cpu", **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert launch_counts()["k2_tri" if kernel == "mxu" else "k1"] >= 1
+
+
+@pytest.mark.parametrize("measure", ("jaccard", "dice", "cosine", "overlap", "phi", "r2"))
+def test_derive_similarity_torch_on_card_equals_numpy_bit_for_bit(cuda, measure):
+    """The streamed top-k's float64 rescore on the card gives the host
+    formulas' bits (IEEE double operations, one kernel each)."""
+    from stormtpu_torch.setops import derive_similarity, derive_similarity_torch
+
+    rng = np.random.default_rng(31)
+    m = 1 << 20
+    ca = rng.integers(0, m + 1, (512, 1))
+    cb = rng.integers(0, m + 1, (1, 700))
+    ca[:3], cb[:, :3] = 0, m
+    inter = np.minimum(rng.integers(0, m, (512, 700)), np.minimum(ca, cb))
+    per_pair = np.maximum(rng.integers(m // 2, m + 1, (512, 700)), np.maximum(ca, cb))
+    for universe in (m, per_pair):
+        want = derive_similarity(inter, ca, cb, universe, measure)
+        got = derive_similarity_torch(
+            *(torch.from_numpy(x).to(cuda) for x in (inter, ca, cb)),
+            torch.from_numpy(universe).to(cuda) if isinstance(universe, np.ndarray) else universe,
+            measure).cpu().numpy()
+        assert np.array_equal(got.view(np.int64), want.view(np.int64))

@@ -210,8 +210,13 @@ def test_topk_measure_above_the_host_ceiling(monkeypatch):
     dense = _uniform(20, 64, 0.5, seed=12)
     monkeypatch.setattr(tq, "_MEASURE_HOST_N_CEILING", 16)
     monkeypatch.setattr(jq, "_MEASURE_HOST_N_CEILING", 16)
-    with pytest.raises(NotImplementedError, match="stormtpu_torch.stream_query"):
-        st.topk_neighbors(dense, 3, measure="r2", device="cpu")
+    # above the ceiling both packages take their streamed walk
+    vals, idx = st.topk_neighbors(dense, 3, measure="r2", device="cpu")
+    want, _ = stormtpu.topk_neighbors(dense, 3, measure="r2")
+    assert vals.dtype == np.float64 and np.array_equal(vals, want)
+    sim = stormtpu.similarity_matrix(dense, "r2")
+    np.fill_diagonal(sim, -np.inf)
+    _assert_valid_topk(vals, idx, sim, 3)
     for fn, kw in ((st.topk_neighbors, {"device": "cpu"}), (stormtpu.topk_neighbors, {})):
         with pytest.raises(ValueError, match="on_host_limit='raise'"):
             fn(dense, 3, measure="r2", on_host_limit="raise", **kw)

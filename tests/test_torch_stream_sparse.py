@@ -155,7 +155,8 @@ def test_stripe_plan_equals_jax(pin, kind):
             assert got.emissions(i, j) == want.emissions(i, j)
             assert got.emissions_square(i, j) == want.emissions_square(i, j)
             assert got.emission_eligible(i, j) == want.emission_eligible(i, j)
-            assert got.use_k4(i, j) == want.use_k4(i, j, emission_path=True)
+            assert (got.use_k4(i, j, emission_path=True)
+                    == want.use_k4(i, j, emission_path=True))
             for g, w in zip(got.stripe_coo(i, j), want.stripe_coo(i, j)):
                 assert g.dtype == w.dtype and np.array_equal(g, w)
             assert np.array_equal(got.stripe_counts(i, j), want.stripe_counts(i, j))
