@@ -142,15 +142,44 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     and an r2 screen equal across routes and to phase 17's matrix, each
     route's stripe split printed;
 28. ``stream_pairs_above_complete`` on phase 23's panel at superblock 512
-    (ten stripes of four count grids) equal to ``pairs_above_complete``.
+    (ten stripes of four count grids) equal to ``pairs_above_complete``;
+29. ``tuning.tune()`` over ``DEFAULT_GRID`` (nine buckets, 256 x 8192 to
+    16384 x 1,048,576 bits) into a temporary cache: every candidate exact on
+    its 128 x 128 block; each bucket's pairs/s a strategy, its winner and
+    its latency-bound and skipped candidates printed, with the K4 refit;
+    for each bucket ``choose_strategy`` names the table's winner (after the
+    "mxu" memory guard) and ``intersect_count_matrix("auto")`` at its N and
+    M launches that winner's kernel (none for a plain winner) and equals
+    numpy on sampled pairs; K2-rect timed against ``count_block_int8_xla``
+    at 4096 x 4096 rows and M = 2^13 ... 2^17 bits, the crossover equal to
+    ``kernels.MXU_XLA_MAX_BITS``; the table written to
+    ``chiprun_out/tuning_snapshot.json`` (the run never writes into the
+    package: the committed ``stormtpu_torch/data/tuning_snapshot.json`` is
+    such a table copied over by hand);
+30. ``python -m stormtpu_torch`` as subprocesses, all started together, on
+    a PLINK trio of 16,384 variants x 2,504 samples in 16 LD blocks and an
+    ``io.save_bitmatrix`` copy of its samples orientation: ``info``,
+    ``count`` of both, ``topk --k 8``, ``screen --measure r2 --threshold
+    0.5``, ``clump``, ``hist --row-sums``, ``stream`` of the first 12,288
+    variants and then ``--extend`` to all, ``tune --n 4096 --m 65536`` into
+    a copy of phase 29's cache (it must merge into the nine buckets), and
+    ``scaling`` (must exit non-zero): every output equal to the same call
+    made in this process, ``count`` also to numpy on sampled pairs;
+31. ``acceptance.run_acceptance([1, 2, 3, 4])`` on the card into a
+    temporary file: configs 1-3 with config 3's full 10,000-row pass, and
+    config 4's three full-scale parts at 100,000 x 1,000,000 bits (the K2
+    rate, the checksum walk, the histograms and row sums); every check
+    must pass; each entry's wall time and rate printed.
 
 Phases 20-28 print each call's wall time and a ``[breakdown]`` of its
 stages (K2 by CUDA events, the screen, merge and bin passes, the summary
 and word downloads, the refine), and K2's share of its bound; phases 25-28
 also K2's and the reduction's milliseconds a stripe.
 
-The lines before the last are a ``kernels`` JSON object and the card's
-``name, power.limit``; the last line is the result object.
+The lines before the last are a ``kernels`` JSON object (each kernel's
+launches on its main path, and during the streaming, query, tuning and
+acceptance phases) and the card's ``name, power.limit``; the last line is
+the result object.
 """
 
 from __future__ import annotations
@@ -229,6 +258,18 @@ CFG3_R2 = 5e-5          # phase 27's r2 screen: pairs that share a bit
 CFG4_BINS, CFG4_TAIL_SD = 64, 5.5
 CFG4_TOPK_K, CFG4_TOPK_ROWS = 8, 256
 CFG4_HOST_FACTOR = 2    # host bytes phase 24 needs per byte of its packed matrix
+# phase 29: the block kernels' crossover, K2-rect against the plain int8 product
+CROSS_ROWS, CROSS_BITS = 4096, (1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 17)
+# phase 30: a PLINK trio of the 1000 Genomes phase 3 cohort's size
+PLINK_SAMPLES, PLINK_VARIANTS, PLINK_GROUPS, PLINK_OLD_VARIANTS = 2504, 16384, 16, 12288
+PLINK_FOUNDERS, PLINK_FREQ, PLINK_FLIP, PLINK_MISSING = 8, 0.3, 0.02, 0.002
+CLI_TIMEOUT_S = 300
+# phase 29: a candidate whose one call takes longer is recorded by that call
+# (the plain popcount at 4096 x 65536 bits, 1.8 s, would take 20 s to time)
+TUNE_SLOW_PATH_S = 1.0
+# phase 31: rows of config 4's row-sum panel (its host bit-plane pass took 141 s
+# at the spec's 100,000 rows)
+ACCEPT_ROW_SUM_ROWS = 16_384
 
 
 def random_words(rng, n: int, m_bits: int, density: float) -> np.ndarray:
@@ -612,11 +653,9 @@ def sparse_phases(torch, dev, cfg, rng) -> tuple:
     from stormtpu_torch.kernels import launch_counts, mxu, reset_launches
     from stormtpu_torch.kernels import sparse as ksp
     from stormtpu_torch.layout import to_device_words
-    from stormtpu_torch.tuning import k4_constants
     from stormtpu_torch.utils import round_up, triangular_tile_ids
 
     n, m, sb = CFG3_N, CFG3_M, SUPERBLOCK
-    c_emit = k4_constants()["c_emit_s_per_emission"]
 
     def padded(words: np.ndarray, ti: int, wk: int):
         xp = np.zeros((round_up(words.shape[0], ti), round_up(words.shape[1], wk)), np.uint32)
@@ -687,7 +726,7 @@ def sparse_phases(torch, dev, cfg, rng) -> tuple:
         if not np.array_equal(np.diagonal(ref), bm.row_nnz) or not np.array_equal(ref, ref.T):
             raise AssertionError(f"config 3 {ver}: diagonal or symmetry")
         emissions = column_emissions(bm)
-        t = timing[ver] = dict(walls=walls, launched=launched, emissions=emissions,
+        t = timing[ver] = dict(walls=walls, launched=launched, emissions=emissions, nnz=bm.nnz,
                                k4_s=walls["sparse_outer"], k2_tri_ms=k2_tri_ms(bm))
         print(f"[config 3] version {ver}: " + ", ".join(
             f"{s} {walls[s]:.3f} s ({launched[s]})" for s in strategies)
@@ -913,22 +952,33 @@ def sparse_phases(torch, dev, cfg, rng) -> tuple:
               ms_at_plain_shape=b["k3_sub_ms"],
               version_a=dict(shape=f"{K3_A_ROWS} x {n} pairs, lists of {a['l_pad']}",
                              ms=a["k3_ms"], k2_rect_ms=a["k2_rect_ms"]))
+    # K4's bound: the least time the card could take for the same work, as
+    # K3's: one int32 read-modify-write (8 bytes) an emission at the HBM rate,
+    # or its nonzeros read once as int32 (row, column) and its int32 matrix
+    # written once, whichever is longer. It reads no tuning cache.
+    def k4_bound(t: dict) -> tuple[float, str]:
+        emit_ms = 8.0 * t["emissions"] / PEAK_BYTES_PER_S * 1e3
+        once_ms = (8.0 * t["nnz"] + 4.0 * n * n) / PEAK_BYTES_PER_S * 1e3
+        return max(emit_ms, once_ms), "operations" if emit_ms >= once_ms else "bytes"
+
+    k4_b_ms, k4_b_by = k4_bound(b)
     k4 = dict(name="k4", route="host", source="stormtpu_torch/native/packer.cpp",
               replaces="stormtpu/native/packer.cpp:123",
               launches=a["launched"]["sparse_outer"]["k4"] + b["launched"]["sparse_outer"]["k4"],
               max_abs_err=0, ms=b["k4_s"] * 1e3, plain_ms=b["k4_plain_s"] * 1e3,
               plain_shape=f"rows 0..{K4_PLAIN_ROWS - 1} of version B",
               ms_at_plain_shape=b["k4_sub_s"] * 1e3,
-              bound_ms=b["emissions"] * c_emit * 1e3, bound_by="operations",
+              bound_ms=k4_b_ms, bound_by=k4_b_by,
               library_ms=b["k4_library_ms"],
               library="torch.sparse.mm of X and its transpose, float32 CSR on the card",
               shape=f"config 3 version B, {b['emissions']} emissions (COO route)",
-              bound_rule="emissions x the measured host emission cost "
-                         f"(tuning.K4_DEFAULTS: {c_emit:.4g} s)",
+              bound_rule="one int32 read-modify-write (8 bytes) an emission at the card's "
+                         "HBM rate, or int32 (row, column) pairs read once and the int32 "
+                         "matrix written once",
               emissions_per_s=b["emissions"] / b["k4_s"], k2_tri_ms=b["k2_tri_ms"],
               version_a=dict(ms=a["k4_s"] * 1e3, emissions=a["emissions"],
                              emissions_per_s=a["emissions"] / a["k4_s"],
-                             bound_ms=a["emissions"] * c_emit * 1e3, k2_tri_ms=a["k2_tri_ms"],
+                             bound_ms=k4_bound(a)[0], k2_tri_ms=a["k2_tri_ms"],
                              route="packed words (no COO cache)"))
     return [k3, k4], cfg3_b
 
@@ -1680,6 +1730,303 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
     print(f"[stream query] phases 25-28 launches: {total}; the phases took "
           f"{time.perf_counter() - t_phases:.1f} s")
     return total
+
+
+def tuning_phase(torch, dev, seed, k2_ops_per_s) -> tuple[dict, dict]:
+    """Phase 29: the tuner over ``DEFAULT_GRID`` into a temporary cache
+    (``$STORMTPU_TORCH_TUNING_CACHE``, left set for phases 30 and 31), D1
+    and ``auto`` held to its table, K2-rect timed against the plain int8
+    product and the crossover held to ``kernels.MXU_XLA_MAX_BITS``, the
+    table written to ``chiprun_out/tuning_snapshot.json``. Returns the
+    tuner's launches and the crossover."""
+    import stormtpu_torch as st
+    from stormtpu_torch import tuning
+    from stormtpu_torch.dispatch import choose_strategy
+    from stormtpu_torch.kernels import (MXU_XLA_MAX_BITS, STATIC_MXU_XLA_MAX_BITS,
+                                        launch_counts, mxu, reset_launches, xla)
+
+    cache = os.path.join(tempfile.mkdtemp(prefix="stpu_tune_"), "tuning.json")
+    os.environ[tuning.CACHE_ENV] = cache
+    reset_launches()
+    t0 = time.perf_counter()
+    result = tuning.tune(log=print, device=dev, peak_ops_per_s=k2_ops_per_s,
+                         slow_path_budget_s=TUNE_SLOW_PATH_S)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    print(f"[tune] {len(result['buckets'])} buckets and the K4 refit in {wall:.2f} s; "
+          f"launches {launches}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kernel_of = {"pallas_mxu": "k2_tri", "pallas_dense": "k1"}
+    for n, m in tuning.DEFAULT_GRID:
+        b = result["buckets"][f"{n}x{m}"]
+        rates = b["dense_pairs_per_s"]
+        fastest = max(rates, key=rates.get)
+        winner = tuning.measured_dense_winner(n, m, dev)
+        want = "pallas_mxu" if winner == "mxu" and m > MXU_XLA_MAX_BITS else winner
+        static = "mxu" if m <= STATIC_MXU_XLA_MAX_BITS else "pallas_mxu"
+        chosen = choose_strategy(n, m, 0.5, device=dev)
+        if chosen != want:
+            raise AssertionError(f"D1 chose {chosen!r} at {n} x {m}; the table says {want!r}")
+        words = torch.randint(-(1 << 31), 1 << 31, (n, m // 32), dtype=torch.int32, device=dev,
+                              generator=gen).cpu().numpy().view(np.uint32)
+        bm = st.BitMatrix.from_packed(words, m)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = st.intersect_count_matrix(bm, strategy="auto", device=dev)
+        wall_b = time.perf_counter() - t0
+        counts = launch_counts()
+        kernel = kernel_of.get(want)
+        if (counts[kernel] < 1) if kernel else (counts["k2_tri"] or counts["k1"]):
+            raise AssertionError(f"auto at {n} x {m} launched {counts}; the table says {want}")
+        i = np.random.default_rng(seed + n).integers(0, n, N_SAMPLES)
+        j = np.random.default_rng(seed + m).integers(0, n, N_SAMPLES)
+        if not np.array_equal(out[i, j], sampled_counts(words, words, i, j)):
+            raise AssertionError(f"auto at {n} x {m}: sampled pairs differ from numpy")
+        print(f"[tune] {n} x {m} bits: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in sorted(rates.items(), key=lambda kv: -kv[1]))
+            + f" pairs/s; fastest {fastest}, winner {winner} (K2 unless another is over "
+            f"{tuning.K2_MARGIN}x faster), D1 {chosen} (the static rule said {static}); "
+            f"latency_bound {b['latency_bound']}, skipped {b['skipped']}; auto launched "
+            f"{ {k: v for k, v in counts.items() if v} }, {N_SAMPLES} sampled pairs exact, "
+            f"wall {wall_b:.3f} s")
+        del out, bm, words
+    # the block kernels' crossover: K2-rect against the plain int8 product
+    a = torch.randint(-(1 << 31), 1 << 31, (CROSS_ROWS, CROSS_BITS[-1] // 32),
+                      dtype=torch.int32, device=dev, generator=gen)
+    rows = []
+    for m in CROSS_BITS:
+        x = a[:, : m // 32].contiguous()
+        exact_diff(torch, mxu.count_block_pallas_mxu(x, x), xla.count_block_int8_xla(x, x))
+        k2_ms = cuda_ms(torch, lambda: mxu.count_block_pallas_mxu(x, x), reps=10)
+        plain_ms = cuda_ms(torch, lambda: xla.count_block_int8_xla(x, x), reps=5)
+        rows.append({"m_bits": m, "k2_rect_ms": k2_ms, "plain_ms": plain_ms})
+        print(f"[tune] crossover {CROSS_ROWS} x {CROSS_ROWS} rows at {m} bits: K2-rect "
+              f"{k2_ms:.4f} ms, count_block_int8_xla {plain_ms:.4f} ms (exact, equal)")
+    del a, x
+    torch.cuda.empty_cache()
+    crossover = max((r["m_bits"] for r in rows if r["plain_ms"] < r["k2_rect_ms"]), default=0)
+    print(f"[tune] the plain int8 product wins up to {crossover} bits (0: at no M measured); "
+          f"kernels.MXU_XLA_MAX_BITS = {MXU_XLA_MAX_BITS}")
+    if crossover != MXU_XLA_MAX_BITS:
+        raise AssertionError(f"the measured crossover ({crossover} bits) is not "
+                             f"kernels.MXU_XLA_MAX_BITS ({MXU_XLA_MAX_BITS})")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    snapshot = {**result, "nvidia_smi": smi.strip().splitlines()[0], "tune_seconds": wall,
+                "plain_product_crossover": {"rows": CROSS_ROWS, "m_bits": crossover,
+                                            "times": rows}}
+    # the table goes beside the run's other outputs, never into the package
+    # this run measures; copying it over stormtpu_torch/data/ is a separate step
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    snap = os.path.join(out_dir, "tuning_snapshot.json")
+    with open(snap, "w") as f:
+        json.dump(snapshot, f, indent=2)
+    print(f"[tune] wrote {snap} (device {result['device']!r})")
+    return launches, {"m_bits": crossover, "times": rows}
+
+
+def write_bed(stem: str, codes: np.ndarray) -> str:
+    """A PLINK1 trio ``stem.{bed,bim,fam}`` of 2-bit codes uint8 [V, N]
+    (SNP-major, sample j at bits 2(j % 4) of byte j // 4)."""
+    v, n = codes.shape
+    c = np.pad(codes, ((0, 0), (0, -n % 4)))
+    body = c[:, 0::4] | (c[:, 1::4] << 2) | (c[:, 2::4] << 4) | (c[:, 3::4] << 6)
+    with open(stem + ".bed", "wb") as f:
+        f.write(b"\x6c\x1b\x01" + body.astype(np.uint8).tobytes())
+    with open(stem + ".fam", "w") as f:
+        f.write("".join(f"F{i} I{i} 0 0 0 -9\n" for i in range(n)))
+    with open(stem + ".bim", "w") as f:
+        f.write("".join(f"1 rs{i} 0 {i} A C\n" for i in range(v)))
+    return stem + ".bed"
+
+
+def plink_codes(rng, n_variants: int, n_samples: int, groups: int) -> np.ndarray:
+    """Genotype codes of a panel in LD blocks: variant block b is private to
+    sample group b (a population), and its variants copy one of
+    ``PLINK_FOUNDERS`` founder carrier sets with a few flips; carriers are
+    heterozygous or homozygous, a few calls missing."""
+    codes = np.zeros((n_variants, n_samples), dtype=np.uint8)
+    vc = np.linspace(0, n_variants, groups + 1).astype(int)
+    sc = np.linspace(0, n_samples, groups + 1).astype(int)
+    for b in range(groups):
+        nv, ns = vc[b + 1] - vc[b], sc[b + 1] - sc[b]
+        base = rng.random((PLINK_FOUNDERS, ns)) < PLINK_FREQ
+        carrier = base[np.arange(nv) % PLINK_FOUNDERS] ^ (rng.random((nv, ns)) < PLINK_FLIP)
+        hom = rng.random((nv, ns)) < 0.3
+        codes[vc[b] : vc[b + 1], sc[b] : sc[b + 1]] = np.where(carrier, np.where(hom, 3, 2), 0)
+    codes[rng.random(codes.shape) < PLINK_MISSING] = 1
+    return codes
+
+
+def cli_phase(torch, dev, seed) -> None:
+    """Phase 30: ``python -m stormtpu_torch`` as subprocesses on a PLINK trio
+    and an ``io.save_bitmatrix`` copy of its samples orientation, each
+    output equal to the same call made in this process."""
+    import shutil
+
+    import stormtpu_torch as st
+    from stormtpu_torch import tuning
+    from stormtpu_torch.io import load_plink_bed, save_bitmatrix
+    from stormtpu_torch.kernels import launch_counts, reset_launches
+    from stormtpu_torch.stats import count_histogram, count_row_sums
+    from stormtpu_torch.stream import load_streamed_matrix
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="stpu_cli_")
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    codes = plink_codes(rng, PLINK_VARIANTS, PLINK_SAMPLES, PLINK_GROUPS)
+    bed = write_bed(os.path.join(tmp, "panel"), codes)
+    old_bed = write_bed(os.path.join(tmp, "head"), codes[:PLINK_OLD_VARIANTS])
+    del codes
+    bm = load_plink_bed(bed)
+    bm_s = load_plink_bed(bed, rows="samples")
+    npz = os.path.join(tmp, "samples.npz")
+    save_bitmatrix(bm_s, npz)
+    print(f"[cli] PLINK trio {PLINK_VARIANTS} variants x {PLINK_SAMPLES} samples in "
+          f"{PLINK_GROUPS} LD blocks (density {bm.density:.4f}), its samples orientation "
+          f"{bm_s.n} x {bm_s.m_bits} bits as .npz; written in {time.perf_counter() - t0:.2f} s")
+    tune_cache = os.path.join(tmp, "tuning.json")
+    shutil.copyfile(os.environ[tuning.CACHE_ENV], tune_cache)
+    out = {k: os.path.join(tmp, k) for k in ("count_bed.npy", "count_npz.npy", "topk.npz",
+                                            "screen.npz", "clump.npz", "hist.npz")}
+    sdir = os.path.join(tmp, "stripes")
+    commands = {
+        "info": ["info"],
+        "count .bed": ["count", "--in", bed, "--out", out["count_bed.npy"]],
+        "count .npz": ["count", "--in", npz, "--out", out["count_npz.npy"]],
+        "topk": ["topk", "--in", bed, "--out", out["topk.npz"], "--k", "8"],
+        "screen": ["screen", "--in", bed, "--out", out["screen.npz"], "--measure", "r2",
+                   "--threshold", "0.5"],
+        "clump": ["clump", "--in", bed, "--out", out["clump.npz"], "--threshold", "0.5"],
+        "hist": ["hist", "--in", npz, "--out", out["hist.npz"], "--row-sums"],
+        "stream": ["stream", "--in", old_bed, "--out-dir", sdir, "--superblock",
+                   str(SUPERBLOCK)],
+        "tune": ["tune", "--n", "4096", "--m", "65536"],
+        "scaling": ["scaling"],
+    }
+
+    def start(args, **env):
+        return subprocess.Popen([sys.executable, "-m", "stormtpu_torch", "--device", dev.type,
+                                 *args], cwd=root,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env={**os.environ, **env})
+
+    t0 = time.perf_counter()
+    procs = {name: start(args, **({tuning.CACHE_ENV: tune_cache} if name == "tune" else {}))
+             for name, args in commands.items()}
+    done = {}
+
+    def wait(name):
+        stdout, stderr = procs[name].communicate(timeout=CLI_TIMEOUT_S)
+        done[name] = (procs[name].returncode, stdout, stderr, time.perf_counter() - t0)
+
+    try:
+        wait("stream")  # the extend needs the directory it writes
+        procs["stream --extend"] = start(["stream", "--in", bed, "--out-dir", sdir,
+                                          "--extend"])
+        for name in list(procs):
+            if name not in done:
+                wait(name)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (rc, stdout, stderr, at) in done.items():
+        if (rc == 0) != (name != "scaling"):
+            raise AssertionError(f"python -m stormtpu_torch {name}: exit {rc}\n{stderr[-3000:]}")
+        print(f"[cli] python -m stormtpu_torch {' '.join(commands.get(name, [name]))[:60]}: "
+              f"exit {rc}, done {at:.1f} s after the start")
+    info = done["info"][1]
+    if torch.cuda.get_device_name(0) not in info or "does not match" in info:
+        raise AssertionError(f"info: {info}")
+    if "item 7" not in done["scaling"][2]:
+        raise AssertionError(f"scaling: {done['scaling'][2]}")
+
+    def same(label, got, want):
+        if not np.array_equal(np.asarray(got), np.asarray(want)):
+            raise AssertionError(f"[cli] {label} differs from the call made in this process")
+
+    reset_launches()
+    c_bed = st.intersect_count_matrix(bm, device=dev)
+    same("count .bed", np.load(out["count_bed.npy"]), c_bed)
+    i = rng.integers(0, bm.n, N_SAMPLES)
+    j = rng.integers(0, bm.n, N_SAMPLES)
+    same("count .bed against numpy", c_bed[i, j], sampled_counts(bm.packed, bm.packed, i, j))
+    c_npz = st.intersect_count_matrix(bm_s, device=dev)
+    same("count .npz", np.load(out["count_npz.npy"]), c_npz)
+    same("count .npz against numpy", c_npz[i % bm_s.n, j % bm_s.n], sampled_counts(
+        bm_s.packed, bm_s.packed, i % bm_s.n, j % bm_s.n))
+    vals, idx = st.topk_neighbors(bm, 8, device=dev)
+    with np.load(out["topk.npz"]) as z:
+        same("topk counts", z["counts"], vals)
+        same("topk indices", z["indices"], idx)
+    ii, jj, vv = st.pairs_above(bm, 0.5, measure="r2", device=dev)
+    with np.load(out["screen.npz"]) as z:
+        for key, want in (("ii", ii), ("jj", jj), ("values", vv)):
+            same(f"screen {key}", z[key], want)
+    res = st.clump(bm, bm.row_nnz.astype(np.float64), 0.5, measure="r2", device=dev)
+    with np.load(out["clump.npz"]) as z:
+        same("clump leader", z["leader"], res.leader)
+        same("clump leaders", z["leaders"], res.leaders)
+    man = count_histogram(bm_s, n_bins=64, device=dev)
+    sums = count_row_sums(bm_s, include_self=False, device=dev)
+    with np.load(out["hist.npz"]) as z:
+        same("hist", z["hist"], man["hist"])
+        same("hist row sums", z["row_sums"], sums)
+    same("hist row sums against the count matrix", sums,
+         c_npz.astype(np.int64).sum(axis=1) - np.diagonal(c_npz))
+    same("stream --extend", load_streamed_matrix(sdir), c_bed)
+    counts = launch_counts()
+    with open(tune_cache) as f:
+        t = json.load(f)
+    if len(t["buckets"]) != len(tuning.DEFAULT_GRID) or t["shape"] != {"n": 4096,
+                                                                      "m_bits": 65536}:
+        raise AssertionError(f"tune --n 4096 --m 65536 did not merge into the grid: {t.keys()}")
+    print(f"[cli] every output equals the call made in this process (count .bed also numpy "
+          f"on {N_SAMPLES} pairs); {ii.size} r2 pairs >= 0.5, {res.n_clumps} clumps, the .npz "
+          f"route {man['kernel']}; the in-process calls launched "
+          f"{ {k: v for k, v in counts.items() if v} }; tune merged one bucket into the "
+          f"{len(t['buckets'])}-bucket table")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def acceptance_phase(torch, dev) -> dict:
+    """Phase 31: ``run_acceptance([1, 2, 3, 4])`` on the card into a
+    temporary file. Returns its launches."""
+    from stormtpu_torch import acceptance
+    from stormtpu_torch.kernels import launch_counts, reset_launches
+
+    out = os.path.join(tempfile.mkdtemp(prefix="stpu_accept_"), "acceptance.json")
+    acceptance.CONFIG4_ROW_SUM_ROWS = ACCEPT_ROW_SUM_ROWS
+    reset_launches()
+    t0 = time.perf_counter()
+    entries = acceptance.run_acceptance([1, 2, 3, 4], log=print, out_path=out, device=dev)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {1: ("exact",), 2: ("exact",), 3: ("exact_sampled", "full"),
+            4: ("exact_sampled", "spec_rate_pairs_per_s", "full_stream", "aggregate_stats")}
+    for e in entries:
+        missing = [k for k in want[e["config"]] if not e.get(k)]
+        if missing:
+            raise AssertionError(f"acceptance config {e['config']} lacks {missing}")
+        rate = e.get("pairs_per_s") or e.get("sustained_pairs_per_s")
+        print(f"[accept] config {e['config']}: wall {e['wall_seconds']:.2f} s, timed part "
+              f"{e.get('seconds', float('nan')):.4f} s" + (f", {rate:.4g} pairs/s" if rate else "")
+              + f"; {e['device']}, {e['power_limit']}")
+    c3, c4 = entries[2]["full"], entries[3]
+    print(f"[accept] config 3 full 10,000 rows: {c3['seconds']:.4f} s = "
+          f"{c3['pairs_per_s']:.4g} pairs/s; config 4: K2 at 100k x 1M "
+          f"{c4['spec_rate_pairs_per_s']:.4g} pairs/s ({c4['spec_wgmma_b1_frac']:.1%} of the b1 "
+          f"wgmma rate), full checksum walk {c4['full_stream']['seconds']:.2f} s, histogram "
+          f"{c4['aggregate_stats']['hist_seconds']:.2f} s, row sums of "
+          f"{c4['aggregate_stats']['row_sums_rows']} rows "
+          f"{c4['aggregate_stats']['row_sums_seconds']:.2f} s; all four in {wall:.1f} s; "
+          f"launches {launches}")
+    return launches
 
 
 def ld_ref_samples(ref: np.ndarray, man: dict) -> np.ndarray:
@@ -2435,6 +2782,18 @@ def main(argv=None) -> int:
         torch, dev, cfg, rng, args.seed, k2_ops_per_s, main=(bm, main_out), block=(bm_a, blk),
         ld=(bm_ld, ld_ref), cfg3_b=cfg3_b)
     del main_out, blk, ld_ref, bm_ld, cfg3_b
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tune_launches, crossover = tuning_phase(torch, dev, args.seed, k2_ops_per_s)
+    print(f"[tune] phase 29 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli_phase(torch, dev, args.seed)
+    print(f"[cli] phase 30 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    accept_launches = acceptance_phase(torch, dev)
+    print(f"[accept] phase 31 took {time.perf_counter() - t0:.1f} s")
+    later = {"tune_launches": tune_launches, "accept_launches": accept_launches}
 
     src_k2 = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
     src_k1 = "stormtpu_torch/kernels/csrc/k1_dense.cu"
@@ -2467,6 +2826,9 @@ def main(argv=None) -> int:
         *(dict(k, query_launches=query_launches[k["name"]],
                stream_query_launches=sq_launches[k["name"]]) for k in sparse_kernels),
     ]
+    for k in kernels:
+        k.update({key: counts.get(k["name"], 0) for key, counts in later.items()})
+    kernels[1]["plain_product_crossover_bits"] = crossover["m_bits"]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,12 +6,12 @@
 - :func:`cross_pairs_above`: every (i, j) with measure(A_i, B_j) ≥
   threshold.
 
-Both run on ``count_block_auto`` (the K2 rectangle above 2¹⁷ bits), a
-block of A rows against a chunk of B rows at a time, with the top-k or the
-screen on the device. There is no self-pair or triangle rule: the full
-Na×Nb rectangle is scored. A B beyond the device budget is walked in
-chunks and merged on the host, so the cross queries are bounded by host
-memory, not device memory.
+Both run on ``count_block_auto`` (the K2 rectangle above
+``kernels.plain_product_max_bits``), a block of A rows against a chunk of
+B rows at a time, with the top-k or the screen on the device. There is
+no self-pair or triangle rule: the full Na×Nb rectangle is scored. A B
+beyond the device budget is walked in chunks and merged on the host, so
+the cross queries are bounded by host memory, not device memory.
 
 Every entry point takes ``device=None`` (the card) or ``device="cpu"``.
 """

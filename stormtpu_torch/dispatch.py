@@ -11,12 +11,11 @@ against the dense K2 walk with the JAX package's estimate
 (:func:`k4_estimates`), and names ``"sparse_outer"`` when K4 is cheaper,
 N ≤ 32768 and the C++ host tier is built.
 
-Differences from the JAX package:
-
-- the K4 constants are the port's own, measured on the H100 and its host
-  (``tuning.K4_DEFAULTS``), and nothing is read from a tuning cache;
-- no measured dense-crossover table is consulted (ROADMAP.md §1 item 3):
-  the dense choice is by shape alone (:func:`dense_strategy`).
+The dense choice (:func:`dense_strategy`) is the measured winner of the
+nearest tuned bucket where a tuning cache names the device
+(``tuning.measured_dense_winner``), else the JAX package's static rule. The
+K4 constants are the port's own: the cache's refit for the card, else
+``tuning.K4_DEFAULTS`` (measured on an H100 and its host).
 
 The block-clustered choice (``"clustered"``, K5) is made as the JAX
 package makes it. ``"pallas_dense"`` (K1) runs when asked for; D1 never
@@ -31,7 +30,7 @@ import torch
 
 from stormtpu_torch import native
 from stormtpu_torch.config import EngineConfig, default_config
-from stormtpu_torch.kernels import MXU_XLA_MAX_BITS
+from stormtpu_torch.kernels import STATIC_MXU_XLA_MAX_BITS, plain_product_max_bits
 
 __all__ = ["choose_strategy", "dense_strategy", "k4_estimates", "STRATEGIES"]
 
@@ -42,23 +41,35 @@ STRATEGIES = (
 )
 
 
-def dense_strategy(n: int, m_bits: int, config: Optional[EngineConfig] = None) -> str:
-    """The dense choice by shape alone: ``popcount`` below an int8-tile of
-    rows, the plain int8 product up to ``MXU_XLA_MAX_BITS``, else K2."""
+def dense_strategy(n: int, m_bits: int, config: Optional[EngineConfig] = None,
+                   device=None) -> str:
+    """The dense choice: ``popcount`` below an int8-tile of rows; else the
+    measured winner of the tuned bucket nearest (n, m_bits) on ``device``
+    (``None``: the card), where ``"mxu"`` above
+    ``kernels.plain_product_max_bits`` becomes ``"pallas_mxu"``; untuned,
+    the plain int8 product up to ``STATIC_MXU_XLA_MAX_BITS`` and K2 above."""
+    from stormtpu_torch.tuning import measured_dense_winner
+
     cfg = config or default_config()
     if n < cfg.mxu_min_rows:
         return "popcount"
-    return "mxu" if m_bits <= MXU_XLA_MAX_BITS else "pallas_mxu"
+    winner = measured_dense_winner(n, m_bits, device)
+    if winner is None:
+        return "mxu" if m_bits <= STATIC_MXU_XLA_MAX_BITS else "pallas_mxu"
+    if winner == "mxu" and m_bits > plain_product_max_bits(device):
+        # the plain product unpacks 8x operands: K2 reads the packed words
+        return "pallas_mxu"
+    return winner
 
 
-def k4_estimates(n: int, m_bits: int, density: float) -> tuple[float, float]:
+def k4_estimates(n: int, m_bits: int, density: float, device=None) -> tuple[float, float]:
     """Seconds D1 expects of (K4 on the host, the K2 walk on the card) for
     an N×M matrix at ``density``: K4 sorts nnz keys, fills and mirrors an
     N² buffer and emits about nnz·N·density pairs; K2 does N²·M at the
     measured rate plus the warm call's fixed cost."""
     from stormtpu_torch.tuning import k4_constants
 
-    fit = k4_constants()
+    fit = k4_constants(device)
     nnz = n * m_bits * density
     est_k4 = (fit["c_sort_s_per_nnz"] * nnz + fit["c_n2_s_per_elem"] * n * n
               + fit["c_emit_s_per_emission"] * nnz * n * density)
@@ -92,10 +103,10 @@ def choose_strategy(
         from stormtpu_torch.kernels.sparse import K4_MAX_N
 
         if n <= K4_MAX_N and native.have_native():
-            est_k4, est_k2 = k4_estimates(n, m_bits, density)
+            est_k4, est_k2 = k4_estimates(n, m_bits, density, device)
             if est_k4 < est_k2:
                 return "sparse_outer"
-    winner = dense_strategy(n, m_bits, cfg)
+    winner = dense_strategy(n, m_bits, cfg, device)
     if bm is not None and winner in ("mxu", "pallas_mxu"):
         from stormtpu_torch.kernels.clustered import clustered_work_fraction
 

@@ -19,10 +19,20 @@ from __future__ import annotations
 
 import torch
 
-# Above this many bits, materializing the 8× unpacked int8 operand (the
-# ``mxu`` strategy) is memory-hostile; use the K2 kernel. The JAX
-# package's routing constant, kept so both packages route alike.
-MXU_XLA_MAX_BITS = 1 << 17
+# The JAX package's routing constant: the static rule of a device that no
+# tuning cache names (the CPU, or an untuned card), where D1 and the streamed
+# walks send M up to this many bits to the plain int8 product. Kept so that
+# both packages route alike there.
+STATIC_MXU_XLA_MAX_BITS = 1 << 17
+# The card's own ceiling for the plain int8 product (``xla.count_block_int8_xla``,
+# which unpacks its operands 8x): the largest M at which it still beat the K2
+# rectangle at 4096 x 4096 rows, timed by ``chip_smoke.py`` phase 29 at
+# M = 2^13 ... 2^17 bits, or 0 where K2 won at every M. On an NVIDIA H100 80GB
+# HBM3 at 700.00 W K2 won at every M, by 12x at 2^13 bits (0.071 against
+# 0.853 ms) to 20x at 2^17 (0.614 against 12.38 ms; PERF.md §6). So on the card
+# ``count_block_auto`` always takes K2, and a tuned winner "mxu" becomes
+# "pallas_mxu".
+MXU_XLA_MAX_BITS = 0
 
 from stormtpu_torch import native  # noqa: E402
 from stormtpu_torch.kernels import clustered, dense, mxu, sparse  # noqa: E402
@@ -40,6 +50,7 @@ from stormtpu_torch.kernels.dense import (  # noqa: E402
 
 __all__ = [
     "MXU_XLA_MAX_BITS",
+    "STATIC_MXU_XLA_MAX_BITS",
     "ClusteredPlan",
     "build_clustered_plan",
     "count_block_auto",
@@ -49,6 +60,7 @@ __all__ = [
     "count_tiles_worklist",
     "launch_counts",
     "pair_count_stream_pallas",
+    "plain_product_max_bits",
     "reset_launches",
 ]
 
@@ -68,15 +80,23 @@ def reset_launches() -> None:
         m.reset_launches()
 
 
+def plain_product_max_bits(device=None) -> int:
+    """The largest M at which the block kernels take the plain int8
+    product on ``device`` (``None``: the card): ``MXU_XLA_MAX_BITS`` on a
+    card, the JAX package's constant on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    return MXU_XLA_MAX_BITS if dev.type == "cuda" else STATIC_MXU_XLA_MAX_BITS
+
+
 def count_block_auto(
     a_packed: torch.Tensor, b_packed: torch.Tensor, config=None
 ) -> torch.Tensor:
     """Rectangular cross counts int32 [Na, Nb] on the operands' device:
     the plain int8 product at small M, the K2 rectangle above
-    ``MXU_XLA_MAX_BITS``."""
+    :func:`plain_product_max_bits`."""
     from stormtpu_torch.kernels import xla as kx
 
-    if a_packed.shape[1] * 32 <= MXU_XLA_MAX_BITS:
+    if a_packed.shape[1] * 32 <= plain_product_max_bits(a_packed.device):
         return kx.count_block_int8_xla(a_packed, b_packed)
     from stormtpu_torch.kernels.mxu import count_block_pallas_mxu
 

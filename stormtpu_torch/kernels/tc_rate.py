@@ -1,7 +1,9 @@
 """Back-to-back issue rate of the tensor-core instructions K2 may use
 (``csrc/tc_rate.cu``): the ceiling of a K2 tile body, and the rate its
-operation bound is stated against. A measuring tool for ``chip_smoke.py``
-and the scripts: no entry point of the package imports it.
+operation bound is stated against. A measuring tool: the roofline that
+``tuning.tune`` and the acceptance run hold rates to
+(``tuning.wgmma_b1_ops_per_s``), ``chip_smoke.py`` and the scripts; no
+count path launches it.
 
 One multiply-accumulate (MAC) is one bit pair for the binary product and
 one int8 pair for the int8 product; K2's work is ``pairs · M`` MACs either

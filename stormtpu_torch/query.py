@@ -14,7 +14,7 @@
 Routes follow D1 as in the JAX package: the triangular K2 tile walk
 (``count_tiles_pallas_mxu``) with a screen or a top-k merge after each
 chunk of tiles; the block form on ``count_block_auto`` (K2-rect above
-2¹⁷ bits); a host filter or host top-k on the full count matrix for the
+``kernels.plain_product_max_bits``); a host filter or host top-k on the full count matrix for the
 sparse and block-clustered (K5) regimes. The screen, merge and packing
 passes are PyTorch operations on the tiles' device. Counts are exact;
 similarity screens run in float32 with the reference's slack and are
@@ -60,15 +60,16 @@ def _tile_chunk(ti: int) -> int:
     return max(1, _SCREEN_TILE_CHUNK_BYTES // (4 * ti * ti))
 
 
-def _default_block_rows(m_bits: int, n_cols: int = 0) -> int:
-    """Row-block size of the block-form queries. Above 2¹⁷ bits the block
-    kernel is the K2 rectangle, which pads row blocks to its tile: match
-    the tile. Below, the plain int8 product unpacks the whole partner
-    matrix at every block, so the block is sized by a counts-memory budget
-    (~512 MB of int32) and balanced to shave the last block's padding."""
-    from stormtpu_torch.kernels import MXU_XLA_MAX_BITS
+def _default_block_rows(m_bits: int, n_cols: int = 0, device=None) -> int:
+    """Row-block size of the block-form queries on ``device``. Above
+    ``kernels.plain_product_max_bits`` the block kernel is the K2
+    rectangle, which pads row blocks to its tile: match the tile. Below,
+    the plain int8 product unpacks the whole partner matrix at every
+    block, so the block is sized by a counts-memory budget (~512 MB of
+    int32) and balanced to shave the last block's padding."""
+    from stormtpu_torch.kernels import plain_product_max_bits
 
-    if m_bits > MXU_XLA_MAX_BITS:
+    if m_bits > plain_product_max_bits(device):
         return default_config().k2_tile_rows
     if n_cols <= 0:
         return 64
@@ -221,7 +222,7 @@ def topk_neighbors(
                                         variant=default_config().k2_variant)
     else:
         if block_rows is None:
-            block_rows = _default_block_rows(bm.m_bits, bm.n)
+            block_rows = _default_block_rows(bm.m_bits, bm.n, dev)
         n_pad = round_up(bm.n, block_rows)
         vals_d, idx_d = _topk_blocks(bm.device_padded(n_pad, device=dev), k, block_rows)
     with _stage("download", dev):
@@ -722,7 +723,7 @@ def pairs_above(
         )
     else:
         if block_rows is None:
-            block_rows = _default_block_rows(bm.m_bits, bm.n)
+            block_rows = _default_block_rows(bm.m_bits, bm.n, dev)
         lcm = int(np.lcm(block_rows, 32))
         n_pad = round_up(max(bm.n, 1), lcm)
         hits_d, summary_d = _hits_and_summary(

@@ -186,12 +186,12 @@ def pairs_above_complete(
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """All unordered pairs (i < j) whose pairwise-complete measure is ≥
     ``threshold``: four count blocks a row block on the device (K2-rect
-    through ``count_block_auto`` above 2¹⁷ bits), screened in float32 with
+    through ``count_block_auto`` above ``plain_product_max_bits``), screened in float32 with
     the slack of ``query.pairs_above``; the candidates are re-derived
     exactly on the host (float64), so rounding only adds candidates.
     ``measure`` is a similarity ("count" does not depend on the mask: use
     ``pairs_above``)."""
-    from stormtpu_torch.kernels import MXU_XLA_MAX_BITS
+    from stormtpu_torch.kernels import plain_product_max_bits
     from stormtpu_torch.query import (
         _complete_screen_block,
         _expand_word_coords,
@@ -223,7 +223,7 @@ def pairs_above_complete(
     need = 8 * n_pad * w           # two resident packed operands
     need += 20 * bl * n_pad        # 4 int32 count blocks + float32 values
     need += bl * n_pad // 8 * 2    # hit bitmap + its word summary
-    if bm_d.m_bits <= MXU_XLA_MAX_BITS:
+    if bm_d.m_bits <= plain_product_max_bits(dev):
         # the small-M plain int8 product unpacks both operands 8×
         need += 2 * (n_pad + bl) * bm_d.m_bits
     require_device_budget(

@@ -185,7 +185,7 @@ def count_histogram(
 
     route = method
     if method == "auto":
-        kern = _resolve_stream_kernel(bm, "auto", cfg)
+        kern = _resolve_stream_kernel(bm, "auto", cfg, dev)
         route = {"sparse_outer": "sparse", "clustered": "clustered"}.get(kern, "dense")
     if route == "sparse":
         return stream_hist.stream_hist_sparse(bm, superblock_rows=superblock_rows, **walk)

@@ -265,19 +265,29 @@ def _stripe_tile_ids(tps: int, diagonal: bool) -> tuple[np.ndarray, np.ndarray]:
     return loc_i.ravel(), loc_j.ravel()
 
 
-def _auto_stream_kernel(m_bits: int) -> str:
-    """The dense stripe kernel ``auto`` starts from: the JAX package's rule
-    without a tuning table (the port has none yet). The plain forms unpack
-    8× operands or broadcast a whole stripe, so they serve small M only."""
-    from stormtpu_torch.kernels import MXU_XLA_MAX_BITS
+def _auto_stream_kernel(m_bits: int, n: Optional[int] = None, device=None) -> str:
+    """The dense stripe kernel ``auto`` starts from: the tuned dense winner
+    of the bucket nearest (n, m_bits) on ``device`` (``None``: the card)
+    mapped to a stripe kernel, else the JAX package's static rule. The
+    plain forms unpack 8× operands or broadcast a whole stripe, so they
+    serve small M only (``kernels.plain_product_max_bits``)."""
+    from stormtpu_torch.kernels import STATIC_MXU_XLA_MAX_BITS, plain_product_max_bits
+    from stormtpu_torch.tuning import measured_dense_winner
 
-    return "xla_int8" if m_bits <= MXU_XLA_MAX_BITS else "mxu"
+    winner = measured_dense_winner(n, m_bits, device)
+    if winner is None:
+        return "xla_int8" if m_bits <= STATIC_MXU_XLA_MAX_BITS else "mxu"
+    small_m = m_bits <= plain_product_max_bits(device)
+    if winner in ("mxu", "pallas_mxu"):
+        return "xla_int8" if (winner == "mxu" and small_m) else "mxu"
+    return "xla_popcount" if (winner == "popcount" and small_m) else "dense"
 
 
-def _resolve_stream_kernel(bm: BitMatrix, kernel: str, cfg: EngineConfig) -> str:
-    """The streaming walk's kernel-resolution policy, factored out so
-    callers that must PREDICT the geometry (``extend_streamed_matrix``)
-    resolve identically to the walk itself."""
+def _resolve_stream_kernel(bm: BitMatrix, kernel: str, cfg: EngineConfig,
+                           device=None) -> str:
+    """The streaming walk's kernel-resolution policy on ``device``,
+    factored out so callers that must PREDICT the geometry
+    (``extend_streamed_matrix``) resolve identically to the walk itself."""
     if kernel == "auto":
         if (bm.n >= 2 and bm.density < cfg.sparse_density_threshold
                 and native.have_native()):
@@ -286,7 +296,7 @@ def _resolve_stream_kernel(bm: BitMatrix, kernel: str, cfg: EngineConfig) -> str
             # takes the dense walk anyway
             kernel = "sparse_outer"
         else:
-            kernel = _auto_stream_kernel(bm.m_bits)
+            kernel = _auto_stream_kernel(bm.m_bits, bm.n, device)
             # summary-AND skip at streaming scale: when most (tile pair,
             # K-group) cells are co-empty the work-list stripes win by about
             # 1/fraction over any dense stripe walk — the single-matrix
@@ -572,7 +582,7 @@ def stream_count_matrix(
     dev = resolve_device(device)
     cfg = config or default_config()
     cfg.validate(bm.m_bits)
-    kernel = _resolve_stream_kernel(bm, kernel, cfg)
+    kernel = _resolve_stream_kernel(bm, kernel, cfg, dev)
     if kernel == "sparse_outer":
         if not native.have_native():
             raise RuntimeError(
@@ -811,7 +821,7 @@ class _SparseStripePlan:
     emission counts E(I, J)), the cost model's K4-or-dense choice a stripe,
     and K4's evaluation of a stripe."""
 
-    def __init__(self, bm: BitMatrix, superblock_rows: int, n_super: int):
+    def __init__(self, bm: BitMatrix, superblock_rows: int, n_super: int, device=None):
         from stormtpu_torch.tuning import k4_constants
 
         self.bm = bm
@@ -820,7 +830,7 @@ class _SparseStripePlan:
         self.hists = [unique_int64(cols, presorted=True, return_counts=True)
                       for cols, _ in self.subs]
         self._segment_cache: tuple = (None, None)
-        fit = k4_constants()
+        fit = k4_constants(device)
         self._c_n2 = fit["c_n2_s_per_elem"]
         self._c_emit = fit["c_emit_s_per_emission"]
         self._sb2 = superblock_rows * superblock_rows
@@ -965,10 +975,12 @@ def _stream_sparse_outer(
     n_super = round_up(bm.n, superblock_rows) // superblock_rows
     w_pad = round_up(bm.n_words, tile_words)
     # the K1 form never serves here: dense stripes share the walk's K2 tiles
-    dense_kernel = _auto_stream_kernel(bm.m_bits)
+    dense_kernel = _auto_stream_kernel(bm.m_bits, bm.n, dev)
+    if dense_kernel == "dense":
+        dense_kernel = "mxu"
 
     with _stage("plan", dev):
-        plan = _SparseStripePlan(bm, superblock_rows, n_super)
+        plan = _SparseStripePlan(bm, superblock_rows, n_super, dev)
 
     os.makedirs(out_dir, exist_ok=True)
     manifest = {
@@ -1468,7 +1480,7 @@ def extend_streamed_matrix(
     cfg = config or default_config()
     # predict the walk's kernel with the walk's own policy so the modulus
     # check matches exactly what the resumed run will round by
-    resolved = _resolve_stream_kernel(bm, kernel, cfg)
+    resolved = _resolve_stream_kernel(bm, kernel, cfg, device)
     mod = _stream_tile_modulus(resolved, cfg)
     if sb % mod:
         raise ValueError(

@@ -263,7 +263,7 @@ def stream_hist_sparse(
     sb = cap_hist_superblock(round_up(superblock_rows, tile_rows), tile_rows)
     n_super = round_up(n, sb) // sb
     with _stage("plan", dev):
-        plan = _SparseStripePlan(bm, sb, n_super)
+        plan = _SparseStripePlan(bm, sb, n_super, dev)
     stripes = None  # made at the first dense stripe: an all-K4 walk uploads nothing
     hist_d = torch.zeros(n_bins, dtype=torch.int64, device=dev)
     hist = np.zeros(n_bins, dtype=np.int64)

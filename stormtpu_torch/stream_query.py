@@ -106,14 +106,15 @@ class _Walk(NamedTuple):
 
 
 def _resolve_stripe_config(bm: BitMatrix, superblock_rows: int, kernel: str,
-                           config: Optional[EngineConfig], *, bitmap: bool) -> _Walk:
-    """The walk's kernel, tiles and superblock geometry. ``bitmap`` rounds
-    the superblock to lcm(tile rows, 32): hit bitmaps pack 32 columns a
-    word."""
+                           config: Optional[EngineConfig], *, bitmap: bool,
+                           device=None) -> _Walk:
+    """The walk's kernel, tiles and superblock geometry on ``device``.
+    ``bitmap`` rounds the superblock to lcm(tile rows, 32): hit bitmaps
+    pack 32 columns a word."""
     cfg = config or default_config()
     cfg.validate(bm.m_bits)
     if kernel == "auto":
-        kernel = _auto_stream_kernel(bm.m_bits)
+        kernel = _auto_stream_kernel(bm.m_bits, bm.n, device)
     _check_stripe_kernel(kernel)
     k2 = kernel in ("mxu", "xla_int8")
     ti = cfg.k2_tile_rows if k2 else cfg.k1_tile_rows
@@ -141,12 +142,12 @@ def _sparse_mode_for(bm: BitMatrix, requested: str, cfg: EngineConfig) -> bool:
 
 
 def _walk_resolution(bm: BitMatrix, superblock_rows: int, kernel: str,
-                     config: Optional[EngineConfig], *, bitmap: bool):
+                     config: Optional[EngineConfig], *, bitmap: bool, device=None):
     """(walk, sparse mode, the kernel name the manifests record), in one
     place, so that the extend wrappers predict the resumed walk exactly."""
     walk = _resolve_stripe_config(
         bm, superblock_rows, "auto" if kernel == "sparse_outer" else kernel, config,
-        bitmap=bitmap)
+        bitmap=bitmap, device=device)
     sparse = _sparse_mode_for(bm, kernel, walk.cfg)
     return walk, sparse, (f"sparse_outer+{walk.kernel}" if sparse else walk.kernel)
 
@@ -728,7 +729,8 @@ def extend_stream_topk_neighbors(
             f"{n_super_old} rows) — resume it to completion first "
             f"(stream_topk_neighbors(out_dir=...))"
         )
-    walk, _sparse, kernel_name = _walk_resolution(bm, sb_old, kernel, config, bitmap=False)
+    walk, _sparse, kernel_name = _walk_resolution(bm, sb_old, kernel, config, bitmap=False,
+                                                  device=device)
     if walk.sb != sb_old:
         raise ValueError(
             f"extend: the resumed walk rounds superblock_rows to {walk.sb}, not "
@@ -798,7 +800,7 @@ def stream_topk_neighbors(
         raise ValueError(f"k must be in [1, N-1], got k={k}, N={bm.n}")
     dev = resolve_device(device)
     walk, sparse_mode, kernel_name = _walk_resolution(bm, superblock_rows, kernel, config,
-                                                      bitmap=False)
+                                                      bitmap=False, device=dev)
     sb, n_pad, n_super = walk.sb, walk.n_pad, walk.n_super
     if k > sb:
         raise ValueError(
@@ -814,7 +816,7 @@ def stream_topk_neighbors(
         from stormtpu_torch.stream import _SparseStripePlan
 
         with _stage("plan", dev):
-            plan = _SparseStripePlan(bm, sb, n_super)
+            plan = _SparseStripePlan(bm, sb, n_super, dev)
 
     if measure == "count":
         best_v = np.full((n_pad, k), -1, dtype=np.int64)
@@ -1092,7 +1094,8 @@ def extend_stream_pairs_above(
     same = int(old["n"]) == bm.n and old["content"] == _content_fingerprint(bm)
     if not same and old.get("extend_from") is None:
         _check_extend_head(bm, int(old["n"]), old["content"], "extend")
-    walk, _sparse, kernel_name = _walk_resolution(bm, sb_old, kernel, config, bitmap=True)
+    walk, _sparse, kernel_name = _walk_resolution(bm, sb_old, kernel, config, bitmap=True,
+                                                  device=device)
     if walk.sb != sb_old:
         raise ValueError(
             f"extend: the resumed walk rounds superblock_rows to {walk.sb}, not the "
@@ -1142,14 +1145,14 @@ def stream_pairs_above(
     dev_thresh = float(_validate_screen(measure, threshold))
     dev = resolve_device(device)
     walk, sparse_mode, kernel_name = _walk_resolution(bm, superblock_rows, kernel, config,
-                                                      bitmap=True)
+                                                      bitmap=True, device=dev)
     sb, n_pad, n_super = walk.sb, walk.n_pad, walk.n_super
     plan = None
     if sparse_mode:
         from stormtpu_torch.stream import _SparseStripePlan
 
         with _stage("plan", dev):
-            plan = _SparseStripePlan(bm, sb, n_super)
+            plan = _SparseStripePlan(bm, sb, n_super, dev)
     nnz = np.zeros(n_pad, dtype=np.int32)
     nnz[: bm.n] = bm.row_nnz
     nnz_dev = None
@@ -1374,7 +1377,8 @@ def extend_stream_pairs_above_complete(
     if not same and old.get("extend_from") is None:
         _check_extend_head(bm_d, int(old["n"]), old["content_data"], "extend (data)")
         _check_extend_head(bm_m, int(old["n"]), old["content_mask"], "extend (mask)")
-    walk = _resolve_stripe_config(bm_d, sb_old, kernel, config, bitmap=True)
+    walk = _resolve_stripe_config(bm_d, sb_old, kernel, config, bitmap=True,
+                                  device=device)
     if walk.sb != sb_old:
         raise ValueError(
             f"extend: the resumed walk rounds superblock_rows to {walk.sb}, not the "
@@ -1429,7 +1433,8 @@ def stream_pairs_above_complete(
     dev_thresh = float(_validate_screen(measure, threshold))
     dev = resolve_device(device)
     bm_d, bm_m = _complete_operands(data, mask)
-    walk = _resolve_stripe_config(bm_d, superblock_rows, kernel, config, bitmap=True)
+    walk = _resolve_stripe_config(bm_d, superblock_rows, kernel, config, bitmap=True,
+                                  device=dev)
     sb, n_pad, n_super = walk.sb, walk.n_pad, walk.n_super
     out_i: list[np.ndarray] = []
     out_j: list[np.ndarray] = []

@@ -1,22 +1,42 @@
-"""The port's K4 cost model (``stormtpu/tuning.py``'s ``K4_DEFAULTS`` and
-``k4_constants`` only; the tuner itself is not ported).
+"""Measured dispatch crossovers and the K4 cost model (port of
+``stormtpu/tuning.py``).
 
-D1 (``dispatch.choose_strategy``) and the streamed walk's per-stripe choice
-(``stream._SparseStripePlan``) weigh K4 on the host against the dense K2
-walk on the card with these constants. The choice never changes a count.
-The values were measured on the card's host and the card by
-``python3 scripts/torch_k4_constants.py`` (NVIDIA H100 80GB HBM3, 700 W;
-PERF.md §6), never read from the JAX package's TPU snapshot:
+``tune`` measures the four exact dense strategies on one device over a grid
+of (N, M) buckets (the plain int8 product only up to
+``kernels.plain_product_max_bits``, above which D1 never takes it) and
+writes pairs/s per bucket to a JSON cache; D1
+(``dispatch.dense_strategy``) and the streamed walks
+(``stream._auto_stream_kernel``) then take the winner of the bucket nearest
+in log space to the call's shape: the fastest, but K2 unless another is
+faster by more than :data:`K2_MARGIN`, where the JAX package takes the
+fastest. Tuning is explicit (``python -m stormtpu_torch tune``). Without a cache that names this device, both keep
+the JAX package's static rule. The choice never changes a count: every
+strategy gives the same exact matrix.
+
+The cache is the file named by ``$STORMTPU_TORCH_TUNING_CACHE``, else
+``~/.cache/stormtpu_torch/tuning.json``, else (unless the variable pins a
+path) the snapshot ``stormtpu_torch/data/tuning_snapshot.json`` that the
+package ships. A cache applies only to the device whose name its ``device``
+field holds (``torch.cuda.get_device_name`` for a card, ``"cpu"`` for the
+CPU). The JSON layout is the JAX package's (``device``, ``grid``,
+``buckets.*.dense_pairs_per_s``, ``latency_bound``, ``dispatch_floor_s``,
+``k4_cost_model``).
+
+The K4 cost model weighs K4 on the host against the dense K2 walk on the
+card (``dispatch.k4_estimates``, ``stream._SparseStripePlan``).
+:func:`refit_k4_constants` measures each constant as follows; without a
+cache for the card, :data:`K4_DEFAULTS` (the same measurements, made once
+on an NVIDIA H100 80GB HBM3 at 700 W and its host; PERF.md §6) stand:
 
 - ``c_sort_s_per_nnz``: the sort-based unique (``kernels.sparse.unique_int64``)
   of random int64 keys, a key;
 - ``c_n2_s_per_elem``: K4's N² int32 buffer at n = 10,000 (allocated and
   mirrored), an entry;
 - ``c_emit_s_per_emission``: an end-to-end K4 run at 10,000 × 2²⁰ bits,
-  density 1e-3, its remainder after the sort and N² terms over its
-  emissions;
-- ``k2_int8_ops_per_s``: n²·M over the K2 triangular kernel's time at
-  BASELINE config 3 (10,000 × 1,048,576 bits), by CUDA events;
+  density 1e-3 (least of two), its remainder after the sort and N² terms
+  over its emissions;
+- ``k2_int8_ops_per_s``: n²·M over the K2 triangular kernel's time, from
+  the best ``pallas_mxu`` bucket;
 - ``dispatch_floor_s``: the wall time of a warm ``pallas_mxu`` call whose
   kernel does almost nothing (256 × 2²⁰ bits);
 - ``h2d_bytes_per_s``: one superblock slice (4096 × 32,768 words) through
@@ -26,7 +46,48 @@ PERF.md §6), never read from the JAX package's TPU snapshot:
 
 from __future__ import annotations
 
-__all__ = ["K4_DEFAULTS", "k4_constants"]
+import functools
+import json
+import math
+import os
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = [
+    "CACHE_ENV",
+    "DEFAULT_GRID",
+    "K4_DEFAULTS",
+    "cache_path",
+    "device_name",
+    "k4_constants",
+    "k4_cost_model",
+    "load_tuning",
+    "measured_dense_winner",
+    "refit_k4_constants",
+    "tune",
+    "tuned_variant",
+]
+
+CACHE_ENV = "STORMTPU_TORCH_TUNING_CACHE"
+_DEFAULT_CACHE = os.path.join(
+    os.path.expanduser("~"), ".cache", "stormtpu_torch", "tuning.json"
+)
+#: the last full-grid tune on the card, shipped with the package
+_SNAPSHOT_CACHE = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "data", "tuning_snapshot.json"
+)
+
+_DENSE_PATHS = ("popcount", "mxu", "pallas_dense", "pallas_mxu")
+
+# (N, m_bits) buckets: small N, tensor-core shapes and long K
+DEFAULT_GRID: tuple[tuple[int, int], ...] = (
+    (256, 8192), (256, 65536), (256, 1048576),
+    (4096, 8192), (4096, 65536), (4096, 1048576),
+    (16384, 8192), (16384, 65536), (16384, 1048576),
+)
 
 K4_DEFAULTS = {
     "c_sort_s_per_nnz": 2.53e-8,
@@ -38,6 +99,467 @@ K4_DEFAULTS = {
 }
 
 
-def k4_constants() -> dict:
-    """The K4 cost-model constants (a copy: callers may not change them)."""
-    return dict(K4_DEFAULTS)
+def cache_path() -> str:
+    return os.environ.get(CACHE_ENV, _DEFAULT_CACHE)
+
+
+def load_tuning() -> Optional[dict]:
+    """The cache as a dict, or None when unreadable. A path pinned by
+    ``$STORMTPU_TORCH_TUNING_CACHE`` opts out of the snapshot."""
+    try:
+        with open(cache_path()) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        pass
+    if os.environ.get(CACHE_ENV):
+        return None
+    try:
+        with open(_SNAPSHOT_CACHE) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_name(index: int) -> str:
+    return torch.cuda.get_device_name(index)
+
+
+def device_name(device=None) -> Optional[str]:
+    """The name a cache's ``device`` field must hold to apply to ``device``
+    (``None``: the card): the card's ``torch.cuda.get_device_name``, or
+    ``"cpu"``; None when no card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return "cpu"
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return _cuda_name(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def _device_tuning(device=None) -> Optional[dict]:
+    name = device_name(device)
+    if name is None:
+        return None
+    t = load_tuning()
+    if not isinstance(t, dict) or t.get("device") != name:
+        return None
+    return t
+
+
+def tuned_variant(kernel: str, default: str) -> str:
+    """``default``: the port has one tile body, so there is no variant to
+    tune (the JAX package measures two Pallas bodies)."""
+    del kernel
+    return default
+
+
+def _bucket_key(n: int, m_bits: int) -> str:
+    return f"{n}x{m_bits}"
+
+
+#: a strategy displaces K2 only when measured this much faster than it. K1
+#: runs K2's tile body: in two tunes on an NVIDIA H100 80GB HBM3 at 700 W
+#: (PERF.md §6) the two traded places at 16384 x 2^20 bits (K1 0.945x and
+#: 1.046x K2), K1's own rate moving 11% between the runs.
+K2_MARGIN = 1.2
+
+
+def _winner(rates: dict) -> Optional[str]:
+    """The fastest strategy of ``rates`` (pairs/s), K2 (``pallas_mxu``)
+    where none beats it by more than :data:`K2_MARGIN`."""
+    if not rates:
+        return None
+    best = max(rates, key=rates.get)
+    k2 = rates.get("pallas_mxu", 0.0)
+    return "pallas_mxu" if k2 > 0 and rates[best] <= K2_MARGIN * k2 else best
+
+
+def measured_dense_winner(
+    n: Optional[int] = None, m_bits: Optional[int] = None, device=None
+) -> Optional[str]:
+    """The winning dense strategy (:func:`_winner`) of the cached bucket
+    nearest (n, m_bits) in log space, if ``device`` is tuned; None
+    otherwise. Without a shape, of each strategy's best over every bucket;
+    a single-shape cache of the JAX package's first format (top-level
+    ``dense_pairs_per_s``) is read as it is."""
+    t = _device_tuning(device)
+    if not t:
+        return None
+    buckets = t.get("buckets")
+    if not buckets:
+        return _winner(t.get("dense_pairs_per_s", {}))
+    if n is None or m_bits is None:
+        agg: dict[str, float] = {}
+        for b in buckets.values():
+            for k, v in b.get("dense_pairs_per_s", {}).items():
+                agg[k] = max(agg.get(k, 0.0), v)
+        return _winner(agg)
+
+    def dist(key: str) -> float:
+        bn, bm = key.split("x")
+        return abs(math.log(max(n, 1) / int(bn))) + abs(
+            math.log(max(m_bits, 1) / int(bm))
+        )
+
+    keys = [k for k in buckets if buckets[k].get("dense_pairs_per_s")]
+    if not keys:
+        return None
+    return _winner(buckets[min(keys, key=dist)]["dense_pairs_per_s"])
+
+
+def k4_cost_model(device=None) -> Optional[dict]:
+    """The cache's fitted K4 constants for ``device`` (``None``: the card),
+    or None when it is not tuned."""
+    t = _device_tuning(device)
+    return t.get("k4_cost_model") if t else None
+
+
+def k4_constants(device=None) -> dict:
+    """K4 cost-model constants: the cache's for ``device`` where it has
+    them, :data:`K4_DEFAULTS` elsewhere (a copy: callers may not change
+    them)."""
+    out = dict(K4_DEFAULTS)
+    out.update(k4_cost_model(device) or {})
+    return out
+
+
+# ------------------------------------------------------------------ measuring
+def _least(fn, repeats: int) -> float:
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def wgmma_b1_ops_per_s(device) -> float:
+    """Operations a second (2 a MAC) of the b1 ``wgmma`` that K2's tile
+    body issues, measured back to back on every SM (``kernels.tc_rate``):
+    the roofline the tuner holds every measured rate to."""
+    from stormtpu_torch.kernels import tc_rate
+
+    return 2.0 * tc_rate.issue_rate(tc_rate.KINDS["wgmma_b1_n256"], device)["macs_per_s"]
+
+
+def _dispatch_floor(dev: torch.device, n: int, m_bits: int) -> float:
+    """Least wall seconds of a warm ``pallas_mxu`` call of n × m_bits
+    random bits (its kernel does almost nothing at n = 256)."""
+    from stormtpu_torch.api import intersect_count_matrix
+    from stormtpu_torch.layout import BitMatrix
+
+    rng = np.random.default_rng(5)
+    bm = BitMatrix.from_packed(
+        rng.integers(0, 1 << 32, size=(n, -(-m_bits // 32)), dtype=np.uint32),
+        -(-m_bits // 32) * 32)
+
+    def call():
+        intersect_count_matrix(bm, strategy="pallas_mxu", device=dev)
+        _sync(dev)
+
+    call()
+    return _least(call, 5)
+
+
+def _plain_product_fits(dev: torch.device, n: int, m_bits: int) -> bool:
+    """Whether ``count_block_int8_xla``'s unpacked operands fit: on the card
+    its transients (two int32 shift planes and the int8 operands, about
+    10 bytes a bit of a row, and the int32 result) within 80% of free
+    memory; on the CPU always (the tuner keeps it below the JAX package's
+    static ceiling there)."""
+    if dev.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(dev)
+    return 10 * n * m_bits + 4 * n * n <= 0.8 * free
+
+
+def _tune_shape(
+    n: int, m_bits: int, reps: int, slow_path_budget_s: float, log, *,
+    device, expect: Optional[dict] = None, peak_ops_per_s: Optional[float] = None,
+) -> dict:
+    """Measure every dense strategy at one shape on ``device``; check each
+    against the NumPy oracle on its leading 128 × 128 block; return the
+    bucket dict. ``expect`` maps a strategy to the best pair-bits a second
+    measured so far: a candidate whose one call it puts above
+    ``slow_path_budget_s`` is skipped before it is launched."""
+    from stormtpu_torch.config import default_config
+    from stormtpu_torch.kernels import plain_product_max_bits
+    from stormtpu_torch.kernels import xla as kx
+    from stormtpu_torch.kernels.dense import count_tiles_pallas_dense, k1_tile_shape
+    from stormtpu_torch.kernels.mxu import (
+        _pad,
+        count_tiles_pallas_mxu,
+        device_tile_ids,
+        k2_tile_shape,
+    )
+    from stormtpu_torch.oracle import oracle_count_block
+    from stormtpu_torch.utils import round_up, triangular_tile_ids
+    from stormtpu_torch.utils.profiling import timeit_chain, timeit_sustained_auto
+
+    dev = torch.device(device)
+    expect = expect if expect is not None else {}
+    cfg = default_config()
+    w = -(-m_bits // 32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    xds = [torch.randint(-(1 << 31), 1 << 31, (n, w), dtype=torch.int32, device=dev,
+                         generator=gen) for _ in range(reps + 1)]
+    nc = min(n, 128)
+    head = xds[0][:nc].cpu().numpy().view(np.uint32)
+    want = oracle_count_block(head, head)
+    # unique pairs a second for every candidate (the square paths compute
+    # both halves for the same result)
+    tri = n * (n + 1) / 2
+    work = tri * m_bits
+
+    rates: dict[str, float] = {}
+    latency_bound: list[str] = []
+    skipped: list[str] = []
+    suspect: list[str] = []
+
+    def roofline_ok(rate: float) -> bool:
+        # 2·M operations a unique pair: every candidate does at least that
+        return peak_ops_per_s is None or rate * 2.0 * m_bits <= peak_ops_per_s * 1.05
+
+    def measure(name, f, xs, block):
+        rate0 = expect.get(name)
+        if rate0 and work / rate0 > slow_path_budget_s:
+            skipped.append(name)
+            log(f"  {name}: skipped (about {work / rate0:.1f} s a call at the best rate "
+                f"measured so far)")
+            return
+        got = block(f(xs[0]))[:nc, :nc].cpu().numpy()
+        if not np.array_equal(got.astype(np.int64), want):
+            raise AssertionError(f"tuning candidate {name} is INEXACT at {n} x {m_bits}")
+        t1 = timeit_chain(f, xs[:2], 1)
+        if t1 > slow_path_budget_s:
+            rates[name] = tri / t1
+            latency_bound.append(name)
+            log(f"  {name}: {rates[name]:,.0f} pairs/s (one call, {t1:.2f} s)")
+        else:
+            rate = tri / timeit_sustained_auto(f, xs)
+            if not roofline_ok(rate):
+                again = tri / timeit_sustained_auto(f, xs)
+                log(f"  {name}: {rate:,.0f} pairs/s is above the b1 wgmma rate; "
+                    f"re-measured {again:,.0f}")
+                rate = min(rate, again)
+                if not roofline_ok(rate):
+                    suspect.append(name)
+            rates[name] = rate
+            log(f"  {name}: {rate:,.0f} pairs/s")
+        expect[name] = max(expect.get(name, 0.0), rates[name] * m_bits)
+
+    measure("popcount", lambda x: kx.count_block_popcount_xla(x, x, tile_rows=8), xds,
+            lambda out: out)
+    if m_bits > plain_product_max_bits(dev):
+        # D1 turns an "mxu" winner above this ceiling into K2: never taken
+        skipped.append("mxu")
+        log(f"  mxu: skipped (above the plain product's ceiling, "
+            f"{plain_product_max_bits(dev)} bits, on this device)")
+    elif _plain_product_fits(dev, n, m_bits):
+        measure("mxu", lambda x: kx.count_block_int8_xla(x, x), xds, lambda out: out)
+    else:
+        skipped.append("mxu")
+        log("  mxu: skipped (its unpacked operands do not fit)")
+
+    def tile_candidate(name, count_tiles, ti, wk):
+        n_pad, w_pad = round_up(n, ti), round_up(w, wk)
+        xps = [_pad(x, n_pad, w_pad) for x in xds]
+        nb = n_pad // ti
+        ids = device_tile_ids(*triangular_tile_ids(nb), nb, dev)
+        measure(name, lambda x: count_tiles(x, *ids, tile_rows=ti, tile_words=wk,
+                                            checked=ids), xps, lambda out: out[0])
+
+    tile_candidate("pallas_dense", count_tiles_pallas_dense, *k1_tile_shape(cfg, n, w))
+    tile_candidate("pallas_mxu", count_tiles_pallas_mxu, *k2_tile_shape(cfg, n, w))
+    del xds
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"dense_pairs_per_s": rates, "latency_bound": latency_bound, "skipped": skipped}
+    if suspect:
+        out["roofline_suspect"] = suspect
+    return out
+
+
+#: the refit's probe sizes (the module docstring's)
+K4_PROBE = {"sort_keys": 4_000_000, "n": 10_000, "m_bits": 1 << 20, "density": 1e-3,
+            "slice_rows": 4096}
+#: the dispatch-floor probe's (rows, bits)
+FLOOR_SHAPE = (256, 1 << 20)
+
+
+def refit_k4_constants(log=print, *, device=None, seed: int = 7) -> Optional[dict]:
+    """Measure the K4 constants of the module docstring that belong to the
+    host and the upload on ``device``, at the sizes of :data:`K4_PROBE`;
+    None when the C++ host tier is not built (K4 is never chosen then).
+    ``k2_int8_ops_per_s`` and ``dispatch_floor_s`` come from :func:`tune`."""
+    from stormtpu_torch import native
+    from stormtpu_torch.kernels.sparse import count_matrix_sparse_outer, unique_int64
+    from stormtpu_torch.layout import BitMatrix
+    from stormtpu_torch.stream import _SliceBuffer
+    from stormtpu_torch.utils import resolve_device
+
+    if not native.have_native():
+        return None
+    dev = resolve_device(device)
+    sort_keys, n, m_bits, density, slice_rows = (
+        K4_PROBE[k] for k in ("sort_keys", "n", "m_bits", "density", "slice_rows"))
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2**62, sort_keys, dtype=np.int64)
+    c_sort = _least(lambda: unique_int64(keys), 3) / keys.size
+    del keys
+
+    def n2_buffer():
+        native.mirror_upper_native(np.zeros((n, n), dtype=np.int32))
+
+    c_n2 = _least(n2_buffer, 3) / (n * n)
+
+    k = int(n * m_bits * density)
+    rows, cols = rng.integers(0, n, k), rng.integers(0, m_bits, k)
+    bm = BitMatrix.from_positions(rows, cols, n, m_bits)
+    # exact emissions: a column with occ distinct rows emits occ·(occ+1)/2
+    _, occ = unique_int64(unique_int64(cols * n + rows) // n, presorted=True,
+                          return_counts=True)
+    emissions = int((occ.astype(np.int64) * (occ + 1) // 2).sum())
+    k4_s = _least(lambda: count_matrix_sparse_outer(bm), 2)
+    c_emit = max(k4_s - c_sort * bm.nnz - c_n2 * n * n, 0.0) / max(emissions, 1)
+    del bm, rows, cols
+
+    w_slice = -(-m_bits // 32)
+    words = np.full((3 * slice_rows, w_slice), 0x5A5A5A5A, dtype=np.uint32)
+    slices = _SliceBuffer(BitMatrix.from_packed(words, w_slice * 32), slice_rows, w_slice, dev)
+    turn = iter([1, 2] * 4)
+
+    def upload():
+        slices.load(1, next(turn))
+        _sync(dev)
+
+    upload()
+    h2d = slice_rows * w_slice * 4 / _least(upload, 4)
+    del slices, words
+    fitted = {
+        "c_sort_s_per_nnz": c_sort,
+        "c_n2_s_per_elem": c_n2,
+        "c_emit_s_per_emission": c_emit,
+        "h2d_bytes_per_s": h2d,
+        "probe": {"sort_keys": sort_keys, "n": n, "m_bits": m_bits, "density": density,
+                  "nnz": k, "emissions": emissions, "k4_s": k4_s,
+                  "slice_bytes": slice_rows * w_slice * 4},
+    }
+    log(f"k4 refit: sort {c_sort:.3e} s/key, n2 {c_n2:.3e} s/entry, emit "
+        f"{c_emit:.3e} s/emission ({emissions} emissions in {k4_s:.3f} s), "
+        f"upload {h2d / 1e9:.2f} GB/s")
+    return fitted
+
+
+def tune(
+    n: Optional[int] = None,
+    m_bits: Optional[int] = None,
+    reps: int = 3,
+    log=print,
+    shapes: Optional[Sequence[tuple[int, int]]] = None,
+    slow_path_budget_s: float = 3.0,
+    *,
+    device=None,
+    peak_ops_per_s: Optional[float] = None,
+) -> dict:
+    """Measure the dense strategies over the shape grid on ``device``
+    (``None``: the card), re-fit the K4 constants, and write the cache
+    after every bucket. An explicit ``(n, m_bits)`` tunes that shape only
+    and merges it into a grid cache of the same device; the default is
+    :data:`DEFAULT_GRID`. Buckets run from the least work up, so that each
+    candidate's slow-path test reads the rates measured before it. On the
+    card every rate is held to the b1 ``wgmma`` rate (``peak_ops_per_s``,
+    measured when not given); a kernel that fails to build or launch
+    raises."""
+    from stormtpu_torch.utils import resolve_device
+
+    if (n is None) != (m_bits is None):
+        raise ValueError("tune: pass both n and m_bits, or neither (the full grid)")
+    dev = resolve_device(device)
+    name = device_name(dev)
+    if shapes is not None:
+        grid = [tuple(g) for g in shapes]
+    elif n is not None:
+        grid = [(n, m_bits)]
+    else:
+        grid = list(DEFAULT_GRID)
+    if peak_ops_per_s is None and dev.type == "cuda":
+        peak_ops_per_s = wgmma_b1_ops_per_s(dev)
+    if peak_ops_per_s is not None:
+        log(f"[tune] {name}: b1 wgmma rate {peak_ops_per_s:.4g} op/s")
+
+    prev = load_tuning()
+    same = prev if isinstance(prev, dict) and prev.get("device") == name else {}
+    prev_k4 = same.get("k4_cost_model")
+    prev_buckets = dict(same.get("buckets") or {})
+    prev_grid = [tuple(g) for g in same.get("grid", [])]
+    expect: dict[str, float] = {}
+    for key, b in prev_buckets.items():
+        bm_bits = int(key.split("x")[1])
+        for k, v in b.get("dense_pairs_per_s", {}).items():
+            expect[k] = max(expect.get(k, 0.0), v * bm_bits)
+
+    floor_s = _dispatch_floor(dev, *FLOOR_SHAPE)
+    log(f"[tune] warm pallas_mxu call at {FLOOR_SHAPE[0]} x {FLOOR_SHAPE[1]} bits: "
+        f"{floor_s * 1e3:.3f} ms")
+    buckets: dict[str, dict] = {}
+
+    def assemble() -> dict:
+        single = len(grid) == 1
+        grid_out = list(grid) + [g for g in prev_grid if single and g not in grid]
+        result = {
+            "device": name,
+            "grid": [list(g) for g in grid_out],
+            "buckets": {**prev_buckets, **buckets} if single else dict(buckets),
+            "dispatch_floor_s": floor_s,
+            "torch": torch.__version__,
+        }
+        if peak_ops_per_s is not None:
+            result["peak_ops_per_s"] = peak_ops_per_s
+        if prev_k4 is not None:
+            result["k4_cost_model"] = prev_k4
+        if single and buckets:
+            # a single-shape run keeps the first format's top-level fields
+            only = buckets[_bucket_key(*grid[0])]
+            result["dense_pairs_per_s"] = only["dense_pairs_per_s"]
+            result["shape"] = {"n": grid[0][0], "m_bits": grid[0][1]}
+        return result
+
+    def write(result: dict) -> str:
+        path = cache_path()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(result, f, indent=2)
+        os.replace(tmp, path)
+        return path
+
+    for gn, gm in sorted(grid, key=lambda g: g[0] * g[0] * g[1]):
+        t0 = time.perf_counter()
+        log(f"[tune] shape {gn} x {gm} bits")
+        b = _tune_shape(gn, gm, reps, slow_path_budget_s, log, device=dev, expect=expect,
+                        peak_ops_per_s=peak_ops_per_s)
+        b["seconds"] = time.perf_counter() - t0
+        buckets[_bucket_key(gn, gm)] = b
+        log(f"[tune] {gn} x {gm}: winner {_winner(b['dense_pairs_per_s'])}; "
+            f"{b['seconds']:.2f} s")
+        write(assemble())
+
+    result = assemble()
+    k2_ops = max((b["dense_pairs_per_s"].get("pallas_mxu", 0.0) * 2 * int(key.split("x")[1])
+                  for key, b in result["buckets"].items()), default=0.0)
+    k4 = refit_k4_constants(log, device=dev)
+    if k4 is not None:
+        if k2_ops > 0:
+            k4["k2_int8_ops_per_s"] = k2_ops
+        k4["dispatch_floor_s"] = floor_s
+        result["k4_cost_model"] = k4
+    log(f"wrote {write(result)}")
+    return result

@@ -35,6 +35,16 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _static_routing(tmp_path, monkeypatch):
+    """Pin an absent tuning cache: the card then routes by the static rule
+    these tests name their kernels by. The tests of the tuned routing
+    below write their own cache."""
+    from stormtpu_torch import tuning
+
+    monkeypatch.setenv(tuning.CACHE_ENV, str(tmp_path / "untuned.json"))
+
+
 def _words(n, w, density, seed):
     rng = np.random.default_rng(seed)
     if density >= 1.0:
@@ -819,3 +829,88 @@ def test_derive_similarity_torch_on_card_equals_numpy_bit_for_bit(cuda, measure)
             torch.from_numpy(universe).to(cuda) if isinstance(universe, np.ndarray) else universe,
             measure).cpu().numpy()
         assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+# ------------------------------------------------------------ tuned routing
+_KERNEL_OF = {"pallas_mxu": "k2_tri", "pallas_dense": "k1"}
+
+
+def _guarded(winner, m):
+    from stormtpu_torch.kernels import MXU_XLA_MAX_BITS
+
+    return "pallas_mxu" if winner == "mxu" and m > MXU_XLA_MAX_BITS else winner
+
+
+def _uniform(n, m, seed):
+    rng = np.random.default_rng(seed)
+    return BitMatrix.from_packed(rng.integers(0, 1 << 32, (n, m // 32), dtype=np.uint32), m)
+
+
+def test_tune_on_card_and_d1_follows_the_cache(cuda, tmp_path, monkeypatch):
+    from stormtpu_torch import tuning
+    from stormtpu_torch.dispatch import choose_strategy
+
+    monkeypatch.setenv(tuning.CACHE_ENV, str(tmp_path / "t.json"))
+    monkeypatch.setattr(tuning, "refit_k4_constants", lambda *a, **k: None)
+    res = tuning.tune(shapes=[(256, 8192), (1024, 65536)], reps=1, log=lambda *a: None)
+    assert res["device"] == torch.cuda.get_device_name() and res["peak_ops_per_s"] > 0
+    for key, b in res["buckets"].items():
+        n, m = map(int, key.split("x"))
+        rates = b["dense_pairs_per_s"]
+        assert {"pallas_dense", "pallas_mxu"} <= set(rates) and min(rates.values()) > 0
+        want = _guarded(tuning._winner(rates), m)
+        assert choose_strategy(n, m, 0.5) == want
+        bm = _uniform(n, m, seed=n)
+        reset_launches()
+        assert np.array_equal(intersect_count_matrix(bm), oracle_count_matrix(bm.packed))
+        counts = launch_counts()
+        if want in _KERNEL_OF:
+            assert counts[_KERNEL_OF[want]] >= 1
+        else:
+            assert counts["k2_tri"] == counts["k1"] == 0
+
+
+def test_d1_and_stream_auto_follow_a_cache_on_the_card(cuda, tmp_path, monkeypatch):
+    import json
+
+    from stormtpu_torch import stream, tuning
+    from stormtpu_torch.dispatch import choose_strategy
+
+    path = tmp_path / "t.json"
+    monkeypatch.setenv(tuning.CACHE_ENV, str(path))
+    path.write_text(json.dumps({"device": torch.cuda.get_device_name(), "buckets": {
+        "256x8192": {"dense_pairs_per_s": {"pallas_dense": 2.0, "pallas_mxu": 1.0}},
+        "256x1048576": {"dense_pairs_per_s": {"mxu": 2.0, "pallas_mxu": 1.0}},
+    }}))
+    assert choose_strategy(200, 8192, 0.5) == "pallas_dense"
+    assert choose_strategy(200, 8192, 0.5, device="cpu") == "mxu"  # the CPU is untuned
+    assert choose_strategy(200, 1 << 20, 0.5) == "pallas_mxu"  # the memory guard
+    assert stream._auto_stream_kernel(8192, 200, cuda) == "dense"
+    bm = _uniform(200, 8192, seed=4)
+    reset_launches()
+    assert np.array_equal(intersect_count_matrix(bm), oracle_count_matrix(bm.packed))
+    assert launch_counts()["k1"] == 1 and launch_counts()["k2_tri"] == 0
+    reset_launches()
+    man = stream.stream_count_matrix(bm, str(tmp_path / "s"), superblock_rows=128,
+                                     kernel="auto", device=cuda)
+    assert man["kernel"] == "dense" and launch_counts()["k1"] == len(man["completed"])
+    assert np.array_equal(stream.load_streamed_matrix(str(tmp_path / "s")),
+                          oracle_count_matrix(bm.packed))
+
+
+def test_cli_on_card_equals_the_in_process_calls(cuda, tmp_path):
+    from stormtpu_torch import topk_neighbors
+    from stormtpu_torch.cli import main
+    from stormtpu_torch.io import save_bitmatrix
+
+    bm = _uniform(300, 4096, seed=5)
+    f = tmp_path / "m.npz"
+    save_bitmatrix(bm, str(f))
+    assert main(["count", "--in", str(f), "--out", str(tmp_path / "c.npy")]) == 0
+    got = np.load(tmp_path / "c.npy")
+    assert np.array_equal(got, intersect_count_matrix(bm, device=cuda))
+    assert np.array_equal(got, oracle_count_matrix(bm.packed))
+    assert main(["topk", "--in", str(f), "--out", str(tmp_path / "t.npz"), "--k", "4"]) == 0
+    vals, idx = topk_neighbors(bm, 4, device=cuda)
+    with np.load(tmp_path / "t.npz") as z:
+        assert np.array_equal(z["counts"], vals) and np.array_equal(z["indices"], idx)
