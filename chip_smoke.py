@@ -163,13 +163,35 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     0.5``, ``clump``, ``hist --row-sums``, ``stream`` of the first 12,288
     variants and then ``--extend`` to all, ``tune --n 4096 --m 65536`` into
     a copy of phase 29's cache (it must merge into the nine buckets), and
-    ``scaling`` (must exit non-zero): every output equal to the same call
+    ``scaling`` (one rank: its JSON must say it is no scaling figure): every
+    output equal to the same call
     made in this process, ``count`` also to numpy on sampled pairs;
 31. ``acceptance.run_acceptance([1, 2, 3, 4])`` on the card into a
     temporary file: configs 1-3 with config 3's full 10,000-row pass, and
     config 4's three full-scale parts at 100,000 x 1,000,000 bits (the K2
     rate, the checksum walk, the histograms and row sums); every check
-    must pass; each entry's wall time and rate printed.
+    must pass; each entry's wall time and rate printed;
+32. ``stormtpu_torch.parallel`` over a one-rank NCCL group in this process
+    (run after phase 28, while the matrices it is held to are alive), at
+    config 5's width of 1,048,576 bits with its rows cut to one card:
+    ``distributed_count_matrix`` on the rows axis at 16,384 rows equal to
+    ``intersect_count_matrix`` of the same rows (and the one-rank ring timed
+    alone); the bits axis on phase 8's LD panel through the sharded K5 work
+    list and, with the K5 test off, K2-tri, both equal to phase 8's matrix;
+    ``distributed_count_histogram(method="stripes")`` on phase 24's
+    100,000-row matrix equal to phase 24's histogram;
+    ``distributed_topk_neighbors(k=16)`` and ``distributed_pairs_above`` at
+    the main-path shape equal to phase 20's results;
+    ``distributed_stream_count_matrix`` at 32,768 rows, superblock 8,192 (10
+    stripes), each stripe equal to ``count_block`` of its two superblocks;
+    acceptance config 5 at the JAX package's scaled size (2,048 × 65,536
+    bits), sampled-exact;
+33. a spawned group of four gloo ranks, every rank on this card (NCCL
+    refuses two ranks on one card): the ring, the bits axis (K2-tri), a
+    2 × 2 grid and the sharded K5 form at 8,192 × 262,144 bits (uniform
+    words, and an LD panel of 8 blocks), each equal on every rank to the
+    one-rank result of this process; K2-rect, K2-tri and K5 must launch on
+    every rank; each rank's ring step split into kernel and collectives.
 
 Phases 20-28 print each call's wall time and a ``[breakdown]`` of its
 stages (K2 by CUDA events, the screen, merge and bin passes, the summary
@@ -177,9 +199,10 @@ and word downloads, the refine), and K2's share of its bound; phases 25-28
 also K2's and the reduction's milliseconds a stripe.
 
 The lines before the last are a ``kernels`` JSON object (each kernel's
-launches on its main path, and during the streaming, query, tuning and
-acceptance phases) and the card's ``name, power.limit``; the last line is
-the result object.
+launches on its main path, and during the streaming, query, tuning,
+acceptance and parallel phases; ``group_launches``: the least over phase
+33's ranks) and the card's ``name, power.limit``; the last line is the
+result object.
 """
 
 from __future__ import annotations
@@ -188,6 +211,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -267,6 +291,12 @@ CLI_TIMEOUT_S = 300
 # phase 29: a candidate whose one call takes longer is recorded by that call
 # (the plain popcount at 4096 x 65536 bits, 1.8 s, would take 20 s to time)
 TUNE_SLOW_PATH_S = 1.0
+# phase 32: a one-rank NCCL group; config 5's width, its rows cut to one card
+PAR_N, PAR_M = 16_384, 1 << 20
+PAR_STREAM_N, PAR_SB = 32_768, 8_192      # the streaming walk: 10 stripes
+# phase 33: a spawned gloo group, every rank on this card
+GROUP_RANKS, GROUP_N, GROUP_M = 4, 8_192, 262_144
+GROUP_TIMEOUT_S = 420
 # phase 31: rows of config 4's row-sum panel (its host bit-plane pass took 141 s
 # at the spec's 100,000 rows)
 ACCEPT_ROW_SUM_ROWS = 16_384
@@ -983,10 +1013,12 @@ def sparse_phases(torch, dev, cfg, rng) -> tuple:
     return [k3, k4], cfg3_b
 
 
-def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3_b) -> dict:
+def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3_b) -> tuple:
     """Phases 20 to 24: the analytics surface (``setops``, ``query``,
     ``cross``, ``clump``, ``stats``). Returns the launches of every kernel
-    over these phases' calls."""
+    over these phases' calls, those of phases 25 to 28, and what phase 32
+    holds its results to: phase 20's top-k values and count screen, and
+    phase 24's host matrix with its histogram."""
     import stormtpu_torch as st
     from stormtpu_torch import query, stream
     from stormtpu_torch.kernels import launch_counts, mxu, reset_launches
@@ -1148,6 +1180,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
         if not np.array_equal(vals[r], topk_of(c[r], TOPK_K, r)):
             raise AssertionError(f"topk_neighbors: rows {r0}.. differ from C's top {TOPK_K}")
         valid_indices("topk_neighbors", c[r], vals[r], idx[r], r)
+    kept = {"topk20": vals}
     print(f"[query] topk_neighbors(k={TOPK_K}) {n} rows: tile walk, launches {launched}; values "
           f"equal C's top {TOPK_K} off the diagonal, indices valid; warm wall {wall:.4f} s "
           f"(recorded)")
@@ -1158,6 +1191,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
         want=("k2_tri", "k0"), again=True)
     wi, wj = np.nonzero(np.triu(c >= t_count, 1))
     same_pairs("pairs_above count", got, (wi.astype(np.int32), wj.astype(np.int32), c[wi, wj]))
+    kept["screen20"] = (t_count, got)
     print(f"[query] pairs_above(count >= {t_count}): {got[0].size} pairs, equal to "
           f"np.nonzero(np.triu(C >= t, 1)) with values; launches {launched}; warm wall "
           f"{wall:.4f} s (recorded)")
@@ -1488,10 +1522,11 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
         cfg4=(bm4, got, v4, rows, rect, t4), ld=(bm_ld, ld_ref, t_ld), cfg3_b=cfg3_b,
         complete=(bm_d, bm_m, complete_pairs))
     bm4.clear_device_cache()
-    del bm4, words4, rect, v4, i4, bm_d, bm_m
+    kept["cfg4"] = (bm4, hist4, bw4)
+    del words4, rect, v4, i4, bm_d, bm_m
     if on_card:
         torch.cuda.empty_cache()
-    return total, streamed
+    return total, streamed, kept
 
 
 def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b,
@@ -1936,15 +1971,19 @@ def cli_phase(torch, dev, seed) -> None:
                 proc.kill()
                 proc.wait()
     for name, (rc, stdout, stderr, at) in done.items():
-        if (rc == 0) != (name != "scaling"):
+        if rc != 0:
             raise AssertionError(f"python -m stormtpu_torch {name}: exit {rc}\n{stderr[-3000:]}")
         print(f"[cli] python -m stormtpu_torch {' '.join(commands.get(name, [name]))[:60]}: "
               f"exit {rc}, done {at:.1f} s after the start")
     info = done["info"][1]
     if torch.cuda.get_device_name(0) not in info or "does not match" in info:
         raise AssertionError(f"info: {info}")
-    if "item 7" not in done["scaling"][2]:
-        raise AssertionError(f"scaling: {done['scaling'][2]}")
+    scal = json.loads(done["scaling"][1])
+    if (scal["platform"] != "gpu" or list(scal["results"]) != ["1"]
+            or "not a scaling figure" not in scal["note"]):
+        raise AssertionError(f"scaling: {done['scaling'][1]}")
+    print(f"[cli] scaling over one rank: {scal['results']['1']['seconds'] * 1e3:.2f} ms a ring "
+          f"of {scal['n']} x {scal['m_bits']} bits; {scal['note']}")
 
     def same(label, got, want):
         if not np.array_equal(np.asarray(got), np.asarray(want)):
@@ -2027,6 +2066,262 @@ def acceptance_phase(torch, dev) -> dict:
           f"{c4['aggregate_stats']['row_sums_seconds']:.2f} s; all four in {wall:.1f} s; "
           f"launches {launches}")
     return launches
+
+
+def parallel_phase(torch, dev, cfg, seed, k2_ops_per_s, main, ld, kept) -> tuple:
+    """Phase 32: ``stormtpu_torch.parallel`` over a one-rank NCCL group in
+    this process, each call held to the single-device result of an earlier
+    phase. Returns the launches of the phase's calls (reset before each,
+    read after) and the one-rank ring's timings for phase 33."""
+    import stormtpu_torch as st
+    from stormtpu_torch import acceptance, parallel as par
+    from stormtpu_torch.kernels import count_block_auto, launch_counts, mxu, reset_launches
+    from stormtpu_torch.parallel.allpairs import ring_count_rows
+    from stormtpu_torch.parallel.mesh import local_shard
+    from stormtpu_torch.stream import stripe_path
+
+    total = dict.fromkeys(("k2_tri", "k2_rect", "k5", "k1", "k0"), 0)
+
+    def run(label, fn, want=(), absent=()):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        if any(got[k] < 1 for k in want) or any(got[k] for k in absent):
+            raise AssertionError(f"{label}: launches {got}, want {want} and none of {absent}")
+        for k in total:
+            total[k] += got[k]
+        return out, wall, {k: v for k, v in got.items() if v}
+
+    mesh = par.make_row_mesh(device=dev)
+    if mesh.backend != ("nccl" if dev.type == "cuda" else "gloo") or mesh.size != 1:
+        raise AssertionError(f"want a one-rank NCCL group, got {mesh.backend} x {mesh.size}")
+    print(f"[parallel] one-rank {mesh.backend} group on {mesh.device}")
+
+    # rows axis at config 5's width, its rows cut to one card
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 32)
+    xd = torch.randint(-(1 << 31), 1 << 31, (PAR_N, PAR_M // 32), dtype=torch.int32, device=dev,
+                       generator=gen)
+    words = xd.cpu().numpy().view(np.uint32)
+    del xd
+    bm = st.BitMatrix.from_packed(words, PAR_M)
+    t0 = time.perf_counter()
+    want = st.intersect_count_matrix(bm, device=dev)  # the reference, not counted
+    wall_1 = time.perf_counter() - t0
+    got, wall, launched = run("distributed_count_matrix rows", lambda: par.distributed_count_matrix(
+        words, mesh=mesh), want=("k2_rect",))
+    if not np.array_equal(got, want):
+        raise AssertionError("distributed_count_matrix (rows) differs from intersect_count_matrix")
+    print(f"[parallel] distributed_count_matrix rows {PAR_N} x {PAR_M} bits: equal to "
+          f"intersect_count_matrix ({wall_1:.3f} s); wall {wall:.3f} s; launches {launched}")
+    # the ring alone on a shard already on the card, by CUDA events: its
+    # block kernel against the bound of the rectangle it computes
+    x_local = local_shard(words, (0, PAR_N), (0, PAR_M // 32), dev)
+    ring = ring_count_rows(mesh, "rows", PAR_N, count_block_auto)
+    ring_ms = cuda_ms(torch, lambda: ring(x_local), reps=3)
+    rect_bound = bound(2.0 * PAR_N * PAR_N * PAR_M, 4.0 * (2 * PAR_N * PAR_M // 32 + PAR_N ** 2),
+                       k2_ops_per_s)
+    print(f"[parallel] one-rank ring {PAR_N} x {PAR_M} bits: {ring_ms:.2f} ms a call (one step, "
+          f"no collective); the K2 rectangle's bound {rect_bound[0]:.2f} ms ({rect_bound[1]})")
+    del got, want, x_local, bm, words
+    torch.cuda.empty_cache()
+
+    # bits axis on phase 8's LD panel: K5's sharded work list, and K2-tri
+    bm_ld, ld_ref = ld
+    got, wall, launched = run("distributed_count_matrix bits (K5)", lambda:
+                              par.distributed_count_matrix(bm_ld.packed, mesh=mesh,
+                                                           shard_axis="bits"),
+                              want=("k5",), absent=("k2_tri",))
+    if not np.array_equal(got, ld_ref):
+        raise AssertionError("distributed_count_matrix bits (K5) differs from phase 8's matrix")
+    print(f"[parallel] distributed_count_matrix bits on the LD panel: the sharded K5 form, "
+          f"equal to phase 8's matrix; wall {wall:.3f} s; launches {launched}")
+    no_k5 = dataclasses.replace(cfg, clustered_work_fraction_threshold=0.0)
+    got, wall, launched = run("distributed_count_matrix bits (K2-tri)", lambda:
+                              par.distributed_count_matrix(bm_ld.packed, mesh=mesh, config=no_k5,
+                                                           shard_axis="bits"),
+                              want=("k2_tri",), absent=("k5",))
+    if not np.array_equal(got, ld_ref):
+        raise AssertionError("distributed_count_matrix bits (K2-tri) differs from phase 8's")
+    print(f"[parallel] distributed_count_matrix bits on the LD panel with the K5 test off: "
+          f"K2-tri and the sum, equal to phase 8's matrix; wall {wall:.3f} s; launches {launched}")
+    del got
+    torch.cuda.empty_cache()
+
+    # the stripe histogram on phase 24's config-4 matrix
+    bm4, hist4, bw4 = kept["cfg4"]
+    man, wall, launched = run("distributed_count_histogram stripes", lambda:
+                              par.distributed_count_histogram(
+                                  bm4, n_bins=CFG4_BINS, bin_width=bw4, mesh=mesh,
+                                  method="stripes", superblock_rows=SUPERBLOCK),
+                              want=("k2_rect",))
+    if not np.array_equal(man["hist"], hist4):
+        raise AssertionError("distributed_count_histogram differs from phase 24's histogram")
+    pairs4 = bm4.n * (bm4.n - 1) // 2
+    print(f"[parallel] distributed_count_histogram(method='stripes') {bm4.n} x {bm4.m_bits} bits "
+          f"({man['n_super'] * (man['n_super'] + 1) // 2} stripes of {man['superblock_rows']}): "
+          f"equal to phase 24's count_histogram; wall {wall:.3f} s = "
+          f"{pairs4 / wall / 1e9:.3f} G-pairs/s; launches {launched}")
+    del kept["cfg4"], bm4, man
+    torch.cuda.empty_cache()
+
+    # the ring queries at the main path's shape, held to phase 20's
+    bm_main, _ = main
+    (vals, idx), wall, launched = run("distributed_topk_neighbors", lambda:
+                                      par.distributed_topk_neighbors(bm_main, TOPK_K, mesh=mesh),
+                                      want=("k2_rect",))
+    if not np.array_equal(vals, kept["topk20"]):
+        raise AssertionError("distributed_topk_neighbors differs from phase 20's top-k values")
+    rows = np.repeat(np.arange(bm_main.n), TOPK_K)
+    chk = np.random.default_rng(seed).choice(rows.size, min(rows.size, 1 << 16), replace=False)
+    if not np.array_equal(sampled_counts(bm_main.packed, bm_main.packed, rows[chk],
+                                         idx.ravel()[chk]), vals.ravel()[chk]):
+        raise AssertionError("distributed_topk_neighbors: an index does not realize its count")
+    print(f"[parallel] distributed_topk_neighbors(k={TOPK_K}) {bm_main.n} x {bm_main.m_bits}: "
+          f"values equal phase 20's, {chk.size} sampled indices realize their counts; wall "
+          f"{wall:.3f} s; launches {launched}")
+    t20, screen20 = kept["screen20"]
+    got, wall, launched = run("distributed_pairs_above", lambda: par.distributed_pairs_above(
+        bm_main, t20, mesh=mesh), want=("k2_rect",))
+    if not all(np.array_equal(a, b) for a, b in zip(got, screen20)):
+        raise AssertionError("distributed_pairs_above differs from phase 20's pairs_above")
+    print(f"[parallel] distributed_pairs_above(count >= {t20}): {got[0].size} pairs equal to "
+          f"phase 20's; wall {wall:.3f} s; launches {launched}")
+
+    # the streaming walk at config 5's width: each stripe against
+    # count_block of its two superblocks
+    gen.manual_seed(seed + 320)
+    xd = torch.randint(-(1 << 31), 1 << 31, (PAR_STREAM_N, PAR_M // 32), dtype=torch.int32,
+                       device=dev, generator=gen)
+    bms = st.BitMatrix.from_packed(xd.cpu().numpy().view(np.uint32), PAR_M)
+    out_dir = tempfile.mkdtemp(prefix="stpu_dstream_")
+    try:
+        man, wall, launched = run("distributed_stream_count_matrix", lambda:
+                                  par.distributed_stream_count_matrix(
+                                      bms, out_dir, superblock_rows=PAR_SB, mesh=mesh,
+                                      compress=False), want=("k2_rect",))
+        n_super = PAR_STREAM_N // PAR_SB
+        if man["kernel"] != "distributed" or len(man["completed"]) != n_super * (n_super + 1) // 2:
+            raise AssertionError(f"distributed_stream_count_matrix: {man['completed']}")
+        for i, j in man["completed"]:
+            with np.load(stripe_path(out_dir, i, j)) as z:
+                stripe = z["counts"]
+            ref = mxu.count_block_pallas_mxu(xd[i * PAR_SB : (i + 1) * PAR_SB],
+                                             xd[j * PAR_SB : (j + 1) * PAR_SB])
+            if not np.array_equal(stripe, ref.cpu().numpy()):
+                raise AssertionError(f"stripe ({i}, {j}) differs from count_block")
+        stripes = len(man["completed"])
+        print(f"[parallel] distributed_stream_count_matrix {PAR_STREAM_N} x {PAR_M} bits at "
+              f"superblock {PAR_SB}: {stripes} stripes, each equal to count_block of its two "
+              f"superblocks; wall {wall:.3f} s ({wall / stripes:.3f} s a stripe, uncompressed "
+              f"files); launches {launched}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del xd, bms
+    torch.cuda.empty_cache()
+
+    # acceptance config 5 at the JAX package's scaled size
+    out = os.path.join(tempfile.mkdtemp(prefix="stpu_accept5_"), "acceptance.json")
+    (entry,), wall, launched = run("acceptance config 5", lambda: acceptance.run_acceptance(
+        [5], log=print, out_path=out, device=dev), want=("k2_rect",))
+    if not entry["exact_sampled"] or entry["devices"] != 1:
+        raise AssertionError(f"acceptance config 5: {entry}")
+    print(f"[parallel] acceptance config 5 ({entry['n']} x 65536 bits, one rank): sampled-exact, "
+          f"{entry['pairs_per_s']:.4g} pairs/s one call, {entry['sustained_pairs_per_s']:.4g} "
+          f"sustained; wall {wall:.2f} s; launches {launched}; {entry['device']}, "
+          f"{entry['power_limit']}")
+    print(f"[parallel] phase 32 launches: {total}")
+    return total, {"ring_ms": ring_ms, "rect_bound_ms": rect_bound[0]}
+
+
+def _group_rank(device: str, paths: dict) -> dict:
+    """One rank of phase 33's group: the ring, the bits axis, the 2×2 grid
+    and the sharded K5 form, each held to the one-rank result; the launches
+    of those calls; the ring's stages recorded on one more call."""
+    from stormtpu_torch import parallel as par
+    from stormtpu_torch.kernels import launch_counts, reset_launches
+    from stormtpu_torch.stream import record_stages
+
+    uni = np.load(paths["uniform"])
+    ld = np.load(paths["ld"])
+    row = par.make_row_mesh(GROUP_RANKS, device=device)
+    grid = par.make_grid_mesh(2, 2, device=device)
+    calls = {
+        "rows": (lambda: par.distributed_count_matrix(uni, mesh=row), "c_uniform"),
+        "bits": (lambda: par.distributed_count_matrix(uni, mesh=row, shard_axis="bits"),
+                 "c_uniform"),
+        "grid 2x2": (lambda: par.distributed_count_matrix(uni, mesh=grid), "c_uniform"),
+        "bits K5": (lambda: par.distributed_count_matrix(ld, mesh=row, shard_axis="bits"),
+                    "c_ld"),
+    }
+    out = {"wall": {}, "diff": {}}
+    reset_launches()
+    for name, (fn, ref) in calls.items():
+        t0 = time.perf_counter()
+        got = fn()
+        out["wall"][name] = time.perf_counter() - t0
+        out["diff"][name] = int((got != np.load(paths[ref], mmap_mode="r")).sum())
+    out["launches"] = launch_counts()
+    with record_stages() as rec:
+        par.distributed_count_matrix(uni, mesh=row)
+    out["stages_s"] = dict(rec.seconds)
+    out["stages_ms"] = dict(rec.device_ms)
+    return out
+
+
+def group_phase(torch, dev, seed, par_timings) -> dict:
+    """Phase 33: a spawned group of ``GROUP_RANKS`` gloo ranks, every rank on
+    this card (NCCL refuses two ranks on one card), each running the ring,
+    the bits axis, the 2×2 grid and the sharded K5 form at 8,192 × 262,144
+    bits, held to the one-rank results of this process. Returns the least
+    launches of each kernel over the ranks."""
+    from stormtpu_torch import parallel as par
+    from stormtpu_torch.parallel.dryrun import run_group
+
+    torch.cuda.empty_cache()
+    mesh = par.make_row_mesh(device=dev)
+    rng = np.random.default_rng(seed + 33)
+    uniform = rng.integers(0, 1 << 32, (GROUP_N, GROUP_M // 32), dtype=np.uint32)
+    ld, _, _ = ld_panel(rng, GROUP_N, GROUP_M, 8, LD_DENSITY, bit_avoid=4096)
+    tmp = tempfile.mkdtemp(prefix="stpu_group_")
+    try:
+        paths = {k: os.path.join(tmp, f"{k}.npy") for k in ("uniform", "ld", "c_uniform", "c_ld")}
+        np.save(paths["uniform"], uniform)
+        np.save(paths["ld"], ld)
+        np.save(paths["c_uniform"], par.distributed_count_matrix(uniform, mesh=mesh))
+        np.save(paths["c_ld"], par.distributed_count_matrix(ld, mesh=mesh, shard_axis="bits"))
+        del uniform, ld
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        where = f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu"
+        ranks = run_group(GROUP_RANKS, "gloo", where, _group_rank, paths,
+                          timeout=GROUP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rk, out in enumerate(ranks):
+        bad = {k: v for k, v in out["diff"].items() if v}
+        if bad:
+            raise AssertionError(f"phase 33 rank {rk}: entries differ from one rank's: {bad}")
+        low = [k for k in ("k2_rect", "k2_tri", "k5") if out["launches"][k] < 1]
+        if low:
+            raise AssertionError(f"phase 33 rank {rk}: {low} did not launch ({out['launches']})")
+        steps = GROUP_RANKS // 2 + 1
+        st_s, st_ms = out["stages_s"], out["stages_ms"]
+        print(f"[group] rank {rk}: " + ", ".join(f"{k} {v:.2f} s" for k, v in out["wall"].items())
+              + f", all equal to one rank's; launches {out['launches']}; a ring step: kernel "
+              f"{st_ms.get('kernel', 0) / steps:.2f} ms by events ({st_s.get('kernel', 0) / steps * 1e3:.2f} "
+              f"ms host), collectives {st_s.get('collective', 0) / steps * 1e3:.2f} ms host "
+              f"(gloo through page-locked host memory)")
+    least = {k: min(out["launches"][k] for out in ranks) for k in ("k2_rect", "k2_tri", "k5")}
+    print(f"[group] {GROUP_RANKS} gloo ranks on one card, spawned and joined in {wall:.1f} s; "
+          f"least launches over the ranks {least}; the one-rank ring at phase 32's shape took "
+          f"{par_timings['ring_ms']:.2f} ms (bound {par_timings['rect_bound_ms']:.2f} ms)")
+    return least
 
 
 def ld_ref_samples(ref: np.ndarray, man: dict) -> np.ndarray:
@@ -2778,10 +3073,17 @@ def main(argv=None) -> int:
 
     stream_launches = stream_phases(torch, dev, cfg, rng, args.seed, bm_ld, ld_ref, k2_ops_per_s)
     sparse_kernels, cfg3_b = sparse_phases(torch, dev, cfg, rng)
-    query_launches, sq_launches = query_phases(
+    query_launches, sq_launches, kept = query_phases(
         torch, dev, cfg, rng, args.seed, k2_ops_per_s, main=(bm, main_out), block=(bm_a, blk),
         ld=(bm_ld, ld_ref), cfg3_b=cfg3_b)
-    del main_out, blk, ld_ref, bm_ld, cfg3_b
+    del blk, cfg3_b
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    par_launches, par_timings = parallel_phase(
+        torch, dev, cfg, args.seed, k2_ops_per_s, main=(bm, main_out), ld=(bm_ld, ld_ref),
+        kept=kept)
+    print(f"[parallel] phase 32 took {time.perf_counter() - t0:.1f} s")
+    del main_out, ld_ref, bm_ld, kept
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2793,7 +3095,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     accept_launches = acceptance_phase(torch, dev)
     print(f"[accept] phase 31 took {time.perf_counter() - t0:.1f} s")
-    later = {"tune_launches": tune_launches, "accept_launches": accept_launches}
+    t0 = time.perf_counter()
+    group_launches = group_phase(torch, dev, args.seed, par_timings)
+    print(f"[group] phase 33 took {time.perf_counter() - t0:.1f} s")
+    later = {"tune_launches": tune_launches, "accept_launches": accept_launches,
+             "parallel_launches": par_launches, "group_launches": group_launches}
 
     src_k2 = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
     src_k1 = "stormtpu_torch/kernels/csrc/k1_dense.cu"

@@ -12,7 +12,9 @@ directories are interchangeable with ``stormtpu.stream``'s). The analytics surfa
 set-operation and similarity matrices (``setops``), top-k neighbours, pair
 counts and threshold screens (``query``, ``cross``), LD clumping
 (``clump``), and row sums, column counts and pair-count histograms
-(``stats``).
+(``stats``). ``stormtpu_torch.parallel`` runs them across the ranks of a
+``torch.distributed`` group, a device a rank (NCCL on cards, gloo on the
+CPU).
 """
 
 from stormtpu_torch.api import count_block, intersect_count_matrix, pair_count

@@ -1,4 +1,4 @@
-"""Acceptance runs of ``BASELINE.json`` configs 1–4 (port of
+"""Acceptance runs of ``BASELINE.json`` configs 1–5 (port of
 ``stormtpu/acceptance.py``).
 
 Each config runs end to end on the device, is checked against the exact
@@ -9,13 +9,15 @@ the card each config also runs its full-scale parts: config 3's full
 its full checksum walk and its aggregate sinks, each on an operand made on
 the card from its seed.
 
-  python -m stormtpu_torch accept              # configs 1-4
+  python -m stormtpu_torch accept              # configs 1-5
   python -m stormtpu_torch accept --config 3   # one config
   python -m stormtpu_torch accept --full       # spec sizes everywhere
 
-Config 5 (multi-host) needs ``parallel/``, which the port does not have yet
-(ROADMAP.md §1 item 7): asking for it raises before anything runs. Each
-entry is stamped with the device's name and power limit.
+Config 5 (multi-host, row-sharded all-pairs with a collective merge) runs
+the ring of ``stormtpu_torch.parallel`` over the process group this
+process is in: under ``torchrun`` every rank runs it, on its own card;
+alone, a one-rank group. Each entry is stamped with the device's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -31,12 +33,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-__all__ = ["run_acceptance", "CONFIGS", "CONFIG5_MESSAGE"]
+__all__ = ["run_acceptance", "CONFIGS"]
 
-CONFIG5_MESSAGE = (
-    "config 5 (multi-host, row-sharded all-pairs) needs stormtpu_torch.parallel, "
-    "which is not ported yet (ROADMAP.md §1 item 7)"
-)
 #: rows of config 4's row-sum panel on the card (the spec's 100,000)
 CONFIG4_ROW_SUM_ROWS = 100_000
 
@@ -475,11 +473,58 @@ def config4_mxu_stream(full: bool, log, device) -> dict:
     return result
 
 
+#: config 5's scaled size, the JAX package's: rows × bits
+CONFIG5_SCALED = (2_048, 65_536)
+
+
+def config5_multihost(full: bool, log, device) -> dict:
+    """Multi-host row-sharded all-pairs with a collective merge (B:11), over
+    every rank of this process's group (scaled: ``CONFIG5_SCALED``; one card
+    gives a one-rank ring)."""
+    from stormtpu_torch.kernels import count_block_auto
+    from stormtpu_torch.parallel import distributed_count_matrix, make_row_mesh
+    from stormtpu_torch.parallel.allpairs import ring_count_rows
+    from stormtpu_torch.parallel.mesh import local_shard
+    from stormtpu_torch.utils import round_up
+    from stormtpu_torch.utils.profiling import timeit_sustained_auto
+
+    n = 1_000_000 if full else CONFIG5_SCALED[0]
+    m = CONFIG5_SCALED[1]
+    packed = _random_packed(n, m // 32, seed=105)
+    mesh = make_row_mesh(device=device)
+    t0 = time.perf_counter()
+    got = distributed_count_matrix(packed, mesh=mesh)
+    dt = time.perf_counter() - t0
+    _sample_verify(lambda ii, jj: got[ii, jj], packed, n, 2048, seed=105)
+    pairs = float(n) * n
+    # the ring alone, on shards already on the device: the trend number
+    axis = mesh.axis_names[0]
+    r = mesh.shape[axis]
+    n_loc = round_up(max(n, r), r * 8) // r
+    i = mesh.axis_index(axis)
+    rows = (i * n_loc, (i + 1) * n_loc)
+    xs = [local_shard(packed if s == 0 else _random_packed(n, m // 32, seed=500 + s), rows,
+                      (0, m // 32), mesh.device) for s in range(3)]
+    ring = ring_count_rows(mesh, axis, n_loc, count_block_auto)
+    dt_s = timeit_sustained_auto(ring, xs)
+    log(f"[config5] {n} rows over a {r}-rank ring ({mesh.backend}) sampled-exact; "
+        f"{dt:.3f} s → {pairs / dt / 1e6:.1f} M-pairs/s wall, sustained "
+        f"{pairs / dt_s / 1e6:.1f} M-pairs/s")
+    return {"config": 5, "n": n, "devices": mesh.size, "exact_sampled": True,
+            "seconds": dt, "pairs_per_s": pairs / dt, "latency_bound": not full,
+            "sustained_pairs_per_s": pairs / dt_s,
+            "note": "seconds is one call (shards up, the ring, the gather to every "
+            "rank); sustained_pairs_per_s times this rank's ring alone on shards "
+            "already on its device; a scaling figure needs ranks on distinct cards "
+            "(parallel.measure_scaling)"}
+
+
 CONFIGS = {
     1: config1_single_pair,
     2: config2_allpairs_dense,
     3: config3_sparse,
     4: config4_mxu_stream,
+    5: config5_multihost,
 }
 
 
@@ -507,20 +552,16 @@ def run_acceptance(
     *,
     device=None,
 ) -> list[dict]:
-    """Run the requested configs (default 1–4) on ``device`` (``None``: the
-    card) and MERGE their entries into ``out_path``: entries of configs not
-    run this time are kept. Returns the entries run this time. Asking for
-    config 5 raises ``NotImplementedError`` before anything runs."""
-    from stormtpu_torch.utils import resolve_device
+    """Run the requested configs (default 1–5) on ``device`` (``None``: the
+    card; under ``torchrun`` this rank's card) and MERGE their entries into
+    ``out_path``: entries of configs not run this time are kept. Returns the
+    entries run this time."""
+    from stormtpu_torch.parallel.mesh import rank_device
 
-    dev = resolve_device(device)
-    if configs and 5 in configs:
-        raise NotImplementedError(CONFIG5_MESSAGE)
+    dev = rank_device(device)
     unknown = [c for c in configs or () if c not in CONFIGS]
     if unknown:
-        raise ValueError(f"unknown acceptance config(s) {unknown}; want 1-4")
-    if not configs:
-        log(f"[accept] configs 1-4; {CONFIG5_MESSAGE}")
+        raise ValueError(f"unknown acceptance config(s) {unknown}; want 1-5")
     stamp = _device_stamp(dev)
     log(f"[accept] {stamp['device']}, power limit {stamp['power_limit']}")
     ran: dict[int, dict] = {}

@@ -21,10 +21,6 @@ import time
 import numpy as np
 
 _MEASURES = ("count", "jaccard", "dice", "cosine", "overlap", "phi", "r2")
-SCALING_MESSAGE = (
-    "scaling needs stormtpu_torch.parallel (multi-card ring driver), which is "
-    "not ported yet (ROADMAP.md §1 item 7)"
-)
 
 
 def _log(msg: str) -> None:
@@ -100,8 +96,13 @@ def cmd_sweep(args: argparse.Namespace) -> int:
 
 
 def cmd_scaling(args: argparse.Namespace) -> int:
-    print(SCALING_MESSAGE, file=sys.stderr)
-    return 2
+    import json
+
+    from stormtpu_torch.parallel.scaling import measure_scaling
+
+    out = measure_scaling(n=args.n, m_bits=args.m, reps=args.reps, log=_log, device=args.dev)
+    print(json.dumps(out, indent=2, default=float))
+    return 0
 
 
 def cmd_tune(args: argparse.Namespace) -> int:
@@ -118,12 +119,7 @@ def cmd_tune(args: argparse.Namespace) -> int:
 def cmd_accept(args: argparse.Namespace) -> int:
     from stormtpu_torch.acceptance import run_acceptance
 
-    try:
-        run_acceptance(args.config, full=args.full, log=_log, out_path=args.out,
-                       device=args.dev)
-    except NotImplementedError as e:
-        print(f"accept: {e}", file=sys.stderr)
-        return 2
+    run_acceptance(args.config, full=args.full, log=_log, out_path=args.out, device=args.dev)
     return 0
 
 
@@ -378,12 +374,12 @@ def _parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("accept", help="run the BASELINE acceptance configs (checked, timed)")
     sp.add_argument("--config", type=int, action="append", default=None,
-                    help="config id 1-4 (repeatable; default all); 5 needs parallel/")
+                    help="config id 1-5 (repeatable; default all)")
     sp.add_argument("--full", action="store_true", help="spec sizes instead of scaled")
     sp.add_argument("--out", default="acceptance.json")
     sp.set_defaults(fn=cmd_accept)
 
-    sp = sub.add_parser("scaling", help="ring-driver scaling efficiency (needs parallel/)")
+    sp = sub.add_parser("scaling", help="ring scaling efficiency across rank counts")
     sp.add_argument("--n", type=int, default=2048)
     sp.add_argument("--m", type=int, default=65536)
     sp.add_argument("--reps", type=int, default=2)

@@ -66,8 +66,10 @@ __all__ = [
     "LAUNCHES",
     "ClusteredPlan",
     "DeviceWorklist",
+    "ShardedClusteredPlan",
     "StripeWorklist",
     "build_clustered_plan",
+    "build_sharded_clustered_plan",
     "build_stripe_worklist",
     "check_worklist",
     "clustered_work_fraction",
@@ -76,6 +78,7 @@ __all__ = [
     "count_tiles_worklist_plain",
     "device_operand",
     "device_worklist",
+    "pack_sharded_clustered_operand",
     "padded_operand",
     "reset_launches",
     "schedule_units",
@@ -294,6 +297,139 @@ def build_stripe_worklist(
         vis_loc_i=loc_i[visited], vis_loc_j=loc_j[visited],
         n_slots=n_slots, n_vis=n_vis, n_work=n_work,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedClusteredPlan:
+    """Per-rank work lists for the bits-axis (K-shard) K5 form, the arrays
+    of the JAX package's planner.
+
+    Every rank covers the SAME output slot set (the union of tile pairs
+    co-occupied in ANY word slice) so that the int32 tile partials can be
+    summed over the ranks; a rank whose slice never touches a slot gets one
+    filler item on its local all-zero K-group with ``first=1`` (an exact
+    zero tile). The padded operand has one zero K-group at the END of every
+    rank's word slice, for the fillers and the tail padding."""
+
+    ti: int
+    wk: int
+    n_pad: int
+    w_pad: int              # R · (gpd + 1) · wk, a zero group per slice
+    nb: int
+    gpd: int                # real K-groups per rank
+    r: int                  # ranks
+    slot_ibs: np.ndarray    # int32 [P] (real visited pairs)
+    slot_jbs: np.ndarray    # int32 [P]
+    n_slots: int            # bucket-padded kernel output slots (≥ P)
+    ibs_w: np.ndarray       # int32 [R, T_pad]
+    jbs_w: np.ndarray       # int32 [R, T_pad]
+    gsel_w: np.ndarray      # int32 [R, T_pad] LOCAL group ids
+    slots_w: np.ndarray     # int32 [R, T_pad]
+    first_w: np.ndarray     # int32 [R, T_pad]
+    work_fraction: float
+
+
+def build_sharded_clustered_plan(
+    bm, r: int, config: Optional[EngineConfig] = None
+) -> Optional[ShardedClusteredPlan]:
+    """Bits-axis K5 planning over ``r`` word shards (wk = 128 words per
+    K-group), a copy of the JAX package's planner. None when the geometry
+    degenerates (fewer than one real group per rank, or nothing
+    co-occupies)."""
+    cfg = config or default_config()
+    n, w = bm.n, bm.n_words
+    if n == 0 or w == 0:
+        return None
+    wk = 128
+    ti = min(cfg.k2_tile_rows, round_up(max(n, 32), 32))
+    gpd = -(-w // (r * wk))         # real groups per rank (ceil)
+    if gpd < 1:
+        return None
+    ng = gpd * r
+    n_pad = round_up(n, ti)
+    nb = n_pad // ti
+    # global group occupancy at wk granularity, OR-reduced per tile block
+    occ_rows = bm.block_summary(block_bits=wk * WORD_BITS).astype(bool)
+    occ = np.zeros((nb * ti, ng), dtype=bool)
+    occ[:n, : occ_rows.shape[1]] = occ_rows
+    occ = occ.reshape(nb, ti, ng).any(axis=1)   # [nb, ng]
+
+    ibs_t, jbs_t = np.triu_indices(nb)
+    co = occ[ibs_t] & occ[jbs_t]                # [T_tri, ng]
+    pair_idx, group_idx = np.nonzero(co)
+    if pair_idx.size == 0:
+        return None
+    work_fraction = pair_idx.size / float(ibs_t.size * ng)
+    visited, slot_global = np.unique(pair_idx, return_inverse=True)
+    p = visited.size
+    # bucket the shared slot count: pad slots are zero-written on EVERY
+    # rank (they land in each rank's filler set below), so the summed
+    # partials stay exact
+    n_slots = quantize_bucket(p)
+    slot_ibs = ibs_t[visited].astype(np.int32)
+    slot_jbs = jbs_t[visited].astype(np.int32)
+    lut_ibs = np.concatenate([slot_ibs, np.zeros(n_slots - p, dtype=np.int32)])
+    lut_jbs = np.concatenate([slot_jbs, np.zeros(n_slots - p, dtype=np.int32)])
+
+    dev_of_item = group_idx // gpd
+    lists = []
+    for d in range(r):
+        sel = dev_of_item == d
+        sl = slot_global[sel]
+        gl = (group_idx[sel] - d * gpd).astype(np.int64)
+        # fillers: slots this slice never touches (the bucket pad slots
+        # included) → local zero group (index gpd), first=1 zero-writes
+        missing = np.setdiff1d(np.arange(n_slots), sl, assume_unique=False)
+        sl = np.concatenate([sl, missing])
+        gl = np.concatenate([gl, np.full(missing.size, gpd, dtype=np.int64)])
+        order = np.argsort(sl, kind="stable")
+        sl, gl = sl[order], gl[order]
+        first = np.empty(sl.size, dtype=np.int32)
+        first[0] = 1
+        first[1:] = (sl[1:] != sl[:-1]).astype(np.int32)
+        lists.append((sl, gl, first))
+
+    t_pad = quantize_bucket(max(sl.size for sl, _, _ in lists))
+    ibs_w = np.empty((r, t_pad), dtype=np.int32)
+    jbs_w = np.empty((r, t_pad), dtype=np.int32)
+    gsel_w = np.empty((r, t_pad), dtype=np.int32)
+    slots_w = np.empty((r, t_pad), dtype=np.int32)
+    first_w = np.zeros((r, t_pad), dtype=np.int32)
+    for d, (sl, gl, first) in enumerate(lists):
+        k = sl.size
+        ibs_w[d, :k] = lut_ibs[sl]
+        jbs_w[d, :k] = lut_jbs[sl]
+        gsel_w[d, :k] = gl
+        slots_w[d, :k] = sl
+        first_w[d, :k] = first
+        # tail padding: no-op items into the last slot via the zero group
+        ibs_w[d, k:] = lut_ibs[sl[-1]]
+        jbs_w[d, k:] = lut_jbs[sl[-1]]
+        gsel_w[d, k:] = gpd
+        slots_w[d, k:] = sl[-1]
+
+    return ShardedClusteredPlan(
+        ti=ti, wk=wk, n_pad=n_pad, w_pad=r * (gpd + 1) * wk, nb=nb,
+        gpd=gpd, r=r, slot_ibs=slot_ibs, slot_jbs=slot_jbs,
+        n_slots=n_slots,
+        ibs_w=ibs_w, jbs_w=jbs_w, gsel_w=gsel_w, slots_w=slots_w,
+        first_w=first_w, work_fraction=work_fraction,
+    )
+
+
+def pack_sharded_clustered_operand(bm, plan: ShardedClusteredPlan) -> np.ndarray:
+    """Host-padded operand uint32 [n_pad, w_pad] laid out so that cutting
+    it into ``r`` equal word slices gives every rank [real groups | one
+    zero group]."""
+    per_dev = (plan.gpd + 1) * plan.wk
+    xp = np.zeros((plan.n_pad, plan.r * per_dev), dtype=np.uint32)
+    w = bm.n_words
+    for d in range(plan.r):
+        src0 = d * plan.gpd * plan.wk
+        src1 = min(src0 + plan.gpd * plan.wk, w)
+        if src1 > src0:
+            xp[: bm.n, d * per_dev : d * per_dev + (src1 - src0)] = bm.packed[:, src0:src1]
+    return xp
 
 
 # ----------------------------------------------------------------- plain form
@@ -515,12 +651,18 @@ def device_operand(bm, plan: ClusteredPlan, device) -> torch.Tensor:
 def device_worklist(
     plan, device, *, nb: Optional[int] = None, ng: Optional[int] = None,
     tile_rows: Optional[int] = None, ibs_shift: int = 0, jbs_shift: int = 0,
+    shard: Optional[int] = None,
 ) -> DeviceWorklist:
     """The real work items (ibs, jbs, gsel, slots, first) of a
     :class:`ClusteredPlan` or a :class:`StripeWorklist` on ``device``, for
     its visited slots only: checked here, on the host arrays, and on the
     card scheduled for the kernel, so that :func:`count_tiles_worklist`
     reads nothing back. The five arrays go up in one copy.
+
+    Of a :class:`ShardedClusteredPlan`, the list of rank ``shard`` over all
+    ``n_slots`` slots (every rank writes every slot, so that the partials
+    sum), its fillers included, without the tail's no-op items (zero group,
+    ``first=0``), for an operand of that rank's word slice.
 
     A stripe's work list carries no geometry: ``nb``, ``ng`` (row blocks
     and K-groups of the operand it will run on, the zero pad group
@@ -533,8 +675,17 @@ def device_worklist(
     CUDA kernel compiles once and zeroes a slot no item visits, so the
     padding is pure cost here, and a serial one: every tail item lands in
     the last slot, whose blocks walk them one by one."""
-    k = plan.n_work
-    if isinstance(plan, ClusteredPlan):
+    if isinstance(plan, ShardedClusteredPlan):
+        if shard is None:
+            raise ValueError("a sharded plan's work list needs shard=")
+        arrays = (plan.ibs_w[shard], plan.jbs_w[shard], plan.gsel_w[shard],
+                  plan.slots_w[shard], plan.first_w[shard])
+        keep = (arrays[2] != plan.gpd) | (arrays[4] != 0)
+        arrays = tuple(a[keep] for a in arrays)
+        k = arrays[0].size
+        n_slots, tile_rows, nb, ng = plan.n_slots, plan.ti, plan.nb, plan.gpd + 1
+    elif isinstance(plan, ClusteredPlan):
+        k = plan.n_work
         arrays = (plan.ibs_w, plan.jbs_w, plan.gsel_w, plan.slots_w, plan.first_w)
         n_slots, tile_rows, nb = plan.slot_ibs.size, plan.ti, plan.nb
         # ids up to the operand's pad group (device_operand) are in range
@@ -543,6 +694,7 @@ def device_worklist(
         if nb is None or ng is None or tile_rows is None:
             raise ValueError("a stripe work list needs nb, ng and tile_rows")
         arrays = (plan.ibs, plan.jbs, plan.gsel, plan.slots, plan.first)
+        k = plan.n_work
         n_slots = plan.n_vis
     host = np.stack([a[:k] for a in arrays])
     host[0] -= ibs_shift

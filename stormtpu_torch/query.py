@@ -449,7 +449,8 @@ def _merge_sets(best_v: torch.Tensor, best_i: torch.Tensor, tgt: np.ndarray,
     best_i[rows_b] = idx[pick]
 
 
-def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str):
+def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str,
+                    psum=None):
     """Triangular top-k: the K2 tile walk with a running per-row top-k,
     ``best`` (values, indices) [n_pad, k] on the device.
 
@@ -465,7 +466,13 @@ def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str)
     operations a chunk, in any tile order.
 
     Values equal the reference's; the order among equal values is the
-    sort's."""
+    sort's.
+
+    ``psum``: when set, ``packed`` is one rank's WORD slice and each
+    chunk's count tiles are int32 K-partials; ``psum(tiles)`` sums them
+    over the ranks to the exact tiles before any top-k touches them (the
+    bits-axis form of ``parallel.query``). The merge then runs on the same
+    exact tiles on every rank."""
     dev = packed.device
     n_pad = packed.shape[0]
     kk = min(k, ti)
@@ -476,6 +483,8 @@ def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str)
     for c0 in range(0, ibs.size, chunk):
         ib_c, jb_c = ibs[c0 : c0 + chunk], jbs[c0 : c0 + chunk]
         tiles, ids = _chunk_tiles(packed, ib_c, jb_c, ti, wk, variant)
+        if psum is not None:
+            tiles = psum(tiles)
         with _stage("merge", dev):
             diag = np.flatnonzero(ib_c == jb_c)
             off = np.flatnonzero(ib_c != jb_c)
@@ -730,12 +739,18 @@ def pairs_above(
             bm.device_padded(n_pad, device=dev), dev_thresh,
             bm.device_nnz(n_pad, device=dev), block_rows, measure, m_f,
         )
+    return _pairs_of_hits(bm, hits_d, summary_d, measure, threshold, dev)
+
+
+def _pairs_of_hits(bm, hits_d, summary_d, measure: str, threshold: float, device):
+    """The screen's pairs from a device hit bitmap and its word summary:
+    the two-phase download, the expansion to COO and the exact refine."""
     wi_r, wi_w, words = _fetch_hit_words(hits_d, summary_d, bm.n)
     del hits_d, summary_d
     if wi_r is None:
-        return _expand_and_refine(bm, words, measure, threshold, dev)
+        return _expand_and_refine(bm, words, measure, threshold, device)
     ii, jj = _expand_bits(bm, wi_r, wi_w, words)
-    return _refine(bm, ii, jj, measure, threshold, dev)
+    return _refine(bm, ii, jj, measure, threshold, device)
 
 
 # Words expanded per host chunk (~0.5 GB transient of unpacked bits).

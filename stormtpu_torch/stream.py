@@ -1452,16 +1452,13 @@ def extend_streamed_matrix(
     with the active tile config (else stripes from the two runs would
     misalign under the same file names — refused up front).
 
-    ``mesh``: the JAX package extends through its distributed walk; the
-    port has none yet and raises ``NotImplementedError``. Returns the new
-    manifest.
+    ``mesh``: extend through ``parallel.distributed_stream_count_matrix``
+    instead of the single-device walk (same directory format; formats may
+    mix — ``load_streamed_matrix`` reads file by file). Every rank of the
+    mesh calls it; the mesh's first rank deletes and writes. Returns the
+    new manifest.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "extend_streamed_matrix(mesh=...) is not ported to stormtpu_torch "
-            "yet (ROADMAP.md §1 item 10: parallel/)"
-        )
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     man_path = os.path.join(out_dir, "manifest.json")
     with open(man_path) as f:
         old = json.load(f)
@@ -1478,10 +1475,16 @@ def extend_streamed_matrix(
             f"appended; shrinking needs a fresh directory)"
         )
     cfg = config or default_config()
-    # predict the walk's kernel with the walk's own policy so the modulus
-    # check matches exactly what the resumed run will round by
-    resolved = _resolve_stream_kernel(bm, kernel, cfg, device)
-    mod = _stream_tile_modulus(resolved, cfg)
+    resolved = None
+    if mesh is None:
+        # predict the walk's kernel with the walk's own policy so the
+        # modulus check matches exactly what the resumed run will round by
+        resolved = _resolve_stream_kernel(bm, kernel, cfg, device)
+        mod = _stream_tile_modulus(resolved, cfg)
+    else:
+        # the distributed walk rounds by the ROW axis only, not by every
+        # rank of a 2-D mesh
+        mod = mesh.shape[mesh.axis_names[0]] * 8
     if sb % mod:
         raise ValueError(
             f"extend: superblock_rows={sb} is not a multiple of the "
@@ -1518,7 +1521,7 @@ def extend_streamed_matrix(
                 "mismatch) — reusing its stripes would splice two "
                 "different matrices"
             )
-    if old_n % sb:
+    if old_n % sb and (mesh is None or mesh.is_writer()):
         # the old last superblock was partial: its zero-padded rows now
         # hold data, so every stripe touching it is stale
         last = old_n // sb
@@ -1529,10 +1532,20 @@ def extend_streamed_matrix(
                     p = stripe_path(out_dir, i, j)
                     if os.path.exists(p):
                         os.remove(p)
-    man = stream_count_matrix(
-        bm, out_dir, superblock_rows=sb, kernel=kernel, config=cfg,
-        resume=True, compress=compress, progress=progress, device=dev,
-    )
+    if mesh is not None:
+        from stormtpu_torch.parallel.mesh import barrier
+        from stormtpu_torch.parallel.multihost import distributed_stream_count_matrix
+
+        barrier(mesh)  # no rank may see a stale stripe as done
+        man = distributed_stream_count_matrix(
+            bm, out_dir, superblock_rows=sb, mesh=mesh, config=cfg,
+            resume=True, compress=compress, progress=progress,
+        )
+    else:
+        man = stream_count_matrix(
+            bm, out_dir, superblock_rows=sb, kernel=kernel, config=cfg,
+            resume=True, compress=compress, progress=progress, device=dev,
+        )
     carry = old_ti is not None and man.get("tile_rows") != old_ti and (
         man.get("tile_rows") is None  # new walk dropped the key entirely
         # clustered→clustered ti drift was refused above; over a clustered
@@ -1541,6 +1554,9 @@ def extend_streamed_matrix(
     )
     if carry:
         man["tile_rows"] = old_ti
-        with open(man_path, "w") as f:
-            json.dump(man, f, default=int)
+        if mesh is None or mesh.is_writer():
+            with open(man_path, "w") as f:
+                json.dump(man, f, default=int)
+        if mesh is not None:
+            barrier(mesh)  # every rank returns after the manifest is in place
     return man

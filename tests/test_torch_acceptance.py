@@ -62,20 +62,26 @@ def test_run_acceptance_merges_partial_runs(tmp_path, monkeypatch):
 
 
 def test_config5_is_refused_and_the_default_runs_1_to_4(tmp_path, monkeypatch):
+    """Config 5 runs (here a one-rank gloo group at 128 of its 2,048 rows:
+    tests/test_torch_multihost.py runs its full scaled size over 8 ranks)
+    and is sampled-exact; the default runs configs 1-5, as the JAX
+    package's does."""
     out = tmp_path / "acceptance.json"
-    for configs in ([5], [1, 5]):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tacc.run_acceptance(configs, log=lambda *a: None, out_path=str(out), device="cpu")
-    assert not out.exists()
+    monkeypatch.setattr(tacc, "CONFIG5_SCALED", (128, tacc.CONFIG5_SCALED[1]))
+    ran = tacc.run_acceptance([5], log=lambda *a: None, out_path=str(out), device="cpu")
+    assert set(ran[0]) - {"device", "power_limit", "wall_seconds"} == {
+        "config", "n", "devices", "exact_sampled", "seconds", "pairs_per_s",
+        "latency_bound", "sustained_pairs_per_s", "note"}
+    assert ran[0]["config"] == 5 and ran[0]["n"] == 128 and ran[0]["devices"] == 1
+    assert ran[0]["exact_sampled"] is True and ran[0]["sustained_pairs_per_s"] > 0
+    assert [e["config"] for e in json.loads(out.read_text())] == [5]
     with pytest.raises(ValueError, match="unknown"):
         tacc.run_acceptance([6], log=lambda *a: None, out_path=str(out), device="cpu")
-    assert set(jacc.CONFIGS) - set(tacc.CONFIGS) == {5}
+    assert set(jacc.CONFIGS) == set(tacc.CONFIGS)
     monkeypatch.setattr(tacc, "CONFIGS", {c: (lambda c: lambda full, log, dev: {"config": c})(c)
-                                          for c in (1, 2, 3, 4)})
-    logs = []
-    ran = tacc.run_acceptance(None, log=logs.append, out_path=str(out), device="cpu")
-    assert [r["config"] for r in ran] == [1, 2, 3, 4]
-    assert any("config 5" in line and "item 7" in line for line in logs)
+                                          for c in (1, 2, 3, 4, 5)})
+    ran = tacc.run_acceptance(None, log=lambda *a: None, out_path=str(out), device="cpu")
+    assert [r["config"] for r in ran] == [1, 2, 3, 4, 5]
     # no card here: the default device refuses, with nothing written
     out2 = tmp_path / "card.json"
     with pytest.raises(RuntimeError, match="CUDA"):

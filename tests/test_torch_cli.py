@@ -217,15 +217,31 @@ def test_sweep_info_and_the_missing_card(capsys, tmp_path, monkeypatch, files):
                        str(tmp_path / "c.npy")]) == 2
     assert "CUDA is not available" in capsys.readouterr().err
     assert not (tmp_path / "c.npy").exists()
-    assert port("scaling") == 2 and "item 7" in capsys.readouterr().err
     assert port("tune", "--n", 64) == 2
+    # scaling runs over the group this process is in (one gloo rank here)
+    # and prints the JAX package's JSON keys
+    capsys.readouterr()
+    assert port("scaling", "--n", 64, "--m", 1024, "--reps", 1) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert jax_main(["scaling", "--n", "64", "--m", "1024", "--reps", "1"]) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert set(got) == set(want) and got["platform"] == want["platform"] == "cpu"
+    assert list(got["results"]) == ["1"]
+    assert set(got["results"]["1"]) == set(want["results"]["1"])
+    assert "not a scaling figure" in got["note"]
 
 
-def test_accept_config5_is_refused_and_writes_nothing(tmp_path, capsys):
+def test_accept_config5_is_refused_and_writes_nothing(tmp_path, capsys, monkeypatch):
+    """``accept --config 5`` runs config 5 (at 128 of its 2,048 rows here)
+    and writes its entry."""
+    from stormtpu_torch import acceptance as tacc
+
+    monkeypatch.setattr(tacc, "CONFIG5_SCALED", (128, tacc.CONFIG5_SCALED[1]))
     out = tmp_path / "acc.json"
-    assert port("accept", "--config", 5, "--out", out) == 2
-    assert "item 7" in capsys.readouterr().err
-    assert not out.exists()
+    assert port("accept", "--config", 5, "--out", out) == 0
+    entries = json.loads(out.read_text())
+    assert [e["config"] for e in entries] == [5]
+    assert entries[0]["exact_sampled"] is True and entries[0]["device"] == "cpu"
 
 
 def test_python_dash_m_runs_the_port(tmp_path, files):

@@ -914,3 +914,23 @@ def test_cli_on_card_equals_the_in_process_calls(cuda, tmp_path):
     vals, idx = topk_neighbors(bm, 4, device=cuda)
     with np.load(tmp_path / "t.npz") as z:
         assert np.array_equal(z["counts"], vals) and np.array_equal(z["indices"], idx)
+
+
+@pytest.mark.parametrize("case", ("rows", "bits", "bits_k5"))
+def test_parallel_one_rank_nccl_group_equals_the_oracle(cuda, case):
+    """``stormtpu_torch.parallel`` over a one-rank NCCL group: the ring
+    (K2-rect), the bits axis (K2-tri and the sum) and, on a
+    block-clustered input, the sharded K5 work list."""
+    from stormtpu_torch.parallel import distributed_count_matrix, make_row_mesh
+
+    mesh = make_row_mesh(device=cuda)
+    assert mesh.backend == "nccl" and mesh.size == 1
+    packed = _words(300, 600, 0.3, seed=9)
+    if case == "bits_k5":
+        packed[:, 150:] = 0  # a quarter of the words occupied
+    reset_launches()
+    got = distributed_count_matrix(packed, mesh=mesh,
+                                   shard_axis="rows" if case == "rows" else "bits")
+    np.testing.assert_array_equal(got, oracle_count_matrix(packed))
+    kernel = {"rows": "k2_rect", "bits": "k2_tri", "bits_k5": "k5"}[case]
+    assert launch_counts()[kernel] >= 1

@@ -72,4 +72,9 @@ def test_package_modules_are_all_scanned():
             "stormtpu_torch.native", "stormtpu_torch.tuning", "stormtpu_torch.setops",
             "stormtpu_torch.query", "stormtpu_torch.cross", "stormtpu_torch.clump",
             "stormtpu_torch.stats", "stormtpu_torch.stream_hist",
-            "stormtpu_torch.stream_query"} <= mods
+            "stormtpu_torch.stream_query", "stormtpu_torch.parallel",
+            "stormtpu_torch.parallel.mesh", "stormtpu_torch.parallel.allpairs",
+            "stormtpu_torch.parallel.columns", "stormtpu_torch.parallel.setops",
+            "stormtpu_torch.parallel.query", "stormtpu_torch.parallel.cross",
+            "stormtpu_torch.parallel.stats", "stormtpu_torch.parallel.multihost",
+            "stormtpu_torch.parallel.scaling", "stormtpu_torch.parallel.dryrun"} <= mods

@@ -681,9 +681,23 @@ def test_unported_routes_say_so_and_unknown_kernels_raise_as_jax(tmp_path):
     for out in ("a", "b"):
         assert np.array_equal(ts.load_streamed_matrix(str(tmp_path / out)),
                               oracle_count_matrix(bj.packed))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ts.extend_streamed_matrix(bt, str(tmp_path / "b"), mesh=object(), config=cfg,
-                                  device="cpu")
+    # through a mesh (a one-rank group here; tests/test_torch_multihost.py
+    # runs eight): the JAX package's extend through a 4-device mesh, on a directory
+    # of the first 24 rows each package wrote
+    from stormtpu import parallel as jp
+    from stormtpu_torch.parallel import make_row_mesh
+
+    head_j, head_t = _pair(_uniform(24, 600, 0.3, seed=51))
+    _walk(js, head_j, tmp_path / "mj", jcfg, superblock_rows=32)
+    _walk(ts, head_t, tmp_path / "mt", cfg, superblock_rows=32)
+    want_man = js.extend_streamed_matrix(bj, str(tmp_path / "mj"), config=jcfg,
+                                         mesh=jp.make_row_mesh(4))
+    man = ts.extend_streamed_matrix(bt, str(tmp_path / "mt"), config=cfg,
+                                    mesh=make_row_mesh(1, device="cpu"))
+    assert man == want_man and man["kernel"] == "distributed"
+    for out in ("mj", "mt"):
+        assert np.array_equal(ts.load_streamed_matrix(str(tmp_path / out)),
+                              oracle_count_matrix(bj.packed))
     with pytest.raises(ValueError, match="unknown kernel") as port_err:
         ts.stream_count_matrix(bt, str(tmp_path / "c"), kernel="mxU", config=cfg, device="cpu")
     with pytest.raises(ValueError, match="unknown kernel") as ref_err:
