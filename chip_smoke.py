@@ -191,7 +191,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     2 × 2 grid and the sharded K5 form at 8,192 × 262,144 bits (uniform
     words, and an LD panel of 8 blocks), each equal on every rank to the
     one-rank result of this process; K2-rect, K2-tri and K5 must launch on
-    every rank; each rank's ring step split into kernel and collectives.
+    every rank; each rank's ring step split into kernel and collectives;
+34. the repaired paths: ``topk_neighbors`` on config 3 B (phase 17's
+    10,000 x 1,048,576 bits, run right after phase 28) on the route D1
+    names (K2's tile walk), on the block form (K2-rect, D1 held to
+    ``sparse_outer``) and through ``parallel.distributed_topk_neighbors`` on
+    the one-rank NCCL mesh, at k = 16 and at k = 256 (past its rows' ~105
+    partners of a positive count, so padded rows tie with real zero counts), values
+    equal to phase 17's matrix's top k and every partner set valid
+    (distinct, never the row, each realizing its count); then, with the
+    tuning cache pointing at an absent file, D1 naming ``pallas_mxu`` at
+    BASELINE.json config 2 (1,000 x 65,536 bits) and
+    ``intersect_count_matrix`` launching K2-tri, equal to numpy's matrix;
+    and each ``examples/torch_*.py`` as a subprocess on the card, all
+    started together, each exiting 0 with its closing line.
 
 Phases 20-28 print each call's wall time and a ``[breakdown]`` of its
 stages (K2 by CUDA events, the screen, merge and bin passes, the summary
@@ -200,8 +213,8 @@ also K2's and the reduction's milliseconds a stripe.
 
 The lines before the last are a ``kernels`` JSON object (each kernel's
 launches on its main path, and during the streaming, query, tuning,
-acceptance and parallel phases; ``group_launches``: the least over phase
-33's ranks) and the card's ``name, power.limit``; the last line is the
+acceptance, parallel and repaired-path phases; ``group_launches``: the
+least over phase 33's ranks) and the card's ``name, power.limit``; the last line is the
 result object.
 """
 
@@ -300,6 +313,14 @@ GROUP_TIMEOUT_S = 420
 # phase 31: rows of config 4's row-sum panel (its host bit-plane pass took 141 s
 # at the spec's 100,000 rows)
 ACCEPT_ROW_SUM_ROWS = 16_384
+# phase 34: config 3 B's top-k at TOPK_K and at a k past its rows' ~105
+# partners of a positive count (so that every row ranks zero counts, where
+# padded rows tie); BASELINE.json config 2 for the untuned routing; the examples
+REPAIR_THIN_K = 256
+CFG2_N, CFG2_M = 1_000, 65_536
+EXAMPLES = ("torch_quickstart", "torch_clustered", "torch_genotypes", "torch_streaming",
+            "torch_distributed")
+EXAMPLE_TIMEOUT_S = 180
 
 
 def random_words(rng, n: int, m_bits: int, density: float) -> np.ndarray:
@@ -2324,6 +2345,164 @@ def group_phase(torch, dev, seed, par_timings) -> dict:
     return least
 
 
+def check_topk(label: str, c: np.ndarray, k: int, vals: np.ndarray, idx: np.ndarray) -> int:
+    """Hold a count top-k to the matrix ``c``: the values are each row's k
+    largest counts off the diagonal, and each row's indices are distinct,
+    never the row itself, and realize their values. Returns the rows whose
+    k-th best count is 0 (where padded rows would tie with real partners)."""
+    n = c.shape[0]
+    rows = c.astype(np.int64)
+    rows[np.arange(n), np.arange(n)] = -1
+    want = -np.sort(-np.partition(rows, n - k, axis=1)[:, -k:], axis=1)
+    if vals.shape != (n, k) or idx.shape != (n, k) or not np.array_equal(vals, want):
+        raise AssertionError(f"{label}: values differ from the matrix's top {k}")
+    r = np.arange(n)[:, None]
+    s = np.sort(idx, axis=1)
+    if not (np.array_equal(rows[r, idx], vals) and (np.diff(s, axis=1) > 0).all()
+            and (idx != r).all()):
+        raise AssertionError(f"{label}: an index does not realize its value, repeats, or is "
+                             "the row itself")
+    return int((want[:, -1] == 0).sum())
+
+
+def repaired_topk_phase(torch, dev, cfg3_b) -> dict:
+    """Phase 34, first part: ``topk_neighbors`` on config 3 B (phase 17's
+    matrix: 10,000 rows, not a multiple of the block) on the route D1
+    names, on the block form (K2-rect; D1 held to ``sparse_outer``, its
+    name for panels where K4 wins), and through
+    ``parallel.distributed_topk_neighbors`` on the one-rank NCCL mesh (the
+    ring on K2-rect), at k = ``TOPK_K`` and at k = ``REPAIR_THIN_K``, where
+    rows rank partners of count 0 beside the padded rows; each held to the
+    top-k of phase 17's matrix, every partner set valid. Returns the
+    launches."""
+    import stormtpu_torch as st
+    from stormtpu_torch import dispatch, parallel as par
+    from stormtpu_torch.kernels import launch_counts, reset_launches
+
+    bm, ref = cfg3_b
+    strategy = dispatch.choose_strategy(bm.n, bm.m_bits, bm.density, bm=bm, device=dev)
+    route_kernel = {"pallas_mxu": "k2_tri", "clustered": "k5"}.get(strategy, "k2_rect")
+    mesh = par.make_row_mesh(device=dev)
+
+    def block_form(k):
+        d1 = dispatch.choose_strategy
+        dispatch.choose_strategy = lambda *a, **kw: "sparse_outer"
+        try:
+            return st.topk_neighbors(bm, k, device=dev)
+        finally:
+            dispatch.choose_strategy = d1
+
+    total: dict = {}
+    for k, label, fn, kernel in (
+            (k, label, fn, kernel) for k in (TOPK_K, REPAIR_THIN_K) for label, fn, kernel in (
+                (f"topk_neighbors (D1: {strategy})",
+                 lambda k=k: st.topk_neighbors(bm, k, device=dev), route_kernel),
+                ("topk_neighbors block form (D1 held to sparse_outer)",
+                 lambda k=k: block_form(k), "k2_rect"),
+                ("distributed_topk_neighbors (one-rank NCCL ring)",
+                 lambda k=k: par.distributed_topk_neighbors(bm, k, mesh=mesh), "k2_rect"))):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        vals, idx = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        if got[kernel] < 1:
+            raise AssertionError(f"[phase 34] config 3 B {label}: launches {got}, want {kernel}")
+        thin = check_topk(f"config 3 B {label} k={k}", ref, k, vals, idx)
+        if k == REPAIR_THIN_K and not thin:
+            raise AssertionError(f"[phase 34] config 3 B k={k}: no row ranks a zero count")
+        for key, v in got.items():
+            total[key] = total.get(key, 0) + v
+        print(f"[phase 34] config 3 B {bm.n} x {bm.m_bits} bits (density {bm.density:.2e}) "
+              f"{label}, k={k}: wall {wall:.3f} s, launches "
+              f"{ {key: v for key, v in got.items() if v} }; values equal phase 17's matrix's "
+              f"top {k}, every row's partners distinct, never itself, each realizing its count "
+              f"({thin} of {bm.n} rows have fewer than {k} partners of a positive count)")
+    return total
+
+
+def untuned_and_examples_phase(torch, dev, seed) -> dict:
+    """Phase 34, second part: with ``$STORMTPU_TORCH_TUNING_CACHE`` naming an
+    absent file, D1 names ``pallas_mxu`` at BASELINE.json config 2 (1,000 x
+    65,536 bits) and ``intersect_count_matrix`` launches K2-tri and equals
+    numpy's matrix; then each ``examples/torch_*.py`` as a subprocess on the
+    card (all started together), each exiting 0 with its closing line.
+    Returns the launches of the config 2 call."""
+    import stormtpu_torch as st
+    from stormtpu_torch import stream, tuning
+    from stormtpu_torch.dispatch import choose_strategy
+    from stormtpu_torch.kernels import launch_counts, plain_product_max_bits, reset_launches
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    saved = os.environ.get(tuning.CACHE_ENV)
+    os.environ[tuning.CACHE_ENV] = os.path.join(tempfile.mkdtemp(prefix="stpu_untuned_"),
+                                                "absent.json")
+    try:
+        words = np.random.default_rng(seed + 34).integers(0, 1 << 32, (CFG2_N, CFG2_M // 32),
+                                                          dtype=np.uint32)
+        bm = st.BitMatrix.from_packed(words, CFG2_M)
+        chosen = choose_strategy(bm.n, bm.m_bits, bm.density, bm=bm, device=dev)
+        auto = stream._auto_stream_kernel(bm.m_bits, bm.n, dev)
+        if chosen != "pallas_mxu" or auto != "mxu":
+            raise AssertionError(f"[phase 34] untuned card at config 2: D1 {chosen!r}, stream "
+                                 f"auto {auto!r}; want 'pallas_mxu' and 'mxu'")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = st.intersect_count_matrix(bm, device=dev)
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        if got["k2_tri"] < 1:
+            raise AssertionError(f"[phase 34] config 2 untuned: launches {got}, want k2_tri")
+        bits = np.unpackbits(words.view(np.uint8), axis=1, bitorder="little").astype(np.float32)
+        want = (bits @ bits.T).astype(np.int64)  # float32 is exact below 2^24
+        if not np.array_equal(out, want):
+            raise AssertionError("[phase 34] config 2 untuned: the matrix differs from numpy's")
+        print(f"[phase 34] untuned card (absent tuning cache), config 2 {CFG2_N} x {CFG2_M} "
+              f"bits: plain_product_max_bits {plain_product_max_bits(dev)}, D1 {chosen}, stream "
+              f"auto {auto}; intersect_count_matrix wall {wall:.3f} s, launches "
+              f"{ {k: v for k, v in got.items() if v} }, equal to numpy's whole matrix")
+        del bm, words, bits, want, out
+    finally:
+        if saved is None:
+            os.environ.pop(tuning.CACHE_ENV, None)
+        else:
+            os.environ[tuning.CACHE_ENV] = saved
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, os.path.join(root, "examples", f"{name}.py")],
+                                    cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name in EXAMPLES}
+    failed = []
+    try:
+        for name, p in procs.items():
+            try:
+                stdout, stderr = p.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT_S
+                                                           - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+                stderr += f"\nkilled after {EXAMPLE_TIMEOUT_S} s"
+            lines = stdout.strip().splitlines()
+            ok = p.returncode == 0 and lines and lines[-1] == f"{name}: all checks passed"
+            print(f"[phase 34] examples/{name}.py on the card: exit {p.returncode}, done at "
+                  f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines[-4:]))
+            if not ok:
+                print(stderr[-3000:], file=sys.stderr)
+                failed.append(name)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError(f"[phase 34] examples failed on the card: {failed}")
+    return got
+
+
 def ld_ref_samples(ref: np.ndarray, man: dict) -> np.ndarray:
     """The reference matrix at a checksum manifest's sample coordinates
     (rows past n are padding: count 0)."""
@@ -3076,6 +3255,9 @@ def main(argv=None) -> int:
     query_launches, sq_launches, kept = query_phases(
         torch, dev, cfg, rng, args.seed, k2_ops_per_s, main=(bm, main_out), block=(bm_a, blk),
         ld=(bm_ld, ld_ref), cfg3_b=cfg3_b)
+    t0 = time.perf_counter()
+    repair_launches = repaired_topk_phase(torch, dev, cfg3_b)
+    print(f"[phase 34] config 3 B top-k and ring took {time.perf_counter() - t0:.1f} s")
     del blk, cfg3_b
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3098,8 +3280,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     group_launches = group_phase(torch, dev, args.seed, par_timings)
     print(f"[group] phase 33 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    untuned_launches = untuned_and_examples_phase(torch, dev, args.seed)
+    print(f"[phase 34] the untuned routing and the examples took "
+          f"{time.perf_counter() - t0:.1f} s")
     later = {"tune_launches": tune_launches, "accept_launches": accept_launches,
-             "parallel_launches": par_launches, "group_launches": group_launches}
+             "parallel_launches": par_launches, "group_launches": group_launches,
+             "repair_launches": {k: repair_launches.get(k, 0) + untuned_launches.get(k, 0)
+                                 for k in set(repair_launches) | set(untuned_launches)}}
 
     src_k2 = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
     src_k1 = "stormtpu_torch/kernels/csrc/k1_dense.cu"

@@ -37,6 +37,8 @@ from stormtpu_torch.query import pair_counts, pairs_above, topk_neighbors
 from stormtpu_torch.cross import cross_pairs_above, cross_topk_neighbors
 from stormtpu_torch.clump import ClumpResult, clump, clump_from_pairs
 
+__version__ = "0.1.0"
+
 __all__ = [
     "BitMatrix",
     "BitMatrixBuilder",
@@ -65,4 +67,5 @@ __all__ = [
     "ClumpResult",
     "clump",
     "clump_from_pairs",
+    "__version__",
 ]

@@ -13,7 +13,9 @@ N ≤ 32768 and the C++ host tier is built.
 
 The dense choice (:func:`dense_strategy`) is the measured winner of the
 nearest tuned bucket where a tuning cache names the device
-(``tuning.measured_dense_winner``), else the JAX package's static rule. The
+(``tuning.measured_dense_winner``), else the untuned rule: the plain int8
+product up to ``kernels.plain_product_max_bits(device)`` — the card's own
+crossover on a card, the JAX package's static constant on the CPU. The
 K4 constants are the port's own: the cache's refit for the card, else
 ``tuning.K4_DEFAULTS`` (measured on an H100 and its host).
 
@@ -30,7 +32,7 @@ import torch
 
 from stormtpu_torch import native
 from stormtpu_torch.config import EngineConfig, default_config
-from stormtpu_torch.kernels import STATIC_MXU_XLA_MAX_BITS, plain_product_max_bits
+from stormtpu_torch.kernels import plain_product_max_bits
 
 __all__ = ["choose_strategy", "dense_strategy", "k4_estimates", "STRATEGIES"]
 
@@ -47,7 +49,9 @@ def dense_strategy(n: int, m_bits: int, config: Optional[EngineConfig] = None,
     measured winner of the tuned bucket nearest (n, m_bits) on ``device``
     (``None``: the card), where ``"mxu"`` above
     ``kernels.plain_product_max_bits`` becomes ``"pallas_mxu"``; untuned,
-    the plain int8 product up to ``STATIC_MXU_XLA_MAX_BITS`` and K2 above."""
+    the plain int8 product up to ``kernels.plain_product_max_bits(device)``
+    and K2 above: on a card K2 at every M (the card's own crossover), on
+    the CPU the JAX package's static rule."""
     from stormtpu_torch.tuning import measured_dense_winner
 
     cfg = config or default_config()
@@ -55,7 +59,7 @@ def dense_strategy(n: int, m_bits: int, config: Optional[EngineConfig] = None,
         return "popcount"
     winner = measured_dense_winner(n, m_bits, device)
     if winner is None:
-        return "mxu" if m_bits <= STATIC_MXU_XLA_MAX_BITS else "pallas_mxu"
+        return "mxu" if m_bits <= plain_product_max_bits(device) else "pallas_mxu"
     if winner == "mxu" and m_bits > plain_product_max_bits(device):
         # the plain product unpacks 8x operands: K2 reads the packed words
         return "pallas_mxu"

@@ -19,10 +19,10 @@ from __future__ import annotations
 
 import torch
 
-# The JAX package's routing constant: the static rule of a device that no
-# tuning cache names (the CPU, or an untuned card), where D1 and the streamed
-# walks send M up to this many bits to the plain int8 product. Kept so that
-# both packages route alike there.
+# The JAX package's routing constant: on the CPU, which no tuning cache
+# names, D1, the streamed walks and the block kernels send M up to this many
+# bits to the plain int8 product, so that both packages route alike there.
+# An untuned card takes its own crossover below instead.
 STATIC_MXU_XLA_MAX_BITS = 1 << 17
 # The card's own ceiling for the plain int8 product (``xla.count_block_int8_xla``,
 # which unpacks its operands 8x): the largest M at which it still beat the K2

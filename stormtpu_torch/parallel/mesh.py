@@ -34,7 +34,7 @@ import datetime
 import os
 import shutil
 import tempfile
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -176,26 +176,43 @@ def _make_mesh(grid: np.ndarray, axes: tuple, device) -> Optional[Mesh]:
                 backend=dist.get_backend(), lines=lines_of[rank])
 
 
+def _ranks(devices: Optional[Sequence[int]]) -> np.ndarray:
+    """The ranks a mesh may take, in order: ``devices`` (distinct ranks of
+    the group), else every rank."""
+    world = dist.get_world_size()
+    if devices is None:
+        return np.arange(world)
+    ranks = np.asarray([int(r) for r in devices], dtype=np.int64)
+    if ranks.size and (ranks.min() < 0 or ranks.max() >= world):
+        raise ValueError(f"devices must be ranks of the group (0 … {world - 1}), "
+                         f"got {ranks.tolist()}")
+    if np.unique(ranks).size != ranks.size:
+        raise ValueError(f"devices must be distinct ranks, got {ranks.tolist()}")
+    return ranks
+
+
 def make_row_mesh(
     n_devices: Optional[int] = None,
     *,
     axis: Optional[str] = None,
+    devices: Optional[Sequence[int]] = None,
     device=None,
 ) -> Optional[Mesh]:
-    """1-D mesh over the first ``n_devices`` ranks (default: all) named
-    after the row-shard axis. Joins a group first where there is none
-    (:func:`join_group`). Every rank must call it; ranks past
-    ``n_devices`` get ``None``."""
+    """1-D mesh over the first ``n_devices`` (default: all) of ``devices``
+    (ranks of the group, in mesh order; default: every rank), named after
+    the row-shard axis. Joins a group first where there is none
+    (:func:`join_group`). Every rank must call it with the same arguments;
+    ranks outside the mesh get ``None``."""
     axis = axis or default_config().mesh_axis
     join_group(device)
-    world = dist.get_world_size()
+    ranks = _ranks(devices)
     if n_devices is None:
-        n_devices = world
-    if n_devices > world:
-        raise ValueError(f"asked for {n_devices} devices, have {world}")
+        n_devices = ranks.size
+    if n_devices > ranks.size:
+        raise ValueError(f"asked for {n_devices} devices, have {ranks.size}")
     if n_devices < 1:
         raise ValueError(f"mesh dims must be >= 1, got {n_devices}")
-    return _make_mesh(np.arange(n_devices), (axis,), device)
+    return _make_mesh(ranks[:n_devices], (axis,), device)
 
 
 def make_grid_mesh(
@@ -203,19 +220,21 @@ def make_grid_mesh(
     bits: int,
     *,
     axes: tuple = ("rows", "bits"),
+    devices: Optional[Sequence[int]] = None,
     device=None,
 ) -> Optional[Mesh]:
-    """2-D mesh [rows × bits] over the first ``rows·bits`` ranks, rank
-    ``r·bits + b`` at (r, b): the ring streams row shards along
-    ``axes[0]`` while :func:`psum` over ``axes[1]`` merges the exact int32
-    partials of the word slices. Ranks past the grid get ``None``."""
+    """2-D mesh [rows × bits] over the first ``rows·bits`` of ``devices``
+    (ranks of the group; default: every rank), the one at ``r·bits + b`` at
+    (r, b): the ring streams row shards along ``axes[0]`` while
+    :func:`psum` over ``axes[1]`` merges the exact int32 partials of the
+    word slices. Ranks outside the grid get ``None``."""
     if rows < 1 or bits < 1:
         raise ValueError(f"mesh dims must be >= 1, got {rows}×{bits}")
     join_group(device)
-    world = dist.get_world_size()
-    if rows * bits > world:
-        raise ValueError(f"asked for {rows}×{bits} devices, have {world}")
-    return _make_mesh(np.arange(rows * bits).reshape(rows, bits), tuple(axes), device)
+    ranks = _ranks(devices)
+    if rows * bits > ranks.size:
+        raise ValueError(f"asked for {rows}×{bits} devices, have {ranks.size}")
+    return _make_mesh(ranks[: rows * bits].reshape(rows, bits), tuple(axes), device)
 
 
 def bit_axis_of(mesh: Mesh) -> Optional[str]:
@@ -300,7 +319,9 @@ def fetch_global(x_local: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) 
         x = x.cpu()
     parts = [torch.empty_like(x) for _ in ranks]
     dist.all_gather(parts, x, group=group)
-    return download(torch.cat(parts))
+    # a group orders its members by global rank; the mesh by its own order
+    by_rank = sorted(ranks)
+    return download(torch.cat([parts[by_rank.index(r)] for r in ranks]))
 
 
 def barrier(mesh: Mesh) -> None:

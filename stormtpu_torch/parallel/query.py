@@ -90,8 +90,10 @@ def _kshard_operands(bm, mesh: Mesh, ti: int, wk: int):
 
 
 def _ring_topk_local(mesh: Mesh, axis: str, r: int, n_loc: int, k: int, block_rows: int,
-                     psum_axis: Optional[str] = None):
-    """This rank's ring loop with a running top-k for its rows.
+                     n_real: int, psum_axis: Optional[str] = None):
+    """This rank's ring loop with a running top-k for its rows. Self pairs
+    and padding columns (global column ≥ ``n_real``) count −1: a padded
+    row counts 0 and would tie with a real partner of count 0.
 
     A global top-k partner of row i is, within its own shard, among that
     shard's top-min(k, n_loc) columns for row i, so keeping min(k, n_loc)
@@ -116,7 +118,9 @@ def _ring_topk_local(mesh: Mesh, axis: str, r: int, n_loc: int, k: int, block_ro
                 if psum_axis is not None:
                     counts = psum(counts, mesh, psum_axis)
                 row_g = lane + my * n_loc + b0
-                counts = counts.masked_fill(row_g[:, None] == (cols + c0)[None, :], -1)
+                col_g = cols + c0
+                counts = counts.masked_fill(
+                    (row_g[:, None] == col_g[None, :]) | (col_g[None, :] >= n_real), -1)
                 v, i = torch.topk(counts, kk, dim=1)
                 cand_v = torch.cat([best_v[b0 : b0 + block_rows], v], dim=1)
                 cand_i = torch.cat([best_i[b0 : b0 + block_rows], i + c0], dim=1)
@@ -296,7 +300,7 @@ def distributed_topk_neighbors(
         x_local, _ = _kshard_operands(bm, mesh, ti, wk)
         vals_d, idx_d = _topk_tile_walk(
             x_local, ibs, jbs, k=k, ti=ti, wk=wk, variant=default_config().k2_variant,
-            psum=lambda tiles: psum(tiles, mesh, axis))
+            n_real=bm.n, psum=lambda tiles: psum(tiles, mesh, axis))
         vals, idx = download(vals_d[: bm.n]), download(idx_d[: bm.n])
     else:
         if block_rows is None:
@@ -304,13 +308,14 @@ def distributed_topk_neighbors(
         n_pad = round_up(max(bm.n, r), r * block_rows)
         n_loc = n_pad // r
         x_local, _, _ = _sharded_operands(bm, mesh, n_pad)
-        vals_d, idx_d = _ring_topk_local(mesh, axis, r, n_loc, k, block_rows,
+        vals_d, idx_d = _ring_topk_local(mesh, axis, r, n_loc, k, block_rows, bm.n,
                                          psum_axis=bit_axis_of(mesh))(x_local)
         vals = fetch_global(vals_d, mesh)[: bm.n]
         idx = fetch_global(idx_d, mesh)[: bm.n]
-    # padded zero rows can appear among the partners with count 0: such an
-    # entry is reported as (0, 0), as the single-device form does
-    valid = idx < bm.n
+    # a masked entry (−1) is ranked only where a row has fewer than k
+    # partners, that is at N = 1: it is reported as (0, 0), as the
+    # single-device form does
+    valid = vals >= 0
     return np.where(valid, vals, 0), np.where(valid, idx, 0)
 
 

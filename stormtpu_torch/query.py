@@ -114,9 +114,12 @@ def pair_counts(x: MatrixLike, ii, jj, *, device=None) -> np.ndarray:
 
 
 # ------------------------------------------------------------ top-k
-def _topk_blocks(packed: torch.Tensor, k: int, block_rows: int):
+def _topk_blocks(packed: torch.Tensor, k: int, block_rows: int, n_real: int):
     """Block-form top-k: each row block's counts against every row on
-    ``count_block_auto``, the self pair masked to −1, ``torch.topk``."""
+    ``count_block_auto``, the self pair and the padding columns (global
+    column ≥ ``n_real``) masked to −1, ``torch.topk``. A padded row counts
+    0 and would tie with a real partner of count 0; ``torch.topk`` does not
+    prefer the lower index, so padding is masked, never out-ranked."""
     n = packed.shape[0]
     vals, idx = [], []
     lane = torch.arange(block_rows, device=packed.device)
@@ -125,6 +128,7 @@ def _topk_blocks(packed: torch.Tensor, k: int, block_rows: int):
             counts = count_block_auto(packed[b0 : b0 + block_rows], packed)
         with _stage("merge", packed.device):
             counts[lane, b0 + lane] = -1  # drop self
+            counts[:, n_real:] = -1  # drop padding
             v, i = torch.topk(counts, k, dim=1)
         vals.append(v)
         idx.append(i.to(torch.int32))
@@ -219,18 +223,19 @@ def topk_neighbors(
         # triangular K2 tile walk: half the work of the block form
         packed_d, ibs, jbs, ti, wk, _ = _tile_walk_operands(bm, dev)
         vals_d, idx_d = _topk_tile_walk(packed_d, ibs, jbs, k=k, ti=ti, wk=wk,
-                                        variant=default_config().k2_variant)
+                                        variant=default_config().k2_variant, n_real=bm.n)
     else:
         if block_rows is None:
             block_rows = _default_block_rows(bm.m_bits, bm.n, dev)
         n_pad = round_up(bm.n, block_rows)
-        vals_d, idx_d = _topk_blocks(bm.device_padded(n_pad, device=dev), k, block_rows)
+        vals_d, idx_d = _topk_blocks(bm.device_padded(n_pad, device=dev), k, block_rows,
+                                     bm.n)
     with _stage("download", dev):
         vals = download(vals_d[: bm.n])
         idx = download(idx_d[: bm.n])
-    # padded zero rows can appear among the partners with count 0: such an
-    # entry is reported as (0, 0)
-    valid = idx < bm.n
+    # a masked entry (−1) is ranked only where a row has fewer than k
+    # partners, that is at N = 1: it is reported as (0, 0)
+    valid = vals >= 0
     vals = np.where(valid, vals, 0)
     idx = np.where(valid, idx, 0)
     return vals, idx
@@ -450,7 +455,7 @@ def _merge_sets(best_v: torch.Tensor, best_i: torch.Tensor, tgt: np.ndarray,
 
 
 def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str,
-                    psum=None):
+                    n_real: int, psum=None):
     """Triangular top-k: the K2 tile walk with a running per-row top-k,
     ``best`` (values, indices) [n_pad, k] on the device.
 
@@ -459,7 +464,8 @@ def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str,
     pair (i, j) lies in exactly one upper tile, so no partner is offered
     to a row twice: top-k merges are not idempotent, and a diagonal tile
     offers one side only (its transpose is the same set), its diagonal
-    masked to −1. Each side of a tile is first cut to its own top-min(k,
+    masked to −1, as are the padding columns (global column ≥ ``n_real``)
+    of the last column block. Each side of a tile is first cut to its own top-min(k,
     ti) a row (a row's top-k partners are among the top-k of each tile they
     lie in); then a chunk's candidate sets are merged into ``best`` all at
     once (:func:`_merge_sets`), so the merge takes a fixed number of
@@ -486,6 +492,10 @@ def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str,
         if psum is not None:
             tiles = psum(tiles)
         with _stage("merge", dev):
+            edge = np.flatnonzero(jb_c == n_real // ti) if n_real % ti else ()
+            if len(edge):
+                # padded rows count 0 and would tie with real partners
+                tiles[torch.from_numpy(edge).to(dev), :, n_real % ti :] = -1
             diag = np.flatnonzero(ib_c == jb_c)
             off = np.flatnonzero(ib_c != jb_c)
             sel = torch.from_numpy(np.concatenate([diag, off])).to(dev)

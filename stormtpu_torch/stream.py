@@ -268,16 +268,17 @@ def _stripe_tile_ids(tps: int, diagonal: bool) -> tuple[np.ndarray, np.ndarray]:
 def _auto_stream_kernel(m_bits: int, n: Optional[int] = None, device=None) -> str:
     """The dense stripe kernel ``auto`` starts from: the tuned dense winner
     of the bucket nearest (n, m_bits) on ``device`` (``None``: the card)
-    mapped to a stripe kernel, else the JAX package's static rule. The
-    plain forms unpack 8× operands or broadcast a whole stripe, so they
-    serve small M only (``kernels.plain_product_max_bits``)."""
-    from stormtpu_torch.kernels import STATIC_MXU_XLA_MAX_BITS, plain_product_max_bits
+    mapped to a stripe kernel, else the untuned rule of
+    ``dispatch.dense_strategy``. The plain forms unpack 8× operands or
+    broadcast a whole stripe, so they serve small M only
+    (``kernels.plain_product_max_bits``)."""
+    from stormtpu_torch.kernels import plain_product_max_bits
     from stormtpu_torch.tuning import measured_dense_winner
 
     winner = measured_dense_winner(n, m_bits, device)
-    if winner is None:
-        return "xla_int8" if m_bits <= STATIC_MXU_XLA_MAX_BITS else "mxu"
     small_m = m_bits <= plain_product_max_bits(device)
+    if winner is None:
+        return "xla_int8" if small_m else "mxu"
     if winner in ("mxu", "pallas_mxu"):
         return "xla_int8" if (winner == "mxu" and small_m) else "mxu"
     return "xla_popcount" if (winner == "popcount" and small_m) else "dense"

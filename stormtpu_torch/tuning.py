@@ -9,8 +9,10 @@ writes pairs/s per bucket to a JSON cache; D1
 (``stream._auto_stream_kernel``) then take the winner of the bucket nearest
 in log space to the call's shape: the fastest, but K2 unless another is
 faster by more than :data:`K2_MARGIN`, where the JAX package takes the
-fastest. Tuning is explicit (``python -m stormtpu_torch tune``). Without a cache that names this device, both keep
-the JAX package's static rule. The choice never changes a count: every
+fastest. Tuning is explicit (``python -m stormtpu_torch tune``). Without a cache that names this device, both take
+the untuned rule: the plain int8 product up to
+``kernels.plain_product_max_bits`` (0 on a card, so K2 at every M; the JAX
+package's static constant on the CPU). The choice never changes a count: every
 strategy gives the same exact matrix.
 
 The cache is the file named by ``$STORMTPU_TORCH_TUNING_CACHE``, else

@@ -1,4 +1,10 @@
 from stormtpu_torch.utils.backend import resolve_device
+from stormtpu_torch.utils.profiling import (
+    timeit_chain,
+    timeit_sustained,
+    timeit_sustained_auto,
+    trace,
+)
 from stormtpu_torch.utils.tiling import (
     assemble_stripe,
     assemble_stripe_torch,
@@ -22,6 +28,10 @@ __all__ = [
     "quantize_bucket",
     "resolve_device",
     "round_up",
+    "timeit_chain",
+    "timeit_sustained",
+    "timeit_sustained_auto",
+    "trace",
     "triangular_assembly_bytes",
     "triangular_tile_ids",
 ]

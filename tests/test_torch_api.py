@@ -126,7 +126,7 @@ def test_choose_strategy_sparse_branch_by_device(monkeypatch):
     assert choose_strategy(500, 1 << 20, 0.0001, device="cpu") == "sparse"
     for n, m in ((500, 1 << 20), (500, 1000)):
         est_k4, est_k2 = k4_estimates(n, m, 0.0001)
-        dense = "pallas_mxu" if m > (1 << 17) else "mxu"
+        dense = "pallas_mxu"  # an untuned card takes K2 at every M
         want = "sparse_outer" if est_k4 < est_k2 and native.have_native() else dense
         assert choose_strategy(n, m, 0.0001, device="cuda") == want
         assert choose_strategy(n, m, 0.0001) == want
@@ -171,7 +171,10 @@ def test_d1_on_cuda_weighs_k4_as_jax_does_on_its_chip(tmp_path, monkeypatch, n, 
         monkeypatch.setitem(ttuning.K4_DEFAULTS, k, v)
     assert native.have_native(), native.native_build_error()
     want = jax_choose(n, m, density)
-    assert choose_strategy(n, m, density, device="cuda") == want
+    # where the chip's static rule takes the plain product, an untuned card
+    # takes K2 (kernels.plain_product_max_bits is 0 there)
+    assert choose_strategy(n, m, density, device="cuda") == (
+        "pallas_mxu" if want == "mxu" else want)
     k4 = consts == "cheap" and n <= 32768 and 2 <= n and density < 0.001
     assert (want == "sparse_outer") == k4
     monkeypatch.setattr(native, "_load", lambda: None)  # without the C++ tier: dense
@@ -237,3 +240,74 @@ def test_device_none_without_cuda_raises(monkeypatch):
             call()
     with pytest.raises(ValueError):
         st.intersect_count_matrix(bt, device="meta")
+
+
+# ------------------------------------------------------------ public surface
+# What the JAX package has and the port leaves out on purpose (README.md,
+# "Differences"): TPU and relay machinery. Every other public name of every
+# module has its counterpart, with every parameter name of the reference.
+ABSENT_NAMES = {
+    "stormtpu.config": {"LANE", "SUBLANE"},
+    "stormtpu.utils": {"V5E_INT8_PEAK_OPS", "enable_compilation_cache", "is_tpu_backend",
+                       "pallas_interpret_default", "timeit_chain_salted",
+                       "timeit_sustained_salted"},
+    "stormtpu.utils.backend": {"V5E_INT8_PEAK_OPS", "enable_compilation_cache",
+                               "is_tpu_backend", "pallas_interpret_default"},
+    "stormtpu.utils.profiling": {"timeit_chain_salted", "timeit_sustained_salted"},
+}
+# parameters of the reference the port's counterpart does not take; no
+# function of the port takes ``interpret`` (Pallas's interpret mode)
+ABSENT_PARAMS = {
+    ("stormtpu.utils", "timeit_sustained_auto"): {"dispatch_floor_s"},
+    ("stormtpu.utils.profiling", "timeit_sustained_auto"): {"dispatch_floor_s"},
+    ("stormtpu.parallel.mesh", "fetch_global"): {"x"},  # the port's takes (x_local, mesh)
+    ("stormtpu.cli", "cmd_info"): {"_args"},  # the port's reads its device from args
+}
+
+
+def _reference_modules():
+    import importlib.util
+    import pkgutil
+
+    names = ["stormtpu"] + [m.name for m in pkgutil.walk_packages(stormtpu.__path__, "stormtpu.")
+                            if not m.name.endswith("__main__")]
+    return [n for n in names if importlib.util.find_spec(n).origin.endswith(".py")]
+
+
+def _public(mod) -> set:
+    """``__all__``, else the functions and classes the module defines and
+    its upper-case constants."""
+    import inspect
+
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    return {n for n, o in vars(mod).items() if not n.startswith("_") and (
+        ((inspect.isfunction(o) or inspect.isclass(o)) and o.__module__ == mod.__name__)
+        or (n.isupper() and isinstance(o, (int, float, str, tuple, frozenset, dict))))}
+
+
+def _params(fn):
+    import inspect
+
+    try:
+        return [p.name for p in inspect.signature(fn).parameters.values()]
+    except (TypeError, ValueError):
+        return None
+
+
+@pytest.mark.parametrize("name", _reference_modules())
+def test_every_public_name_and_parameter_has_its_counterpart(name):
+    import importlib
+
+    ref = importlib.import_module(name)
+    port = importlib.import_module("stormtpu_torch" + name[len("stormtpu"):])
+    missing = _public(ref) - _public(port)
+    assert missing == ABSENT_NAMES.get(name, set()), missing
+    for attr in sorted(_public(ref) & _public(port)):
+        a, b = getattr(ref, attr), getattr(port, attr)
+        pa, pb = (_params(a), _params(b)) if callable(a) and callable(b) else (None, None)
+        if pa is None or pb is None:
+            continue
+        lost = set(pa) - set(pb) - {"interpret"}
+        assert lost == ABSENT_PARAMS.get((name, attr), set()), (attr, lost)
+        assert "interpret" not in pb, attr

@@ -37,9 +37,9 @@ def cuda():
 
 @pytest.fixture(autouse=True)
 def _static_routing(tmp_path, monkeypatch):
-    """Pin an absent tuning cache: the card then routes by the static rule
-    these tests name their kernels by. The tests of the tuned routing
-    below write their own cache."""
+    """Pin an absent tuning cache: the card then routes by the untuned rule
+    (K2 at every M: ``kernels.plain_product_max_bits`` is 0 on a card).
+    The tests of the tuned routing below write their own cache."""
     from stormtpu_torch import tuning
 
     monkeypatch.setenv(tuning.CACHE_ENV, str(tmp_path / "untuned.json"))
@@ -703,6 +703,57 @@ def test_tile_screen_on_card_equals_its_cpu_form(cuda, monkeypatch, measure, thr
     assert want[0].size > 0
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("route", ("block", "tile", "ring"))
+def test_topk_on_card_never_ranks_padding(cuda, monkeypatch, route):
+    """Sparse and empty rows, N not a multiple of the block or tile: padded
+    rows count 0 like the real zero partners and must never be ranked.
+    Values equal numpy's, partner sets valid, on the block form (K2-rect),
+    the tile walk (K2-tri) and the one-rank NCCL ring (K2-rect)."""
+    import stormtpu_torch.config as tconf
+    from stormtpu_torch import dispatch, query
+    from stormtpu_torch.parallel import distributed_topk_neighbors, make_row_mesh
+
+    dense = (np.random.default_rng(0).random((70, 512)) < 0.01).astype(np.uint8)
+    bm = BitMatrix.from_dense(dense)
+    k = 8
+    monkeypatch.setattr(tconf, "_DEFAULT", EngineConfig(k2_tile_rows=32, k2_tile_words=128))
+    monkeypatch.setattr(dispatch, "choose_strategy",
+                        lambda *a, **k_: "pallas_mxu" if route == "tile" else "mxu")
+    reset_launches()
+    if route == "ring":
+        vals, idx = distributed_topk_neighbors(bm, k, mesh=make_row_mesh(device=cuda))
+    else:
+        vals, idx = query.topk_neighbors(bm, k, device=cuda)
+    assert launch_counts()["k2_tri" if route == "tile" else "k2_rect"] >= 1
+    c = dense.astype(np.int64) @ dense.T.astype(np.int64)
+    np.fill_diagonal(c, -1)
+    assert np.array_equal(vals, -np.sort(-c, axis=1)[:, :k])
+    assert np.array_equal(c[np.arange(70)[:, None], idx], vals)
+    assert all(len(set(r.tolist())) == k and i not in r for i, r in enumerate(idx))
+
+
+def test_untuned_card_takes_k2_at_every_m(cuda, tmp_path):
+    """With no tuning cache for the card (this file's fixture pins an
+    absent one), D1 and the streamed walks' ``auto`` name K2 at every M,
+    as ``count_block_auto`` does there, and the count launches K2."""
+    from stormtpu_torch import stream
+    from stormtpu_torch.dispatch import choose_strategy
+    from stormtpu_torch.kernels import plain_product_max_bits
+
+    assert plain_product_max_bits(cuda) == 0 and plain_product_max_bits("cpu") == 1 << 17
+    for m in (4096, 65536, 1 << 17, 1 << 20):
+        assert choose_strategy(1000, m, 0.5, device=cuda) == "pallas_mxu", m
+        assert choose_strategy(1000, m, 0.5, device="cpu") == (
+            "mxu" if m <= 1 << 17 else "pallas_mxu"), m
+        assert stream._auto_stream_kernel(m, 1000, cuda) == "mxu", m
+    bm = _uniform(300, 65536, seed=8)
+    reset_launches()
+    assert np.array_equal(intersect_count_matrix(bm, device=cuda), oracle_count_matrix(bm.packed))
+    assert launch_counts()["k2_tri"] == 1
+    man = stream.stream_count_matrix(bm, str(tmp_path / "s"), superblock_rows=128, device=cuda)
+    assert man["kernel"] == "mxu"
 
 
 def test_pair_counts_on_card_launch_k0(cuda):

@@ -1,7 +1,8 @@
-"""The port stands alone: ``stormtpu_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package ``stormtpu`` (whose ``__init__``
-imports JAX), checked both by importing every module in a fresh
-interpreter and by scanning the sources."""
+"""The port stands alone: ``stormtpu_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) import neither ``jax`` nor the
+JAX package ``stormtpu`` (whose ``__init__`` imports JAX), checked both by
+importing every module in a fresh interpreter and by scanning the
+sources."""
 
 import ast
 import pkgutil
@@ -55,12 +56,17 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_sources_import_no_jax(path):
     bad = [name for name in _imports(path) if _forbidden(name)]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_five_examples_are_scanned():
+    assert len(list((ROOT / "examples").glob("torch_*.py"))) == 5
 
 
 def test_package_modules_are_all_scanned():

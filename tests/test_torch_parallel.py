@@ -142,6 +142,43 @@ def test_meshes_refuse_as_jax(ranks):
     assert all(ranks[rk][("errors", "world")] == errs for rk in range(cases.WORLD))
 
 
+def test_meshes_named_by_their_ranks(ranks):
+    """``devices=`` (a sequence of ranks, in mesh order): every member gets
+    the mesh in that order and the whole exact result; the others None."""
+    packed = _data()["ragged"][0]
+    c = oracle_count_matrix(_data()["topk_sparse"][0]).astype(np.int64)
+    n = c.shape[0]
+    for key, (shape, members) in cases.DEVICE_MESHES.items():
+        members = members[: shape] if isinstance(shape, int) else members
+        have = [rk for rk in range(cases.WORLD) if ("devices", key) in ranks[rk]]
+        assert have == sorted(members), key
+        for rk in have:
+            order, counts, (vals, idx) = ranks[rk][("devices", key)]
+            assert order == members, key
+            np.testing.assert_array_equal(counts, oracle_count_matrix(packed))
+            cm = c.copy()
+            np.fill_diagonal(cm, -1)
+            np.testing.assert_array_equal(vals, -np.sort(-cm, axis=1)[:, :8])
+            assert np.array_equal(c[np.arange(n)[:, None], idx], vals), key
+            assert all(len(set(idx[r].tolist())) == 8 and r not in idx[r] for r in range(n))
+
+
+def test_devices_refused_as_jax(ranks):
+    import jax
+
+    errs = ranks[0][("devices", "errors")]
+    devs = jax.devices()
+    for key, call in (("row_short", lambda: jp.make_row_mesh(4, devices=devs[:2])),
+                      ("grid_short", lambda: jp.make_grid_mesh(2, 2, devices=devs[:3]))):
+        with pytest.raises(ValueError) as e:
+            call()
+        assert errs[key] == str(e.value), key
+    # JAX takes any device objects; the port takes ranks of its group
+    assert "ranks of the group" in errs["not_a_rank"]
+    assert "distinct" in errs["repeated"]
+    assert all(ranks[rk][("devices", "errors")] == errs for rk in range(cases.WORLD))
+
+
 # ------------------------------------------------------- the sharded K5 plan
 def _block_diagonal(n, m_bits, blocks, seed):
     rng = np.random.default_rng(seed)

@@ -8,8 +8,11 @@ As in ``test_torch_parallel.py``: one spawned group of 8 gloo ranks runs
 every case (``torch_parallel_cases.run_query``), and each case is one test
 holding rank 0's result to the JAX package's. Counts, screens, row sums,
 histograms and certified measure rankings must be equal; a count top-k's
-values must be equal and each index must realize its count (tie order is
-each route's own).
+values must be equal, and each row's indices distinct, never the row and
+each realizing its count (tie order is each route's own). Only the values
+are held to the reference there: its ring can name (0, 0) partners on rows
+with fewer than k positive counts (``stormtpu/parallel/query.py``
+``_ring_topk_local`` does not mask padded columns).
 """
 
 import functools
@@ -86,6 +89,8 @@ JAX = {
     "topk_bits_fallback": _topk("topk_small", 3, shard_axis="bits", block_rows=4),
     "topk_measure_bits": _topk("measure_bits", 4, shard_axis="bits", measure="r2"),
     "topk_grid": _topk("grid_q", 4, block_rows=8),
+    "topk_sparse": _topk("topk_sparse", 8),
+    "topk_sparse_bits": _topk("topk_sparse", 8, shard_axis="bits"),
     "topk_measure_grid": _topk("grid_measure", 4, measure="jaccard"),
     "screen_count": _screen("screen", 40, block_rows=8),
     "screen_jaccard": _screen("screen", 0.15, measure="jaccard", block_rows=8),
@@ -111,7 +116,8 @@ JAX = {
 
 # count top-k cases: values equal, indices valid (tie order is the route's)
 TIES = {"topk": "topk", "topk_small_shard": "topk_small", "topk_default_blocks": "topk_small",
-        "topk_bits": "topk_bits", "topk_bits_fallback": "topk_small", "topk_grid": "grid_q"}
+        "topk_bits": "topk_bits", "topk_bits_fallback": "topk_small", "topk_grid": "grid_q",
+        "topk_sparse": "topk_sparse", "topk_sparse_bits": "topk_sparse"}
 
 
 # cases whose result names the mesh's geometry (the stripe walk rounds its
@@ -146,10 +152,12 @@ def _equal(got, want, what):
 
 
 def _valid_indices(c: np.ndarray, vals: np.ndarray, idx: np.ndarray, what: str):
-    rows = np.repeat(np.arange(vals.shape[0]), vals.shape[1])
-    real = vals.ravel() > 0
-    assert np.array_equal(c[rows[real], idx.ravel()[real]], vals.ravel()[real]), what
-    assert not (idx.ravel()[real] == rows[real]).any(), f"{what}: self pair"
+    """Each row's indices are distinct, never the row, and each realizes
+    its count."""
+    n, k = vals.shape
+    assert np.array_equal(c[np.arange(n)[:, None], idx], vals), what
+    for r in range(n):
+        assert len(set(idx[r].tolist())) == k and r not in idx[r], f"{what}: row {r}"
 
 
 PAIRS = [(case, shape) for case, (_, shapes) in cases.QUERY.items() for shape in shapes]

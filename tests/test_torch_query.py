@@ -168,6 +168,26 @@ def test_blocked_tile_order_lists_each_upper_tile_once():
     assert np.all(np.diff(block) >= 0)  # block-row major, one block after the other
 
 
+# sparse and empty rows with N not a multiple of the block: padded rows
+# count 0 and tie with real partners of count 0, and must never be ranked
+F1_PANELS = {
+    "sparse70": lambda: _uniform(70, 512, 0.01, seed=0),
+    "zeros5": lambda: np.zeros((5, 64), np.uint8),
+}
+
+
+@pytest.mark.parametrize("route", ["block", "tile"])
+@pytest.mark.parametrize("panel,k", [("sparse70", 8), ("zeros5", 3)])
+def test_topk_never_ranks_padding(monkeypatch, configs, panel, k, route):
+    dense = F1_PANELS[panel]()
+    if route == "tile":
+        configs(TILE)
+        monkeypatch.setattr(tdispatch, "choose_strategy", lambda *a, **k_: "pallas_mxu")
+    vals, idx = st.topk_neighbors(dense, k, device="cpu")
+    assert np.array_equal(vals, stormtpu.topk_neighbors(dense, k)[0])
+    _assert_valid_topk(vals, idx, _counts(dense), k)
+
+
 @pytest.mark.parametrize("measure", ["count", "topk"])
 def test_tile_walks_in_blocked_order_equal_jax(tile_route, monkeypatch, measure):
     """Tile blocks of 2 × 2 and chunks of 3 tiles: a chunk holds parts of

@@ -31,7 +31,8 @@ def _missing_panel(n, m, seed, missing=0.05):
 
 
 def test_port_exports_every_name_of_the_jax_package():
-    assert set(stormtpu.__all__) - {"__version__"} <= set(st.__all__)
+    assert set(stormtpu.__all__) <= set(st.__all__)
+    assert st.__version__ == stormtpu.__version__
     for name in st.__all__:
         assert hasattr(st, name), name
 

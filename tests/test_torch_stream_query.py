@@ -114,15 +114,16 @@ def _spy(monkeypatch, name, record=None, fail_at=None):
 @pytest.mark.parametrize("n,m", [(20, 256), (52, 600), (64, 16384), (300, 16384),
                                  (60, 2048), (130, 1024), (10, 1 << 18)])
 def test_auto_stream_kernel_resolves_as_jax(n, m):
-    """The port's ``_auto_stream_kernel(m_bits)`` and the reference's
-    ``(m_bits, n)`` name the same kernel on every shape these tests use (the
-    name is part of every manifest)."""
-    assert ts._auto_stream_kernel(m) == js._auto_stream_kernel(m, n)
+    """On the CPU the port's ``_auto_stream_kernel`` and the reference's
+    name the same kernel on every shape these tests use (the name is part
+    of every manifest)."""
+    assert ts._auto_stream_kernel(m, n, "cpu") == js._auto_stream_kernel(m, n)
     bj, bt = _pair(random_bitmatrix(n, m, 0.01, seed=n))
     jcfg, cfg = _configs()
     for kernel in ("auto", *KERNELS):
         for bitmap in (False, True):
-            got, _, name = tsq._walk_resolution(bt, 48, kernel, cfg, bitmap=bitmap)
+            got, _, name = tsq._walk_resolution(bt, 48, kernel, cfg, bitmap=bitmap,
+                                                device="cpu")
             want, _, want_name = jsq._walk_resolution(bj, 48, kernel, jcfg, True, bitmap=bitmap)
             assert name == want_name
             assert (got.kernel, got.ti, got.wk, got.sb, got.w_pad, got.n_pad, got.n_super) == (

@@ -94,7 +94,7 @@ def test_a_cache_applies_to_its_device_only(caches, monkeypatch):
     assert ttuning.measured_dense_winner(300, 10_000, device="cpu") == "popcount"
     # no card here: a cache for the CPU does not route the card
     assert ttuning.measured_dense_winner(300, 10_000, device="cuda") is None
-    assert choose_strategy(300, 10_000, 0.5, device="cuda") == "mxu"
+    assert choose_strategy(300, 10_000, 0.5, device="cuda") == "pallas_mxu"  # untuned: K2
     # a card whose name the cache holds follows it
     monkeypatch.setattr(ttuning, "device_name",
                         lambda device=None: "cpu" if device is None else "other")

@@ -58,6 +58,9 @@ def data() -> dict:
     d["screen"] = (dense_packed(90, 1024, 0.25, seed=53), 1024)
     d["screen_bits"] = (dense_packed(90, 8 * 128 * 32 + 50, 0.02, seed=91), 8 * 128 * 32 + 50)
     d["topk_bits"] = (dense_packed(70, 8 * 128 * 32 + 50, 0.02, seed=93), 8 * 128 * 32 + 50)
+    # sparse and empty rows, N not a multiple of the block: padded rows
+    # must never be ranked among a row's partners
+    d["topk_sparse"] = (dense_packed(70, 512, 0.01, seed=0), 512)
     d["measure_bits"] = (dense_packed(48, 8192, 0.3, seed=93), 8192)
     d["grid_q"] = (dense_packed(45, 610, 0.3, seed=71), 610)
     d["grid_measure"] = (dense_packed(40, 2048, 0.3, seed=92), 2048)
@@ -210,9 +213,52 @@ def _errors(device) -> dict:
     return out
 
 
+#: meshes named by their ranks (``devices=``), out of rank order
+DEVICE_MESHES = {"row": (None, (5, 2, 7)), "grid": ((2, 2), (7, 6, 1, 4)),
+                 "head": (2, (3, 0, 6))}
+
+
+def _devices_cases(device) -> dict:
+    """On each mesh of ``DEVICE_MESHES`` this rank is in: the mesh's ranks
+    in order, the ring's count matrix of ``ragged`` and the ring's top-k of
+    ``topk_sparse``; and what ``devices=`` refuses."""
+    from stormtpu_torch.parallel import (
+        distributed_count_matrix,
+        distributed_topk_neighbors,
+        make_grid_mesh,
+        make_row_mesh,
+    )
+
+    d = data()
+    out = {}
+    for key, (shape, ranks) in DEVICE_MESHES.items():
+        mesh = (make_grid_mesh(*shape, devices=ranks, device=device) if isinstance(shape, tuple)
+                else make_row_mesh(shape, devices=ranks, device=device))
+        if mesh is not None:
+            out[("devices", key)] = (
+                tuple(int(r) for r in mesh.devices.flat),
+                distributed_count_matrix(d["ragged"][0], mesh=mesh),
+                distributed_topk_neighbors(bitmatrix(d, "topk_sparse"), 8, mesh=mesh))
+    errs = {}
+    for key, call in (
+        ("row_short", lambda: make_row_mesh(4, devices=(0, 1), device=device)),
+        ("grid_short", lambda: make_grid_mesh(2, 2, devices=(0, 1, 2), device=device)),
+        ("not_a_rank", lambda: make_row_mesh(devices=(0, 8), device=device)),
+        ("repeated", lambda: make_row_mesh(devices=(1, 1), device=device)),
+    ):
+        try:
+            call()
+            errs[key] = None
+        except ValueError as e:
+            errs[key] = str(e)
+    out[("devices", "errors")] = errs
+    return out
+
+
 def run_allpairs(device) -> dict:
     out = _run(device, ALLPAIRS)
     out[("errors", "world")] = _errors(device)
+    out.update(_devices_cases(device))
     return out
 
 
@@ -282,6 +328,8 @@ QUERY = {
     "topk_bits_fallback": (_topk("topk_small", 3, shard_axis="bits", block_rows=4), ("r8",)),
     "topk_measure_bits": (_topk("measure_bits", 4, shard_axis="bits", measure="r2"), ALL_1D),
     "topk_grid": (_topk("grid_q", 4, block_rows=8), ALL_2D),
+    "topk_sparse": (_topk("topk_sparse", 8), ("r2", "r3")),
+    "topk_sparse_bits": (_topk("topk_sparse", 8, shard_axis="bits"), ("r2", "r3")),
     "topk_measure_grid": (_topk("grid_measure", 4, measure="jaccard"), ALL_2D),
     "screen_count": (_screen("screen", 40, block_rows=8), ALL_1D),
     "screen_jaccard": (_screen("screen", 0.15, measure="jaccard", block_rows=8), ALL_1D),
