@@ -26,7 +26,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the source for this) in the same run, its plain version (also compared,
    exactly), one ``torch._int_mm`` call on pre-unpacked int8 operands as a
    yardstick, and each kernel's bound; a ``[breakdown]`` of the warm call
-   (kernel, assembly of the N×N matrix on the card, one download);
+   (kernel, assembly of the N×N matrix on the card, one download); and
+   phase 35's first part: K2-topk and K2-hist (``csrc/k2_epilogue.cu``) on
+   the first chunk of ``topk_neighbors``' tile walk (1024 tiles), held to
+   their plain versions exactly (the top-k's values and indices), timed
+   beside K2-tri alone, K2-tri followed by the same reduction in torch, the
+   plain version and the bound;
 7. hold K5 (work list), K1 (AND + popcount tiles) and K0 (pair stream)
    against their plain versions, exactly: K5 on plans of block-diagonal
    inputs at three tile configurations (pad slots, tail pad items, slots
@@ -56,9 +61,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     the popcount of the two rows' AND (on the card, and for 64 of them by
     numpy on downloaded rows); wall time, K2 time by CUDA events, G-pairs/s
     and the share of the operation bound;
-13. ``stream_count_histogram`` on the same operand (mass n(n−1)/2), and on
-    its last four superblocks against a histogram built from one K2-rect
-    call on those rows;
+13. ``stream_count_histogram`` on the same operand (mass n(n−1)/2) through
+    K2-hist (325 launches, no K2-tri), equal to the store route's (K2-tri's
+    tiles binned by torch) on the same operand, and on its last four
+    superblocks against a histogram built from one K2-rect call on those
+    rows; phase 35's second part: K2-topk and K2-hist on config-4 stripes
+    (0, 1) (timed as in phase 6), (0, 0), and the ragged last stripe on two
+    slices with global offsets, each held to its plain version;
 14. the disk route on phase 8's LD panel into temporary directories,
     superblock 4096, uncompressed: ``kernel="mxu"`` with the operand
     resident, the same with operand streaming (every stripe equal), each
@@ -97,14 +106,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     equal scipy's ``csr @ csr.T`` on that stripe (65,536 rows when the host
     has under 48 GB available);
 20. the analytics surface at the main-path shape, held to phase 3's
-    matrix C exactly: ``topk_neighbors(k=16)`` (the K2 tile walk: values
-    equal each row's top 16 of C off the diagonal, indices valid),
+    matrix C exactly: ``topk_neighbors(k=16)`` (the K2 tile walk through
+    K2-topk: values equal each row's top 16 of C off the diagonal and the
+    store route's, indices valid on both),
     ``pairs_above`` by count (a threshold with 10^5-10^6 pairs: equal to
     ``np.nonzero(np.triu(C >= t, 1))`` with values) and by Jaccard (equal
     to the float64 filter of C), ``pair_counts`` of 10^6 pairs (K0),
     ``similarity_matrix("r2")``, ``pairwise_cardinality("xor")``,
     ``count_row_sums``, ``column_counts``, and ``count_histogram`` through
-    the operand-streaming walk (a lowered operand budget) and ``dense``;
+    the operand-streaming walk (a lowered operand budget; K2-hist, equal to
+    the store route's) and ``dense`` (K2-hist);
 21. the LD panel of phase 8: ``pairs_above(measure="r2", threshold=0.5)``
     and by count on the clustered host route (K5, no K2), ``clump`` on the
     r2 screen, ``count_histogram`` on the clustered route, all equal to
@@ -127,7 +138,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     top 8);
 25. the streamed queries (``stream_query``) on phase 24's matrix and its
     device operand, superblock 4096 (325 stripes): ``stream_topk_neighbors(k=8)``
-    equal to phase 24's top-k on every row, ``stream_pairs_above`` equal to
+    through K2-topk (no dense stripe) equal to phase 24's top-k on every row
+    and to the store route's (dense stripes), ``stream_pairs_above`` equal to
     its 65 hits, and ``topk_neighbors(measure="jaccard", k=8)``, which
     takes the streamed walk above 32,768 rows: 256 sampled rows equal to
     the float64 ranking of their K2-rect counts;
@@ -209,7 +221,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 Phases 20-28 print each call's wall time and a ``[breakdown]`` of its
 stages (K2 by CUDA events, the screen, merge and bin passes, the summary
 and word downloads, the refine), and K2's share of its bound; phases 25-28
-also K2's and the reduction's milliseconds a stripe.
+also K2's and the reduction's milliseconds a stripe. A ``[breakdown]``
+names the reduction routes its walk took over K2-tri's tiles
+(``kernels.mxu.topk_route`` / ``hist_route``: ``k2_topk``, ``k2_hist``, or
+a store route named by its rule), stripes or chunks each.
 
 The lines before the last are a ``kernels`` JSON object (each kernel's
 launches on its main path, and during the streaming, query, tuning,
@@ -424,7 +439,82 @@ def breakdown(label: str, rec, per: int) -> None:
     print(f"[breakdown] {label}: mean s a stripe over {per} stripes: " + ", ".join(parts)
           + f"; sum {total / per:.5f}; kernel by CUDA events "
           f"{rec.device_ms.get('kernel', 0.0) / per:.3f} ms; the stage that holds a stripe: "
-          f"{holder} ({rec.seconds[holder] / total:.0%})")
+          f"{holder} ({rec.seconds[holder] / total:.0%})" + routes_of(rec))
+
+
+def routes_of(rec) -> str:
+    """The reduction routes a recorded walk took over K2-tri's tiles
+    (``kernels.mxu.topk_route`` / ``hist_route``), stripes or chunks each."""
+    return f"; routes {rec.routes}" if rec.routes else ""
+
+
+def epilogue_kernels(torch, dev, x, ibs: np.ndarray, jbs: np.ndarray, tile_rows: int,
+                     tile_words: int, *, n_real: int, k: int, n_bins: int, bin_width: int,
+                     row_off: int = 0, col_off: int = 0, ops_per_s: float, label: str,
+                     reps: int = 0) -> dict:
+    """K2-topk and K2-hist on the tile list (ibs, jbs) of the card operand
+    ``x``, each held to its plain version exactly (K2-topk's values and
+    indices). ``reps`` > 0: also their CUDA-event ms, the plain version's,
+    K2-tri's and K2-tri's followed by the same reduction in torch on its
+    stored tiles (the yardstick), and the bound of the work: K2-tri's
+    ``2·pairs·M`` operations at the measured b1 rate, against the bytes of
+    the operand rows the list touches, the ids and the outputs. Returns
+    {"k2_topk": {...}, "k2_hist": {...}}."""
+    from stormtpu_torch.kernels import mxu
+
+    ids = mxu.device_tile_ids(ibs, jbs, x.shape[0] // tile_rows, dev)
+    kw = dict(tile_rows=tile_rows, tile_words=tile_words, row_off=row_off, col_off=col_off,
+              n_real=n_real)
+    topk_kw = dict(k=k, **kw)
+    hist_kw = dict(n_bins=n_bins, bin_width=bin_width, **kw)
+    sets = mxu.count_tiles_topk(x, *ids, checked=ids, **topk_kw)
+    plain = mxu.count_tiles_topk_plain(x, *ids, **topk_kw)
+    hist = mxu.count_tiles_hist(x, *ids, checked=ids, **hist_kw)
+    plain_h = mxu.count_tiles_hist_plain(x, *ids, **hist_kw)
+    torch.cuda.synchronize()
+    err_t = max(exact_diff(torch, g, w) for g, w in zip(sets, plain))
+    err_h = exact_diff(torch, hist, plain_h)
+    if int(hist.sum()) == 0 and n_real > 1:
+        raise AssertionError(f"{label}: K2-hist binned no pair")
+    del plain, plain_h
+    out = {"k2_topk": dict(max_abs_err=err_t), "k2_hist": dict(max_abs_err=err_h)}
+    t, ti, w_pad = ibs.size, tile_rows, x.shape[1]
+    print(f"[epilogue] {label}: T={t} tiles of {ti} rows at {w_pad} words, k={k}, {n_bins} "
+          f"bins of width {bin_width}, row/col offsets {row_off}/{col_off}, n_real {n_real}: "
+          f"K2-topk's sets (values and indices) and K2-hist's bins equal their plain versions "
+          f"exactly")
+    if not reps:
+        return out
+    tri = lambda: mxu.count_tiles_pallas_mxu(x, *ids, tile_rows=ti, tile_words=tile_words,  # noqa: E731
+                                             checked=ids)
+    reduce_t = lambda tiles: mxu.tile_topk_sets(tiles, *ids, k=k, n_real=n_real,  # noqa: E731
+                                                row_off=row_off, col_off=col_off)
+    reduce_h = lambda tiles: mxu.tile_hist(tiles, *ids, n_real=n_real, bin_width=bin_width,  # noqa: E731
+                                           n_bins=n_bins, row_off=row_off, col_off=col_off)
+    tri_ms = cuda_ms(torch, tri, reps=reps)
+    rows_touched = np.union1d(ibs, jbs).size * ti
+    ops = 2.0 * t * ti * ti * w_pad * 32
+    in_bytes = 4.0 * (rows_touched * w_pad + 2 * t)
+    kk = min(k, ti)
+    sides = -(-ti // mxu.EPI_BLOCK[0]) + -(-ti // mxu.EPI_BLOCK[1])
+    for name, fn, plain_fn, red, out_bytes in (
+            ("k2_topk", lambda: mxu.count_tiles_topk(x, *ids, checked=ids, **topk_kw),
+             lambda: mxu.count_tiles_topk_plain(x, *ids, **topk_kw), reduce_t,
+             4.0 * 2 * t * sides * ti * kk),
+            ("k2_hist", lambda: mxu.count_tiles_hist(x, *ids, checked=ids, **hist_kw),
+             lambda: mxu.count_tiles_hist_plain(x, *ids, **hist_kw), reduce_h, 8.0 * n_bins)):
+        b_ms, b_by = bound(ops, in_bytes + out_bytes, ops_per_s)
+        out[name].update(
+            ms=cuda_ms(torch, fn, reps=reps), plain_ms=cuda_ms(torch, plain_fn, reps=1, warmup=0),
+            library_ms=cuda_ms(torch, lambda: red(tri()), reps=reps), k2_tri_ms=tri_ms,
+            bound_ms=b_ms, bound_by=b_by, bound_rate="measured wgmma_b1_n256",
+            shape=f"{t} tiles of {ti} rows, {w_pad} words ({label})")
+        r = out[name]
+        print(f"[timing] {name} {label}: kernel {r['ms']:.3f} ms, K2-tri alone {tri_ms:.3f} ms "
+              f"(the epilogue adds {r['ms'] - tri_ms:+.3f} ms), K2-tri + the torch reduction "
+              f"{r['library_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}); the kernel at {b_ms / r['ms']:.1%} of its bound")
+    return out
 
 
 def stream_phases(torch, dev, cfg, rng, seed, bm_ld, ld_ref, k2_ops_per_s) -> dict:
@@ -518,9 +608,71 @@ def stream_phases(torch, dev, cfg, rng, seed, bm_ld, ld_ref, k2_ops_per_s) -> di
                                          device=dev)
     torch.cuda.synchronize()
     wall_h = time.perf_counter() - t0
-    expect_launches("config 4 histogram walk", k2_tri=stripes)
+    launches_hist = expect_launches("config 4 histogram walk", k2_hist=stripes,
+                                    k2_tri=0)["k2_hist"]
     if int(hist["hist"].sum()) != pairs4 or hist["pairs"] != pairs4:
         raise AssertionError("config 4 histogram: mass is not n(n-1)/2")
+    # the store route on the same operand: K2-tri's tiles binned by torch
+    with stream.record_stages() as rec_e:
+        stream.stream_count_histogram(xd, n4, CFG4_M, n_bins=HIST_BINS, superblock_rows=sb,
+                                      device=dev)
+    def hist_wall() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream.stream_count_histogram(xd, n4, CFG4_M, n_bins=HIST_BINS, superblock_rows=sb,
+                                      device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    store_bins = mxu.HIST_EPI_MAX_BINS
+    walls_h = {"epilogue": [wall_h], "store": []}
+    for turn in range(3):
+        mxu.HIST_EPI_MAX_BINS = 0
+        try:
+            if turn == 0:
+                reset_launches()
+                hist_store = stream.stream_count_histogram(xd, n4, CFG4_M, n_bins=HIST_BINS,
+                                                           superblock_rows=sb, device=dev)
+                expect_launches("config 4 histogram walk, store route", k2_tri=stripes,
+                                k2_hist=0)
+                with stream.record_stages() as rec_s:
+                    stream.stream_count_histogram(xd, n4, CFG4_M, n_bins=HIST_BINS,
+                                                  superblock_rows=sb, device=dev)
+            walls_h["store"].append(hist_wall())
+        finally:
+            mxu.HIST_EPI_MAX_BINS = store_bins
+        if turn < 2:
+            walls_h["epilogue"].append(hist_wall())
+    if not np.array_equal(hist["hist"], hist_store["hist"]):
+        raise AssertionError("config 4 histogram: K2-hist's differs from the store route's")
+    print(f"[config 4] stream_count_histogram through K2-hist, {launches_hist} k2_hist "
+          f"launches; walls in turns: K2-hist {', '.join(f'{w:.3f}' for w in walls_h['epilogue'])} "
+          f"s (median {np.median(walls_h['epilogue']):.3f}), the store route (K2-tri, then "
+          f"torch's bin count) on the same operand "
+          f"{', '.join(f'{w:.3f}' for w in walls_h['store'])} s (median "
+          f"{np.median(walls_h['store']):.3f}); equal histograms")
+    breakdown("config 4 histogram sink, K2-hist (recorded walk)", rec_e, rec_e.stripes)
+    breakdown("config 4 histogram sink, store route (recorded walk)", rec_s, rec_s.stripes)
+    # K2-topk and K2-hist on config-4 stripes: an off-diagonal and a diagonal
+    # stripe of the resident operand, and the ragged last stripe in the
+    # two-slice form (local ids, global offsets), held to their plain versions
+    tps_ = sb // cfg.k2_tile_rows
+    ti4 = cfg.k2_tile_rows
+    width4 = stream.default_hist_bin_width(CFG4_M, HIST_BINS)
+    ek = dict(n_real=n4, k=CFG4_TOPK_K, n_bins=HIST_BINS, bin_width=width4,
+              ops_per_s=k2_ops_per_s)
+    loc_i, loc_j = stream._stripe_tile_ids(tps_, False)
+    epi = epilogue_kernels(torch, dev, xd, loc_i, loc_j + tps_, ti4, cfg.k2_tile_words,
+                           label="config-4 stripe (0, 1)", reps=10, **ek)
+    di, dj = stream._stripe_tile_ids(tps_, True)
+    epilogue_kernels(torch, dev, xd, di, dj, ti4, cfg.k2_tile_words,
+                     label="config-4 stripe (0, 0)", **ek)
+    last = n_super - 1
+    pair = torch.cat([xd[(last - 1) * sb : last * sb], xd[last * sb :]])
+    epilogue_kernels(torch, dev, pair, loc_i, loc_j + tps_, ti4, cfg.k2_tile_words,
+                     row_off=(last - 1) * sb, col_off=(last - 1) * sb,
+                     label=f"config-4 stripe ({last - 1}, {last}) on two slices", **ek)
+    del pair
     # the last four superblocks (the ragged end of n among them) against one
     # K2-rect call on those rows
     r0 = max(0, n_super - 4) * sb
@@ -675,7 +827,8 @@ def stream_phases(torch, dev, cfg, rng, seed, bm_ld, ld_ref, k2_ops_per_s) -> di
           f"({ran} of {len(man_c['stripes'])} stripes ran K5, {man_c['work_items']} items), K2 "
           f"sink {wall_cd:.3f} s on the same padded operand: checksums equal stripe for stripe, "
           f"skipped stripes 0, all samples equal the clustered path's matrix")
-    return {"k2_tri": launches4, "k5": launches_k5}
+    return {"k2_tri": launches4, "k5": launches_k5, "k2_hist": launches_hist,
+            "epilogue": epi}
 
 
 def host_available_bytes() -> int:
@@ -1047,7 +1200,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
     from stormtpu_torch.setops import derive_similarity
     from stormtpu_torch.utils import round_up
 
-    total = dict.fromkeys(("k2_tri", "k2_rect", "k5", "k1", "k0", "k3", "k4"), 0)
+    total = dict.fromkeys(launch_counts(), 0)
     on_card = dev.type == "cuda"
 
     def sync():
@@ -1071,7 +1224,8 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
         wall = time.perf_counter() - t0
         got = launch_counts()
         for k, v in got.items():
-            (total if into is None else into)[k] += v
+            acc = total if into is None else into
+            acc[k] = acc.get(k, 0) + v
         if any(got[k] < 1 for k in want) or any(got[k] for k in absent):
             raise AssertionError(f"{label}: launches {got}; want {want} and none of {absent}")
         if again:
@@ -1133,7 +1287,17 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
         if bound_s and kern:
             line += (f"; K2 {kern / 1e3:.4f} s against its bound {bound_s:.4f} s: "
                      f"{bound_s / (kern / 1e3):.1%} of it")
-        print(line)
+        print(line + routes_of(rec))
+
+    def store_route(fn):
+        """``fn`` with K2-topk and K2-hist switched off (their dispatch
+        limits at 0): the tiles are stored and reduced by torch."""
+        keep = mxu.TOPK_EPI_MAX, mxu.HIST_EPI_MAX_BINS
+        mxu.TOPK_EPI_MAX = mxu.HIST_EPI_MAX_BINS = 0
+        try:
+            return fn()
+        finally:
+            mxu.TOPK_EPI_MAX, mxu.HIST_EPI_MAX_BINS = keep
 
     def tri_hist(c: np.ndarray, width: int) -> np.ndarray:
         """Counts of each value 0..width-1 over the strict upper triangle."""
@@ -1195,17 +1359,37 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
 
     (vals, idx), wall, rec, launched = run(
         "topk_neighbors", lambda: st.topk_neighbors(bm, TOPK_K, device=dev),
-        want=("k2_tri",), absent=("k2_rect", "k5"), again=True)
+        want=("k2_topk",), absent=("k2_rect", "k5", "k2_tri"), again=True)
+    (sv, si), wall_st, rec_st, launched_st = store_route(lambda: run(
+        "topk_neighbors store route", lambda: st.topk_neighbors(bm, TOPK_K, device=dev),
+        want=("k2_tri",), absent=("k2_topk",), again=True, into={}))
     for r0 in range(0, n, 1024):
         r = np.arange(r0, min(r0 + 1024, n))
         if not np.array_equal(vals[r], topk_of(c[r], TOPK_K, r)):
             raise AssertionError(f"topk_neighbors: rows {r0}.. differ from C's top {TOPK_K}")
         valid_indices("topk_neighbors", c[r], vals[r], idx[r], r)
-    kept = {"topk20": vals}
-    print(f"[query] topk_neighbors(k={TOPK_K}) {n} rows: tile walk, launches {launched}; values "
-          f"equal C's top {TOPK_K} off the diagonal, indices valid; warm wall {wall:.4f} s "
-          f"(recorded)")
+        valid_indices("topk_neighbors store route", c[r], sv[r], si[r], r)
+    if not np.array_equal(vals, sv):
+        raise AssertionError("topk_neighbors: K2-topk's values differ from the store route's")
+    kept = {"topk20": vals, "topk20_launches": launched["k2_topk"]}
+    # unrecorded calls in turns, the store route first (its stages overlap)
+    as_run = {"epilogue": [], "store": []}
+    for _ in range(5):
+        as_run["store"].append(store_route(
+            lambda: wall_of(lambda: st.topk_neighbors(bm, TOPK_K, device=dev))))
+        as_run["epilogue"].append(wall_of(lambda: st.topk_neighbors(bm, TOPK_K, device=dev)))
+    print(f"[query] topk_neighbors(k={TOPK_K}) {n} rows: tile walk through K2-topk, launches "
+          f"{launched}; values equal C's top {TOPK_K} off the diagonal and the store route's "
+          f"(K2-tri, then torch's top-k: launches {launched_st}), indices valid on both; warm "
+          f"wall {wall:.4f} s, store route {wall_st:.4f} s (recorded); as run, five calls in "
+          f"turns: K2-topk {', '.join(f'{w:.4f}' for w in as_run['epilogue'])} s (median "
+          f"{np.median(as_run['epilogue']):.4f}), store route "
+          f"{', '.join(f'{w:.4f}' for w in as_run['store'])} s (median "
+          f"{np.median(as_run['store']):.4f})")
     stages(f"topk_neighbors {n} x {m}, k={TOPK_K}", rec, wall, chunks, tri_bound)
+    stages(f"topk_neighbors {n} x {m}, k={TOPK_K}, store route", rec_st, wall_st, chunks,
+           tri_bound)
+    del sv, si
 
     got, wall, rec, launched = run(
         "pairs_above count", lambda: st.pairs_above(bm, t_count, device=dev),
@@ -1276,15 +1460,25 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
         man_s, wall_s, rec_s, launched = run("count_histogram streamed",
                                              lambda: st.count_histogram(bm, n_bins=HIST_BINS,
                                                                         device=dev),
-                                             want=("k2_tri",))
+                                             want=("k2_hist",), absent=("k2_tri",))
+        man_st, wall_st, rec_st, _ = store_route(lambda: run(
+            "count_histogram streamed, store route",
+            lambda: st.count_histogram(bm, n_bins=HIST_BINS, device=dev), want=("k2_tri",),
+            absent=("k2_hist",), into={}))
     finally:
         del os.environ["STORMTPU_DEVICE_OPERAND_BUDGET_BYTES"]
     man_d, wall_d, rec_d, _ = run("count_histogram dense",
                                   lambda: st.count_histogram(bm, n_bins=HIST_BINS,
                                                              method="dense", device=dev),
-                                  want=("k2_tri",))
+                                  want=("k2_hist",), absent=("k2_tri",))
     if not (man_s.get("operand_streaming") and "operand_streaming" not in man_d):
         raise AssertionError("count_histogram: the lowered budget did not stream the operand")
+    if not np.array_equal(man_s["hist"], man_st["hist"]):
+        raise AssertionError("count_histogram streamed: K2-hist's differs from the store route's")
+    print(f"[query] count_histogram streamed (two slices, _PairStripes) through K2-hist "
+          f"{wall_s:.3f} s, the store route on the same matrix {wall_st:.3f} s: equal")
+    stages("count_histogram streamed, store route", rec_st, wall_st,
+           man_st["n_super"] * (man_st["n_super"] + 1) // 2)
     for man in (man_s, man_d):
         if not np.array_equal(man["hist"], hist_want):
             raise AssertionError(f"count_histogram ({man.get('operand_streaming')}) differs "
@@ -1495,7 +1689,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
     man, wall_h, rec, launched = run(
         "config 4 count_histogram",
         lambda: st.count_histogram(bm4, n_bins=CFG4_BINS, bin_width=bw4, device=dev),
-        want=("k2_tri",), again=True)
+        want=("k2_hist",), absent=("k2_tri",), again=True)
     hist4 = man["hist"]
     if int(hist4.sum()) != pairs4:
         raise AssertionError("config 4 count_histogram: mass is not n(n-1)/2")
@@ -1519,7 +1713,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
     stages("config 4 pairs_above (tile screen)", rec, wall_s, chunks4, tri_bound4)
     (v4, i4), wall_t, rec, launched = run(
         "config 4 topk_neighbors", lambda: st.topk_neighbors(bm4, CFG4_TOPK_K, device=dev),
-        want=("k2_tri",), again=True)
+        want=("k2_topk",), absent=("k2_tri",), again=True)
     rows = np.sort(rng.choice(n4, CFG4_TOPK_ROWS, replace=False))
     buf = bm4.device_padded(n4, device=dev, reuse_larger=True)
     b_rows = round_up(n4, ti4)
@@ -1539,7 +1733,8 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
     del buf, a_pad, b_pad
     print(f"[query] phases 20-24 launches: {total}")
     streamed = stream_query_phases(
-        torch, dev, cfg, k2_ops_per_s, (run, stages, wall_of, same_pairs, topk_of, valid_indices),
+        torch, dev, cfg, k2_ops_per_s,
+        (run, stages, wall_of, same_pairs, topk_of, valid_indices, store_route),
         cfg4=(bm4, got, v4, rows, rect, t4), ld=(bm_ld, ld_ref, t_ld), cfg3_b=cfg3_b,
         complete=(bm_d, bm_m, complete_pairs))
     bm4.clear_device_cache()
@@ -1555,15 +1750,17 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
     """Phases 25 to 28: the streamed queries (``stream_query``) on the
     matrices of phases 24, 21, 22 and 23, each result held to the resident
     query's result or to the reference matrix. ``helpers`` are phases
-    20-24's (run, stages, wall_of, same_pairs, topk_of, valid_indices).
+    20-24's (run, stages, wall_of, same_pairs, topk_of, valid_indices,
+    store_route).
     Returns the launches of every kernel over these phases' calls."""
     import stormtpu_torch as st
     from stormtpu_torch import stream_query as sq
+    from stormtpu_torch.kernels import launch_counts
     from stormtpu_torch.setops import derive_similarity
     from stormtpu_torch.utils import round_up
 
-    run, stages, wall_of, same_pairs, topk_of, valid_indices = helpers
-    total = dict.fromkeys(("k2_tri", "k2_rect", "k5", "k1", "k0", "k3", "k4"), 0)
+    run, stages, wall_of, same_pairs, topk_of, valid_indices, store_route = helpers
+    total = dict.fromkeys(launch_counts(), 0)
     sb = SUPERBLOCK
     t_phases = time.perf_counter()
 
@@ -1594,17 +1791,44 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
     (vals, idx), wall, rec, launched = run(
         "config 4 stream_topk_neighbors",
         lambda: sq.stream_topk_neighbors(bm4, k, superblock_rows=sb, device=dev),
-        want=("k2_tri",), absent=("k2_rect", "k4"), again=True, into=total)
+        want=("k2_topk",), absent=("k2_rect", "k4", "k2_tri"), again=True, into=total)
     if not np.array_equal(vals, v4):
         raise AssertionError("config 4 stream_topk_neighbors: values differ from phase 24's")
     valid_indices("config 4 stream_topk_neighbors", rect4, vals[rows4], idx[rows4], rows4)
     plain = wall_of(lambda: sq.stream_topk_neighbors(bm4, k, superblock_rows=sb, device=dev))
     print(f"[stream query] config 4 stream_topk_neighbors(k={k}) {n4} x {m4} bits at superblock "
-          f"{sb} ({stripes4} stripes): launches {launched}; values equal phase 24's "
-          f"topk_neighbors on all rows, indices valid on its {rows4.size} K2-rect rows")
+          f"{sb} ({stripes4} stripes) through K2-topk, no dense stripe assembled: launches "
+          f"{launched}; values equal phase 24's topk_neighbors on all rows, indices valid on "
+          f"its {rows4.size} K2-rect rows")
     per_stripe("config 4 stream_topk_neighbors", rec, wall, plain)
     stages("config 4 stream_topk_neighbors (a chunk is a stripe)", rec, wall, rec.launched,
            bound4)
+    (svals, sidx), wall_st, rec_st, launched_st = store_route(lambda: run(
+        "config 4 stream_topk_neighbors store route",
+        lambda: sq.stream_topk_neighbors(bm4, k, superblock_rows=sb, device=dev),
+        want=("k2_tri",), absent=("k2_topk",), into={}))
+    if not np.array_equal(svals, vals):
+        raise AssertionError("config 4 stream_topk_neighbors: K2-topk's values differ from the "
+                             "store route's")
+    valid_indices("config 4 stream_topk_neighbors store route", rect4, svals[rows4],
+                  sidx[rows4], rows4)
+    walls = {"epilogue": [plain], "store": []}
+    for _ in range(3):
+        walls["store"].append(store_route(lambda: wall_of(
+            lambda: sq.stream_topk_neighbors(bm4, k, superblock_rows=sb, device=dev))))
+        if len(walls["epilogue"]) < 3:
+            walls["epilogue"].append(wall_of(
+                lambda: sq.stream_topk_neighbors(bm4, k, superblock_rows=sb, device=dev)))
+    plain_st = float(np.median(walls["store"]))
+    print(f"[stream query] config 4 stream_topk_neighbors store route (dense stripes, torch's "
+          f"top-k): launches {launched_st}, values equal the K2-topk route's; as run, in turns: "
+          f"store route {', '.join(f'{w:.4f}' for w in walls['store'])} s (median "
+          f"{plain_st:.4f}), K2-topk {', '.join(f'{w:.4f}' for w in walls['epilogue'])} s "
+          f"(median {np.median(walls['epilogue']):.4f})")
+    per_stripe("config 4 stream_topk_neighbors, store route", rec_st, wall_st, plain_st)
+    stages("config 4 stream_topk_neighbors, store route (a chunk is a stripe)", rec_st,
+           wall_st, rec_st.launched, bound4)
+    del svals, sidx
     got, wall, rec, launched = run(
         "config 4 stream_pairs_above",
         lambda: sq.stream_pairs_above(bm4, t4, superblock_rows=sb, device=dev),
@@ -1652,7 +1876,7 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
     (tv, ti_), _, _, _ = run(
         "LD stream_topk resident",
         lambda: sq.stream_topk_neighbors(bm_ld, k, superblock_rows=sb, device=dev),
-        want=("k2_tri",), into=total)
+        want=("k2_topk",), absent=("k2_tri",), into=total)
     for r0 in range(0, n_ld, 2048):
         r = np.arange(r0, min(r0 + 2048, n_ld))
         if not np.array_equal(tv[r], topk_of(ld_ref[r], k, r)):
@@ -1701,12 +1925,12 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
                 "LD stream_topk streamed",
                 lambda: sq.stream_topk_neighbors(bm_ld, k, superblock_rows=sb, out_dir=tk,
                                                  device=dev),
-                want=("k2_tri",), into=total)
+                want=("k2_topk",), absent=("k2_tri",), into=total)
             sq.stream_topk_neighbors(head, k, superblock_rows=sb, out_dir=tk_grown, device=dev)
             (ev, ei), wall_e, rec_e, _ = run(
                 "LD extend_stream_topk_neighbors",
                 lambda: sq.extend_stream_topk_neighbors(bm_ld, tk_grown, device=dev),
-                want=("k2_tri",), into=total)
+                want=("k2_topk",), absent=("k2_tri",), into=total)
             for label, v, i in (("streamed", sv, si), ("extended", ev, ei)):
                 if not np.array_equal(v, tv):
                     raise AssertionError(f"LD stream_topk_neighbors {label}: values differ "
@@ -2377,12 +2601,18 @@ def repaired_topk_phase(torch, dev, cfg3_b) -> dict:
     launches."""
     import stormtpu_torch as st
     from stormtpu_torch import dispatch, parallel as par
-    from stormtpu_torch.kernels import launch_counts, reset_launches
+    from stormtpu_torch.kernels import launch_counts, mxu, reset_launches
 
     bm, ref = cfg3_b
     strategy = dispatch.choose_strategy(bm.n, bm.m_bits, bm.density, bm=bm, device=dev)
-    route_kernel = {"pallas_mxu": "k2_tri", "clustered": "k5"}.get(strategy, "k2_rect")
     mesh = par.make_row_mesh(device=dev)
+
+    def route_kernel(k):
+        """The kernel D1's route launches at k: the tile walk takes K2-topk
+        up to its limit, K2-tri's stored tiles above it."""
+        if strategy == "pallas_mxu":
+            return "k2_topk" if mxu.topk_route(k) == mxu.ROUTE_TOPK else "k2_tri"
+        return {"clustered": "k5"}.get(strategy, "k2_rect")
 
     def block_form(k):
         d1 = dispatch.choose_strategy
@@ -2396,7 +2626,7 @@ def repaired_topk_phase(torch, dev, cfg3_b) -> dict:
     for k, label, fn, kernel in (
             (k, label, fn, kernel) for k in (TOPK_K, REPAIR_THIN_K) for label, fn, kernel in (
                 (f"topk_neighbors (D1: {strategy})",
-                 lambda k=k: st.topk_neighbors(bm, k, device=dev), route_kernel),
+                 lambda k=k: st.topk_neighbors(bm, k, device=dev), route_kernel(k)),
                 ("topk_neighbors block form (D1 held to sparse_outer)",
                  lambda k=k: block_form(k), "k2_rect"),
                 ("distributed_topk_neighbors (one-rank NCCL ring)",
@@ -2534,6 +2764,7 @@ def main(argv=None) -> int:
     from stormtpu_torch.kernels.xla import unpack_to_int8
     from stormtpu_torch.layout import to_device_words
     from stormtpu_torch.oracle import oracle_pair_count
+    from stormtpu_torch.stream import default_hist_bin_width
     from stormtpu_torch.utils import (assemble_triangular_torch, download, round_up,
                                       triangular_tile_ids)
 
@@ -2768,6 +2999,16 @@ def main(argv=None) -> int:
           f"registers), plain {plain_ms:.3f} ms, _int_mm full square on unpacked "
           f"int8 {lib_ms:.3f} ms, bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, "
           f"{bounds['bound_rate']}; at the int8 data-sheet rate {bounds['bound_ms_int8']:.3f} ms)")
+    # K2-topk and K2-hist at the main path's shapes: the first chunk of
+    # topk_neighbors' tile walk (query._blocked_tile_ids, query._tile_chunk)
+    from stormtpu_torch import query as q
+
+    wib, wjb = q._blocked_tile_ids(n_pad // ti, q._TILE_GROUP)
+    chunk = q._tile_chunk(ti)
+    epi_main = epilogue_kernels(
+        torch, dev, targs[0], wib[:chunk], wjb[:chunk], ti, tkw["tile_words"], n_real=MAIN_N,
+        k=TOPK_K, n_bins=HIST_BINS, bin_width=default_hist_bin_width(MAIN_M, HIST_BINS),
+        ops_per_s=k2_ops_per_s, label="main path, first tile-walk chunk", reps=10)
     # rectangular K2 at count_block's shapes
     (ap, bp), rkw = rect_inputs(words_a, words)
     got = mxu._count_block_padded(ap, bp, variant=cfg.k2_variant, **rkw)
@@ -3255,6 +3496,7 @@ def main(argv=None) -> int:
     query_launches, sq_launches, kept = query_phases(
         torch, dev, cfg, rng, args.seed, k2_ops_per_s, main=(bm, main_out), block=(bm_a, blk),
         ld=(bm_ld, ld_ref), cfg3_b=cfg3_b)
+    topk20_launches = kept["topk20_launches"]
     t0 = time.perf_counter()
     repair_launches = repaired_topk_phase(torch, dev, cfg3_b)
     print(f"[phase 34] config 3 B top-k and ring took {time.perf_counter() - t0:.1f} s")
@@ -3291,6 +3533,7 @@ def main(argv=None) -> int:
 
     src_k2 = "stormtpu_torch/kernels/csrc/k2_mxu.cu"
     src_k1 = "stormtpu_torch/kernels/csrc/k1_dense.cu"
+    src_epi = "stormtpu_torch/kernels/csrc/k2_epilogue.cu"
     int_mm_note = "torch._int_mm on unpacked int8"
     kernels = [
         dict(name="k2_tri", route="cuda", source=src_k2,
@@ -3319,6 +3562,37 @@ def main(argv=None) -> int:
              stream_query_launches=sq_launches["k0"], **timings["k0"]),
         *(dict(k, query_launches=query_launches[k["name"]],
                stream_query_launches=sq_launches[k["name"]]) for k in sparse_kernels),
+        # the epilogues: launches on each one's main path (phase 20's
+        # topk_neighbors, phase 13's config-4 histogram sink); times at that
+        # path's shape, the other shape's beside them
+        dict(name="k2_topk", route="cuda", source=src_epi,
+             replaces="stormtpu/query.py:548 (_topk_tile_walk; no pallas_call: the "
+                      "device reduction round K2-tri)",
+             launches=topk20_launches,
+             max_abs_err=max(epi_main["k2_topk"]["max_abs_err"],
+                             stream_launches["epilogue"]["k2_topk"]["max_abs_err"]),
+             library="K2-tri + tile_topk_sets in torch on its stored tiles",
+             stream_launches=stream_launches.get("k2_topk", 0),
+             query_launches=query_launches["k2_topk"],
+             stream_query_launches=sq_launches["k2_topk"],
+             config4_stripe={key: v for key, v in stream_launches["epilogue"]["k2_topk"].items()
+                             if key != "max_abs_err"},
+             **{key: v for key, v in epi_main["k2_topk"].items() if key != "max_abs_err"}),
+        dict(name="k2_hist", route="cuda", source=src_epi,
+             replaces="stormtpu/stream_hist.py:112 (_make_pair_hist_fn) and "
+                      "stormtpu/stream.py:1228 (stream_count_histogram; no pallas_call: the "
+                      "device reduction round K2-tri)",
+             launches=stream_launches["k2_hist"],
+             max_abs_err=max(epi_main["k2_hist"]["max_abs_err"],
+                             stream_launches["epilogue"]["k2_hist"]["max_abs_err"]),
+             library="K2-tri + tile_hist (torch.bincount) on its stored tiles",
+             stream_launches=stream_launches["k2_hist"],
+             query_launches=query_launches["k2_hist"],
+             stream_query_launches=sq_launches["k2_hist"],
+             main_path_chunk={key: v for key, v in epi_main["k2_hist"].items()
+                              if key != "max_abs_err"},
+             **{key: v for key, v in stream_launches["epilogue"]["k2_hist"].items()
+                if key != "max_abs_err"}),
     ]
     for k in kernels:
         k.update({key: counts.get(k["name"], 0) for key, counts in later.items()})

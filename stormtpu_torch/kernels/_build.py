@@ -57,6 +57,15 @@ SOURCES = {
         "tc_rate_macs": ((_I,), _LL),
         "tc_rate_launch": ((_I, _I, _I, _VP, _VP), _I),
     },
+    "k2_epilogue": {
+        "k2_epi_block_rows": ((), _I),
+        "k2_epi_block_cols": ((), _I),
+        "k2_topk_max_k": ((), _I),
+        "k2_hist_max_bins": ((), _I),
+        "k2_topk_launch": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL,
+                            _I, _VP), _I),
+        "k2_hist_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _I, _I, _VP), _I),
+    },
     "k1_dense": {
         "k1_block_rows": ((), _I),
         "k1_tri_launch": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
@@ -68,7 +77,7 @@ SOURCES = {
 
 # The sources the package's entry points launch. ``tc_rate`` is a measuring
 # tool (``kernels/tc_rate.py``) and is built only for whoever asks for it.
-KERNEL_SOURCES = ("k2_mxu", "k1_dense")
+KERNEL_SOURCES = ("k2_mxu", "k2_epilogue", "k1_dense")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

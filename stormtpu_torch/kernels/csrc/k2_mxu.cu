@@ -69,20 +69,8 @@ namespace {
 using namespace tile;
 
 // ------------------------------------------------------------- K sources
-// K2: rows a[0..], b[0..] (row stride ld) over words [0, k_len).
-struct RowPairSource {
-  static constexpr bool SPLIT_B = false;
-  const uint32_t* a;
-  const uint32_t* b;
-  int k_len;
-  __device__ int chunks() const { return (k_len + KW - 1) / KW; }
-  __device__ void chunk(int f, const uint32_t*& pa, const uint32_t*& pb,
-                        int& valid) const {
-    pa = a + f * KW;
-    pb = b + f * KW;
-    valid = k_len - f * KW;
-  }
-};
+// K2's source, RowPairSource, lives in tile_body.cuh (the epilogue kernels
+// of k2_epilogue.cu run the same main loop).
 
 // K5 on the previous body: items [t0, t0 + n_items) of the work list; item t
 // is row blocks ibs[t] x jbs[t] (rows off_a, off_b into the tile) over

@@ -218,6 +218,21 @@ struct B1Wgmma {
   }
 };
 
+// K2's source: rows a[0..], b[0..] (row stride ld) over words [0, k_len).
+struct RowPairSource {
+  static constexpr bool SPLIT_B = false;
+  const uint32_t* a;
+  const uint32_t* b;
+  int k_len;
+  __device__ int chunks() const { return (k_len + KW - 1) / KW; }
+  __device__ void chunk(int f, const uint32_t*& pa, const uint32_t*& pb,
+                        int& valid) const {
+    pa = a + f * KW;
+    pb = b + f * KW;
+    valid = k_len - f * KW;
+  }
+};
+
 template <class Body, class... KArgs, class... Args>
 int launch(void (*kernel)(KArgs...), dim3 grid, void* stream, Args... args) {
   const cudaError_t e = cudaFuncSetAttribute(

@@ -1,12 +1,20 @@
 """K2 — exact all-pairs counts on the tensor cores, straight from the
 packed words (port of ``stormtpu/kernels/mxu.py``).
 
-Two kernel wrappers, each with its plain PyTorch version beside it and a
+Four kernel wrappers, each with its plain PyTorch version beside it and a
 launch counter (``LAUNCHES``):
 
 - :func:`count_tiles_pallas_mxu` — the triangular tile list (CUDA entry
   ``k2_tri_launch`` in ``csrc/k2_mxu.cu``);
-- :func:`_count_block_padded` — the rectangular grid (``k2_rect_launch``).
+- :func:`_count_block_padded` — the rectangular grid (``k2_rect_launch``);
+- :func:`count_tiles_topk` — K2-topk: the tile list's per-row and
+  per-column top-k candidate sets, the tiles never stored
+  (``k2_topk_launch`` in ``csrc/k2_epilogue.cu``);
+- :func:`count_tiles_hist` — K2-hist: the bin counts of the tile list's
+  valid pairs (``k2_hist_launch``).
+
+The callers choose between the two epilogue kernels and storing the tiles
+by dispatch rules named here (:func:`topk_route`, :func:`hist_route`).
 
 A tensor on the CPU takes the plain version; a tensor on the card
 launches the CUDA kernel, or raises. There is no fall back from one to
@@ -32,7 +40,7 @@ and has no effect here — both compute the same counts.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +61,17 @@ __all__ = [
     "k2_tile_shape",
     "count_tiles_pallas_mxu",
     "count_tiles_plain",
+    "count_tiles_topk",
+    "count_tiles_topk_plain",
+    "count_tiles_hist",
+    "count_tiles_hist_plain",
+    "TileTopk",
+    "TOPK_EPI_MAX",
+    "HIST_EPI_MAX_BINS",
+    "ROUTE_TOPK",
+    "ROUTE_HIST",
+    "topk_route",
+    "hist_route",
     "count_block_plain",
     "count_block_pallas_mxu",
     "count_matrix_pallas_mxu",
@@ -62,7 +81,22 @@ __all__ = [
 _VARIANTS = ("concat", "planes")
 
 # CUDA launches per kernel wrapper; the plain versions do not count.
-LAUNCHES = {"k2_tri": 0, "k2_rect": 0}
+LAUNCHES = {"k2_tri": 0, "k2_rect": 0, "k2_topk": 0, "k2_hist": 0}
+
+# The epilogue kernels' limits, which the dispatch rules read at call time:
+# K2-topk keeps rank r of a set in lane r of a warp (k ≤ 32), K2-hist a
+# sub-histogram of HIST_EPI_MAX_BINS bins a warp in the kernel's shared memory.
+TOPK_EPI_MAX = 32
+HIST_EPI_MAX_BINS = 4096
+# The sub-tile (rows, columns) one block of K2-tri reduces: K2-topk gives
+# one candidate set a row and a column of each, and the plain versions lay
+# their sets out the same way.
+EPI_BLOCK = (128, 256)
+
+# Dispatch routes of a reduction over K2-tri's tiles, by the names that
+# ``stream.record_stages`` records and the ``[breakdown]`` lines print.
+ROUTE_TOPK = "k2_topk"
+ROUTE_HIST = "k2_hist"
 
 
 def reset_launches() -> None:
@@ -170,20 +204,36 @@ def _check_cuda_ids(device: torch.device, **ids: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous int32 on {device}")
 
 
-def _launch_k2(entry: str, device: torch.device, previous_body: bool, *args) -> None:
-    """Launch C function ``entry`` of ``csrc/k2_mxu.cu`` (or ``entry_prev``,
-    the same on the previous tile body) on ``device``'s current stream;
-    raises on a CUDA error."""
+def _launch(source: str, entry: str, device: torch.device, *args) -> None:
+    """Launch C function ``entry`` of ``csrc/<source>.cu`` on ``device``'s
+    current stream; raises on a CUDA error."""
     from stormtpu_torch.kernels._build import library
 
-    if previous_body:
-        entry += "_prev"
     with torch.cuda.device(device):
-        err = getattr(library("k2_mxu"), entry)(
-            *args, torch.cuda.current_stream().cuda_stream
-        )
+        err = getattr(library(source), entry)(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
+
+
+def _launch_k2(entry: str, device: torch.device, previous_body: bool, *args) -> None:
+    """:func:`_launch` of ``csrc/k2_mxu.cu``'s ``entry`` (or ``entry_prev``,
+    the same on the previous tile body)."""
+    _launch("k2_mxu", entry + "_prev" if previous_body else entry, device, *args)
+
+
+def _launch_epilogue(entry: str, device: torch.device, *args) -> None:
+    """:func:`_launch` of ``csrc/k2_epilogue.cu``'s ``entry``; raises first
+    when the library's sub-tile is not the one the wrappers lay their
+    outputs out by, or its limits are below the dispatch rules'."""
+    from stormtpu_torch.kernels._build import library
+
+    lib = library("k2_epilogue")
+    block = (lib.k2_epi_block_rows(), lib.k2_epi_block_cols())
+    if block != EPI_BLOCK or lib.k2_topk_max_k() < TOPK_EPI_MAX \
+            or lib.k2_hist_max_bins() < HIST_EPI_MAX_BINS:
+        raise RuntimeError(f"k2_epilogue was built for sub-tiles {block}, k up to "
+                           f"{lib.k2_topk_max_k()}, {lib.k2_hist_max_bins()} bins")
+    _launch("k2_epilogue", entry, device, *args)
 
 
 def _unpack_step(packed: torch.Tensor, k0: int, tile_words: int) -> torch.Tensor:
@@ -243,6 +293,120 @@ def count_block_plain(
             _unpack_step(a_pad, k0, tile_words), _unpack_step(b_pad, k0, tile_words)
         )
     return out
+
+
+# ------------------------------------------------- the epilogue kernels' forms
+class TileTopk(NamedTuple):
+    """K2-topk's candidate sets for T tiles of ``ti`` rows, ``kk`` a set,
+    int32: ``row_v`` / ``row_i`` [T, nsub_n, ti, kk], each row's best
+    (value, global column) over sub-tile column block s; ``col_v`` /
+    ``col_i`` [T, nsub_m, ti, kk], each column's best (value, global row)
+    over sub-tile row block s, all (−1, −1) in a diagonal tile. Sub-tiles
+    are ``EPI_BLOCK`` (rows, columns); a set is sorted by value descending,
+    ties to the lower index, and invalid cells (the self pair, a global row
+    or column ≥ ``n_real``) rank as −1."""
+
+    row_v: torch.Tensor
+    row_i: torch.Tensor
+    col_v: torch.Tensor
+    col_i: torch.Tensor
+
+
+def topk_route(k: int, partial: bool = False) -> str:
+    """The route of a count top-k over K2-tri's tiles: ``ROUTE_TOPK``
+    (K2-topk) for k ≤ ``TOPK_EPI_MAX`` on exact tiles; else the tiles are
+    stored and ranked by torch, a route named by its rule (``partial``:
+    K-partial tiles, summed across ranks before any ranking)."""
+    if partial:
+        return "store (K-partial tiles)"
+    if k > TOPK_EPI_MAX:
+        return f"store (k > {TOPK_EPI_MAX})"
+    return ROUTE_TOPK
+
+
+def hist_route(n_bins: int) -> str:
+    """The route of a histogram of K2-tri's tiles: ``ROUTE_HIST`` (K2-hist)
+    for n_bins ≤ ``HIST_EPI_MAX_BINS``; else the tiles are stored and
+    binned by torch."""
+    if n_bins > HIST_EPI_MAX_BINS:
+        return f"store (n_bins > {HIST_EPI_MAX_BINS})"
+    return ROUTE_HIST
+
+
+def _global_lanes(ibs, jbs, ti: int, row_off: int, col_off: int):
+    """Global rows and columns int64 [T, ti] of each tile's lanes."""
+    lane = torch.arange(ti, device=ibs.device)
+    rows = row_off + ibs.long()[:, None] * ti + lane
+    cols = col_off + jbs.long()[:, None] * ti + lane
+    return rows, cols
+
+
+def _best_along(v: torch.Tensor, kk: int, dim: int):
+    """The kk best of int32 ``v`` along ``dim`` by value descending, ties to
+    the lower position: (values int32, positions int64), one torch.topk of a
+    unique int64 key (value + 1, then the position reversed)."""
+    n = v.shape[dim]
+    shape = [1] * v.dim()
+    shape[dim] = n
+    rev = ((1 << 32) - 1 - torch.arange(n, device=v.device)).view(shape)
+    top = torch.topk(((v.to(torch.int64) + 1) << 32) | rev, kk, dim=dim).values
+    return ((top >> 32) - 1).to(torch.int32), (1 << 32) - 1 - (top & 0xFFFFFFFF)
+
+
+def tile_topk_sets(tiles: torch.Tensor, ibs, jbs, *, k: int, n_real: int,
+                   row_off: int = 0, col_off: int = 0) -> TileTopk:
+    """K2-topk's reduction of stored count tiles int32 [T, ti, ti] at tile
+    ids (ibs, jbs) (tensors on the tiles' device): the masks and the
+    per-sub-tile top-min(k, ti) of both sides (:class:`TileTopk`)."""
+    t, ti = tiles.shape[0], tiles.shape[1]
+    kk = min(k, ti)
+    bm, bn = EPI_BLOCK
+    rows, cols = _global_lanes(ibs, jbs, ti, row_off, col_off)
+    bad = ((rows[:, :, None] == cols[:, None, :]) | (rows >= n_real)[:, :, None]
+           | (cols >= n_real)[:, None, :])
+    v = tiles.masked_fill(bad, -1)
+    row_v, row_i, col_v, col_i = [], [], [], []
+    for c0 in range(0, ti, bn):
+        val, pos = _best_along(v[:, :, c0 : c0 + bn], kk, 2)
+        row_v.append(val)
+        row_i.append((cols[:, c0, None, None] + pos).to(torch.int32))
+    diag = (rows[:, 0] == cols[:, 0])[:, None, None]
+    for r0 in range(0, ti, bm):
+        val, pos = _best_along(v[:, r0 : r0 + bm, :], kk, 1)
+        idx = (rows[:, r0, None, None] + pos).to(torch.int32)
+        col_v.append(val.transpose(1, 2).masked_fill(diag, -1))
+        col_i.append(idx.transpose(1, 2).masked_fill(diag, -1))
+    return TileTopk(*(torch.stack(x, dim=1).contiguous() for x in (row_v, row_i, col_v, col_i)))
+
+
+def tile_hist(tiles: torch.Tensor, ibs, jbs, *, n_real: int, bin_width: int, n_bins: int,
+              row_off: int = 0, col_off: int = 0) -> torch.Tensor:
+    """K2-hist's reduction of stored count tiles int32 [T, ti, ti]: the
+    bin counts int64 [n_bins] of the valid pairs (global row < global
+    column < ``n_real``), bin min(count // bin_width, n_bins − 1)."""
+    rows, cols = _global_lanes(ibs, jbs, tiles.shape[1], row_off, col_off)
+    valid = (rows[:, :, None] < cols[:, None, :]) & (cols < n_real)[:, None, :]
+    bins = torch.clamp(tiles[valid] // bin_width, max=n_bins - 1)
+    return torch.bincount(bins.long(), minlength=n_bins)
+
+
+def count_tiles_topk_plain(packed, ibs, jbs, *, tile_rows: int, tile_words: int, k: int,
+                           n_real: int, row_off: int = 0, col_off: int = 0) -> TileTopk:
+    """Plain version of :func:`count_tiles_topk`: the plain tiles, then
+    :func:`tile_topk_sets`."""
+    tiles = count_tiles_plain(packed, ibs, jbs, tile_rows=tile_rows, tile_words=tile_words)
+    return tile_topk_sets(tiles, ibs, jbs, k=k, n_real=n_real, row_off=row_off,
+                          col_off=col_off)
+
+
+def count_tiles_hist_plain(packed, ibs, jbs, *, tile_rows: int, tile_words: int,
+                           n_real: int, bin_width: int, n_bins: int, row_off: int = 0,
+                           col_off: int = 0) -> torch.Tensor:
+    """Plain version of :func:`count_tiles_hist`: the plain tiles, then
+    :func:`tile_hist`."""
+    tiles = count_tiles_plain(packed, ibs, jbs, tile_rows=tile_rows, tile_words=tile_words)
+    return tile_hist(tiles, ibs, jbs, n_real=n_real, bin_width=bin_width, n_bins=n_bins,
+                     row_off=row_off, col_off=col_off)
 
 
 # ------------------------------------------------------------- kernel wrappers
@@ -323,6 +487,104 @@ def _count_block_padded(
     )
     LAUNCHES["k2_rect"] += 1
     return out
+
+
+def _epilogue_checks(name, packed, ibs, jbs, tile_rows, tile_words, variant, checked):
+    _check_variant(variant)
+    _check_geometry(name, packed, tile_rows, tile_words)
+    _check_ids(name, ibs, jbs, packed.shape[0] // tile_rows, checked)
+    if packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {packed.device}")
+    if packed.device.type == "cuda":
+        _check_cuda_operand(name, packed)
+        _check_cuda_ids(packed.device, ibs=ibs, jbs=jbs)
+
+
+def count_tiles_topk(
+    packed: torch.Tensor,
+    ibs: torch.Tensor,
+    jbs: torch.Tensor,
+    *,
+    tile_rows: int,
+    tile_words: int,
+    k: int,
+    n_real: int,
+    row_off: int = 0,
+    col_off: int = 0,
+    variant: str = "concat",
+    checked: Optional[DeviceTileIds] = None,
+) -> TileTopk:
+    """K2-topk: the count tiles of :func:`count_tiles_pallas_mxu` reduced,
+    inside the kernel, to each row's and each column's top-min(k,
+    tile_rows) candidates a sub-tile (:class:`TileTopk`). Global row and
+    column of tile t's element (r, c) are ``row_off + ibs[t]·ti + r`` and
+    ``col_off + jbs[t]·ti + c``. 1 ≤ k ≤ ``TOPK_EPI_MAX``."""
+    _epilogue_checks("count_tiles_topk", packed, ibs, jbs, tile_rows, tile_words, variant,
+                     checked)
+    if not 1 <= k <= TOPK_EPI_MAX:
+        raise ValueError(f"count_tiles_topk: k={k} must lie in [1, {TOPK_EPI_MAX}]")
+    if packed.device.type == "cpu":
+        return count_tiles_topk_plain(packed, ibs, jbs, tile_rows=tile_rows,
+                                      tile_words=tile_words, k=k, n_real=n_real,
+                                      row_off=row_off, col_off=col_off)
+    ti, t = tile_rows, ibs.shape[0]
+    kk = min(k, ti)
+    nsub_m, nsub_n = -(-ti // EPI_BLOCK[0]), -(-ti // EPI_BLOCK[1])
+    out = [torch.empty((t, s, ti, kk), dtype=torch.int32, device=packed.device)
+           for s in (nsub_n, nsub_n, nsub_m, nsub_m)]
+    if t == 0:
+        return TileTopk(*out)
+    _launch_epilogue(
+        "k2_topk_launch", packed.device,
+        packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), *(o.data_ptr() for o in out),
+        t, ti, packed.shape[1], row_off, col_off, n_real, kk,
+    )
+    LAUNCHES["k2_topk"] += 1
+    return TileTopk(*out)
+
+
+def count_tiles_hist(
+    packed: torch.Tensor,
+    ibs: torch.Tensor,
+    jbs: torch.Tensor,
+    *,
+    tile_rows: int,
+    tile_words: int,
+    n_real: int,
+    bin_width: int,
+    n_bins: int,
+    row_off: int = 0,
+    col_off: int = 0,
+    variant: str = "concat",
+    checked: Optional[DeviceTileIds] = None,
+) -> torch.Tensor:
+    """K2-hist: the bin counts int64 [n_bins] of the valid pairs (global
+    row < global column < ``n_real``; coordinates as in
+    :func:`count_tiles_topk`) of the count tiles of
+    :func:`count_tiles_pallas_mxu`, binned inside the kernel: bin
+    min(count // bin_width, n_bins − 1). 1 ≤ n_bins ≤ ``HIST_EPI_MAX_BINS``."""
+    _epilogue_checks("count_tiles_hist", packed, ibs, jbs, tile_rows, tile_words, variant,
+                     checked)
+    if not 1 <= n_bins <= HIST_EPI_MAX_BINS:
+        raise ValueError(f"count_tiles_hist: n_bins={n_bins} must lie in "
+                         f"[1, {HIST_EPI_MAX_BINS}]")
+    if bin_width < 1:
+        raise ValueError("count_tiles_hist: bin_width must be >= 1")
+    if packed.device.type == "cpu":
+        return count_tiles_hist_plain(packed, ibs, jbs, tile_rows=tile_rows,
+                                      tile_words=tile_words, n_real=n_real,
+                                      bin_width=bin_width, n_bins=n_bins, row_off=row_off,
+                                      col_off=col_off)
+    hist = torch.zeros(n_bins, dtype=torch.int64, device=packed.device)
+    if ibs.shape[0] == 0:
+        return hist
+    _launch_epilogue(
+        "k2_hist_launch", packed.device,
+        packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), hist.data_ptr(),
+        ibs.shape[0], tile_rows, packed.shape[1], row_off, col_off, n_real, bin_width, n_bins,
+    )
+    LAUNCHES["k2_hist"] += 1
+    return hist
 
 
 # ------------------------------------------------------------ tile walks

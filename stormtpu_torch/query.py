@@ -454,10 +454,40 @@ def _merge_sets(best_v: torch.Tensor, best_i: torch.Tensor, tgt: np.ndarray,
     best_i[rows_b] = idx[pick]
 
 
+def _chunk_topk_sets(packed, ibs_c, jbs_c, ti, wk, variant, k: int, n_real: int):
+    """One chunk's K2-topk candidate sets (``mxu.TileTopk``), the ids
+    checked on the host and uploaded in one copy."""
+    from stormtpu_torch.kernels.mxu import count_tiles_topk, device_tile_ids
+
+    dev = packed.device
+    with _stage("plan", dev):
+        ids = device_tile_ids(ibs_c, jbs_c, packed.shape[0] // ti, dev)
+    with _stage("kernel", dev):
+        return count_tiles_topk(packed, *ids, tile_rows=ti, tile_words=wk, k=k,
+                                n_real=n_real, variant=variant, checked=ids)
+
+
+def _one_set_a_tile(v: torch.Tensor, i: torch.Tensor, kk: int):
+    """K2-topk's sets of T tiles, [T, s, ti, kk] (one a sub-tile), cut to
+    one set a tile [T, ti, kk]: each lane's kk best over its s sets (a
+    lane's best in the tile lie among each sub-tile's best)."""
+    t, s, ti, _ = v.shape
+    if s == 1:
+        return v[:, 0], i[:, 0]
+    top, pos = torch.topk(v.permute(0, 2, 1, 3).reshape(t, ti, s * kk), kk, dim=2)
+    return top, i.permute(0, 2, 1, 3).reshape(t, ti, s * kk).gather(2, pos)
+
+
 def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str,
                     n_real: int, psum=None):
     """Triangular top-k: the K2 tile walk with a running per-row top-k,
     ``best`` (values, indices) [n_pad, k] on the device.
+
+    Route (``mxu.topk_route``): for k ≤ ``mxu.TOPK_EPI_MAX`` on exact tiles,
+    K2-topk (``count_tiles_topk``) ranks each tile inside the kernel and
+    the tiles are never stored; its sets (a row's best over a sub-tile's
+    columns, a column's best over a sub-tile's rows) are merged as they
+    come. Otherwise the tiles are stored and ranked here, as follows.
 
     Each upper tile (ib, jb) offers candidates to both row blocks: its
     rows (partners in jb) and, transposed, jb's rows (partners in ib). A
@@ -479,6 +509,9 @@ def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str,
     over the ranks to the exact tiles before any top-k touches them (the
     bits-axis form of ``parallel.query``). The merge then runs on the same
     exact tiles on every rank."""
+    from stormtpu_torch.kernels import mxu
+    from stormtpu_torch.stream import _route
+
     dev = packed.device
     n_pad = packed.shape[0]
     kk = min(k, ti)
@@ -486,8 +519,24 @@ def _topk_tile_walk(packed, ibs, jbs, *, k: int, ti: int, wk: int, variant: str,
     best_i = torch.zeros((n_pad, k), dtype=torch.int64, device=dev)
     self_mask = torch.eye(ti, dtype=torch.bool, device=dev)
     chunk = _tile_chunk(ti)
+    route = mxu.topk_route(k, partial=psum is not None)
     for c0 in range(0, ibs.size, chunk):
         ib_c, jb_c = ibs[c0 : c0 + chunk], jbs[c0 : c0 + chunk]
+        _route(route)
+        if route == mxu.ROUTE_TOPK:
+            sets = _chunk_topk_sets(packed, ib_c, jb_c, ti, wk, variant, k, n_real)
+            with _stage("merge", dev):
+                # each tile's row set (partners in jb) and each off-diagonal
+                # tile's column set (partners in ib), a tile's sub-tile sets
+                # cut to one: the merge sees what the store route's does
+                off = np.flatnonzero(ib_c != jb_c)
+                o = torch.from_numpy(off).to(dev)
+                rv, ri = _one_set_a_tile(sets.row_v, sets.row_i, kk)
+                cv, ci = _one_set_a_tile(sets.col_v[o], sets.col_i[o], kk)
+                _merge_sets(best_v, best_i, np.concatenate([ib_c, jb_c[off]]),
+                            torch.cat([rv, cv]), torch.cat([ri, ci]).long(), ti)
+            del sets
+            continue
         tiles, ids = _chunk_tiles(packed, ib_c, jb_c, ti, wk, variant)
         if psum is not None:
             tiles = psum(tiles)

@@ -155,13 +155,17 @@ class StageTimes:
     summed over their stripes: ``seconds[stage]`` on the host clock with
     the device synchronised at both ends of the stage, ``device_ms[stage]``
     by CUDA events around the same stage (card only), ``stripes`` computed
-    (resumed ones are not) and ``launched``, those that ran a kernel."""
+    (resumed ones are not), ``launched``, those that ran a kernel, and
+    ``routes``: how many stripes or chunks took each dispatch route of a
+    reduction over K2-tri's tiles (``kernels.mxu.topk_route`` and
+    ``hist_route``)."""
 
     def __init__(self) -> None:
         self.seconds: dict[str, float] = {}
         self.device_ms: dict[str, float] = {}
         self.stripes = 0
         self.launched = 0
+        self.routes: dict[str, int] = {}
 
 
 _recorder: Optional[StageTimes] = None
@@ -200,6 +204,12 @@ def _stage(name: str, dev: torch.device):
         torch.cuda.synchronize(dev)
         rec.device_ms[name] = rec.device_ms.get(name, 0.0) + start.elapsed_time(stop)
     rec.seconds[name] = rec.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
+def _route(name: str) -> None:
+    """Count one stripe or chunk on the reduction route ``name``."""
+    if _recorder is not None:
+        _recorder.routes[name] = _recorder.routes.get(name, 0) + 1
 
 
 def _count_stripe(launched: bool) -> None:
@@ -1303,9 +1313,12 @@ def stream_count_histogram(
 
     Same stripe walk as :func:`stream_count_checksums` (each unordered
     pair visited exactly once: triangular tile list on diagonal
-    superblocks, square off-diagonal). A stripe's reduction is one masked
-    bin count on the device (``stream_hist._bin_counts``), added into a device
-    total that is read back once, at the end. Bins are uniform: bin b
+    superblocks, square off-diagonal). A stripe's reduction runs inside
+    K2-hist (``kernels.mxu.count_tiles_hist``: the tiles are never stored)
+    up to ``mxu.HIST_EPI_MAX_BINS`` bins, and above it as one masked bin
+    count of the stored tiles (``stream_hist._bin_counts``): the rule is
+    ``mxu.hist_route``. Either adds into a device total that is read back
+    once, at the end. Bins are uniform: bin b
     counts pairs with ``b*bin_width <= C[ij] < (b+1)*bin_width``, with the
     last bin clamped to absorb the tail up to ``m_bits``. Integer binning
     of exact int32 counts — the result is exact, and mass conservation
@@ -1319,7 +1332,7 @@ def stream_count_histogram(
 
     ``xd`` contract is :func:`stream_count_checksums`'s.
     """
-    from stormtpu_torch.kernels.mxu import count_tiles_pallas_mxu, device_tile_ids
+    from stormtpu_torch.kernels import mxu
     from stormtpu_torch.stream_hist import _bin_counts, _hist_manifest, _stripe_pair_mass
 
     dev = resolve_device(device)
@@ -1345,6 +1358,7 @@ def stream_count_histogram(
 
     lane = torch.arange(tile_rows, dtype=torch.int32, device=dev)
     hist_d = torch.zeros(n_bins, dtype=torch.int64, device=dev)
+    route = mxu.hist_route(n_bins)
     skipped_mass = 0
     total = n_super * (n_super + 1) // 2
     done = 0
@@ -1360,24 +1374,33 @@ def stream_count_histogram(
             continue
         loc_i, loc_j = _stripe_tile_ids(tiles_per_super, i == j)
         with _stage("plan", dev):
-            ids = device_tile_ids(
+            ids = mxu.device_tile_ids(
                 loc_i + i * tiles_per_super, loc_j + j * tiles_per_super, nb, dev
             )
-        with _stage("kernel", dev):
-            tiles = count_tiles_pallas_mxu(
-                xd, *ids, tile_rows=tile_rows, tile_words=tile_words,
-                variant=cfg.k2_variant, checked=ids,
-            )
-        with _stage("reduce", dev):
-            rows_g = ids.ibs[:, None] * tile_rows + lane[None, :]
-            cols_g = ids.jbs[:, None] * tile_rows + lane[None, :]
-            # strict upper triangle within n: gi < gj < n (gi < n follows);
-            # zero-padding rows/tiles fail it, diagonal tiles keep r < c
-            valid = (rows_g[:, :, None] < cols_g[:, None, :]) & (cols_g[:, None, :] < n)
-            bins = torch.clamp(tiles // bin_width, max=n_bins - 1)
-            # invalid entries go to a spare bin past the last, then dropped
-            hist_d += _bin_counts(torch.where(valid, bins, n_bins), n_bins + 1)[:n_bins]
-        del tiles, valid, bins
+        _route(route)
+        if route == mxu.ROUTE_HIST:
+            with _stage("kernel", dev):
+                hist_d += mxu.count_tiles_hist(
+                    xd, *ids, tile_rows=tile_rows, tile_words=tile_words, n_real=n,
+                    bin_width=bin_width, n_bins=n_bins, variant=cfg.k2_variant, checked=ids,
+                )
+        else:
+            with _stage("kernel", dev):
+                tiles = mxu.count_tiles_pallas_mxu(
+                    xd, *ids, tile_rows=tile_rows, tile_words=tile_words,
+                    variant=cfg.k2_variant, checked=ids,
+                )
+            with _stage("reduce", dev):
+                rows_g = ids.ibs[:, None] * tile_rows + lane[None, :]
+                cols_g = ids.jbs[:, None] * tile_rows + lane[None, :]
+                # strict upper triangle within n: gi < gj < n (gi < n
+                # follows); zero-padding rows/tiles fail it, diagonal tiles
+                # keep r < c
+                valid = (rows_g[:, :, None] < cols_g[:, None, :]) & (cols_g[:, None, :] < n)
+                bins = torch.clamp(tiles // bin_width, max=n_bins - 1)
+                # invalid entries go to a spare bin past the last, then dropped
+                hist_d += _bin_counts(torch.where(valid, bins, n_bins), n_bins + 1)[:n_bins]
+            del tiles, valid, bins
         _count_stripe(True)
         done += 1
         if progress is not None:

@@ -16,8 +16,11 @@ kernel-resolution policy (``stream._resolve_stream_kernel``):
   (``stream._SliceBuffer``); co-empty stripes bin to 0 without an upload.
 
 A stripe's tiles are binned on their device: the valid pairs (global row <
-global column < n) are masked and counted with one bin count
-(:func:`_bin_counts`),
+global column < n) are masked and counted, inside K2-hist
+(``kernels.mxu.count_tiles_hist``, the dense stripes of the first and last
+walk, up to ``mxu.HIST_EPI_MAX_BINS`` bins) or with one bin count of the
+stored tiles (:func:`_bin_counts`: K5's tiles, and the rule
+``mxu.hist_route`` above that many bins),
 into a device total read back once at the end of the walk (the JAX
 package reduces bin by bin because scatter is slow on its TPU). All three
 share the manifest of ``stream.stream_count_histogram``: uniform bins, the
@@ -129,7 +132,7 @@ class _PairStripes:
     tiles of the two-slice buffer (``_SliceBuffer``: a diagonal stripe on
     the i slice alone with its triangular tile list, an off-diagonal one on
     both slices with local ids, the j tiles shifted by a superblock),
-    binned on the device."""
+    binned on the device, inside K2-hist where ``mxu.hist_route`` says so."""
 
     def __init__(self, bm: BitMatrix, sb: int, tile_rows: int, tile_words: int,
                  variant: str, dev: torch.device):
@@ -142,19 +145,28 @@ class _PairStripes:
         self.lane = torch.arange(tile_rows, device=dev)
 
     def add(self, hist_d: torch.Tensor, i: int, j: int, bin_width: int, n_bins: int) -> None:
-        from stormtpu_torch.kernels.mxu import count_tiles_pallas_mxu, device_tile_ids
-        from stormtpu_torch.stream import _stage
+        from stormtpu_torch.kernels import mxu
+        from stormtpu_torch.stream import _route, _stage
 
         x = self.slices.stripe_operand(i, j)
         loc_i, loc_j = self.lists[i == j]
         dev = x.device
         with _stage("plan", dev):
-            ids = device_tile_ids(loc_i, loc_j if i == j else loc_j + self.tps,
-                                  x.shape[0] // self.ti, dev)
-        with _stage("kernel", dev):
-            tiles = count_tiles_pallas_mxu(x, *ids, tile_rows=self.ti, tile_words=self.wk,
-                                           variant=self.variant, checked=ids)
+            ids = mxu.device_tile_ids(loc_i, loc_j if i == j else loc_j + self.tps,
+                                      x.shape[0] // self.ti, dev)
         col0adj = j * self.sb - (0 if i == j else self.sb)  # the j tiles sit at +tps
+        route = mxu.hist_route(n_bins)
+        _route(route)
+        if route == mxu.ROUTE_HIST:
+            with _stage("kernel", dev):
+                hist_d += mxu.count_tiles_hist(
+                    x, *ids, tile_rows=self.ti, tile_words=self.wk, n_real=self.n,
+                    bin_width=bin_width, n_bins=n_bins, row_off=i * self.sb, col_off=col0adj,
+                    variant=self.variant, checked=ids)
+            return
+        with _stage("kernel", dev):
+            tiles = mxu.count_tiles_pallas_mxu(x, *ids, tile_rows=self.ti, tile_words=self.wk,
+                                               variant=self.variant, checked=ids)
         rows_g = i * self.sb + ids.ibs[:, None] * self.ti + self.lane[None, :]
         cols_g = col0adj + ids.jbs[:, None] * self.ti + self.lane[None, :]
         _bin_tiles(hist_d, tiles, rows_g, cols_g, self.n, bin_width, n_bins)

@@ -10,9 +10,13 @@ the padded operand, resident on the device while it holds it, or through
 (``stream._SliceBuffer``) when it does not. Either way the values are the
 same. On each stripe a PyTorch pass on the device reduces the counts:
 
-- ``stream_topk_neighbors``: each side's per-row top-k candidates (k passes
-  of ``max``, ``query._top_rows``); O(superblock · k) is downloaded and the
-  host merges a stripe row's candidates (``_merge_topk``). A similarity
+- ``stream_topk_neighbors``: each side's per-row top-k candidates. By
+  count on K2 stripes with k ≤ ``kernels.mxu.TOPK_EPI_MAX``, K2-topk ranks
+  each tile inside the kernel and no dense stripe is assembled: a row's
+  sets in the stripe are cut back to k (``_stripe_topk_sets``); otherwise
+  the dense stripe is ranked (k passes of ``max``, ``query._top_rows``).
+  The candidates are merged into a running best on the device
+  (``_merge_topk_torch``, the host merge ``_merge_topk``'s sorts). A similarity
   ranks float32 candidates with their exact counts, rescored in float64 on
   the host and certified per stripe (``cross``'s contract).
 - ``stream_pairs_above``: the screen, the strict upper triangle and the
@@ -53,6 +57,7 @@ import torch
 
 from stormtpu_torch import native
 from stormtpu_torch.config import EngineConfig, default_config
+from stormtpu_torch.kernels.mxu import ROUTE_TOPK, topk_route
 from stormtpu_torch.layout import BitMatrix
 from stormtpu_torch.stream import (
     _SliceBuffer,
@@ -63,6 +68,7 @@ from stormtpu_torch.stream import (
     _content_fingerprint,
     _count_stripe,
     _host_superblock,
+    _route,
     _stage,
     _stripe_tile_ids,
     _tile_stripe,
@@ -378,17 +384,96 @@ class _StripeCounts:
                 self._slices = _SliceBuffer(self.bm, w.sb, w.w_pad, self.dev)
             return _compute_stripe_pair(self._slices.stripe_operand(i, j), tps, w.ti, w.wk,
                                         w.kernel)
+        return _compute_stripe(self._operand(), i, j, tps, w.ti, w.wk, w.kernel)
+
+    def _operand(self) -> torch.Tensor:
         if self._xp is None:
             from stormtpu_torch.kernels.clustered import padded_operand
 
             with _stage("upload", self.dev):
-                self._xp = padded_operand(self.bm, w.n_pad, w.w_pad, self.dev)
-        return _compute_stripe(self._xp, i, j, tps, w.ti, w.wk, w.kernel)
+                self._xp = padded_operand(self.bm, self.walk.n_pad, self.walk.w_pad, self.dev)
+        return self._xp
+
+    def topk_sets(self, i: int, j: int, k: int):
+        """K2-topk's candidate sets (``mxu.TileTopk``) of stripe (i, j)'s
+        tile list (``stream._stripe_tile_ids``: the upper triangle of a
+        diagonal stripe, the tps × tps grid otherwise), with global
+        partner ids, on the same operand as :meth:`__call__`."""
+        from stormtpu_torch.kernels.mxu import count_tiles_topk, device_tile_ids
+
+        w = self.walk
+        tps = w.sb // w.ti
+        loc_i, loc_j = _stripe_tile_ids(tps, i == j)
+        if self.streaming:
+            if self._slices is None:
+                self._slices = _SliceBuffer(self.bm, w.sb, w.w_pad, self.dev)
+            x = self._slices.stripe_operand(i, j)
+            # local ids; an off-diagonal stripe's j tiles sit at +tps
+            jbs = loc_j if i == j else loc_j + tps
+            ibs, row_off, col_off = loc_i, i * w.sb, j * w.sb - (0 if i == j else w.sb)
+        else:
+            x = self._operand()
+            ibs, jbs, row_off, col_off = loc_i + i * tps, loc_j + j * tps, 0, 0
+        with _stage("plan", self.dev):
+            ids = device_tile_ids(ibs, jbs, x.shape[0] // w.ti, self.dev)
+        with _stage("kernel", self.dev):
+            return count_tiles_topk(x, *ids, tile_rows=w.ti, tile_words=w.wk, k=k,
+                                    n_real=self.bm.n, row_off=row_off, col_off=col_off,
+                                    checked=ids)
 
 
 def _stripe_counts(source: _StripeCounts, i: int, j: int) -> torch.Tensor:
     """Counts int32 [SB, SB] of stripe (i, j) on the walk's device."""
     return source(i, j)
+
+
+def _rows_of_sets(v: torch.Tensor, tps: int, by_column: bool) -> torch.Tensor:
+    """A stripe's K2-topk sets [tps², s, ti, kk] (tile a·tps + b, set s of
+    tile row or column lane l) laid out by the stripe row they belong to:
+    [tps·ti, tps·s·kk], row (a, l) holding the sets of tiles (a, ·) for a
+    row side, row (b, l) those of tiles (·, b) for a column side."""
+    _, s, ti, kk = v.shape
+    g = v.view(tps, tps, s, ti, kk)
+    g = g.permute(1, 3, 0, 2, 4) if by_column else g.permute(0, 3, 1, 2, 4)
+    return g.reshape(tps * ti, tps * s * kk)
+
+
+def _stripe_topk_sets(source: _StripeCounts, i: int, j: int, k: int):
+    """Per-row top-k candidates of stripe (i, j) from K2-topk (the route of
+    a count top-k on K2 stripes, ``mxu.topk_route``): no dense stripe is
+    assembled. A row's candidate sets in the stripe (one a tile and
+    sub-tile it lies in, on the row side or, off a diagonal tile, the
+    column side) are cut back to min(k, their number) with one
+    ``torch.topk`` a side (a few hundred candidates a row: one call beats
+    ``query._top_rows``' k passes there). Returns (vals_i, idx_i, vals_j,
+    idx_j) on the device with global partner ids, the j side None on a
+    diagonal stripe (its rows get both sides' sets)."""
+    sets = source.topk_sets(i, j, k)
+    tps = source.walk.sb // source.walk.ti
+    dev = sets.row_v.device
+    with _stage("reduce", dev):
+        if i == j:
+            # the upper triangle's sets into the tps × tps grid, the lower
+            # tiles' slots (−1, −1)
+            loc_i, loc_j = _stripe_tile_ids(tps, True)
+            at = torch.from_numpy(loc_i.astype(np.int64) * tps + loc_j).to(dev)
+            full = []
+            for x in sets:
+                g = torch.full((tps * tps, *x.shape[1:]), -1, dtype=x.dtype, device=dev)
+                g[at] = x
+                full.append(g)
+            sides = [(torch.cat([_rows_of_sets(full[0], tps, False),
+                                 _rows_of_sets(full[2], tps, True)], dim=1),
+                      torch.cat([_rows_of_sets(full[1], tps, False),
+                                 _rows_of_sets(full[3], tps, True)], dim=1))]
+        else:
+            sides = [(_rows_of_sets(sets.row_v, tps, False), _rows_of_sets(sets.row_i, tps, False)),
+                     (_rows_of_sets(sets.col_v, tps, True), _rows_of_sets(sets.col_i, tps, True))]
+        out = []
+        for vals, idx in sides:
+            v, pos = torch.topk(vals, min(k, vals.shape[1]), dim=1)
+            out += [v, idx.gather(1, pos)]
+        return (*out, None, None) if i == j else tuple(out)
 
 
 def _grid_coords(shape, row0_i: int, row0_j: int, dev):
@@ -851,6 +936,8 @@ def stream_topk_neighbors(
     nnz_pad[: bm.n] = bm.row_nnz
     source = _StripeCounts(bm, walk, dev)
     n = bm.n
+    # the count top-k's route on dense stripes: K2-topk on K2's stripes
+    route = topk_route(k) if walk.kernel == "mxu" else f"store (stripe kernel {walk.kernel})"
     # the running best lives on the walk's device and is merged there
     best_v = torch.from_numpy(np.ascontiguousarray(best_v)).to(dev)
     best_i = torch.from_numpy(np.ascontiguousarray(best_i)).to(dev)
@@ -977,6 +1064,15 @@ def stream_topk_neighbors(
                 if measure in ("phi", "r2"):
                     zero_staircase(i, j, stripe)
                 continue
+            if measure == "count":
+                _route(route)
+                if route == ROUTE_TOPK:
+                    vi, ii, vj, ij = _stripe_topk_sets(source, i, j, k)
+                    _count_stripe(True)
+                    merge(i, vi, ii)
+                    if i != j:
+                        merge(j, vj, ij)
+                    continue
             counts = _stripe_counts(source, i, j)
             _count_stripe(True)
             if measure != "count":

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K2, K5, K1, K0) against their plain PyTorch
-versions, on the card.
+"""The port's CUDA kernels (K2 with its top-k and histogram epilogues, K5,
+K1, K0) against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. On the
 card run them without the JAX package's conftest:
@@ -607,10 +607,12 @@ def test_stream_sinks_on_card_equal_the_cpu_route(cuda):
     assert launch_counts()["k5"] == sum(not r["skipped"] for r in card_c["stripes"]) < 10
     want = oracle_count_matrix(bm.packed)[np.triu_indices(bm.n, 1)]
     for bins, width in ((64, None), (5, 7)):
+        reset_launches()
         got = stream.stream_count_histogram(to_device_words(xp, cuda), bm.n, bm.m_bits,
                                             n_bins=bins, bin_width=width, **kw)
         oracle = np.bincount(np.minimum(want // got["bin_width"], bins - 1), minlength=bins)
         assert np.array_equal(got["hist"], oracle)
+        assert launch_counts()["k2_hist"] == 10 and launch_counts()["k2_tri"] == 0
     with pytest.raises(ValueError, match="lies on"):
         stream.stream_count_checksums(to_device_words(xp, "cpu"), bm.n, bm.m_bits, **kw)
 
@@ -673,7 +675,7 @@ def test_tile_topk_on_card_equals_its_cpu_form(cuda, monkeypatch, n, ti, k, chun
     bm = _query_case(n, 3000, seed=n + ti)
     reset_launches()
     vals, idx = query.topk_neighbors(bm, k, device=cuda)
-    assert launch_counts()["k2_tri"] >= 1
+    assert launch_counts()["k2_topk" if k <= mxu.TOPK_EPI_MAX else "k2_tri"] >= 1
     want, _ = query.topk_neighbors(bm, k, device="cpu")
     assert np.array_equal(vals, want)
     c = oracle_count_matrix(bm.packed)
@@ -710,7 +712,7 @@ def test_topk_on_card_never_ranks_padding(cuda, monkeypatch, route):
     """Sparse and empty rows, N not a multiple of the block or tile: padded
     rows count 0 like the real zero partners and must never be ranked.
     Values equal numpy's, partner sets valid, on the block form (K2-rect),
-    the tile walk (K2-tri) and the one-rank NCCL ring (K2-rect)."""
+    the tile walk (K2-topk at this k) and the one-rank NCCL ring (K2-rect)."""
     import stormtpu_torch.config as tconf
     from stormtpu_torch import dispatch, query
     from stormtpu_torch.parallel import distributed_topk_neighbors, make_row_mesh
@@ -726,7 +728,7 @@ def test_topk_on_card_never_ranks_padding(cuda, monkeypatch, route):
         vals, idx = distributed_topk_neighbors(bm, k, mesh=make_row_mesh(device=cuda))
     else:
         vals, idx = query.topk_neighbors(bm, k, device=cuda)
-    assert launch_counts()["k2_tri" if route == "tile" else "k2_rect"] >= 1
+    assert launch_counts()["k2_topk" if route == "tile" else "k2_rect"] >= 1
     c = dense.astype(np.int64) @ dense.T.astype(np.int64)
     np.fill_diagonal(c, -1)
     assert np.array_equal(vals, -np.sort(-c, axis=1)[:, :k])
@@ -858,6 +860,8 @@ def test_streamed_queries_on_card_equal_the_cpu_route(cuda, monkeypatch, kernel,
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and np.array_equal(g, w)
     assert launch_counts()["k2_tri" if kernel == "mxu" else "k1"] >= 1
+    if kernel == "mxu":
+        assert launch_counts()["k2_topk"] >= 1
 
 
 @pytest.mark.parametrize("measure", ("jaccard", "dice", "cosine", "overlap", "phi", "r2"))
@@ -985,3 +989,177 @@ def test_parallel_one_rank_nccl_group_equals_the_oracle(cuda, case):
     np.testing.assert_array_equal(got, oracle_count_matrix(packed))
     kernel = {"rows": "k2_rect", "bits": "k2_tri", "bits_k5": "k5"}[case]
     assert launch_counts()[kernel] >= 1
+
+
+# ------------------------------------------------ K2-topk and K2-hist
+def _epilogue_case(cuda, n, w, ti, wk, density, seed, order):
+    """A padded operand on the card and a tile list: the upper triangle
+    ("tri"), or every tile pair shuffled ("grid", as a stripe's off-diagonal
+    list, some pairs below the diagonal)."""
+    packed = _words(n, w, density, seed=seed)
+    n_pad, w_pad = round_up(n, ti), round_up(w, wk)
+    xp = np.zeros((n_pad, w_pad), np.uint32)
+    xp[:n, :w] = packed
+    nb = n_pad // ti
+    if order == "tri":
+        ibs, jbs = triangular_tile_ids(nb)
+    else:
+        ibs, jbs = (g.ravel().astype(np.int32) for g in np.meshgrid(np.arange(nb), np.arange(nb),
+                                                                    indexing="ij"))
+        perm = np.random.default_rng(seed).permutation(ibs.size)
+        ibs, jbs = ibs[perm], jbs[perm]
+    ids = mxu.device_tile_ids(ibs, jbs, nb, cuda)
+    return to_device_words(xp, cuda), ids, dict(tile_rows=ti, tile_words=wk)
+
+
+EPI_SHAPES = [(37, 33, 64, 40, 0.5), (300, 300, 256, 256, 0.5), (70, 129, 32, 128, 0.01),
+              (129, 16, 160, 8, 1.0), (520, 64, 256, 64, 0.001)]
+
+
+@pytest.mark.parametrize("order,offsets,cut", [("tri", None, 0), ("grid", None, 5),
+                                               ("grid", (3, 1), 0)])
+@pytest.mark.parametrize("k", (1, 8, 16, 32))
+@pytest.mark.parametrize("n,w,ti,wk,density", EPI_SHAPES)
+def test_k2_topk_kernel_equals_plain(cuda, n, w, ti, wk, density, k, order, offsets, cut):
+    """K2-topk's candidate sets, values and indices, equal the plain
+    version's exactly (ties to the lower index on both): at odd tile rows
+    (one and two sub-tile rows and columns), shuffled lists with tiles on
+    both sides of the diagonal, global offsets (``offsets`` in tiles: a
+    stripe's local ids) and an ``n_real`` below the rows."""
+    x, ids, kw = _epilogue_case(cuda, n, w, ti, wk, density, n + k, order)
+    row_off, col_off = (0, 0) if offsets is None else (offsets[0] * ti, offsets[1] * ti)
+    args = dict(k=k, n_real=n - cut, row_off=row_off, col_off=col_off, **kw)
+    reset_launches()
+    got = mxu.count_tiles_topk(x, *ids, checked=ids, **args)
+    assert launch_counts()["k2_topk"] == 1 and launch_counts()["k2_tri"] == 0
+    want = mxu.count_tiles_topk_plain(x, *ids, **args)
+    torch.cuda.synchronize()
+    for g, h in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, h)
+
+
+@pytest.mark.parametrize("n_bins,bin_width", [(64, None), (1, 1), (7, 1), (3, 1 << 21),
+                                              (4096, 1), (5, 3)])
+@pytest.mark.parametrize("order,offsets,cut", [("tri", None, 0), ("grid", (3, 1), 7)])
+@pytest.mark.parametrize("n,w,ti,wk,density", EPI_SHAPES)
+def test_k2_hist_kernel_equals_plain(cuda, n, w, ti, wk, density, n_bins, bin_width, order,
+                                     offsets, cut):
+    """K2-hist's bin counts equal the plain version's exactly: one bin,
+    crowded bins (all ones; a width past M), a bin a value (width 1, 4096
+    bins), global offsets and an ``n_real`` below the rows."""
+    from stormtpu_torch.stream import default_hist_bin_width
+
+    x, ids, kw = _epilogue_case(cuda, n, w, ti, wk, density, n + n_bins, order)
+    row_off, col_off = (0, 0) if offsets is None else (offsets[0] * ti, offsets[1] * ti)
+    width = bin_width or default_hist_bin_width(w * 32, n_bins)
+    args = dict(n_real=n - cut, bin_width=width, n_bins=n_bins, row_off=row_off,
+                col_off=col_off, **kw)
+    reset_launches()
+    got = mxu.count_tiles_hist(x, *ids, checked=ids, **args)
+    assert launch_counts()["k2_hist"] == 1
+    want = mxu.count_tiles_hist_plain(x, *ids, **args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    lane = np.arange(ti)
+    rows = row_off + ids.ibs.cpu().numpy()[:, None] * ti + lane
+    cols = col_off + ids.jbs.cpu().numpy()[:, None] * ti + lane
+    valid = (rows[:, :, None] < cols[:, None, :]) & (cols[:, None, :] < n - cut)
+    assert int(got.sum()) == int(valid.sum())  # every valid pair binned once
+
+
+def test_k2_epilogues_all_ones_at_the_int32_edge(cuda):
+    """Every count 2^27: the top-k's value + 1 and the histogram's bins
+    hold at the top of the counts' range."""
+    m = 1 << 27
+    ones = torch.full((256, m // 32), -1, dtype=torch.int32, device=cuda)
+    ids = mxu.device_tile_ids(np.array([0, 0, 1], np.int32), np.array([0, 1, 1], np.int32), 2,
+                              cuda)
+    kw = dict(tile_rows=128, tile_words=2048, checked=ids)
+    sets = mxu.count_tiles_topk(ones, *ids, k=4, n_real=256, **kw)
+    assert bool((sets.row_v == m).all()) and bool((sets.col_v[1] == m).all())
+    assert bool((sets.col_v[[0, 2]] == -1).all())
+    # ties to the lower index: tile (0, 1)'s rows take columns 128..131, its
+    # columns rows 0..3; row 0 of a diagonal tile skips itself
+    assert bool((sets.row_i[1] == torch.arange(128, 132, device=cuda)).all())
+    assert bool((sets.col_i[1] == torch.arange(4, device=cuda)).all())
+    assert sets.row_i[0, 0, 0].tolist() == [1, 2, 3, 4]
+    hist = mxu.count_tiles_hist(ones, *ids, n_real=256, bin_width=1 << 20, n_bins=200, **kw)
+    assert int(hist[m >> 20]) == 256 * 255 // 2 and int(hist.sum()) == 256 * 255 // 2
+
+
+def test_k2_epilogue_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    xp = torch.zeros((64, 16), dtype=torch.int32, device=cuda)
+    ids = torch.zeros(1, dtype=torch.int32, device=cuda)
+    kw = dict(tile_rows=32, tile_words=8, n_real=64)
+    with pytest.raises(ValueError, match="k=33"):
+        mxu.count_tiles_topk(xp, ids, ids, k=mxu.TOPK_EPI_MAX + 1, **kw)
+    with pytest.raises(ValueError, match="n_bins"):
+        mxu.count_tiles_hist(xp, ids, ids, bin_width=1, n_bins=mxu.HIST_EPI_MAX_BINS + 1, **kw)
+    with pytest.raises(TypeError):
+        mxu.count_tiles_topk(xp.float(), ids, ids, k=4, **kw)
+    with pytest.raises(ValueError):
+        mxu.count_tiles_hist(xp, ids.cpu(), ids, bin_width=1, n_bins=4, **kw)
+
+
+def test_k2_epilogue_build_has_no_spills_and_k2_is_unchanged(cuda):
+    """The epilogue kernels spill nothing, and K2's own kernels still build
+    to the registers they had before the epilogues (PERF.md)."""
+    from stormtpu_torch.kernels._build import kernel_resources
+
+    used = kernel_resources("k2_epilogue")
+    assert {s for s in used if "topk" in s} and {s for s in used if "hist" in s}
+    assert all(v["spill_bytes"] == 0 for v in used.values())
+    k2 = kernel_resources("k2_mxu")
+    assert all(v["spill_bytes"] == 0 for v in k2.values())
+
+
+@pytest.mark.parametrize("k", (8, 32, 33))
+def test_routes_through_the_epilogues_equal_the_store_route(cuda, monkeypatch, k):
+    """``topk_neighbors`` (the tile walk), ``stream_topk_neighbors`` (K2
+    stripes, resident and on two slices), ``stream_count_histogram`` and the
+    streamed walk's ``_PairStripes`` launch K2-topk / K2-hist (k ≤ 32) and
+    equal the store route (``TOPK_EPI_MAX`` and ``HIST_EPI_MAX_BINS`` set to
+    0): the same values, valid partner sets."""
+    import stormtpu_torch.config as tconf
+    from stormtpu_torch import dispatch, query, stream, stream_hist
+    from stormtpu_torch import stream_query as sq
+
+    cfg = EngineConfig(k2_tile_rows=64, k2_tile_words=128)
+    monkeypatch.setattr(tconf, "_DEFAULT", cfg)
+    monkeypatch.setattr(dispatch, "choose_strategy", lambda *a, **k_: "pallas_mxu")
+    bm = _query_case(300, 3000, seed=k)
+    c = oracle_count_matrix(bm.packed).astype(np.int64)
+    np.fill_diagonal(c, -1)
+
+    def calls():
+        out = [query.topk_neighbors(bm, k, device=cuda),
+               sq.stream_topk_neighbors(bm, k, superblock_rows=128, kernel="mxu", config=cfg,
+                                        device=cuda)]
+        with monkeypatch.context() as m:
+            m.setenv("STORMTPU_DEVICE_OPERAND_BUDGET_BYTES", "1000")
+            out.append(sq.stream_topk_neighbors(bm, k, superblock_rows=128, kernel="mxu",
+                                                config=cfg, device=cuda))
+            out.append(stream_hist.stream_hist_streamed(bm, n_bins=k, superblock_rows=128,
+                                                        config=cfg, device=cuda)["hist"])
+        xp = np.zeros((384, 128), np.uint32)
+        xp[:300, :bm.n_words] = bm.packed
+        out.append(stream.stream_count_histogram(to_device_words(xp, cuda), 300, bm.m_bits,
+                                                 n_bins=k, superblock_rows=128, config=cfg,
+                                                 device=cuda)["hist"])
+        return out
+
+    reset_launches()
+    got = calls()
+    counts = launch_counts()
+    assert counts["k2_hist"] >= 1 and (counts["k2_topk"] >= 1) == (k <= mxu.TOPK_EPI_MAX)
+    monkeypatch.setattr(mxu, "TOPK_EPI_MAX", 0)
+    monkeypatch.setattr(mxu, "HIST_EPI_MAX_BINS", 0)
+    reset_launches()
+    want = calls()
+    assert launch_counts()["k2_topk"] == launch_counts()["k2_hist"] == 0
+    for (gv, gi), (wv, _) in zip(got[:3], want[:3]):
+        assert np.array_equal(gv, wv) and np.array_equal(gv, -np.sort(-c, axis=1)[:, :k])
+        assert np.array_equal(c[np.arange(300)[:, None], gi], gv)
+        assert all(len(set(r.tolist())) == k and i not in r for i, r in enumerate(gi))
+    for g, h in zip(got[3:], want[3:]):
+        assert np.array_equal(g, h)

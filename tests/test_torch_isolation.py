@@ -1,5 +1,6 @@
-"""The port stands alone: ``stormtpu_torch``, ``chip_smoke.py`` and the
-port's examples (``examples/torch_*.py``) import neither ``jax`` nor the
+"""The port stands alone: ``stormtpu_torch``, ``chip_smoke.py``, the
+port's examples (``examples/torch_*.py``) and its measuring scripts
+(``scripts/torch_*.py``) import neither ``jax`` nor the
 JAX package ``stormtpu`` (whose ``__init__`` imports JAX), checked both by
 importing every module in a fresh interpreter and by scanning the
 sources."""
@@ -57,7 +58,8 @@ def test_importing_every_module_loads_no_jax():
 @pytest.mark.parametrize(
     "path",
     sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    + sorted((ROOT / "examples").glob("torch_*.py")),
+    + sorted((ROOT / "examples").glob("torch_*.py"))
+    + sorted((ROOT / "scripts").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_sources_import_no_jax(path):
@@ -67,6 +69,10 @@ def test_sources_import_no_jax(path):
 
 def test_the_five_examples_are_scanned():
     assert len(list((ROOT / "examples").glob("torch_*.py"))) == 5
+
+
+def test_the_port_scripts_are_scanned():
+    assert len(list((ROOT / "scripts").glob("torch_*.py"))) >= 6
 
 
 def test_package_modules_are_all_scanned():

@@ -156,7 +156,12 @@ def test_plain_forms_do_not_count_launches():
     words = _words(40, 20, 0.5, seed=9)
     tm.count_matrix_pallas_mxu(_t(words))
     tm.count_block_pallas_mxu(_t(words), _t(words))
-    assert tm.LAUNCHES == {"k2_tri": 0, "k2_rect": 0}
+    xp = torch.zeros((64, 24), dtype=torch.int32)
+    xp[:40, :20] = _t(words)
+    ids = torch.tensor([0, 0, 1], dtype=torch.int32), torch.tensor([0, 1, 1], dtype=torch.int32)
+    tm.count_tiles_topk(xp, *ids, tile_rows=32, tile_words=8, k=4, n_real=40)
+    tm.count_tiles_hist(xp, *ids, tile_rows=32, tile_words=8, n_real=40, bin_width=8, n_bins=16)
+    assert tm.LAUNCHES == {"k2_tri": 0, "k2_rect": 0, "k2_topk": 0, "k2_hist": 0}
 
 
 @pytest.mark.parametrize("clustered", (False, True))

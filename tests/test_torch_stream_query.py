@@ -172,7 +172,10 @@ def test_stream_topk_operand_streaming_equals_resident(kernel, monkeypatch):
     bj, bt = _pair(random_bitmatrix(100, 600, 0.3, seed=72))
     resident = _port("stream_topk_neighbors", bt, 4, superblock_rows=32, kernel=kernel)
     monkeypatch.setenv("STORMTPU_DEVICE_OPERAND_BUDGET_BYTES", "1000")
-    seen = _spy(monkeypatch, "_stripe_counts", record=lambda a, kw: a[0].streaming)
+    # K2 stripes of a count top-k take K2-topk (no dense stripe): its sets
+    # come from the same two slices
+    stripe_fn = "_stripe_topk_sets" if kernel == "mxu" else "_stripe_counts"
+    seen = _spy(monkeypatch, stripe_fn, record=lambda a, kw: a[0].streaming)
     streamed = _port("stream_topk_neighbors", bt, 4, superblock_rows=32, kernel=kernel)
     assert seen["seen"] and all(seen["seen"])
     assert np.array_equal(streamed[0], resident[0])
@@ -538,7 +541,8 @@ def test_topk_checkpoint_crosses_packages(tmp_path, monkeypatch, first):
             _jax("stream_topk_neighbors", bj, 5, **kw)
         got = _port("stream_topk_neighbors", bt, 5, **kw)
     else:
-        _spy(monkeypatch, "_stripe_topk", fail_at=6)
+        # kernel "mxu" at k ≤ TOPK_EPI_MAX: each stripe through K2-topk
+        _spy(monkeypatch, "_stripe_topk_sets", fail_at=6)
         with pytest.raises(RuntimeError):
             _port("stream_topk_neighbors", bt, 5, **kw)
         got = _jax("stream_topk_neighbors", bj, 5, **kw)
