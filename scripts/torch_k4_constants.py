@@ -4,12 +4,16 @@ NVIDIA card and its host, without a full tune.
 
     python3 scripts/torch_k4_constants.py [--seed 7] [--out FILE]
 
-``tuning.refit_k4_constants`` measures the sort, N² buffer, emission and
-upload constants as its docstring defines them; ``dispatch_floor_s`` is a
-warm K2 call at 256 × 2²⁰ bits, as ``tuning.tune`` takes it. ``tune`` also
-sets ``k2_int8_ops_per_s`` from its best ``pallas_mxu`` bucket, which this
-script does not measure. Prints one JSON object with the constants and the
-card's name and power limit (and writes it to ``--out`` when given).
+``tuning.refit_k4_constants`` measures the constants of K4's route on the
+card (its kernels, ``kernels/csrc/k4_sparse.cu``: the sort, the N² output,
+a stripe's N² kept on the card, the emission), the host's emission rate,
+the N² download, K2's host work on its operand and the upload, as its
+docstring defines them;
+``dispatch_floor_s`` is a warm K2 call at 256 × 2²⁰ bits, as ``tuning.tune``
+takes it. ``tune`` also sets ``k2_int8_ops_per_s`` from its best
+``pallas_mxu`` bucket, which this script does not measure. Prints one JSON
+object with the constants and the card's name and power limit (and writes
+it to ``--out`` when given).
 """
 
 from __future__ import annotations

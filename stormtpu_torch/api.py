@@ -78,9 +78,11 @@ def intersect_count_matrix(
 
     ``strategy``: "auto" (D1 dispatch) or one of ``dispatch.STRATEGIES``;
     every strategy gives the same exact counts. ``"sparse_outer"`` (K4)
-    runs on the host: it refuses N > 32768 (``ValueError``), and where
-    K4's NumPy fallback refuses (no C++ tier) the K2 walk runs instead.
-    ``"sparse"`` (K3) runs on ``device``.
+    runs on ``device``: on a card in its CUDA kernels (a build or launch
+    failure raises), on the CPU in the C++ host tier. It refuses
+    N > 32768 (``ValueError``); on the CPU, where K4's NumPy fallback
+    refuses (no C++ tier), the K2 walk runs instead. ``"sparse"`` (K3)
+    runs on ``device``.
 
     Host memory: on the card, the tile-walk strategies (``pallas_mxu``,
     ``pallas_dense``, ``clustered``) return an array that lives in a
@@ -101,25 +103,34 @@ def intersect_count_matrix(
         raise ValueError(f"unknown strategy {strategy!r}; want one of {STRATEGIES}")
     from stormtpu_torch.stream import require_device_budget
 
-    if strategy == "sparse_outer":
-        # on the host: no compaction scan and no upload
-        from stormtpu_torch.kernels.sparse import check_k4_rows, count_matrix_sparse_outer
-
-        # an explicit request must see K4's refusal, not a multi-GB dense
-        # matrix in its place
-        check_k4_rows(bm.n)
-        try:
-            return count_matrix_sparse_outer(bm, config=cfg)
-        except ValueError:
-            # the NumPy fallback's capacity refusals (no C++ tier): every
-            # strategy is exact, so the K2 walk takes over
-            strategy = "pallas_mxu"
-
     stream_hint = (
         "use stormtpu_torch.stream.stream_count_matrix (resumable stripes; "
         "kernel='auto' keeps the clustered skip), or the "
         "stormtpu_torch.stream_query reduced queries"
     )
+
+    if strategy == "sparse_outer":
+        # no compaction scan and no upload of the packed words
+        from stormtpu_torch.kernels.sparse import check_k4_rows, count_matrix_sparse_outer
+
+        # an explicit request must see K4's refusal, not a multi-GB dense
+        # matrix in its place
+        check_k4_rows(bm.n)
+        if dev.type == "cuda":
+            if bm.n > 2:
+                # on the card together: the N² int32 output and the sorted
+                # keys with their transients (about 32 bytes a nonzero)
+                require_device_budget(
+                    4 * bm.n * bm.n + 32 * bm.nnz,
+                    f"N={bm.n}: K4's N² count matrix and its sorted keys", stream_hint,
+                    device=dev)
+            return count_matrix_sparse_outer(bm, config=cfg, device=dev)
+        try:
+            return count_matrix_sparse_outer(bm, config=cfg, device=dev)
+        except ValueError:
+            # the NumPy fallback's capacity refusals (no C++ tier): every
+            # strategy is exact, so the K2 walk takes over
+            strategy = "pallas_mxu"
 
     if strategy == "clustered":
         # K5 pads and caches its own operand and skips empty K-groups per

@@ -6,10 +6,12 @@ It must be semantics-free: every strategy returns the identical exact
 count matrix. The strategy names are the JAX package's.
 
 Below ``sparse_density_threshold`` D1 names ``"sparse"`` (K3) on the CPU,
-as the JAX package does off the TPU. On the card it weighs K4 on the host
-against the dense K2 walk with the JAX package's estimate
-(:func:`k4_estimates`), and names ``"sparse_outer"`` when K4 is cheaper,
-N ≤ 32768 and the C++ host tier is built.
+as the JAX package does off the TPU. On the card it weighs K4, which runs
+there in its CUDA kernels (a build or launch failure raises), against the
+dense K2 walk (:func:`k4_estimates`: both charged with their N² download,
+K2 with its host work on the operand), and names ``"sparse_outer"`` when
+K4 is cheaper, N ≤ 32768 and the C++ host tier is built (its extraction
+serves a matrix without a COO cache; the NumPy one unpacks it).
 
 The dense choice (:func:`dense_strategy`) is the measured winner of the
 nearest tuned bucket where a tuning cache names the device
@@ -17,7 +19,7 @@ nearest tuned bucket where a tuning cache names the device
 product up to ``kernels.plain_product_max_bits(device)`` — the card's own
 crossover on a card, the JAX package's static constant on the CPU. The
 K4 constants are the port's own: the cache's refit for the card, else
-``tuning.K4_DEFAULTS`` (measured on an H100 and its host).
+``tuning.K4_DEFAULTS`` (measured on an H100, K4's kernels and its host).
 
 The block-clustered choice (``"clustered"``, K5) is made as the JAX
 package makes it. ``"pallas_dense"`` (K1) runs when asked for; D1 never
@@ -67,17 +69,22 @@ def dense_strategy(n: int, m_bits: int, config: Optional[EngineConfig] = None,
 
 
 def k4_estimates(n: int, m_bits: int, density: float, device=None) -> tuple[float, float]:
-    """Seconds D1 expects of (K4 on the host, the K2 walk on the card) for
-    an N×M matrix at ``density``: K4 sorts nnz keys, fills and mirrors an
-    N² buffer and emits about nnz·N·density pairs; K2 does N²·M at the
-    measured rate plus the warm call's fixed cost."""
+    """Seconds D1 expects of (K4, the K2 walk) on ``device`` (``None``: the
+    card) for an N×M matrix at ``density``, like for like: K4 sorts nnz
+    keys, emits about nnz·N·density pairs, and zeroes, mirrors and
+    downloads its N² matrix (``c_n2_s_per_elem``); K2 does N²·M at the
+    measured rate plus the warm call's fixed cost, the same N² download,
+    and its host work on the N·W packed words (the compaction scan and the
+    upload)."""
     from stormtpu_torch.tuning import k4_constants
 
     fit = k4_constants(device)
     nnz = n * m_bits * density
     est_k4 = (fit["c_sort_s_per_nnz"] * nnz + fit["c_n2_s_per_elem"] * n * n
               + fit["c_emit_s_per_emission"] * nnz * n * density)
-    est_k2 = n * n * m_bits / fit["k2_int8_ops_per_s"] + fit["dispatch_floor_s"]
+    est_k2 = (n * n * m_bits / fit["k2_int8_ops_per_s"] + fit["dispatch_floor_s"]
+              + fit["c_download_s_per_elem"] * n * n
+              + fit["c_k2_host_s_per_word"] * n * -(-m_bits // 32))
     return est_k4, est_k2
 
 

@@ -11,8 +11,9 @@
   ``csrc/tile_body.cuh``) and K0 (row-wise pair stream, CUDA cores), in
   ``csrc/k1_dense.cu``.
 - ``sparse``    — K3 (sorted-list intersections by ``torch.searchsorted``
-  on the caller's device) and K4 (the inverted index, on the host in the
-  C++ tier ``stormtpu_torch.native``).
+  on the caller's device) and K4 (the inverted index: on a card its
+  emission and mirror kernels, ``csrc/k4_sparse.cu``; on the CPU the C++
+  tier ``stormtpu_torch.native``).
 """
 
 from __future__ import annotations
@@ -69,9 +70,13 @@ _COUNTED = (mxu, clustered, dense, sparse, native)
 
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel wrapper since the last reset, by kernel:
-    on the card ``k2_tri``, ``k2_rect``, ``k5``, ``k1``, ``k0`` and ``k3``
-    (a block of rows), on the host ``k4`` (a run of the C++ K4)."""
-    return {k: v for m in _COUNTED for k, v in m.LAUNCHES.items()}
+    on the card ``k2_tri``, ``k2_rect``, ``k2_topk``, ``k2_hist``, ``k5``,
+    ``k1``, ``k0``, ``k3`` (a block of rows), ``k4`` (K4's emission
+    kernel) and ``k4_mirror``; on the host ``k4_host`` (a run of the C++
+    K4, the CPU's route)."""
+    out = {k: v for m in _COUNTED if m is not native for k, v in m.LAUNCHES.items()}
+    out["k4_host"] = native.LAUNCHES["k4"]
+    return out
 
 
 def reset_launches() -> None:

@@ -73,11 +73,16 @@ SOURCES = {
         "k1_tri_launch_prev": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
         "k0_stream_launch": ((_VP, _VP, _VP, _LL, _LL, _I, _VP), _I),
     },
+    "k4_sparse": {
+        "k4_emit_warps_per_block": ((), _I),
+        "k4_emit_launch": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _I, _VP, _LL, _VP), _I),
+        "k4_mirror_launch": ((_VP, _VP, _LL, _LL, _VP), _I),
+    },
 }
 
 # The sources the package's entry points launch. ``tc_rate`` is a measuring
 # tool (``kernels/tc_rate.py``) and is built only for whoever asks for it.
-KERNEL_SOURCES = ("k2_mxu", "k2_epilogue", "k1_dense")
+KERNEL_SOURCES = ("k2_mxu", "k2_epilogue", "k1_dense", "k4_sparse")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

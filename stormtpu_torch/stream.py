@@ -580,7 +580,7 @@ def stream_count_matrix(
     ``kernel``: ``"mxu"`` (K2), ``"dense"`` (K1), ``"xla_int8"`` /
     ``"xla_popcount"`` (plain whole-stripe forms, small M), ``"clustered"``
     (K5 work lists; stripe files hold only the visited tiles),
-    ``"sparse_outer"`` (K4 on the host or the K2 walk, chosen per stripe;
+    ``"sparse_outer"`` (K4 or the K2 walk, chosen per stripe;
     needs the C++ tier, else ``RuntimeError``) or ``"auto"``.
 
     ``operand_streaming`` (default auto): when the padded packed matrix and
@@ -830,20 +830,34 @@ class _SparseStripePlan:
     """The per-superblock K4 machinery of the ``sparse_outer`` walk: the
     column-sorted sub-COO of each superblock, its column histogram (exact
     emission counts E(I, J)), the cost model's K4-or-dense choice a stripe,
-    and K4's evaluation of a stripe."""
+    and K4's evaluation of a stripe into a tensor on the plan's device
+    (:meth:`stripe_counts`): on a card by K4's CUDA kernels, on the CPU by
+    the C++ run walks; with few emissions by :meth:`stripe_coo` on the
+    host."""
 
     def __init__(self, bm: BitMatrix, superblock_rows: int, n_super: int, device=None):
         from stormtpu_torch.tuning import k4_constants
 
         self.bm = bm
         self.sb = superblock_rows
+        self.dev = resolve_device(device)
         self.subs = _superblock_coo(bm, superblock_rows, n_super)
         self.hists = [unique_int64(cols, presorted=True, return_counts=True)
                       for cols, _ in self.subs]
         self._segment_cache: tuple = (None, None)
+        # superblock → (rows int32, local nnz int32) on the card, the two
+        # superblocks of the last stripe only
+        self._dev_rows: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         fit = k4_constants(device)
-        self._c_n2 = fit["c_n2_s_per_elem"]
+        on_card = self.dev.type == "cuda"
+        # the constants of K4's route on this device: on a card its kernels
+        # (the stripe stays there: no sb² download) and the host's rate for
+        # the few-emission path (stripe_coo); on the CPU every emission is
+        # the host's, priced by one rate as in the JAX package
+        self._c_n2 = fit["c_stripe_n2_s_per_elem" if on_card else "c_n2_s_per_elem"]
         self._c_emit = fit["c_emit_s_per_emission"]
+        self._c_emit_host = fit["c_emit_host_s_per_emission" if on_card
+                                else "c_emit_s_per_emission"]
         self._sb2 = superblock_rows * superblock_rows
         self._est_dense_s = (
             self._sb2 * bm.m_bits / fit["k2_int8_ops_per_s"] + fit["dispatch_floor_s"]
@@ -897,18 +911,19 @@ class _SparseStripePlan:
 
     def use_k4(self, i: int, j: int, extra_emissions: int = 0,
                emission_path: bool = False) -> bool:
-        """The cost model: K4 on the host (its sb² buffer and its
-        emissions) against the K2 stripe on the card (with the j slice's
-        upload off the diagonal). ``extra_emissions`` charges the caller's
-        host work a candidate (the streamed queries' zero-intersection
-        staircase) at the emission rate. ``emission_path``: the caller takes
-        :meth:`stripe_coo` for an eligible stripe, so no sb² buffer is
-        charged, only the full square's emissions that it makes."""
+        """The cost model: K4 (its sb² buffer and its emissions, on the
+        card where the walk runs there) against the K2 stripe on the card
+        (with the j slice's upload off the diagonal). ``extra_emissions``
+        charges the caller's host work a candidate (the streamed queries'
+        zero-intersection staircase) at the host's emission rate.
+        ``emission_path``: the caller takes :meth:`stripe_coo` for an
+        eligible stripe, so no sb² buffer is charged, only the full
+        square's emissions that it makes on the host."""
         if emission_path and self.emission_eligible(i, j):
-            cost = self._c_emit * (self.emissions_square(i, j) + extra_emissions)
+            cost = self._c_emit_host * (self.emissions_square(i, j) + extra_emissions)
         else:
-            cost = self._c_n2 * self._sb2 + self._c_emit * (
-                self.emissions(i, j) + extra_emissions)
+            cost = (self._c_n2 * self._sb2 + self._c_emit * self.emissions(i, j)
+                    + self._c_emit_host * extra_emissions)
         return cost < self._est_dense_s + (self._est_upload_s if i != j else 0.0)
 
     def stripe_coo(self, i: int, j: int):
@@ -935,17 +950,64 @@ class _SparseStripePlan:
         return ((key // self.sb).astype(np.int32), (key % self.sb).astype(np.int32),
                 counts.astype(np.int32))
 
-    def stripe_counts(self, i: int, j: int) -> np.ndarray:
-        """int32 [sb, sb] local counts of stripe (i, j) by the C++ run walks
-        (a diagonal stripe mirrored to the full square)."""
+    def _rows_on_card(self, i: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(rows int32, per-row nnz int32 [sb]) of superblock i's sub-COO on
+        the plan's device, kept for the superblocks of the last stripe."""
+        got = self._dev_rows.get(i)
+        if got is None:
+            rows = self.subs[i][1]
+            got = (torch.from_numpy(rows).to(self.dev),
+                   torch.from_numpy(np.bincount(rows, minlength=self.sb).astype(np.int32)
+                                    ).to(self.dev))
+            self._dev_rows[i] = got
+        return got
+
+    def _stripe_counts_k4(self, i: int, j: int) -> torch.Tensor:
+        """Stripe (i, j) by K4's kernel forms on the plan's device (their
+        plain versions on the CPU): the triangle form over the runs of two
+        rows or more, mirrored with the rows' nnz on the diagonal, or the
+        rectangle form over the shared columns."""
+        from stormtpu_torch.kernels.sparse import k4_rect, k4_square
+
+        for k in [k for k in self._dev_rows if k not in (i, j)]:
+            del self._dev_rows[k]
+        oa, p, ob, q = (torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+                        for a in self._segments(i, j))
+        rows_i, nnz_i = self._rows_on_card(i)
+        if i == j:
+            keep = p >= 2
+            return k4_square(rows_i, oa[keep].contiguous(), p[keep].contiguous(), self.sb,
+                             nnz_i)
+        rows_j, _ = self._rows_on_card(j)
+        return k4_rect(rows_i, oa, p, rows_j, ob, q, self.sb, self.sb)
+
+    def stripe_counts(self, i: int, j: int) -> torch.Tensor:
+        """int32 [sb, sb] local counts of stripe (i, j) on the plan's
+        device, a diagonal stripe mirrored to the full square with the rows'
+        nnz on its diagonal: on a card from K4's kernels
+        (``kernels.sparse.k4_square`` and ``k4_rect`` over
+        :meth:`_segments`), on the CPU from the C++ run walks."""
+        if self.dev.type == "cuda":
+            return self._stripe_counts_k4(i, j)
         cols_i, rows_i = self.subs[i]
         if i == j:
             stripe = native.sparse_outer_runs_native(cols_i, rows_i, self.sb)
             native.mirror_upper_native(stripe)
-            return stripe
-        cols_j, rows_j = self.subs[j]
-        return native.sparse_outer_runs_cross_native(
-            cols_i, rows_i, cols_j, rows_j, self.sb, self.sb)
+        else:
+            cols_j, rows_j = self.subs[j]
+            stripe = native.sparse_outer_runs_cross_native(
+                cols_i, rows_i, cols_j, rows_j, self.sb, self.sb)
+        return torch.from_numpy(stripe)
+
+
+def _stripe_nonzeros(stripe: torch.Tensor) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(rows, cols, values) of a K4 stripe's nonzero counts in row-major
+    order, rows and columns int64 as ``np.nonzero`` gives them: the stripe
+    is compacted on its device and only the nonzeros come back."""
+    nz = torch.nonzero(stripe)
+    vals = stripe[nz[:, 0], nz[:, 1]]
+    nz = download(nz)
+    return nz[:, 0], nz[:, 1], download(vals)
 
 
 def _stripe_kind(path: str) -> str:
@@ -970,8 +1032,9 @@ def _stream_sparse_outer(
 ) -> dict:
     """K4 at streaming scale: each stripe (I, J) is decided by the cost
     model (:class:`_SparseStripePlan`) from its exact emission count. A K4
-    stripe is emitted on the host into a superblock² buffer (or, with few
-    emissions, without one) and stores its nonzero counts
+    stripe is emitted into a superblock² buffer, by K4's kernels on a card
+    (only its nonzeros come back) or by the C++ tier on the CPU, or, with
+    few emissions, on the host without one, and stores its nonzero counts
     (``coo_i``/``coo_j``/``coo_v``); a dense stripe runs the K2 walk on the
     two superblock slices (``_SliceBuffer``: only they are on the device)
     and stores ``counts``. The single-shot K4's N ≤ 32768 limit does not
@@ -1020,11 +1083,8 @@ def _stream_sparse_outer(
                     if plan.emission_eligible(i, j):
                         nz_i, nz_j, nz_v = plan.stripe_coo(i, j)
                     else:
-                        stripe = plan.stripe_counts(i, j)
-                        nz_i, nz_j = np.nonzero(stripe)
+                        nz_i, nz_j, nz_v = _stripe_nonzeros(plan.stripe_counts(i, j))
                         nz_i, nz_j = nz_i.astype(np.int32), nz_j.astype(np.int32)
-                        nz_v = stripe[nz_i, nz_j]
-                        del stripe
                 with _stage("save", dev):
                     writer.save(path, coo_i=nz_i, coo_j=nz_j, coo_v=nz_v, i=i, j=j)
                 del nz_i, nz_j, nz_v

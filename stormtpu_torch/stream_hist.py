@@ -4,9 +4,9 @@
 kernel-resolution policy (``stream._resolve_stream_kernel``):
 
 - the K4 regime: :func:`stream_hist_sparse` bins each stripe's exact
-  nonzero counts from ``_SparseStripePlan`` on the host and credits the
-  zero pairs to bin 0 by arithmetic; a stripe where the cost model prefers
-  the dense kernel takes the K2 stripe on the card;
+  counts from ``_SparseStripePlan`` (K4's kernels on a card, binned there)
+  and credits the zero pairs to bin 0 by arithmetic; a stripe where the
+  cost model prefers the dense kernel takes the K2 stripe on the card;
 - the block-clustered regime: :func:`stream_hist_clustered` runs each
   stripe's summary-AND work list through K5 and bins only the visited
   tiles; the unvisited tiles' pairs go to bin 0 (their counts are exactly
@@ -246,11 +246,12 @@ def stream_hist_sparse(
     progress: Optional[Callable[[int, int], None]] = None,
     device=None,
 ) -> dict:
-    """K4-regime histogram: per-superblock inverted-index emission on the
-    host (``_SparseStripePlan``), binning each stripe's exact nonzero
-    counts and crediting its zero pairs to bin 0. The cost model decides
-    each stripe between K4 and the K2 stripe on the card, as in the counts
-    walk."""
+    """K4-regime histogram: per-superblock inverted-index emission
+    (``_SparseStripePlan``: K4's kernels on a card, binned there; the C++
+    tier on the CPU; the few-emission stripes on the host), binning each
+    stripe's exact nonzero counts and crediting its zero pairs to bin 0.
+    The cost model decides each stripe between K4 and the K2 stripe on the
+    card, as in the counts walk."""
     from stormtpu_torch import native
     from stormtpu_torch.stream import (
         _SparseStripePlan,
@@ -295,16 +296,18 @@ def stream_hist_sparse(
                     _bin_values(hist, cv, bin_width, n_bins)
                     hist[0] += mass - cv.size
                 else:
+                    # binned on the stripe's device; its values hold the
+                    # zero pairs, whose mass lands in bin 0
                     stripe = plan.stripe_counts(i, j)
                     vi, vj = _valid_rows(n, sb, i), _valid_rows(n, sb, j)
                     if i == j:
-                        vals = stripe[:vi, :vi][np.triu_indices(vi, k=1)]
+                        lane = torch.arange(vi, device=dev)
+                        vals = stripe[:vi, :vi][lane[:, None] < lane[None, :]]
                     else:
-                        vals = stripe[:vi, :vj].ravel()
-                    # vals hold the zero pairs: their mass lands in bin 0
-                    _bin_values(hist, vals, bin_width, n_bins)
-                    if vals.size == 0:
-                        hist[0] += mass
+                        vals = stripe[:vi, :vj].flatten()
+                    hist_d += _bin_counts(
+                        torch.clamp(vals.long() // bin_width, max=n_bins - 1), n_bins)
+                    del stripe, vals
             stripe_kernels["k4"] += 1
         else:
             if stripes is None:

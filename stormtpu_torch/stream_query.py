@@ -29,11 +29,12 @@ same. On each stripe a PyTorch pass on the device reduces the counts:
   grids a stripe from four superblock slices (data and mask of both row
   blocks), re-derived exactly on the host (``setops._complete_refine``).
 
-At extreme sparsity ``kernel="auto"`` (or ``"sparse_outer"``) takes K4 on
-the host for each stripe where the cost model of
-``stream._SparseStripePlan`` says so; the staircase of zero-intersection
-pairs keeps phi and r² exact there. Stripes between co-empty superblocks
-(the block summary) are skipped for every measure.
+At extreme sparsity ``kernel="auto"`` (or ``"sparse_outer"``) takes K4 for
+each stripe where the cost model of ``stream._SparseStripePlan`` says so
+(K4's kernels on a card, whose stripe's nonzeros alone come back; the host
+for a stripe of few emissions, and on the CPU); the staircase of
+zero-intersection pairs keeps phi and r² exact there. Stripes between
+co-empty superblocks (the block summary) are skipped for every measure.
 
 Checkpoints (``out_dir``) have the JAX package's formats: ``topk_ckpt.npz``
 (the running best after every stripe row), and one
@@ -70,6 +71,7 @@ from stormtpu_torch.stream import (
     _host_superblock,
     _route,
     _stage,
+    _stripe_nonzeros,
     _stripe_tile_ids,
     _tile_stripe,
     _wants_operand_streaming,
@@ -131,8 +133,8 @@ def _resolve_stripe_config(bm: BitMatrix, superblock_rows: int, kernel: str,
 
 
 def _sparse_mode_for(bm: BitMatrix, requested: str, cfg: EngineConfig) -> bool:
-    """Whether the walk decides each stripe between K4 on the host and the
-    dense stripe: ``requested`` (the caller's kernel string, before
+    """Whether the walk decides each stripe between K4 and the dense
+    stripe: ``requested`` (the caller's kernel string, before
     resolution) ``"sparse_outer"`` forces it (``RuntimeError`` without the
     C++ tier); ``"auto"`` takes it below the density threshold, as
     ``stream._resolve_stream_kernel`` does."""
@@ -614,11 +616,13 @@ def _stripe_nz(stripe) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 def _k4_stripe(plan, i: int, j: int, sb: int):
-    """K4's stripe (i, j) on the host: a :class:`_CooStripe` where the
-    emissions are few, else the C++ run walk's dense stripe."""
+    """K4's stripe (i, j) as a :class:`_CooStripe`: made on the host where
+    the emissions are few, else the nonzeros of the plan's stripe (K4's
+    kernels on a card, where only the nonzeros come back; the C++ run walks
+    on the CPU)."""
     if plan.emission_eligible(i, j):
         return _CooStripe(*plan.stripe_coo(i, j), sb)
-    return plan.stripe_counts(i, j)
+    return _CooStripe(*_stripe_nonzeros(plan.stripe_counts(i, j)), sb)
 
 
 def _r2_zero_plan(nnz_i: np.ndarray, nnz_j: np.ndarray, m_bits: int, threshold: float):
@@ -871,8 +875,9 @@ def stream_topk_neighbors(
     on co-empty stripes, which take no device work for any measure.
 
     ``kernel``: "mxu" (K2), "dense" (K1), "xla_int8" / "xla_popcount"
-    (plain whole-stripe forms), "auto", or "sparse_outer" (K4 on the host
-    for the stripes where the cost model says so; needs the C++ tier).
+    (plain whole-stripe forms), "auto", or "sparse_outer" (K4 for the
+    stripes where the cost model says so, its kernels on a card; needs the
+    C++ tier).
     When the device cannot hold the padded operand (as
     ``stream.stream_count_matrix`` judges it), only two superblock slices
     are kept there.

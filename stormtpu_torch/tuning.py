@@ -24,19 +24,45 @@ CPU). The JSON layout is the JAX package's (``device``, ``grid``,
 ``buckets.*.dense_pairs_per_s``, ``latency_bound``, ``dispatch_floor_s``,
 ``k4_cost_model``).
 
-The K4 cost model weighs K4 on the host against the dense K2 walk on the
-card (``dispatch.k4_estimates``, ``stream._SparseStripePlan``).
-:func:`refit_k4_constants` measures each constant as follows; without a
-cache for the card, :data:`K4_DEFAULTS` (the same measurements, made once
-on an NVIDIA H100 80GB HBM3 at 700 W and its host; PERF.md §6) stand:
+The K4 cost model weighs K4 against the dense K2 walk on the card
+(``dispatch.k4_estimates``, ``stream._SparseStripePlan``). Each constant
+is that of K4's route on the device it is measured for: on a card K4's
+CUDA kernels (``kernels/csrc/k4_sparse.cu``), on the CPU the C++ host
+tier. :func:`refit_k4_constants` measures each as follows; without a cache
+for the device, :data:`K4_DEFAULTS` (the same measurements, made once on
+an NVIDIA H100 80GB HBM3 at 700 W and its host by
+``scripts/torch_k4_constants.py``; PERF.md §6) stand, the CPU's cost model
+included (it only picks a stripe's kind, never a count):
 
-- ``c_sort_s_per_nnz``: the sort-based unique (``kernels.sparse.unique_int64``)
-  of random int64 keys, a key;
-- ``c_n2_s_per_elem``: K4's N² int32 buffer at n = 10,000 (allocated and
-  mirrored), an entry;
-- ``c_emit_s_per_emission``: an end-to-end K4 run at 10,000 × 2²⁰ bits,
-  density 1e-3 (least of two), its remainder after the sort and N² terms
-  over its emissions;
+- ``c_sort_s_per_nnz``: the (column, row) list a nonzero, at 10,000 × 2²⁰
+  bits, density 1e-3: on a card the COO's upload and the keys' sort,
+  de-duplication and runs there (``kernels.sparse._k4_sorted_rows``); on
+  the CPU the sort-based unique (``kernels.sparse.unique_int64``) of
+  random int64 keys;
+- ``c_n2_s_per_elem``: K4's N² int32 output at n = 10,000, an entry: on a
+  card zeroed, mirrored (``kernels.sparse.k4_mirror``) and downloaded; on
+  the CPU allocated and mirrored;
+- ``c_stripe_n2_s_per_elem``: a streamed walk's K4 stripe kept on the card,
+  an entry of the same N² output: zeroed, mirrored and compacted to its
+  nonzeros (``torch.nonzero``), by CUDA events (least of three); on the CPU
+  as ``c_n2_s_per_elem``, which the CPU's stripes read;
+- ``c_emit_s_per_emission``: an emission at 10,000 × 2²⁰ bits, density
+  1e-3: on a card the emission kernel alone (CUDA events, least of three);
+  on the CPU an end-to-end host K4 run (least of two), its remainder after
+  the sort and N² terms over its emissions;
+- ``c_emit_host_s_per_emission``: that host rate, measured on either
+  device and read on a card only: there the few-emission stripes
+  (``_SparseStripePlan.stripe_coo``) and the streamed queries'
+  zero-intersection staircases run on the host beside K4's kernels. On
+  the CPU every emission is the host's and ``c_emit_s_per_emission``
+  prices them all, as the JAX package's cost model does; without a CPU
+  cache the card's constants price both sides there, K2 too, so the CPU
+  picks the stripe kinds the card would;
+- ``c_download_s_per_elem``: an N² int32 matrix's download into page-locked
+  memory (``utils.download``), an entry (0 on the CPU); K2's estimate
+  carries it as K4's does;
+- ``c_k2_host_s_per_word``: the K2 call's host work on its operand, a
+  packed word: the compaction scan (``packed.any(axis=0)``) and the upload;
 - ``k2_int8_ops_per_s``: n²·M over the K2 triangular kernel's time, from
   the best ``pallas_mxu`` bucket;
 - ``dispatch_floor_s``: the wall time of a warm ``pallas_mxu`` call whose
@@ -92,12 +118,16 @@ DEFAULT_GRID: tuple[tuple[int, int], ...] = (
 )
 
 K4_DEFAULTS = {
-    "c_sort_s_per_nnz": 2.53e-8,
-    "c_n2_s_per_elem": 2.36e-9,
-    "c_emit_s_per_emission": 1.37e-8,
+    "c_sort_s_per_nnz": 3.42e-9,
+    "c_n2_s_per_elem": 7.96e-11,
+    "c_stripe_n2_s_per_elem": 1.46e-11,
+    "c_emit_s_per_emission": 7.07e-11,
+    "c_emit_host_s_per_emission": 1.55e-8,
+    "c_download_s_per_elem": 7.84e-11,
+    "c_k2_host_s_per_word": 1.44e-9,
     "k2_int8_ops_per_s": 6.56e15,
-    "dispatch_floor_s": 0.0072,
-    "h2d_bytes_per_s": 7.60e9,
+    "dispatch_floor_s": 0.00995,
+    "h2d_bytes_per_s": 6.50e9,
 }
 
 
@@ -397,40 +427,103 @@ FLOOR_SHAPE = (256, 1 << 20)
 
 
 def refit_k4_constants(log=print, *, device=None, seed: int = 7) -> Optional[dict]:
-    """Measure the K4 constants of the module docstring that belong to the
-    host and the upload on ``device``, at the sizes of :data:`K4_PROBE`;
-    None when the C++ host tier is not built (K4 is never chosen then).
-    ``k2_int8_ops_per_s`` and ``dispatch_floor_s`` come from :func:`tune`."""
+    """Measure the K4 constants of the module docstring that belong to K4's
+    route, the host and the transfers on ``device``, at the sizes of
+    :data:`K4_PROBE`; None when the C++ host tier is not built (its host
+    rate cannot be measured then). ``k2_int8_ops_per_s`` and
+    ``dispatch_floor_s`` come from :func:`tune`."""
     from stormtpu_torch import native
-    from stormtpu_torch.kernels.sparse import count_matrix_sparse_outer, unique_int64
-    from stormtpu_torch.layout import BitMatrix
+    from stormtpu_torch.kernels import sparse as ksp
+    from stormtpu_torch.layout import BitMatrix, to_device_words
     from stormtpu_torch.stream import _SliceBuffer
-    from stormtpu_torch.utils import resolve_device
+    from stormtpu_torch.utils import download, resolve_device
 
     if not native.have_native():
         return None
     dev = resolve_device(device)
+    on_card = dev.type == "cuda"
     sort_keys, n, m_bits, density, slice_rows = (
         K4_PROBE[k] for k in ("sort_keys", "n", "m_bits", "density", "slice_rows"))
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, 2**62, sort_keys, dtype=np.int64)
-    c_sort = _least(lambda: unique_int64(keys), 3) / keys.size
+    c_sort_host = _least(lambda: ksp.unique_int64(keys), 3) / keys.size
     del keys
 
     def n2_buffer():
         native.mirror_upper_native(np.zeros((n, n), dtype=np.int32))
 
-    c_n2 = _least(n2_buffer, 3) / (n * n)
+    c_n2_host = _least(n2_buffer, 3) / (n * n)
 
     k = int(n * m_bits * density)
     rows, cols = rng.integers(0, n, k), rng.integers(0, m_bits, k)
     bm = BitMatrix.from_positions(rows, cols, n, m_bits)
     # exact emissions: a column with occ distinct rows emits occ·(occ+1)/2
-    _, occ = unique_int64(unique_int64(cols * n + rows) // n, presorted=True,
-                          return_counts=True)
-    emissions = int((occ.astype(np.int64) * (occ + 1) // 2).sum())
-    k4_s = _least(lambda: count_matrix_sparse_outer(bm), 2)
-    c_emit = max(k4_s - c_sort * bm.nnz - c_n2 * n * n, 0.0) / max(emissions, 1)
+    _, occ = ksp.unique_int64(ksp.unique_int64(cols * n + rows) // n, presorted=True,
+                              return_counts=True)
+    occ = occ.astype(np.int64)
+    emissions = int((occ * (occ + 1) // 2).sum())
+    host_s = _least(lambda: ksp.count_matrix_sparse_outer(bm, device="cpu"), 2)
+    c_emit_host = max(host_s - c_sort_host * bm.nnz - c_n2_host * n * n, 0.0) / max(emissions, 1)
+    probe = {"sort_keys": sort_keys, "n": n, "m_bits": m_bits, "density": density,
+             "nnz": k, "emissions": emissions, "host_k4_s": host_s,
+             "slice_bytes": slice_rows * (-(-m_bits // 32)) * 4}
+
+    if on_card:
+        def card_sort():
+            cols_d, rows_d = ksp._k4_sorted_rows(bm, dev)
+            ksp.k4_runs(cols_d)
+            _sync(dev)
+
+        card_sort()
+        c_sort = _least(card_sort, 3) / bm.nnz
+        cols_d, rows_d = ksp._k4_sorted_rows(bm, dev)
+        off, lens = ksp.k4_runs(cols_d)
+        pairs = int((lens * (lens - 1) // 2).sum())
+        prefix = ksp._emission_prefix(lens * (lens - 1) // 2)
+        diag = torch.from_numpy(bm.row_nnz.astype(np.int32)).to(dev)
+        out = torch.zeros((n, n), dtype=torch.int32, device=dev)
+        # a stripe's life on the card: zeroed, emitted into, mirrored and
+        # compacted to its nonzeros; the emission and the rest timed apart
+        emit_s = stripe_s = float("inf")
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            out.zero_()
+            ev[1].record()
+            ksp.k4_emit(rows_d, rows_d, off, lens, off, lens, prefix, out, triangle=True)
+            ev[2].record()
+            ksp.k4_mirror(out, diag)
+            torch.nonzero(out)
+            ev[3].record()
+            torch.cuda.synchronize(dev)
+            emit_s = min(emit_s, ev[1].elapsed_time(ev[2]) * 1e-3)
+            rest_ms = ev[0].elapsed_time(ev[1]) + ev[2].elapsed_time(ev[3])
+            stripe_s = min(stripe_s, rest_ms * 1e-3)
+        c_emit = emit_s / max(pairs, 1)
+        c_stripe_n2 = stripe_s / (n * n)
+        del cols_d, rows_d, off, lens, prefix
+
+        def n2_card():
+            out.zero_()
+            ksp.k4_mirror(out, diag)
+            download(out)
+
+        n2_card()
+        c_n2 = _least(n2_card, 3) / (n * n)
+        download(out)
+        c_download = _least(lambda: download(out), 3) / (n * n)
+        del out, diag
+        probe.update(card_pairs=pairs, card_emit_s=emit_s)
+    else:
+        c_sort, c_n2, c_emit, c_download = c_sort_host, c_n2_host, c_emit_host, 0.0
+        c_stripe_n2 = c_n2_host
+
+    def k2_host():
+        bm.packed.any(axis=0)
+        to_device_words(bm.packed, dev)
+        _sync(dev)
+
+    c_k2_host = _least(k2_host, 2) / bm.packed.size
     del bm, rows, cols
 
     w_slice = -(-m_bits // 32)
@@ -448,15 +541,19 @@ def refit_k4_constants(log=print, *, device=None, seed: int = 7) -> Optional[dic
     fitted = {
         "c_sort_s_per_nnz": c_sort,
         "c_n2_s_per_elem": c_n2,
+        "c_stripe_n2_s_per_elem": c_stripe_n2,
         "c_emit_s_per_emission": c_emit,
+        "c_emit_host_s_per_emission": c_emit_host,
+        "c_download_s_per_elem": c_download,
+        "c_k2_host_s_per_word": c_k2_host,
         "h2d_bytes_per_s": h2d,
-        "probe": {"sort_keys": sort_keys, "n": n, "m_bits": m_bits, "density": density,
-                  "nnz": k, "emissions": emissions, "k4_s": k4_s,
-                  "slice_bytes": slice_rows * w_slice * 4},
+        "probe": probe,
     }
-    log(f"k4 refit: sort {c_sort:.3e} s/key, n2 {c_n2:.3e} s/entry, emit "
-        f"{c_emit:.3e} s/emission ({emissions} emissions in {k4_s:.3f} s), "
-        f"upload {h2d / 1e9:.2f} GB/s")
+    log(f"k4 refit on {dev.type}: sort {c_sort:.3e} s/nnz, n2 {c_n2:.3e} s/entry (a "
+        f"stripe's {c_stripe_n2:.3e}), emit "
+        f"{c_emit:.3e} s/emission; host emit {c_emit_host:.3e} s/emission ({emissions} "
+        f"emissions in {host_s:.3f} s), download {c_download:.3e} s/entry, K2 host "
+        f"{c_k2_host:.3e} s/word, upload {h2d / 1e9:.2f} GB/s")
     return fitted
 
 

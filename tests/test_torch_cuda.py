@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K2 with its top-k and histogram epilogues, K5,
-K1, K0) against their plain PyTorch versions, on the card.
+K1, K0, K4's emission and mirror) against their plain PyTorch versions,
+on the card.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. On the
 card run them without the JAX package's conftest:
@@ -653,6 +654,174 @@ def test_sparse_strategies_on_the_card(cuda):
     assert np.array_equal(intersect_count_matrix(bm, strategy="sparse_outer", device=cuda), want)
     assert launch_counts()["k4"] == 1 and launch_counts()["k2_tri"] == 0
     assert np.array_equal(intersect_count_matrix(bm, device=cuda), want)  # D1 on the card
+
+
+def _k4_square_case(n, m, density, seed, every_row_column=False):
+    """(bm, rows, off, lens, diag) of a seeded matrix (one more column in
+    every row where asked) and its sorted K4 list, CPU tensors."""
+    from stormtpu_torch.kernels import sparse
+
+    rng = np.random.default_rng(seed)
+    k = int(n * m * density)
+    rows, pos = rng.integers(0, n, k), rng.integers(0, m, k)
+    if every_row_column:
+        rows, pos = np.r_[rows, np.arange(n)], np.r_[pos, np.full(n, 3)]
+    bm = BitMatrix.from_positions(rows, pos, n, m)
+    cols, rows = sparse._k4_sorted_rows(bm, torch.device("cpu"))
+    off, lens = sparse.k4_runs(cols)
+    return bm, rows, off, lens, torch.from_numpy(bm.row_nnz.astype(np.int32))
+
+
+@pytest.mark.parametrize("n,m,density,every_row_column", [
+    (2, 100, 0.3, False), (33, 4096, 0.01, False), (257, 1 << 16, 0.002, True),
+    (1000, 1 << 18, 1e-3, False), (4099, 1 << 20, 2e-4, True), (300, 1 << 20, 0.0, False),
+])
+def test_k4_kernels_equal_plain(cuda, n, m, density, every_row_column):
+    """Both K4 kernels (emission in its triangle form, the mirror with the
+    diagonal) against their plain versions, ragged N, the column in every
+    row (most contention), and no emission at all (density 0)."""
+    from stormtpu_torch.kernels import sparse
+
+    bm, rows, off, lens, diag = _k4_square_case(n, m, density, n + m, every_row_column)
+    rows, off, lens, diag = (t.to(cuda) for t in (rows, off, lens, diag))
+    prefix = sparse._emission_prefix(lens * (lens - 1) // 2)
+    total = int(prefix[-1])
+    want = torch.zeros((n, n), dtype=torch.int32, device=cuda)
+    sparse.k4_emit_plain(rows, rows, off, lens, off, lens, prefix, want, triangle=True)
+    reset_launches()
+    got = torch.zeros((n, n), dtype=torch.int32, device=cuda)
+    sparse.k4_emit(rows, rows, off, lens, off, lens, prefix, got, triangle=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["k4"] == (1 if total else 0)  # no launch at no emissions
+    assert torch.equal(got, want)
+    sparse.k4_mirror(got, diag)
+    sparse.k4_mirror_plain(want, diag)
+    torch.cuda.synchronize()
+    assert launch_counts()["k4_mirror"] == 1
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), sparse.count_matrix_sparse_outer(bm, device="cpu"))
+
+
+@pytest.mark.parametrize("na,nb,m,density", [(37, 300, 5000, 0.02), (4096, 4096, 1 << 16, 1e-3),
+                                             (64, 1, 100, 0.5)])
+def test_k4_rectangle_kernel_equals_plain(cuda, na, nb, m, density):
+    from stormtpu_torch import stream
+    from stormtpu_torch.kernels import sparse
+
+    rng = np.random.default_rng(na + nb)
+    k = int((na + nb) * m * density)
+    bm = BitMatrix.from_positions(rng.integers(0, na + nb, k), rng.integers(0, m, k), na + nb, m)
+    sb = max(na, nb)
+    plan = stream._SparseStripePlan(bm, sb, 2, device="cpu")
+    oa, p, ob, q = (torch.from_numpy(a) for a in plan._segments(0, 1))
+    rows_i = torch.from_numpy(plan.subs[0][1])
+    rows_j = torch.from_numpy(plan.subs[1][1])
+    want = sparse.k4_rect(rows_i, oa, p, rows_j, ob, q, sb, sb)
+    reset_launches()
+    got = sparse.k4_rect(rows_i.to(cuda), oa.to(cuda), p.to(cuda), rows_j.to(cuda), ob.to(cuda),
+                         q.to(cuda), sb, sb)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert launch_counts()["k4"] == (1 if int((p * q).sum()) else 0)
+    assert np.array_equal(want.numpy(), plan.stripe_counts(0, 1))  # the host C++ stripe
+
+
+def test_k4_emission_index_past_2_31(cuda):
+    """One segment of 2.6e9 emissions into an 8 x 4096 output: the flat
+    emission index, the prefix and the lanes' offsets pass 2^31. Every
+    entry is the product of its row's and its column's multiplicities."""
+    from stormtpu_torch.kernels import sparse
+
+    p, q = 65_536, 40_000
+    rows_a = torch.arange(p, dtype=torch.int32, device=cuda) % 8
+    rows_b = torch.arange(q, dtype=torch.int32, device=cuda) % 4096
+    one = torch.zeros(1, dtype=torch.int64, device=cuda)
+    out = sparse.k4_rect(rows_a, one, one + p, rows_b, one, one + q, 8, 4096)
+    torch.cuda.synchronize()
+    assert p * q > 1 << 31
+    want = np.outer(np.bincount(np.arange(p) % 8, minlength=8),
+                    np.bincount(np.arange(q) % 4096, minlength=4096))
+    assert np.array_equal(out.cpu().numpy(), want)
+
+
+def test_k4_wrappers_refuse_malformed_card_input(cuda):
+    from stormtpu_torch.kernels import sparse
+
+    rows = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda)
+    seg = torch.tensor([0], dtype=torch.int64, device=cuda)
+    lens = torch.tensor([3], dtype=torch.int64, device=cuda)
+    prefix = torch.tensor([0, 3], dtype=torch.int64, device=cuda)
+    out = torch.zeros((3, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rows_a must be"):
+        sparse.k4_emit(rows.long(), rows, seg, lens, seg, lens, prefix, out, triangle=True)
+    with pytest.raises(ValueError, match="lies on"):
+        sparse.k4_emit(rows, rows, seg.cpu(), lens, seg, lens, prefix, out, triangle=True)
+    with pytest.raises(ValueError, match="out must be"):
+        sparse.k4_emit(rows, rows, seg, lens, seg, lens, prefix, out.t(), triangle=False)
+    with pytest.raises(ValueError, match="square int32"):
+        sparse.k4_mirror(out[:, :2].contiguous())
+    with pytest.raises(ValueError, match="diag lies on"):
+        sparse.k4_mirror(out, rows.cpu())
+
+
+@pytest.mark.parametrize("packed", (False, True), ids=("coo", "packed"))
+def test_k4_single_shot_on_the_card(cuda, packed):
+    """count_matrix_sparse_outer on the card against the host C++ route."""
+    from stormtpu_torch.kernels import sparse
+
+    bm = _sparse_case(2053, 1 << 20, 3e-4, seed=13)
+    if packed:
+        bm = BitMatrix.from_packed(bm.packed, bm.m_bits)
+    reset_launches()
+    got = sparse.count_matrix_sparse_outer(bm, device=cuda)
+    counts = launch_counts()
+    assert counts["k4"] == 1 and counts["k4_mirror"] == 1 and counts["k4_host"] == 0
+    assert got.dtype == np.int32 and np.array_equal(got, sparse.count_matrix_sparse_outer(
+        bm, device="cpu"))
+
+
+def test_k4_streamed_walks_on_the_card(cuda, tmp_path, monkeypatch):
+    """The streamed K4 walk, its histogram and a streamed query on the card,
+    every stripe by K4's kernels (the cost model pinned so), against the
+    same walks on the CPU (the host C++ stripes)."""
+    from stormtpu_torch import stream, stream_hist, stream_query, tuning
+
+    force = dict(c_sort_s_per_nnz=0.0, c_n2_s_per_elem=0.0, c_stripe_n2_s_per_elem=0.0,
+                 c_emit_s_per_emission=0.0, c_emit_host_s_per_emission=1.0,
+                 k2_int8_ops_per_s=1.0, dispatch_floor_s=100.0, h2d_bytes_per_s=1e9)
+    for k, v in force.items():
+        monkeypatch.setitem(tuning.K4_DEFAULTS, k, v)
+    cfg = EngineConfig(k2_tile_rows=32, k2_tile_words=128)
+    bm = _sparse_case(300, 1 << 14, 0.01, seed=31)
+    reset_launches()
+    got = stream.stream_count_matrix(bm, str(tmp_path / "card"), superblock_rows=128,
+                                     kernel="sparse_outer", config=cfg, device=cuda)
+    counts = launch_counts()
+    assert got["stripe_kernels"] == {"k4": 6, "dense": 0}
+    assert counts["k4"] >= 5 and counts["k4_mirror"] == 3 and counts["k4_host"] == 0
+    want = stream.stream_count_matrix(bm, str(tmp_path / "host"), superblock_rows=128,
+                                      kernel="sparse_outer", config=cfg, device="cpu")
+    assert launch_counts()["k4_host"] == 6
+    for i, j in want["completed"]:
+        with np.load(stream.stripe_path(str(tmp_path / "card"), i, j)) as a, \
+                np.load(stream.stripe_path(str(tmp_path / "host"), i, j)) as b:
+            assert sorted(a.files) == sorted(b.files)
+            assert all(np.array_equal(a[k], b[k]) for k in a.files)
+    assert np.array_equal(stream.load_streamed_matrix(str(tmp_path / "card")),
+                          oracle_count_matrix(bm.packed))
+    h_card = stream_hist.stream_hist_sparse(bm, superblock_rows=128, config=cfg, device=cuda)
+    h_host = stream_hist.stream_hist_sparse(bm, superblock_rows=128, config=cfg, device="cpu")
+    assert np.array_equal(h_card["hist"], h_host["hist"])
+    assert h_card["stripe_kernels"] == h_host["stripe_kernels"] == {"k4": 6, "dense": 0}
+    reset_launches()
+    v_card, i_card = stream_query.stream_topk_neighbors(bm, 5, superblock_rows=128,
+                                                        kernel="sparse_outer", config=cfg,
+                                                        device=cuda)
+    assert launch_counts()["k4"] >= 5
+    v_host, _ = stream_query.stream_topk_neighbors(bm, 5, superblock_rows=128,
+                                                   kernel="sparse_outer", config=cfg,
+                                                   device="cpu")
+    assert np.array_equal(v_card, v_host)
 
 
 # ------------------------------------------------------------ queries

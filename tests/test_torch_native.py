@@ -165,7 +165,8 @@ def test_k4_from_packed_and_mirror_equal_fallback_and_jax(native_tier, monkeypat
     _same(mirrored, want)
     # the NumPy fallback of the whole K4 route, from the packed words
     monkeypatch.setattr(tn, "_load", lambda: None)
-    _same(count_matrix_sparse_outer(tl.BitMatrix.from_packed(bm.packed, m)), mirrored)
+    _same(count_matrix_sparse_outer(tl.BitMatrix.from_packed(bm.packed, m), device="cpu"),
+          mirrored)
 
 
 @pytest.mark.parametrize("n,m", SHAPES)
@@ -180,7 +181,7 @@ def test_k4_runs_equal_fallback_and_jax(native_tier, monkeypatch, n, m):
     # the NumPy fallback of the whole K4 route, from the COO cache
     assert bm.coo is not None
     monkeypatch.setattr(tn, "_load", lambda: None)
-    _same(np.triu(count_matrix_sparse_outer(bm)), upper)
+    _same(np.triu(count_matrix_sparse_outer(bm, device="cpu")), upper)
 
 
 @pytest.mark.parametrize("n,m", SHAPES)
@@ -198,7 +199,7 @@ def test_k4_runs_cross_equals_fallback_and_jax(native_tier, n, m):
     _same(got, _reference("sparse_outer_runs_cross_native", ca, ra, cb, rb, n, n,
                           numpy_form=lambda *args: want))
     # the NumPy form of a cross stripe: the walk's buffer-free emission
-    ci, cj, cv = _SparseStripePlan(bm, n, 2).stripe_coo(0, 1)
+    ci, cj, cv = _SparseStripePlan(bm, n, 2, device="cpu").stripe_coo(0, 1)
     dense = np.zeros((n, n), np.int32)
     dense[ci, cj] = cv
     _same(dense, got)

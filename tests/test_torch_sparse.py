@@ -148,10 +148,10 @@ def test_count_matrix_sparse_outer_equals_jax(request, name, route):
     except ValueError as refused:  # a NumPy fallback's refusal: the port's too
         assert route.startswith("fallback") and name == "full_column"
         with pytest.raises(ValueError, match="occupancy") as port_refused:
-            tsp.count_matrix_sparse_outer(bt)
+            tsp.count_matrix_sparse_outer(bt, device="cpu")
         assert str(port_refused.value).split("—")[0] == str(refused).split("—")[0]
         return
-    got = tsp.count_matrix_sparse_outer(bt)
+    got = tsp.count_matrix_sparse_outer(bt, device="cpu")
     assert got.dtype == want.dtype == np.int32 and np.array_equal(got, want)
     assert np.array_equal(got, oracle_count_matrix(bt.packed))
 
@@ -194,7 +194,7 @@ def test_numpy_fallback_refusals_equal_jax(no_native):
         with pytest.raises(ValueError, match=match):
             jsp.count_matrix_sparse_outer(bj)
         with pytest.raises(ValueError, match=match):
-            tsp.count_matrix_sparse_outer(bt)
+            tsp.count_matrix_sparse_outer(bt, device="cpu")
 
 
 # ------------------------------------------------ through the entry point
@@ -245,7 +245,8 @@ def test_coo_cache_is_a_copy_and_ignored_by_equality(monkeypatch):
     for x, y in zip(bt.coo, bj.coo):
         assert x.dtype == y.dtype == np.int64 and np.array_equal(x, y)
     rows[:] = 0  # the caller's arrays change afterwards; K4 must not see it
-    assert np.array_equal(tsp.count_matrix_sparse_outer(bt), oracle_count_matrix(bt.packed))
+    assert np.array_equal(tsp.count_matrix_sparse_outer(bt, device="cpu"),
+                          oracle_count_matrix(bt.packed))
     same = st.BitMatrix(bt.packed, bt.n, bt.m_bits, bt.row_nnz)
     assert same.coo is None and "coo" not in repr(same)
     from stormtpu_torch.stream import _content_fingerprint

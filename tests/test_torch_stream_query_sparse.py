@@ -290,7 +290,7 @@ def test_use_k4_arguments_equal_jax(pin, kind):
     else:
         bj = random_bitmatrix(96, 8192, 0.0006, seed=87)
     _, bt = _pair(bj)
-    got, want = ts._SparseStripePlan(bt, 32, 3), js._SparseStripePlan(bj, 32, 3)
+    got, want = ts._SparseStripePlan(bt, 32, 3, device="cpu"), js._SparseStripePlan(bj, 32, 3)
     decisions = set()
     for i in range(3):
         for j in range(i, 3):

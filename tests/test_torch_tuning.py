@@ -141,7 +141,9 @@ def test_shipped_snapshot_names_a_card_and_never_routes_the_cpu(monkeypatch):
     for b in snap["buckets"].values():
         assert set(b["dense_pairs_per_s"]) <= set(ttuning._DENSE_PATHS)
         assert min(b["dense_pairs_per_s"].values()) > 0
-    assert set(snap["k4_cost_model"]) >= set(ttuning.K4_DEFAULTS)
+    assert set(snap["k4_cost_model"]) >= set(ttuning.K4_DEFAULTS) >= {
+        "c_emit_host_s_per_emission", "c_download_s_per_elem", "c_k2_host_s_per_word",
+        "c_stripe_n2_s_per_elem"}
     monkeypatch.delenv(ttuning.CACHE_ENV, raising=False)
     monkeypatch.setattr(ttuning, "_DEFAULT_CACHE", "/nonexistent/tuning.json")
     assert ttuning.load_tuning()["device"] == snap["device"]
@@ -286,7 +288,7 @@ def test_refit_k4_constants_on_the_cpu(monkeypatch):
     fit = ttuning.refit_k4_constants(lambda *a: None, device="cpu")
     assert native.have_native()
     for key in ("c_sort_s_per_nnz", "c_n2_s_per_elem", "c_emit_s_per_emission",
-                "h2d_bytes_per_s"):
+                "h2d_bytes_per_s", "c_stripe_n2_s_per_elem"):
         assert fit[key] >= 0.0
     probe = fit["probe"]
     assert probe["emissions"] > 0 and probe["nnz"] == int(300 * (1 << 15) * 1e-2)
