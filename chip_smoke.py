@@ -462,13 +462,16 @@ def epilogue_kernels(torch, dev, x, ibs: np.ndarray, jbs: np.ndarray, tile_rows:
                      row_off: int = 0, col_off: int = 0, ops_per_s: float, label: str,
                      reps: int = 0) -> dict:
     """K2-topk and K2-hist on the tile list (ibs, jbs) of the card operand
-    ``x``, each held to its plain version exactly (K2-topk's values and
-    indices). ``reps`` > 0: also their CUDA-event ms, the plain version's,
-    K2-tri's and K2-tri's followed by the same reduction in torch on its
-    stored tiles (the yardstick), and the bound of the work: K2-tri's
-    ``2·pairs·M`` operations at the measured b1 rate, against the bytes of
-    the operand rows the list touches, the ids and the outputs. Returns
-    {"k2_topk": {...}, "k2_hist": {...}}."""
+    ``x``, on the TMA body and on the previous one (``previous_body=True``),
+    each held to its plain version exactly (K2-topk's values and indices).
+    ``reps`` > 0: also their CUDA-event ms (the previous body's as
+    ``previous_body_ms``), the plain version's, K2-tri's and K2-tri's
+    followed by the same reduction in torch on its stored tiles (the
+    yardstick), and the bound of the work: K2-tri's ``2·pairs·M``
+    operations at the measured b1 rate, against the bytes of the operand
+    rows the list touches, the ids and the outputs. ``cluster``: the blocks
+    a cluster of the TMA body held at these tiles. Returns {"k2_topk":
+    {...}, "k2_hist": {...}}."""
     from stormtpu_torch.kernels import mxu
 
     ids = mxu.device_tile_ids(ibs, jbs, x.shape[0] // tile_rows, dev)
@@ -476,22 +479,26 @@ def epilogue_kernels(torch, dev, x, ibs: np.ndarray, jbs: np.ndarray, tile_rows:
               n_real=n_real)
     topk_kw = dict(k=k, **kw)
     hist_kw = dict(n_bins=n_bins, bin_width=bin_width, **kw)
-    sets = mxu.count_tiles_topk(x, *ids, checked=ids, **topk_kw)
     plain = mxu.count_tiles_topk_plain(x, *ids, **topk_kw)
-    hist = mxu.count_tiles_hist(x, *ids, checked=ids, **hist_kw)
     plain_h = mxu.count_tiles_hist_plain(x, *ids, **hist_kw)
-    torch.cuda.synchronize()
-    err_t = max(exact_diff(torch, g, w) for g, w in zip(sets, plain))
-    err_h = exact_diff(torch, hist, plain_h)
-    if int(hist.sum()) == 0 and n_real > 1:
-        raise AssertionError(f"{label}: K2-hist binned no pair")
+    err_t = err_h = 0
+    for prev in (False, True):
+        sets = mxu.count_tiles_topk(x, *ids, checked=ids, previous_body=prev, **topk_kw)
+        hist = mxu.count_tiles_hist(x, *ids, checked=ids, previous_body=prev, **hist_kw)
+        torch.cuda.synchronize()
+        err_t = max(err_t, *(exact_diff(torch, g, w) for g, w in zip(sets, plain)))
+        err_h = max(err_h, exact_diff(torch, hist, plain_h))
+        if int(hist.sum()) == 0 and n_real > 1:
+            raise AssertionError(f"{label}: K2-hist binned no pair")
     del plain, plain_h
-    out = {"k2_topk": dict(max_abs_err=err_t), "k2_hist": dict(max_abs_err=err_h)}
+    cluster = mxu.epilogue_cluster(tile_rows)
+    out = {"k2_topk": dict(max_abs_err=err_t, cluster=cluster),
+           "k2_hist": dict(max_abs_err=err_h, cluster=cluster)}
     t, ti, w_pad = ibs.size, tile_rows, x.shape[1]
     print(f"[epilogue] {label}: T={t} tiles of {ti} rows at {w_pad} words, k={k}, {n_bins} "
           f"bins of width {bin_width}, row/col offsets {row_off}/{col_off}, n_real {n_real}: "
           f"K2-topk's sets (values and indices) and K2-hist's bins equal their plain versions "
-          f"exactly")
+          f"exactly, on the TMA body (clusters of {cluster}) and on the previous one")
     if not reps:
         return out
     tri = lambda: mxu.count_tiles_pallas_mxu(x, *ids, tile_rows=ti, tile_words=tile_words,  # noqa: E731
@@ -507,22 +514,28 @@ def epilogue_kernels(torch, dev, x, ibs: np.ndarray, jbs: np.ndarray, tile_rows:
     kk = min(k, ti)
     sides = -(-ti // mxu.EPI_BLOCK[0]) + -(-ti // mxu.EPI_BLOCK[1])
     for name, fn, plain_fn, red, out_bytes in (
-            ("k2_topk", lambda: mxu.count_tiles_topk(x, *ids, checked=ids, **topk_kw),
+            ("k2_topk", lambda prev: mxu.count_tiles_topk(x, *ids, checked=ids,
+                                                          previous_body=prev, **topk_kw),
              lambda: mxu.count_tiles_topk_plain(x, *ids, **topk_kw), reduce_t,
              4.0 * 2 * t * sides * ti * kk),
-            ("k2_hist", lambda: mxu.count_tiles_hist(x, *ids, checked=ids, **hist_kw),
+            ("k2_hist", lambda prev: mxu.count_tiles_hist(x, *ids, checked=ids,
+                                                          previous_body=prev, **hist_kw),
              lambda: mxu.count_tiles_hist_plain(x, *ids, **hist_kw), reduce_h, 8.0 * n_bins)):
         b_ms, b_by = bound(ops, in_bytes + out_bytes, ops_per_s)
         out[name].update(
-            ms=cuda_ms(torch, fn, reps=reps), plain_ms=cuda_ms(torch, plain_fn, reps=1, warmup=0),
+            ms=cuda_ms(torch, lambda: fn(False), reps=reps),
+            previous_body_ms=cuda_ms(torch, lambda: fn(True), reps=reps),
+            plain_ms=cuda_ms(torch, plain_fn, reps=1, warmup=0),
             library_ms=cuda_ms(torch, lambda: red(tri()), reps=reps), k2_tri_ms=tri_ms,
             bound_ms=b_ms, bound_by=b_by, bound_rate="measured wgmma_b1_n256",
             shape=f"{t} tiles of {ti} rows, {w_pad} words ({label})")
         r = out[name]
-        print(f"[timing] {name} {label}: kernel {r['ms']:.3f} ms, K2-tri alone {tri_ms:.3f} ms "
-              f"(the epilogue adds {r['ms'] - tri_ms:+.3f} ms), K2-tri + the torch reduction "
-              f"{r['library_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {b_ms:.3f} ms "
-              f"({b_by}); the kernel at {b_ms / r['ms']:.1%} of its bound")
+        print(f"[timing] {name} {label}: kernel {r['ms']:.3f} ms (TMA body, clusters of "
+              f"{cluster}), previous body {r['previous_body_ms']:.3f} ms, K2-tri alone "
+              f"{tri_ms:.3f} ms (the kernel is {r['ms'] - tri_ms:+.3f} ms beside it), K2-tri + "
+              f"the torch reduction {r['library_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}); the kernel at {b_ms / r['ms']:.1%} of its bound, "
+              f"the previous body at {b_ms / r['previous_body_ms']:.1%}")
     return out
 
 
@@ -3203,6 +3216,17 @@ def main(argv=None) -> int:
         torch, dev, targs[0], wib[:chunk], wjb[:chunk], ti, tkw["tile_words"], n_real=MAIN_N,
         k=TOPK_K, n_bins=HIST_BINS, bin_width=default_hist_bin_width(MAIN_M, HIST_BINS),
         ops_per_s=k2_ops_per_s, label="main path, first tile-walk chunk", reps=10)
+    # the same operand at tiles of 128 rows: one sub-tile row a tile, so the
+    # TMA body launches its clusters of one (the shape rule)
+    sib, sjb = q._blocked_tile_ids(n_pad // 128, q._TILE_GROUP)
+    epi_single = epilogue_kernels(
+        torch, dev, targs[0], sib[:q._tile_chunk(128)], sjb[:q._tile_chunk(128)], 128,
+        tkw["tile_words"], n_real=MAIN_N, k=TOPK_K, n_bins=HIST_BINS,
+        bin_width=default_hist_bin_width(MAIN_M, HIST_BINS), ops_per_s=k2_ops_per_s,
+        label="main operand at 128-row tiles, first chunk", reps=5)
+    if epi_single["k2_topk"]["cluster"] != 1 or epi_main["k2_topk"]["cluster"] != 2:
+        raise AssertionError("the epilogues' shape rule: clusters of one at 128-row tiles, "
+                             "of two at 256")
     # rectangular K2 at count_block's shapes
     (ap, bp), rkw = rect_inputs(words_a, words)
     got = mxu._count_block_padded(ap, bp, variant=cfg.k2_variant, **rkw)
@@ -3764,6 +3788,7 @@ def main(argv=None) -> int:
                       "device reduction round K2-tri)",
              launches=topk20_launches,
              max_abs_err=max(epi_main["k2_topk"]["max_abs_err"],
+                             epi_single["k2_topk"]["max_abs_err"],
                              stream_launches["epilogue"]["k2_topk"]["max_abs_err"]),
              library="K2-tri + tile_topk_sets in torch on its stored tiles",
              stream_launches=stream_launches.get("k2_topk", 0),
@@ -3771,6 +3796,8 @@ def main(argv=None) -> int:
              stream_query_launches=sq_launches["k2_topk"],
              config4_stripe={key: v for key, v in stream_launches["epilogue"]["k2_topk"].items()
                              if key != "max_abs_err"},
+             single_cta_tiles={key: v for key, v in epi_single["k2_topk"].items()
+                               if key != "max_abs_err"},
              **{key: v for key, v in epi_main["k2_topk"].items() if key != "max_abs_err"}),
         dict(name="k2_hist", route="cuda", source=src_epi,
              replaces="stormtpu/stream_hist.py:112 (_make_pair_hist_fn) and "
@@ -3778,6 +3805,7 @@ def main(argv=None) -> int:
                       "device reduction round K2-tri)",
              launches=stream_launches["k2_hist"],
              max_abs_err=max(epi_main["k2_hist"]["max_abs_err"],
+                             epi_single["k2_hist"]["max_abs_err"],
                              stream_launches["epilogue"]["k2_hist"]["max_abs_err"]),
              library="K2-tri + tile_hist (torch.bincount) on its stored tiles",
              stream_launches=stream_launches["k2_hist"],
@@ -3785,6 +3813,8 @@ def main(argv=None) -> int:
              stream_query_launches=sq_launches["k2_hist"],
              main_path_chunk={key: v for key, v in epi_main["k2_hist"].items()
                               if key != "max_abs_err"},
+             single_cta_tiles={key: v for key, v in epi_single["k2_hist"].items()
+                               if key != "max_abs_err"},
              **{key: v for key, v in stream_launches["epilogue"]["k2_hist"].items()
                 if key != "max_abs_err"}),
     ]

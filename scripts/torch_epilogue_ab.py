@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time K2-topk and K2-hist (``csrc/k2_epilogue.cu``) beside K2-tri on the
-same tile lists, in one process on one card, to show what the epilogues
-cost and where.
+"""Time K2-topk and K2-hist (``csrc/k2_epilogue.cu``) on their TMA body and
+on the previous one (``previous_body=True``: K2-tri's main loop) beside
+K2-tri on the same tile lists, in one process on one card, to show what
+each main loop and the epilogues cost.
 
-    python3 scripts/torch_epilogue_ab.py [--seed 0]
+    python3 scripts/torch_epilogue_ab.py [--seed 0] [--only TEXT] [--reps 10]
 
 Two operands of uniform words made on the card: the main path's (16,384
 rows x 262,144 bits) and two superblocks of config 4 (8,192 rows x
@@ -12,12 +13,26 @@ tiles: the first chunk of ``topk_neighbors``' walk (1024 tiles, the main
 operand), a stripe's 16 x 16 off-diagonal tiles (the config-4 operand),
 and on the main operand 1024 off-diagonal and 1024 diagonal tiles (ids
 repeat): a diagonal tile's column side is not ranked, so the two lists
-apart say what the row and the column passes each cost. On each list:
-K2-tri, K2-hist (64 bins) and K2-topk at k = 1, 4, 8, 16 and 32.
+apart say what the row and the column passes each cost. Last, the main
+path's first 4096 tiles at 128 rows: one sub-tile row a tile, so the TMA
+body runs its clusters of one (the other lists run clusters of two). On
+each list: K2-tri, K2-hist (64 bins) and K2-topk at k = 1, 4, 8, 16 and
+32, each on both bodies (``_prev_ms``), with the cluster size the TMA
+body launched; the two bodies' histograms and top-k sets (k = 1, 16) are
+held equal first.
 
-CUDA-event milliseconds, the mean of 10 launches after a warm-up; one
-JSON line a list, then the card's name and power limit. The lines also go
-to ``chiprun_out/epilogue_ab.jsonl``.
+CUDA-event milliseconds, the mean of ``--reps`` launches after a warm-up;
+one JSON line a list, then the card's name and power limit. The lines
+also go to ``chiprun_out/epilogue_ab.jsonl``. ``--only TEXT`` keeps the
+lists whose label holds TEXT; with ``--reps 1`` that makes a short run for
+a profiler to wrap, as in
+
+    ncu --metrics gpu__time_duration.sum,lts__t_sectors_op_read.sum \
+        -k regex:"k2_(hist|topk|tri)" --launch-count 6 \
+        python3 scripts/torch_epilogue_ab.py --only stripe --reps 1
+
+(the first launches of each list: K2-tri, then K2-hist and K2-topk on the
+TMA body and on the previous one, held equal).
 """
 
 from __future__ import annotations
@@ -39,6 +54,8 @@ KS = (1, 4, 8, 16, 32)
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="", help="keep the lists whose label holds this text")
+    ap.add_argument("--reps", type=int, default=10, help="launches timed a kernel")
     args = ap.parse_args(argv)
 
     import torch
@@ -70,28 +87,40 @@ def main(argv=None) -> int:
     tps = 16
     loc_i, loc_j = (g.ravel().astype(np.int32) for g in np.meshgrid(
         np.arange(tps), np.arange(tps), indexing="ij"))
+    sib, sjb = query._blocked_tile_ids(main_x.shape[0] // 128, query._TILE_GROUP)
     lists = (
-        ("main path, first walk chunk", main_x, wib[:1024], wjb[:1024]),
-        ("main operand, 1024 off-diagonal tiles", main_x, off_i, off_j),
-        ("main operand, 1024 diagonal tiles", main_x, diag, diag),
-        ("config-4 stripe (0, 1)", stripe_x, loc_i, loc_j + tps),
+        ("main path, first walk chunk", main_x, wib[:1024], wjb[:1024], ti),
+        ("main operand, 1024 off-diagonal tiles", main_x, off_i, off_j, ti),
+        ("main operand, 1024 diagonal tiles", main_x, diag, diag, ti),
+        ("config-4 stripe (0, 1)", stripe_x, loc_i, loc_j + tps, ti),
+        ("main path at 128-row tiles, first 4096", main_x, sib[:4096], sjb[:4096], 128),
     )
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     lines = []
-    for label, x, ib, jb in lists:
-        ids = mxu.device_tile_ids(ib, jb, x.shape[0] // ti, dev)
-        kw = dict(tile_rows=ti, tile_words=wk, checked=ids)
+    for label, x, ib, jb, rows in (entry for entry in lists if args.only in entry[0]):
+        ids = mxu.device_tile_ids(ib, jb, x.shape[0] // rows, dev)
+        kw = dict(tile_rows=rows, tile_words=wk, checked=ids)
         n_real = x.shape[0]
-        row = {"list": label, "tiles": int(ib.size), "words": int(x.shape[1]),
+        row = {"list": label, "tiles": int(ib.size), "tile_rows": rows,
+               "words": int(x.shape[1]), "cluster": mxu.epilogue_cluster(rows),
                "k2_tri_ms": cuda_ms(torch, lambda: mxu.count_tiles_pallas_mxu(x, *ids, **kw),
-                                    reps=10),
-               "k2_hist_ms": cuda_ms(torch, lambda: mxu.count_tiles_hist(
-                   x, *ids, n_real=n_real, bin_width=(x.shape[1] * 32 + 64) // 64, n_bins=64,
-                   **kw), reps=10)}
-        for k in KS:
-            row[f"k2_topk_k{k}_ms"] = cuda_ms(torch, lambda: mxu.count_tiles_topk(
-                x, *ids, k=k, n_real=n_real, **kw), reps=10)
+                                    reps=args.reps)}
+        hkw = dict(n_real=n_real, bin_width=(x.shape[1] * 32 + 64) // 64, n_bins=64, **kw)
+        same = torch.equal(mxu.count_tiles_hist(x, *ids, **hkw),
+                           mxu.count_tiles_hist(x, *ids, previous_body=True, **hkw))
+        for k in (1, 16):
+            same &= all(torch.equal(a, b) for a, b in zip(
+                mxu.count_tiles_topk(x, *ids, k=k, n_real=n_real, **kw),
+                mxu.count_tiles_topk(x, *ids, k=k, n_real=n_real, previous_body=True, **kw)))
+        if not same:
+            raise AssertionError(f"{label}: the two bodies' results differ")
+        for suffix, prev in (("", False), ("_prev", True)):
+            row[f"k2_hist{suffix}_ms"] = cuda_ms(torch, lambda: mxu.count_tiles_hist(
+                x, *ids, previous_body=prev, **hkw), reps=args.reps)
+            for k in KS:
+                row[f"k2_topk_k{k}{suffix}_ms"] = cuda_ms(torch, lambda: mxu.count_tiles_topk(
+                    x, *ids, k=k, n_real=n_real, previous_body=prev, **kw), reps=args.reps)
         lines.append(row)
         print(json.dumps(row))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -62,9 +62,16 @@ SOURCES = {
         "k2_epi_block_cols": ((), _I),
         "k2_topk_max_k": ((), _I),
         "k2_hist_max_bins": ((), _I),
+        "k2_epi_cluster": ((_I,), _I),
         "k2_topk_launch": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL,
-                            _I, _VP), _I),
-        "k2_hist_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _I, _I, _VP), _I),
+                            _LL, _I, _VP), _I),
+        "k2_hist_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _LL, _I, _I, _VP),
+                           _I),
+        # the previous tile body, for timing beside the one above
+        "k2_topk_launch_prev": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL,
+                                 _LL, _I, _VP), _I),
+        "k2_hist_launch_prev": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _LL, _I, _I,
+                                 _VP), _I),
     },
     "k1_dense": {
         "k1_block_rows": ((), _I),

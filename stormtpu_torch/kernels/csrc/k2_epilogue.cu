@@ -12,10 +12,9 @@
 //                                 of every valid pair)
 //
 // What it computes. Tile t counts row block ibs[t] against jbs[t] exactly as
-// k2_tri_kernel does (csrc/k2_mxu.cu): the same grid of BM x BN sub-tiles,
-// the same source and the same main loop (tile::B1Wgmma::accumulate), so the
-// sums are K2's bit for bit. Global row and column of a tile's element
-// (r, c) are row_off + ibs[t]*ti + r and col_off + jbs[t]*ti + c.
+// k2_tri_kernel does (csrc/k2_mxu.cu): the same BM x BN sub-tiles and the
+// same sums, bit for bit. Global row and column of a tile's element (r, c)
+// are row_off + ibs[t]*ti + r and col_off + jbs[t]*ti + c.
 //  - K2-topk(kk): a cell is invalid when its global row equals its global
 //    column or either is >= n_real; it ranks as -1. Each row of a block
 //    gets its kk best (value, global column) over the block's columns;
@@ -34,10 +33,22 @@
 // (top-k) or n_bins atomics a block (histogram) instead of ti^2 counts.
 //
 // What the design does about it:
-//  - K2's main loop is called as it is; the tile body and K2's kernels are
-//    unchanged. After the loop every product group has retired and every
-//    cp.async has drained; one barrier more and the 192 KiB of stages are
-//    free for the epilogue.
+//  - The main loop is tile::B1WgmmaTma (csrc/tile_body_tma.cuh): TMA loads
+//    into a 128-byte-swizzled ring signalled by mbarriers, a producer
+//    warpgroup and two consumer warpgroups, and clusters of two blocks over
+//    a tile's sub-tile rows 2q, 2q + 1, which share their B rows by
+//    multicast whenever a tile has an even number of sub-tile rows (a
+//    cluster of one otherwise: the shape rule, k2_epi_cluster below).
+//    Blocks are laid out sj-major (blockIdx.y = sj * nsub_m + si), so a
+//    cluster's two blocks are neighbours in the grid.
+//  - The epilogues below run on the 256 threads that hold the sums (the
+//    consumers); their barriers are named barrier 1 over those 256, and the
+//    producer warpgroup waits at the cluster's exit barrier meanwhile. The
+//    ring's 192 KiB are free once the consumers' last full wait and product
+//    group are behind them (B1WgmmaTma::consume returns after a barrier).
+//    TMA fills a short sub-tile's missing rows with the next row block's
+//    rows where the previous body wrote zeros: both epilogues read only
+//    rows < a_rows and columns < b_rows.
 //  - Top-k: the block's 128 x 256 int32 sums, masked, are staged into the
 //    stages with a row stride of 257 words, so a warp reads a row (lanes on
 //    consecutive words) and a column (lanes on consecutive rows, banks
@@ -55,68 +66,87 @@
 //    shared memory with one atomic; the block then adds each bin's total to
 //    the device total with one 64-bit atomic. A launch's count never leaves
 //    int64.
+//  - The previous kernels (on tile::B1Wgmma, K2-tri's cp.async main loop,
+//    one block a sub-tile in si-major order) stay for timing beside the new
+//    ones only: the "_prev" launchers (previous_body=True on the wrappers;
+//    chip_smoke.py, scripts/torch_epilogue_ab.py). Both bodies run the same
+//    epilogues.
 //
 // Launch interface: plain C functions taking device pointers and the stream
-// as void*, returning cudaGetLastError() of the launch (cudaErrorInvalidValue,
+// as void*, returning the CUDA error of the launch (cudaErrorInvalidValue,
 // without a launch, for arguments the kernels do not take).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "tile_body.cuh"
+#include "tile_body_tma.cuh"
 
 namespace {
 
 using namespace tile;
-using Body = B1Wgmma;
 
+constexpr int BM = 128, BN = 256;    // a block's sub-tile, both bodies
+constexpr int EPI_THREADS = 256;     // the threads that hold a block's sums
+constexpr int WARPS = EPI_THREADS / 32;
 constexpr int TOPK_MAX = 32;         // kk a launch may ask for
-constexpr int LDS = Body::BN + 1;    // staged row stride, in words
-constexpr int WARPS = Body::THREADS / 32;
+constexpr int LDS = BN + 1;          // staged row stride, in words
 constexpr int HIST_MAX_BINS = 4096;  // a sub-histogram a warp in the stages
+constexpr int RING_BYTES = B1WgmmaTma<1>::RING_BYTES;
 
-static_assert(Body::BM * LDS * 4 <= Body::SMEM_BYTES, "the staged tile fits the stages");
-static_assert(WARPS * HIST_MAX_BINS * 4 <= Body::SMEM_BYTES, "the sub-histograms fit");
+static_assert(B1Wgmma::BM == BM && B1Wgmma::BN == BN && B1Wgmma::THREADS == EPI_THREADS &&
+                  B1Wgmma::SMEM_BYTES == RING_BYTES,
+              "the previous body holds its sums as the new one does");
+static_assert(B1WgmmaTma<2>::BM == BM && B1WgmmaTma<2>::BN == BN &&
+                  B1WgmmaTma<2>::CONSUMERS == EPI_THREADS,
+              "the consumers hold the sums");
+static_assert(BM * LDS * 4 <= RING_BYTES, "the staged tile fits the ring");
+static_assert(WARPS * HIST_MAX_BINS * 4 <= RING_BYTES, "the sub-histograms fit the ring");
+
+__host__ __device__ constexpr int nsub_m(int ti) { return (ti + BM - 1) / BM; }
+__host__ __device__ constexpr int nsub_n(int ti) { return (ti + BN - 1) / BN; }
+
+// The shape rule: clusters of two blocks over sub-tile rows (2q, 2q + 1)
+// when a tile has an even number of sub-tile rows, else blocks alone.
+__host__ __device__ constexpr int epi_cluster(int ti) { return nsub_m(ti) % 2 == 0 ? 2 : 1; }
 
 // Where a block of the tile walk lies: its sub-tile (si, sj) of tile t, its
-// extent, and the global row and column of its first element.
+// extent, its first A and B row in the operand, and the global row and
+// column of its first element.
 struct EpiBlock {
   int64_t t;
   int si, sj, nsub_m, nsub_n, a_rows, b_rows;
+  int64_t row_a, row_b;
   int64_t g_row, g_col;
   bool diag;
 };
 
-// K2's main loop for this block (k2_tri_kernel's), then the barrier after
-// which the stages may be overwritten.
-__device__ __forceinline__ EpiBlock run_tile(Body::Acc& acc,
-                                             const uint32_t* packed,
-                                             const int* ibs, const int* jbs,
-                                             int ti, int64_t w,
-                                             int64_t row_off, int64_t col_off,
-                                             uint32_t* smem) {
-  constexpr int BM = Body::BM, BN = Body::BN;
+__device__ __forceinline__ EpiBlock epi_block(int si, int sj, const int* ibs, const int* jbs,
+                                              int ti, int64_t row_off, int64_t col_off) {
   EpiBlock b;
   b.t = blockIdx.x;
-  b.nsub_m = (ti + BM - 1) / BM;
-  b.nsub_n = (ti + BN - 1) / BN;
-  b.si = blockIdx.y / b.nsub_n;
-  b.sj = blockIdx.y % b.nsub_n;
-  b.a_rows = min(BM, ti - b.si * BM);
-  b.b_rows = min(BN, ti - b.sj * BN);
+  b.nsub_m = nsub_m(ti);
+  b.nsub_n = nsub_n(ti);
+  b.si = si;
+  b.sj = sj;
+  b.a_rows = min(BM, ti - si * BM);
+  b.b_rows = min(BN, ti - sj * BN);
   const int64_t ib = ibs[b.t], jb = jbs[b.t];
-  const int64_t row_a = ib * ti + b.si * BM;
-  const int64_t row_b = jb * ti + b.sj * BN;
-  zero_frags(acc.v);
-  const RowPairSource src{packed + row_a * w, packed + row_b * w,
-                          static_cast<int>(w)};
-  Body::accumulate(acc, src, b.a_rows, b.b_rows, w, smem);
-  b.g_row = row_off + row_a;
-  b.g_col = col_off + row_b;
+  b.row_a = ib * ti + si * BM;
+  b.row_b = jb * ti + sj * BN;
+  b.g_row = row_off + b.row_a;
+  b.g_col = col_off + b.row_b;
   b.diag = row_off + ib * ti == col_off + jb * ti;
-  __syncthreads();  // both warpgroups' products have read their last stage
   return b;
 }
+
+// The barrier over the threads that hold the sums: the block's on the
+// previous body, named barrier 1 over the consumers on B1WgmmaTma.
+struct BlockSync {
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+struct ConsumerSync {
+  static __device__ __forceinline__ void sync() { named_sync<1, EPI_THREADS>(); }
+};
 
 // The kk best (value, index) of LINES lines of the staged tile at once, by
 // value descending and index ascending: lane l's entry e of line q is
@@ -188,20 +218,16 @@ __device__ __forceinline__ void lines_topk(const int* const (&line)[LINES], int 
   }
 }
 
-__global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
-    k2_topk_kernel(const uint32_t* __restrict__ packed,
-                   const int* __restrict__ ibs, const int* __restrict__ jbs,
-                   int* __restrict__ row_v, int* __restrict__ row_i,
-                   int* __restrict__ col_v, int* __restrict__ col_i, int ti,
-                   int64_t w, int64_t row_off, int64_t col_off, int64_t n_real,
-                   int kk) {
-  extern __shared__ __align__(1024) uint32_t smem_dyn[];
-  constexpr int BM = Body::BM, BN = Body::BN;
-  Body::Acc acc;
-  const EpiBlock b = run_tile(acc, packed, ibs, jbs, ti, w, row_off, col_off, smem_dyn);
-
-  // stage the sums, invalid cells as -1 (accumulator layout: tile_body.cuh)
-  int* stage = reinterpret_cast<int*>(smem_dyn);
+// K2-topk's reduction of one block's sums (accumulator layout: tile_body.cuh,
+// B1Wgmma::store_split), staged in `smem`, the ring.
+template <class Sync>
+__device__ __forceinline__ void topk_epilogue(const int (&acc)[BN / 2], const EpiBlock& b,
+                                              uint32_t* smem, int* __restrict__ row_v,
+                                              int* __restrict__ row_i, int* __restrict__ col_v,
+                                              int* __restrict__ col_i, int ti, int64_t n_real,
+                                              int kk) {
+  // stage the sums, invalid cells as -1
+  int* stage = reinterpret_cast<int*>(smem);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r0 = warp * 16 + (lane >> 2);
@@ -218,11 +244,11 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
         const int c = j * 8 + q2 + e;
         const int64_t gc = b.g_col + c;
         const bool ok = row_ok && gc < n_real && gc != gr;
-        stage[r * LDS + c] = ok ? acc.v[4 * j + 2 * h + e] : -1;
+        stage[r * LDS + c] = ok ? acc[4 * j + 2 * h + e] : -1;
       }
     }
   }
-  __syncthreads();
+  Sync::sync();
 
   // each row: its kk best over the block's columns; a warp takes rows
   // r and r + WARPS together
@@ -266,20 +292,15 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
   }
 }
 
-__global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
-    k2_hist_kernel(const uint32_t* __restrict__ packed,
-                   const int* __restrict__ ibs, const int* __restrict__ jbs,
-                   unsigned long long* __restrict__ hist, int ti, int64_t w,
-                   int64_t row_off, int64_t col_off, int64_t n_real,
-                   int bin_width, int n_bins) {
-  extern __shared__ __align__(1024) uint32_t smem_dyn[];
-  constexpr int BN = Body::BN;
-  Body::Acc acc;
-  const EpiBlock b = run_tile(acc, packed, ibs, jbs, ti, w, row_off, col_off, smem_dyn);
-
-  unsigned* sub = smem_dyn;  // [WARPS][n_bins]
-  for (int i = threadIdx.x; i < WARPS * n_bins; i += Body::THREADS) sub[i] = 0u;
-  __syncthreads();
+// K2-hist's reduction of one block's sums, its sub-histograms in `smem`.
+template <class Sync>
+__device__ __forceinline__ void hist_epilogue(const int (&acc)[BN / 2], const EpiBlock& b,
+                                              uint32_t* smem,
+                                              unsigned long long* __restrict__ hist,
+                                              int64_t n_real, int bin_width, int n_bins) {
+  unsigned* sub = smem;  // [WARPS][n_bins]
+  for (int i = threadIdx.x; i < WARPS * n_bins; i += EPI_THREADS) sub[i] = 0u;
+  Sync::sync();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   unsigned* mine = sub + warp * n_bins;
@@ -301,7 +322,7 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
         const int64_t gc = b.g_col + c;
         if (row_ok && c < b.b_rows && gr < gc && gc < n_real) {
           const unsigned bin =
-              min(static_cast<unsigned>(acc.v[4 * j + 2 * h + e]) / bw, last);
+              min(static_cast<unsigned>(acc[4 * j + 2 * h + e]) / bw, last);
           if (bin != cur) {
             if (run) atomicAdd(mine + cur, run);
             cur = bin;
@@ -313,8 +334,8 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
     }
   }
   if (run) atomicAdd(mine + cur, run);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_bins; i += Body::THREADS) {
+  Sync::sync();
+  for (int i = threadIdx.x; i < n_bins; i += EPI_THREADS) {
     unsigned s = 0u;
 #pragma unroll
     for (int q = 0; q < WARPS; ++q) s += sub[q * n_bins + i];
@@ -322,52 +343,208 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
   }
 }
 
+// ------------------------------------------------- on the new body
+// Blocks sj-major: a cluster's two blocks are sub-tile rows 2q, 2q + 1 of
+// one column block. Every thread reads its block's place; the producer
+// warpgroup loads, the consumers sum and reduce.
+template <int CLUSTER>
+__global__ void __launch_bounds__(B1WgmmaTma<CLUSTER>::THREADS, 1)
+    k2_topk_kernel(__grid_constant__ const CUtensorMap map, const int* __restrict__ ibs,
+                   const int* __restrict__ jbs, int* __restrict__ row_v,
+                   int* __restrict__ row_i, int* __restrict__ col_v,
+                   int* __restrict__ col_i, int ti, int64_t w, int64_t row_off,
+                   int64_t col_off, int64_t n_real, int kk) {
+  using Body = B1WgmmaTma<CLUSTER>;
+  extern __shared__ __align__(1024) uint32_t smem_dyn[];
+  const EpiBlock b = epi_block(blockIdx.y % nsub_m(ti), blockIdx.y / nsub_m(ti), ibs, jbs,
+                               ti, row_off, col_off);
+  const int chunks = static_cast<int>((w + KW - 1) / KW);
+  Body::init(smem_dyn);
+  if (Body::is_producer()) {
+    Body::produce(&map, smem_dyn, chunks, static_cast<int>(b.row_a),
+                  static_cast<int>(b.row_b));
+  } else {
+    typename Body::Acc acc;
+    Body::consume(acc, smem_dyn, chunks);
+    topk_epilogue<ConsumerSync>(acc.v, b, smem_dyn, row_v, row_i, col_v, col_i, ti, n_real,
+                                kk);
+    Body::finish();
+  }
+}
+
+template <int CLUSTER>
+__global__ void __launch_bounds__(B1WgmmaTma<CLUSTER>::THREADS, 1)
+    k2_hist_kernel(__grid_constant__ const CUtensorMap map, const int* __restrict__ ibs,
+                   const int* __restrict__ jbs, unsigned long long* __restrict__ hist,
+                   int ti, int64_t w, int64_t row_off, int64_t col_off, int64_t n_real,
+                   int bin_width, int n_bins) {
+  using Body = B1WgmmaTma<CLUSTER>;
+  extern __shared__ __align__(1024) uint32_t smem_dyn[];
+  const EpiBlock b = epi_block(blockIdx.y % nsub_m(ti), blockIdx.y / nsub_m(ti), ibs, jbs,
+                               ti, row_off, col_off);
+  const int chunks = static_cast<int>((w + KW - 1) / KW);
+  Body::init(smem_dyn);
+  if (Body::is_producer()) {
+    Body::produce(&map, smem_dyn, chunks, static_cast<int>(b.row_a),
+                  static_cast<int>(b.row_b));
+  } else {
+    typename Body::Acc acc;
+    Body::consume(acc, smem_dyn, chunks);
+    hist_epilogue<ConsumerSync>(acc.v, b, smem_dyn, hist, n_real, bin_width, n_bins);
+    Body::finish();
+  }
+}
+
+// ------------------------------------------------- on the previous body
+// K2-tri's main loop (tile::B1Wgmma::accumulate) as it is, blocks si-major,
+// then the barrier after which the stages may be overwritten.
+__device__ __forceinline__ void run_tile_prev(B1Wgmma::Acc& acc, const EpiBlock& b,
+                                              const uint32_t* packed, int64_t w,
+                                              uint32_t* smem) {
+  zero_frags(acc.v);
+  const RowPairSource src{packed + b.row_a * w, packed + b.row_b * w, static_cast<int>(w)};
+  B1Wgmma::accumulate(acc, src, b.a_rows, b.b_rows, w, smem);
+  __syncthreads();  // both warpgroups' products have read their last stage
+}
+
+__global__ void __launch_bounds__(B1Wgmma::THREADS, B1Wgmma::MIN_BLOCKS)
+    k2_topk_kernel_prev(const uint32_t* __restrict__ packed, const int* __restrict__ ibs,
+                        const int* __restrict__ jbs, int* __restrict__ row_v,
+                        int* __restrict__ row_i, int* __restrict__ col_v,
+                        int* __restrict__ col_i, int ti, int64_t w, int64_t row_off,
+                        int64_t col_off, int64_t n_real, int kk) {
+  extern __shared__ __align__(1024) uint32_t smem_dyn[];
+  const EpiBlock b = epi_block(blockIdx.y / nsub_n(ti), blockIdx.y % nsub_n(ti), ibs, jbs,
+                               ti, row_off, col_off);
+  B1Wgmma::Acc acc;
+  run_tile_prev(acc, b, packed, w, smem_dyn);
+  topk_epilogue<BlockSync>(acc.v, b, smem_dyn, row_v, row_i, col_v, col_i, ti, n_real, kk);
+}
+
+__global__ void __launch_bounds__(B1Wgmma::THREADS, B1Wgmma::MIN_BLOCKS)
+    k2_hist_kernel_prev(const uint32_t* __restrict__ packed, const int* __restrict__ ibs,
+                        const int* __restrict__ jbs, unsigned long long* __restrict__ hist,
+                        int ti, int64_t w, int64_t row_off, int64_t col_off, int64_t n_real,
+                        int bin_width, int n_bins) {
+  extern __shared__ __align__(1024) uint32_t smem_dyn[];
+  const EpiBlock b = epi_block(blockIdx.y / nsub_n(ti), blockIdx.y % nsub_n(ti), ibs, jbs,
+                               ti, row_off, col_off);
+  B1Wgmma::Acc acc;
+  run_tile_prev(acc, b, packed, w, smem_dyn);
+  hist_epilogue<BlockSync>(acc.v, b, smem_dyn, hist, n_real, bin_width, n_bins);
+}
+
+bool topk_args_ok(int ti, int kk) {
+  return ti > 0 && ti % 32 == 0 && kk >= 1 && kk <= TOPK_MAX && kk <= ti;
+}
+
+bool hist_args_ok(int ti, int bin_width, int n_bins) {
+  return ti > 0 && ti % 32 == 0 && bin_width >= 1 && n_bins >= 1 && n_bins <= HIST_MAX_BINS;
+}
+
+// TMA's coordinates are int32: every box of the walk starts below 2^31.
+bool coords_ok(long long rows, long long w) {
+  return rows + 2 * BN < (1ll << 31) && w + KW < (1ll << 31);
+}
+
+dim3 epi_grid(int t, int ti) {
+  return dim3(static_cast<unsigned>(t), static_cast<unsigned>(nsub_m(ti) * nsub_n(ti)));
+}
+
+struct TopkKernel {
+  template <int CLUSTER>
+  static auto of() { return &k2_topk_kernel<CLUSTER>; }
+};
+struct HistKernel {
+  template <int CLUSTER>
+  static auto of() { return &k2_hist_kernel<CLUSTER>; }
+};
+
+// The shape rule's instance of Kernel: clusters of two when a tile of ti
+// rows has an even number of sub-tile rows, else blocks alone. A launch
+// that fails returns its error; nothing is retried another way.
+template <class Kernel, class... Args>
+int launch_by_shape(int ti, dim3 grid, void* stream, Args... args) {
+  if (epi_cluster(ti) == 2)
+    return launch_cluster<B1WgmmaTma<2>, 2>(Kernel::template of<2>(), grid, stream, args...);
+  return launch_cluster<B1WgmmaTma<1>, 1>(Kernel::template of<1>(), grid, stream, args...);
+}
+
 }  // namespace
 
 extern "C" {
 
-// The sub-tile a block reduces (the wrappers' output layout) and the limits
-// of the two epilogues.
-int k2_epi_block_rows() { return Body::BM; }
-int k2_epi_block_cols() { return Body::BN; }
+// The sub-tile a block reduces (the wrappers' output layout), the limits
+// of the two epilogues, and the cluster a tile of ti rows launches.
+int k2_epi_block_rows() { return BM; }
+int k2_epi_block_cols() { return BN; }
 int k2_topk_max_k() { return TOPK_MAX; }
 int k2_hist_max_bins() { return HIST_MAX_BINS; }
+int k2_epi_cluster(int ti) { return ti > 0 ? epi_cluster(ti) : 0; }
 
-// packed: int32/uint32 [n_pad, w]; ibs, jbs: int32 [t]; row_v, row_i: int32
-// [t, nsub_n, ti, kk]; col_v, col_i: int32 [t, nsub_m, ti, kk]; ti a
-// multiple of 32, 1 <= kk <= min(32, ti).
-int k2_topk_launch(const void* packed, const void* ibs, const void* jbs,
-                   void* row_v, void* row_i, void* col_v, void* col_i, int t,
-                   int ti, long long w, long long row_off, long long col_off,
-                   long long n_real, int kk, void* stream) {
-  if (ti <= 0 || ti % 32 || kk < 1 || kk > TOPK_MAX || kk > ti)
+// packed: int32/uint32 [rows, w], 16-byte aligned, w % 4 == 0; ibs, jbs:
+// int32 [t]; row_v, row_i: int32 [t, nsub_n, ti, kk]; col_v, col_i: int32
+// [t, nsub_m, ti, kk]; ti a multiple of 32, 1 <= kk <= min(32, ti).
+int k2_topk_launch(const void* packed, const void* ibs, const void* jbs, void* row_v,
+                   void* row_i, void* col_v, void* col_i, int t, int ti, long long rows,
+                   long long w, long long row_off, long long col_off, long long n_real,
+                   int kk, void* stream) {
+  if (!topk_args_ok(ti, kk) || !coords_ok(rows, w))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(t), sub_tiles<Body>(ti));
-  return launch<Body>(k2_topk_kernel, grid, stream,
-                      static_cast<const uint32_t*>(packed),
-                      static_cast<const int*>(ibs), static_cast<const int*>(jbs),
-                      static_cast<int*>(row_v), static_cast<int*>(row_i),
-                      static_cast<int*>(col_v), static_cast<int*>(col_i), ti,
-                      static_cast<int64_t>(w), static_cast<int64_t>(row_off),
-                      static_cast<int64_t>(col_off),
-                      static_cast<int64_t>(n_real), kk);
+  CUtensorMap map;
+  if (const int e = encode_operand_map(&map, packed, rows, w)) return e;
+  return launch_by_shape<TopkKernel>(
+      ti, epi_grid(t, ti), stream, map, static_cast<const int*>(ibs),
+      static_cast<const int*>(jbs), static_cast<int*>(row_v), static_cast<int*>(row_i),
+      static_cast<int*>(col_v), static_cast<int*>(col_i), ti, static_cast<int64_t>(w),
+      static_cast<int64_t>(row_off), static_cast<int64_t>(col_off),
+      static_cast<int64_t>(n_real), kk);
 }
 
-// hist: int64 [n_bins], added into; 1 <= n_bins <= k2_hist_max_bins().
-int k2_hist_launch(const void* packed, const void* ibs, const void* jbs,
-                   void* hist, int t, int ti, long long w, long long row_off,
-                   long long col_off, long long n_real, int bin_width,
-                   int n_bins, void* stream) {
-  if (ti <= 0 || ti % 32 || bin_width < 1 || n_bins < 1 || n_bins > HIST_MAX_BINS)
+// hist: int64 [n_bins], added into; 1 <= n_bins <= k2_hist_max_bins();
+// packed as for k2_topk_launch.
+int k2_hist_launch(const void* packed, const void* ibs, const void* jbs, void* hist, int t,
+                   int ti, long long rows, long long w, long long row_off,
+                   long long col_off, long long n_real, int bin_width, int n_bins,
+                   void* stream) {
+  if (!hist_args_ok(ti, bin_width, n_bins) || !coords_ok(rows, w))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(t), sub_tiles<Body>(ti));
-  return launch<Body>(k2_hist_kernel, grid, stream,
-                      static_cast<const uint32_t*>(packed),
-                      static_cast<const int*>(ibs), static_cast<const int*>(jbs),
-                      static_cast<unsigned long long*>(hist), ti,
-                      static_cast<int64_t>(w), static_cast<int64_t>(row_off),
-                      static_cast<int64_t>(col_off),
-                      static_cast<int64_t>(n_real), bin_width, n_bins);
+  CUtensorMap map;
+  if (const int e = encode_operand_map(&map, packed, rows, w)) return e;
+  return launch_by_shape<HistKernel>(
+      ti, epi_grid(t, ti), stream, map, static_cast<const int*>(ibs),
+      static_cast<const int*>(jbs), static_cast<unsigned long long*>(hist), ti,
+      static_cast<int64_t>(w), static_cast<int64_t>(row_off), static_cast<int64_t>(col_off),
+      static_cast<int64_t>(n_real), bin_width, n_bins);
+}
+
+// The previous body, with the same arguments (rows unused: it reads the
+// tile list's rows straight from packed, as K2-tri does).
+int k2_topk_launch_prev(const void* packed, const void* ibs, const void* jbs, void* row_v,
+                        void* row_i, void* col_v, void* col_i, int t, int ti, long long,
+                        long long w, long long row_off, long long col_off, long long n_real,
+                        int kk, void* stream) {
+  if (!topk_args_ok(ti, kk)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<B1Wgmma>(k2_topk_kernel_prev, epi_grid(t, ti), stream,
+                         static_cast<const uint32_t*>(packed), static_cast<const int*>(ibs),
+                         static_cast<const int*>(jbs), static_cast<int*>(row_v),
+                         static_cast<int*>(row_i), static_cast<int*>(col_v),
+                         static_cast<int*>(col_i), ti, static_cast<int64_t>(w),
+                         static_cast<int64_t>(row_off), static_cast<int64_t>(col_off),
+                         static_cast<int64_t>(n_real), kk);
+}
+
+int k2_hist_launch_prev(const void* packed, const void* ibs, const void* jbs, void* hist,
+                        int t, int ti, long long, long long w, long long row_off,
+                        long long col_off, long long n_real, int bin_width, int n_bins,
+                        void* stream) {
+  if (!hist_args_ok(ti, bin_width, n_bins)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<B1Wgmma>(k2_hist_kernel_prev, epi_grid(t, ti), stream,
+                         static_cast<const uint32_t*>(packed), static_cast<const int*>(ibs),
+                         static_cast<const int*>(jbs), static_cast<unsigned long long*>(hist),
+                         ti, static_cast<int64_t>(w), static_cast<int64_t>(row_off),
+                         static_cast<int64_t>(col_off), static_cast<int64_t>(n_real),
+                         bin_width, n_bins);
 }
 
 }  // extern "C"

@@ -28,8 +28,12 @@ anywhere. The plain versions keep the int8 form and unpack one K step
 
 ``csrc/k2_mxu.cu`` also keeps the previous tile body (int8 ``mma.sync``
 with the unpack fused in) for timing beside the one the wrappers launch:
-``previous_body=True`` launches it. That argument is for measurement
-scripts only; nothing in the package sets it.
+``previous_body=True`` launches it. K2-topk and K2-hist run on their own
+main loop (``csrc/tile_body_tma.cuh``: TMA loads, a producer warpgroup,
+and clusters of two blocks sharing their B rows by multicast); their
+``previous_body=True`` launches their previous kernels, on K2-tri's loop.
+That argument is for measurement scripts only; nothing in the package
+sets it.
 
 Exactness: products are 0/1 and sums are int32, exact for M < 2³¹
 (``EngineConfig.validate``). ``variant`` ("concat" or "planes") selects
@@ -221,10 +225,11 @@ def _launch_k2(entry: str, device: torch.device, previous_body: bool, *args) -> 
     _launch("k2_mxu", entry + "_prev" if previous_body else entry, device, *args)
 
 
-def _launch_epilogue(entry: str, device: torch.device, *args) -> None:
-    """:func:`_launch` of ``csrc/k2_epilogue.cu``'s ``entry``; raises first
-    when the library's sub-tile is not the one the wrappers lay their
-    outputs out by, or its limits are below the dispatch rules'."""
+def _launch_epilogue(entry: str, device: torch.device, previous_body: bool, *args) -> None:
+    """:func:`_launch` of ``csrc/k2_epilogue.cu``'s ``entry`` (or
+    ``entry_prev``, the same on the previous tile body); raises first when
+    the library's sub-tile is not the one the wrappers lay their outputs
+    out by, or its limits are below the dispatch rules'."""
     from stormtpu_torch.kernels._build import library
 
     lib = library("k2_epilogue")
@@ -233,7 +238,7 @@ def _launch_epilogue(entry: str, device: torch.device, *args) -> None:
             or lib.k2_hist_max_bins() < HIST_EPI_MAX_BINS:
         raise RuntimeError(f"k2_epilogue was built for sub-tiles {block}, k up to "
                            f"{lib.k2_topk_max_k()}, {lib.k2_hist_max_bins()} bins")
-    _launch("k2_epilogue", entry, device, *args)
+    _launch("k2_epilogue", entry + "_prev" if previous_body else entry, device, *args)
 
 
 def _unpack_step(packed: torch.Tensor, k0: int, tile_words: int) -> torch.Tensor:
@@ -496,8 +501,20 @@ def _epilogue_checks(name, packed, ibs, jbs, tile_rows, tile_words, variant, che
     if packed.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {packed.device}")
     if packed.device.type == "cuda":
+        # TMA's base and row stride (csrc/tile_body_tma.cuh): 16-byte aligned,
+        # and rows of a multiple of 8 words (the geometry check above)
         _check_cuda_operand(name, packed)
         _check_cuda_ids(packed.device, ibs=ibs, jbs=jbs)
+
+
+def epilogue_cluster(tile_rows: int) -> int:
+    """The blocks a cluster of K2-topk / K2-hist holds at tiles of
+    ``tile_rows`` rows, by the kernels' shape rule: 2 (a pair of sub-tile
+    rows sharing their B rows) when a tile has an even number of sub-tile
+    rows, else 1. Asks the built library."""
+    from stormtpu_torch.kernels._build import library
+
+    return library("k2_epilogue").k2_epi_cluster(tile_rows)
 
 
 def count_tiles_topk(
@@ -512,13 +529,16 @@ def count_tiles_topk(
     row_off: int = 0,
     col_off: int = 0,
     variant: str = "concat",
+    previous_body: bool = False,
     checked: Optional[DeviceTileIds] = None,
 ) -> TileTopk:
     """K2-topk: the count tiles of :func:`count_tiles_pallas_mxu` reduced,
     inside the kernel, to each row's and each column's top-min(k,
     tile_rows) candidates a sub-tile (:class:`TileTopk`). Global row and
     column of tile t's element (r, c) are ``row_off + ibs[t]·ti + r`` and
-    ``col_off + jbs[t]·ti + c``. 1 ≤ k ≤ ``TOPK_EPI_MAX``."""
+    ``col_off + jbs[t]·ti + c``. 1 ≤ k ≤ ``TOPK_EPI_MAX``.
+    ``previous_body=True`` launches the previous kernel (K2-tri's main
+    loop) for timing; on the CPU it changes nothing."""
     _epilogue_checks("count_tiles_topk", packed, ibs, jbs, tile_rows, tile_words, variant,
                      checked)
     if not 1 <= k <= TOPK_EPI_MAX:
@@ -535,9 +555,9 @@ def count_tiles_topk(
     if t == 0:
         return TileTopk(*out)
     _launch_epilogue(
-        "k2_topk_launch", packed.device,
+        "k2_topk_launch", packed.device, previous_body,
         packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), *(o.data_ptr() for o in out),
-        t, ti, packed.shape[1], row_off, col_off, n_real, kk,
+        t, ti, *packed.shape, row_off, col_off, n_real, kk,
     )
     LAUNCHES["k2_topk"] += 1
     return TileTopk(*out)
@@ -556,13 +576,15 @@ def count_tiles_hist(
     row_off: int = 0,
     col_off: int = 0,
     variant: str = "concat",
+    previous_body: bool = False,
     checked: Optional[DeviceTileIds] = None,
 ) -> torch.Tensor:
     """K2-hist: the bin counts int64 [n_bins] of the valid pairs (global
     row < global column < ``n_real``; coordinates as in
     :func:`count_tiles_topk`) of the count tiles of
     :func:`count_tiles_pallas_mxu`, binned inside the kernel: bin
-    min(count // bin_width, n_bins − 1). 1 ≤ n_bins ≤ ``HIST_EPI_MAX_BINS``."""
+    min(count // bin_width, n_bins − 1). 1 ≤ n_bins ≤ ``HIST_EPI_MAX_BINS``.
+    ``previous_body`` as in :func:`count_tiles_topk`."""
     _epilogue_checks("count_tiles_hist", packed, ibs, jbs, tile_rows, tile_words, variant,
                      checked)
     if not 1 <= n_bins <= HIST_EPI_MAX_BINS:
@@ -579,9 +601,9 @@ def count_tiles_hist(
     if ibs.shape[0] == 0:
         return hist
     _launch_epilogue(
-        "k2_hist_launch", packed.device,
+        "k2_hist_launch", packed.device, previous_body,
         packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), hist.data_ptr(),
-        ibs.shape[0], tile_rows, packed.shape[1], row_off, col_off, n_real, bin_width, n_bins,
+        ibs.shape[0], tile_rows, *packed.shape, row_off, col_off, n_real, bin_width, n_bins,
     )
     LAUNCHES["k2_hist"] += 1
     return hist

@@ -1181,25 +1181,35 @@ def _epilogue_case(cuda, n, w, ti, wk, density, seed, order):
     return to_device_words(xp, cuda), ids, dict(tile_rows=ti, tile_words=wk)
 
 
+# ti 32, 64 and 96: clusters of one; 160, 224 and 256: clusters of two (at
+# 160 and 224 the second sub-tile row is short); 384: three sub-tile rows,
+# clusters of one. w_pad 104 and 72 end mid-chunk past the first chunk (TMA
+# fills the K tail with zeros), and the last row block's boxes at ti 160,
+# 224 and 96 read past the operand's last row.
 EPI_SHAPES = [(37, 33, 64, 40, 0.5), (300, 300, 256, 256, 0.5), (70, 129, 32, 128, 0.01),
-              (129, 16, 160, 8, 1.0), (520, 64, 256, 64, 0.001)]
+              (129, 16, 160, 8, 1.0), (520, 64, 256, 64, 0.001), (230, 100, 224, 104, 0.5),
+              (100, 70, 96, 72, 0.3), (400, 64, 384, 64, 0.1)]
 
 
+@pytest.mark.parametrize("previous_body", (False, True), ids=("tma", "prev"))
 @pytest.mark.parametrize("order,offsets,cut", [("tri", None, 0), ("grid", None, 5),
                                                ("grid", (3, 1), 0)])
 @pytest.mark.parametrize("k", (1, 8, 16, 32))
 @pytest.mark.parametrize("n,w,ti,wk,density", EPI_SHAPES)
-def test_k2_topk_kernel_equals_plain(cuda, n, w, ti, wk, density, k, order, offsets, cut):
+def test_k2_topk_kernel_equals_plain(cuda, n, w, ti, wk, density, k, order, offsets, cut,
+                                     previous_body):
     """K2-topk's candidate sets, values and indices, equal the plain
-    version's exactly (ties to the lower index on both): at odd tile rows
-    (one and two sub-tile rows and columns), shuffled lists with tiles on
-    both sides of the diagonal, global offsets (``offsets`` in tiles: a
-    stripe's local ids) and an ``n_real`` below the rows."""
+    version's exactly (ties to the lower index on both), on the TMA body
+    and the previous one: at odd tile rows (one, two and three sub-tile
+    rows; clusters of one and two), K tails mid-chunk, boxes past the last
+    row, shuffled lists with tiles on both sides of the diagonal, global
+    offsets (``offsets`` in tiles: a stripe's local ids) and an ``n_real``
+    below the rows."""
     x, ids, kw = _epilogue_case(cuda, n, w, ti, wk, density, n + k, order)
     row_off, col_off = (0, 0) if offsets is None else (offsets[0] * ti, offsets[1] * ti)
     args = dict(k=k, n_real=n - cut, row_off=row_off, col_off=col_off, **kw)
     reset_launches()
-    got = mxu.count_tiles_topk(x, *ids, checked=ids, **args)
+    got = mxu.count_tiles_topk(x, *ids, checked=ids, previous_body=previous_body, **args)
     assert launch_counts()["k2_topk"] == 1 and launch_counts()["k2_tri"] == 0
     want = mxu.count_tiles_topk_plain(x, *ids, **args)
     torch.cuda.synchronize()
@@ -1207,13 +1217,15 @@ def test_k2_topk_kernel_equals_plain(cuda, n, w, ti, wk, density, k, order, offs
         assert g.dtype == torch.int32 and torch.equal(g, h)
 
 
+@pytest.mark.parametrize("previous_body", (False, True), ids=("tma", "prev"))
 @pytest.mark.parametrize("n_bins,bin_width", [(64, None), (1, 1), (7, 1), (3, 1 << 21),
                                               (4096, 1), (5, 3)])
 @pytest.mark.parametrize("order,offsets,cut", [("tri", None, 0), ("grid", (3, 1), 7)])
 @pytest.mark.parametrize("n,w,ti,wk,density", EPI_SHAPES)
 def test_k2_hist_kernel_equals_plain(cuda, n, w, ti, wk, density, n_bins, bin_width, order,
-                                     offsets, cut):
-    """K2-hist's bin counts equal the plain version's exactly: one bin,
+                                     offsets, cut, previous_body):
+    """K2-hist's bin counts equal the plain version's exactly, on the TMA
+    body and the previous one (the shapes of the top-k test): one bin,
     crowded bins (all ones; a width past M), a bin a value (width 1, 4096
     bins), global offsets and an ``n_real`` below the rows."""
     from stormtpu_torch.stream import default_hist_bin_width
@@ -1224,7 +1236,7 @@ def test_k2_hist_kernel_equals_plain(cuda, n, w, ti, wk, density, n_bins, bin_wi
     args = dict(n_real=n - cut, bin_width=width, n_bins=n_bins, row_off=row_off,
                 col_off=col_off, **kw)
     reset_launches()
-    got = mxu.count_tiles_hist(x, *ids, checked=ids, **args)
+    got = mxu.count_tiles_hist(x, *ids, checked=ids, previous_body=previous_body, **args)
     assert launch_counts()["k2_hist"] == 1
     want = mxu.count_tiles_hist_plain(x, *ids, **args)
     torch.cuda.synchronize()
@@ -1270,16 +1282,68 @@ def test_k2_epilogue_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mxu.count_tiles_hist(xp, ids.cpu(), ids, bin_width=1, n_bins=4, **kw)
 
 
-def test_k2_epilogue_build_has_no_spills_and_k2_is_unchanged(cuda):
-    """The epilogue kernels spill nothing, and K2's own kernels still build
-    to the registers they had before the epilogues (PERF.md)."""
-    from stormtpu_torch.kernels._build import kernel_resources
+def test_k2_epilogue_tma_launchers_refuse_what_tma_does_not_take(cuda):
+    """TMA's row stride is a multiple of 16 bytes and its base 16-byte
+    aligned: the wrappers refuse a row of 6 words and an operand 4 bytes
+    off (ValueError, nothing launched), and the C launchers return
+    cudaErrorInvalidValue (1) for both without launching."""
+    from stormtpu_torch.kernels._build import library
 
-    used = kernel_resources("k2_epilogue")
-    assert {s for s in used if "topk" in s} and {s for s in used if "hist" in s}
+    lib = library("k2_epilogue")
+    ids = torch.zeros(1, dtype=torch.int32, device=cuda)
+    hist = torch.zeros(4, dtype=torch.int64, device=cuda)
+    kw = dict(tile_rows=32, n_real=32, bin_width=1, n_bins=4)
+    reset_launches()
+    with pytest.raises(ValueError):
+        mxu.count_tiles_hist(torch.zeros((32, 6), dtype=torch.int32, device=cuda), ids, ids,
+                             tile_words=6, **kw)
+    off = torch.zeros(32 * 8 + 1, dtype=torch.int32, device=cuda)[1:].view(32, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        mxu.count_tiles_hist(off, ids, ids, tile_words=8, **kw)
+    assert launch_counts()["k2_hist"] == 0
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.zeros((32, 8), dtype=torch.int32, device=cuda)
+    for ptr, w in ((x.data_ptr(), 6), (x.data_ptr() + 4, 8)):
+        assert lib.k2_hist_launch(ptr, ids.data_ptr(), ids.data_ptr(), hist.data_ptr(), 1, 32,
+                                  32, w, 0, 0, 32, 1, 4, stream) == 1
+    out = torch.zeros(32, dtype=torch.int32, device=cuda)
+    assert lib.k2_topk_launch(x.data_ptr(), ids.data_ptr(), ids.data_ptr(),
+                              *(out.data_ptr(),) * 4, 1, 32, 32, 6, 0, 0, 32, 1, stream) == 1
+    torch.cuda.synchronize()
+    assert int(hist.sum()) == 0
+
+
+def test_k2_epilogue_cluster_follows_the_shape_rule(cuda):
+    """Clusters of two blocks exactly when a tile has an even number of
+    128-row sub-tile rows."""
+    for ti, want in ((32, 1), (96, 1), (128, 1), (160, 2), (256, 2), (384, 1), (512, 2)):
+        assert mxu.epilogue_cluster(ti) == want
+
+
+def test_k2_epilogue_build_has_no_spills_and_k2_is_unchanged(cuda):
+    """The epilogue kernels (the TMA body's two cluster instances and the
+    previous ones) spill nothing and the compiler kept their register
+    rebalancing (no "setmaxnreg ignored"); K2's, K5's and K1's kernels on
+    the shared tile body still build to the registers they had before the
+    epilogues (PERF.md: 186, 168, 192, 196)."""
+    from stormtpu_torch.kernels import _build
+
+    used = _build.kernel_resources("k2_epilogue")
+    for name in ("k2_topk_kernel", "k2_hist_kernel"):
+        assert len([s for s in used if name in s and "_prev" not in s]) == 2  # clusters 1, 2
+        assert len([s for s in used if name + "_prev" in s]) == 1
     assert all(v["spill_bytes"] == 0 for v in used.values())
-    k2 = kernel_resources("k2_mxu")
+    log = _build._target("k2_epilogue").with_suffix(".log").read_text()
+    assert "setmaxnreg ignored" not in log
+    k2 = _build.kernel_resources("k2_mxu")
     assert all(v["spill_bytes"] == 0 for v in k2.values())
+    body = {**k2, **_build.kernel_resources("k1_dense")}
+
+    def registers(kernel):
+        return next(v["registers"] for s, v in body.items() if kernel in s and "B1Wgmma" in s)
+
+    assert [registers(k) for k in ("k2_tri_kernel", "k2_rect_kernel", "k5_stream_kernel",
+                                   "k1_pair_kernel")] == [186, 168, 192, 196]
 
 
 @pytest.mark.parametrize("k", (8, 32, 33))
