@@ -1,0 +1,11 @@
+"""Exact pair counts answered a second by streamed jobs: every pair of every answer of the measured loop, over its whole length."""
+
+from portbench import readers
+
+LAYER = "end to end"
+UNIT = "pairs/s"
+MOVES = "pairs_per_s"
+
+
+def read(run):
+    return readers.pairs_per_s(run)
