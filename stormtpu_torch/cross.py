@@ -18,6 +18,7 @@ Every entry point takes ``device=None`` (the card) or ``device="cpu"``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -26,10 +27,11 @@ import torch
 from stormtpu_torch.config import EngineConfig, default_config
 from stormtpu_torch.kernels import count_block_auto
 from stormtpu_torch.layout import to_device_words
-from stormtpu_torch.stream import _stage
-from stormtpu_torch.utils import download, next_pow2, resolve_device, round_up
+from stormtpu_torch.utils import download, next_pow2, profiling, resolve_device, round_up
 
 __all__ = ["cross_topk_neighbors", "cross_pairs_above"]
+
+_stage = functools.partial(profiling.stage, "cross")
 
 # A rows a device block: the counts block [bl, Nb_pad] stays ≤ ~256 MB at
 # Nb = 16384.
@@ -125,20 +127,29 @@ def cross_topk_neighbors(
     columns' float32 bound plus slack) widens the candidate set until the
     true top-k is provably inside. Ties break toward the lower B index.
     """
-    bm_a, bm_b = _operands(a, b)
-    cfg = config or default_config()
-    cfg.validate(bm_a.m_bits)
-    if not 1 <= k <= bm_b.n:
-        raise ValueError(f"k must be in [1, Nb], got k={k}, Nb={bm_b.n}")
-    dev = resolve_device(device)
-    if measure != "count":
-        return _cross_topk_measure(bm_a, bm_b, k, measure, dev)
+    with profiling.span("stpu.cross.request") as request:
+        with profiling.span("stpu.cross.plan"):
+            bm_a, bm_b = _operands(a, b)
+            cfg = config or default_config()
+            cfg.validate(bm_a.m_bits)
+            if not 1 <= k <= bm_b.n:
+                raise ValueError(f"k must be in [1, Nb], got k={k}, Nb={bm_b.n}")
+            dev = resolve_device(device)
+            if measure == "count":
+                w = bm_a.n_words
+                bl, na_pad = _block_plan(bm_a.n)
+                cb = _b_chunk_rows(bm_b.n, w, bl, na_pad, False, dev)
+                _chunk_k_check(k, cb)
+        request.add_ids(bm_a.n, bm_b.n)
+        if measure != "count":
+            return _cross_topk_measure(bm_a, bm_b, k, measure, dev)
+        return _cross_topk_count(bm_a, bm_b, k, dev, bl, na_pad, cb)
+
+
+def _cross_topk_count(bm_a, bm_b, k: int, dev, bl: int, na_pad: int, cb: int):
+    """:func:`cross_topk_neighbors` by count, on the planned geometry."""
     from stormtpu_torch.stream_query import _merge_topk
 
-    w = bm_a.n_words
-    bl, na_pad = _block_plan(bm_a.n)
-    cb = _b_chunk_rows(bm_b.n, w, bl, na_pad, False, dev)
-    _chunk_k_check(k, cb)
     a_dev = bm_a.device_padded(na_pad, device=dev)
     best_v = np.full((na_pad, k), -1, dtype=np.int64)
     best_i = np.zeros((na_pad, k), dtype=np.int32)
@@ -212,7 +223,8 @@ def _cross_topk_measure(bm_a, bm_b, k: int, measure: str, dev):
     chunk_vals: list[np.ndarray] = []
     chunk_idx: list[np.ndarray] = []
     for b0, b_dev, nb_valid in _b_chunks(bm_b, cb, dev):
-        nnz_b_dev = torch.from_numpy(nnz_b_pad[b0 : b0 + cb].astype(np.int32)).to(dev)
+        nnz_b_host = torch.from_numpy(nnz_b_pad[b0 : b0 + cb].astype(np.int32))
+        nnz_b_dev = profiling.upload(nnz_b_host, dev)
         kk = kk0
         while True:
             f_rows, g_rows, cut_rows = [], [], []
@@ -282,56 +294,59 @@ def cross_pairs_above(
     )
     from stormtpu_torch.setops import derive_similarity
 
-    bm_a, bm_b = _operands(a, b)
-    cfg = config or default_config()
-    cfg.validate(bm_a.m_bits)
-    dev_thresh = _validate_screen(measure, threshold)
-    dev = resolve_device(device)
-    w = bm_a.n_words
-    bl, na_pad = _block_plan(bm_a.n)
-    cb = _b_chunk_rows(bm_b.n, w, bl, na_pad, True, dev)
-    nb_walk = round_up(bm_b.n, cb)
-    m_f = float(np.float32(bm_a.m_bits))
-    a_dev = bm_a.device_padded(na_pad, device=dev)
-    nnz_a_dev = bm_a.device_nnz(na_pad, device=dev)
-    nnz_b_pad = np.zeros(nb_walk, dtype=np.int32)
-    nnz_b_pad[: bm_b.n] = bm_b.row_nnz.astype(np.int32)
-    thresh_d = torch.tensor(dev_thresh, dtype=torch.float32, device=dev)
-    col = torch.arange(cb, device=dev)
-    out_i: list[np.ndarray] = []
-    out_j: list[np.ndarray] = []
-    out_c: list[np.ndarray] = []
-    for b0, b_dev, nb_valid in _b_chunks(bm_b, cb, dev):
-        nnz_b = torch.from_numpy(nnz_b_pad[b0 : b0 + cb]).to(dev)
-        for r0 in range(0, na_pad, bl):
-            with _stage("kernel", dev):
-                c = count_block_auto(a_dev[r0 : r0 + bl], b_dev)
-            with _stage("screen", dev):
-                vals = _screen_vals(c, nnz_a_dev[r0 : r0 + bl], nnz_b, m_f, measure)
-                hits = _pack_bit_rows((vals >= thresh_d) & (col < nb_valid))
-                del vals
-            with _stage("summary", dev):
-                li, lj = _expand_words(download(hits).view(np.uint32), nb_valid)
-            if not li.size:
-                continue
-            with _stage("gather", dev):
-                cvals = _gather_hit_words(c, li, lj)
-            out_i.append((li + r0).astype(np.int64))
-            out_j.append((lj + b0).astype(np.int64))
-            out_c.append(cvals.astype(np.int64))
-    if not out_i:
-        empty_v = np.zeros(0, np.int32) if measure == "count" else np.zeros(0, np.float64)
-        return np.zeros(0, np.int32), np.zeros(0, np.int32), empty_v
-    ii = np.concatenate(out_i)
-    jj = np.concatenate(out_j)
-    counts = np.concatenate(out_c)
-    keep = ii < bm_a.n  # padded A rows are all zero, dropped all the same
-    ii, jj, counts = ii[keep], jj[keep], counts[keep]
-    # chunked walks emit B-chunk-major order; the contract is row-major
-    order = np.lexsort((jj, ii))
-    ii, jj, counts = ii[order], jj[order], counts[order]
-    if measure == "count":
-        return ii.astype(np.int32), jj.astype(np.int32), counts.astype(np.int32)
-    vals = derive_similarity(counts, bm_a.row_nnz[ii], bm_b.row_nnz[jj], bm_a.m_bits, measure)
-    keep = vals >= threshold
-    return ii[keep].astype(np.int32), jj[keep].astype(np.int32), vals[keep]
+    with profiling.span("stpu.cross.request") as request:
+        with profiling.span("stpu.cross.plan"):
+            bm_a, bm_b = _operands(a, b)
+            cfg = config or default_config()
+            cfg.validate(bm_a.m_bits)
+            dev_thresh = _validate_screen(measure, threshold)
+            dev = resolve_device(device)
+            w = bm_a.n_words
+            bl, na_pad = _block_plan(bm_a.n)
+            cb = _b_chunk_rows(bm_b.n, w, bl, na_pad, True, dev)
+        request.add_ids(bm_a.n, bm_b.n)
+        nb_walk = round_up(bm_b.n, cb)
+        m_f = float(np.float32(bm_a.m_bits))
+        a_dev = bm_a.device_padded(na_pad, device=dev)
+        nnz_a_dev = bm_a.device_nnz(na_pad, device=dev)
+        nnz_b_pad = np.zeros(nb_walk, dtype=np.int32)
+        nnz_b_pad[: bm_b.n] = bm_b.row_nnz.astype(np.int32)
+        thresh_d = torch.tensor(dev_thresh, dtype=torch.float32, device=dev)
+        col = torch.arange(cb, device=dev)
+        out_i: list[np.ndarray] = []
+        out_j: list[np.ndarray] = []
+        out_c: list[np.ndarray] = []
+        for b0, b_dev, nb_valid in _b_chunks(bm_b, cb, dev):
+            nnz_b = profiling.upload(torch.from_numpy(nnz_b_pad[b0 : b0 + cb]), dev)
+            for r0 in range(0, na_pad, bl):
+                with _stage("kernel", dev):
+                    c = count_block_auto(a_dev[r0 : r0 + bl], b_dev)
+                with _stage("screen", dev):
+                    vals = _screen_vals(c, nnz_a_dev[r0 : r0 + bl], nnz_b, m_f, measure)
+                    hits = _pack_bit_rows((vals >= thresh_d) & (col < nb_valid))
+                    del vals
+                with _stage("summary", dev):
+                    li, lj = _expand_words(download(hits).view(np.uint32), nb_valid)
+                if not li.size:
+                    continue
+                with _stage("gather", dev):
+                    cvals = _gather_hit_words(c, li, lj)
+                out_i.append((li + r0).astype(np.int64))
+                out_j.append((lj + b0).astype(np.int64))
+                out_c.append(cvals.astype(np.int64))
+        if not out_i:
+            empty_v = np.zeros(0, np.int32) if measure == "count" else np.zeros(0, np.float64)
+            return np.zeros(0, np.int32), np.zeros(0, np.int32), empty_v
+        ii = np.concatenate(out_i)
+        jj = np.concatenate(out_j)
+        counts = np.concatenate(out_c)
+        keep = ii < bm_a.n  # padded A rows are all zero, dropped all the same
+        ii, jj, counts = ii[keep], jj[keep], counts[keep]
+        # chunked walks emit B-chunk-major order; the contract is row-major
+        order = np.lexsort((jj, ii))
+        ii, jj, counts = ii[order], jj[order], counts[order]
+        if measure == "count":
+            return ii.astype(np.int32), jj.astype(np.int32), counts.astype(np.int32)
+        vals = derive_similarity(counts, bm_a.row_nnz[ii], bm_b.row_nnz[jj], bm_a.m_bits, measure)
+        keep = vals >= threshold
+        return ii[keep].astype(np.int32), jj[keep].astype(np.int32), vals[keep]

@@ -52,6 +52,7 @@ import torch
 from stormtpu_torch.config import EngineConfig, default_config
 from stormtpu_torch.kernels.xla import int8_dot_nt, unpack_to_int8
 from stormtpu_torch.utils import (
+    profiling,
     assemble_triangular_torch,
     download,
     round_up,
@@ -98,7 +99,8 @@ HIST_EPI_MAX_BINS = 4096
 EPI_BLOCK = (128, 256)
 
 # Dispatch routes of a reduction over K2-tri's tiles, by the names that
-# ``stream.record_stages`` records and the ``[breakdown]`` lines print.
+# ``utils.profiling.record_stages`` records (and ``routes.<name>`` counts)
+# and the ``[breakdown]`` lines print.
 ROUTE_TOPK = "k2_topk"
 ROUTE_HIST = "k2_hist"
 
@@ -186,7 +188,7 @@ def device_tile_ids(ibs: np.ndarray, jbs: np.ndarray, nb: int, device) -> Device
         0 <= min(ibs.min(), jbs.min()) and max(ibs.max(), jbs.max()) < nb
     ):
         raise ValueError(f"device_tile_ids: tile ids must lie in [0, {nb})")
-    both = torch.from_numpy(np.stack([ibs, jbs])).to(device)
+    both = profiling.upload(torch.from_numpy(np.stack([ibs, jbs])), device)
     return DeviceTileIds(
         ibs=both[0], jbs=both[1], versions=(both[0]._version, both[1]._version), nb=nb
     )
@@ -626,8 +628,10 @@ def _pad(x: torch.Tensor, rows: int, words: int) -> torch.Tensor:
     n, w = x.shape
     if (n, w) == (rows, words) and x.is_contiguous():
         return x
-    xp = torch.zeros((rows, words), dtype=torch.int32, device=x.device)
-    xp[:n, :w] = x
+    with profiling.span("stpu.kernels.pad"):
+        xp = torch.zeros((rows, words), dtype=torch.int32, device=x.device)
+        xp[:n, :w] = x
+    profiling.count("pad_bytes", 4 * rows * words)
     return xp
 
 

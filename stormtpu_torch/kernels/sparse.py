@@ -33,6 +33,7 @@ p(p−1)/2 of them; the rectangle form (two lists) every (x, y), p·q.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -41,7 +42,7 @@ import torch
 from stormtpu_torch import native
 from stormtpu_torch.config import EngineConfig
 from stormtpu_torch.layout import BitMatrix
-from stormtpu_torch.utils import download, resolve_device, round_up
+from stormtpu_torch.utils import download, profiling, resolve_device, round_up
 
 __all__ = [
     "K3_BYTES_PER_LOOKUP",
@@ -63,6 +64,8 @@ __all__ = [
     "reset_launches",
     "unique_int64",
 ]
+
+_stage = functools.partial(profiling.stage, "kernels")
 
 # Device bytes K3 holds per lookup of a row block: the repeated A values
 # (int32), the insertion points (int64), the elements found (int32) and
@@ -409,8 +412,6 @@ def _k4_sorted_rows(bm: BitMatrix, dev: torch.device) -> tuple[torch.Tensor, tor
     and sorted by (column, row): from the ingest-time COO where it is kept,
     else from ``positions_csr`` (the C++ tier's extraction). The keys are
     made and sorted on ``dev``."""
-    from stormtpu_torch.stream import _stage
-
     n = bm.n
     with _stage("upload", dev):
         if bm.coo is not None:
@@ -433,8 +434,6 @@ def _k4_matrix(bm: BitMatrix, dev: torch.device) -> torch.Tensor:
     list (:func:`_k4_sorted_rows`), its runs of two rows or more, the
     triangle form, and the mirror with the rows' nnz on the diagonal. On
     the CPU every step is the kernels' plain version (the tests' route)."""
-    from stormtpu_torch.stream import _stage
-
     cols, rows = _k4_sorted_rows(bm, dev)
     with _stage("upload", dev):
         diag = torch.from_numpy(bm.row_nnz.astype(np.int32)).to(dev)
@@ -485,8 +484,6 @@ def count_matrix_sparse_outer(
 
     dev = resolve_device(device)
     if dev.type == "cuda":
-        from stormtpu_torch.stream import _stage
-
         out = _k4_matrix(bm, dev)
         with _stage("download", dev):
             return download(out)

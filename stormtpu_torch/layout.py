@@ -27,6 +27,7 @@ import torch
 
 from stormtpu_torch import native as _native
 from stormtpu_torch.config import WORD_BITS, EngineConfig, default_config
+from stormtpu_torch.utils import profiling
 
 # from_positions keeps its COO (for K4) only up to this many entries
 # (about 512 MB of int64 pairs): above it the cache would pin more host
@@ -58,7 +59,7 @@ def _round_up(x: int, mult: int) -> int:
 def to_device_words(packed: np.ndarray, device) -> torch.Tensor:
     """uint32 [N, W] host words → int32 bit-view tensor on ``device``."""
     arr = np.ascontiguousarray(packed, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(arr).to(device)
+    return profiling.upload(torch.from_numpy(arr), device)
 
 
 # rows a padded upload copies at a time: bounds the host staging copy
@@ -188,36 +189,46 @@ class BitMatrix:
 
     @classmethod
     def from_packed(cls, packed: np.ndarray, m_bits: int) -> "BitMatrix":
-        packed = np.ascontiguousarray(np.asarray(packed, dtype=np.uint32))
-        n, w = packed.shape
-        if w != words_for_bits(m_bits):
-            raise ValueError(
-                f"packed has {w} words but m_bits={m_bits} needs "
-                f"{words_for_bits(m_bits)}"
-            )
-        tail = m_bits % WORD_BITS
-        if tail and n and np.any(packed[:, -1] >> tail):
-            raise ValueError("set bits beyond m_bits in final word")
-        row_nnz = _native.row_popcounts_native(packed)
-        if row_nnz is None:
-            row_nnz = np.bitwise_count(packed).sum(axis=1, dtype=np.int64)
+        with profiling.span("stpu.layout.from_packed"):
+            return cls._of_packed(packed, m_bits)
+
+    @classmethod
+    def _of_packed(cls, packed: np.ndarray, m_bits: int) -> "BitMatrix":
+        """:meth:`from_packed`'s work, under its caller's span."""
+        with profiling.span("stpu.layout.validate"):
+            packed = np.ascontiguousarray(np.asarray(packed, dtype=np.uint32))
+            n, w = packed.shape
+            if w != words_for_bits(m_bits):
+                raise ValueError(
+                    f"packed has {w} words but m_bits={m_bits} needs "
+                    f"{words_for_bits(m_bits)}"
+                )
+            tail = m_bits % WORD_BITS
+            if tail and n and np.any(packed[:, -1] >> tail):
+                raise ValueError("set bits beyond m_bits in final word")
+        with profiling.span("stpu.layout.row_counts"):
+            row_nnz = _native.row_popcounts_native(packed)
+            if row_nnz is None:
+                row_nnz = np.bitwise_count(packed).sum(axis=1, dtype=np.int64)
         return cls(packed=packed, n=n, m_bits=m_bits, row_nnz=row_nnz)
 
     @classmethod
     def from_positions(
         cls, row_ids: np.ndarray, positions: np.ndarray, n: int, m_bits: int
     ) -> "BitMatrix":
-        bm = cls.from_packed(
-            pack_positions(row_ids, positions, n, m_bits), m_bits=m_bits
-        )
-        # copies, not views: the caller may change its arrays afterwards,
-        # and K4 must see what was packed
-        if np.size(positions) <= _COO_CACHE_MAX_NNZ:
-            bm.coo = (
-                np.array(row_ids, dtype=np.int64, copy=True),
-                np.array(positions, dtype=np.int64, copy=True),
-            )
-        return bm
+        with profiling.span("stpu.layout.from_positions"):
+            with profiling.span("stpu.layout.pack"):
+                packed = pack_positions(row_ids, positions, n, m_bits)
+            bm = cls._of_packed(packed, m_bits)
+            # copies, not views: the caller may change its arrays afterwards,
+            # and K4 must see what was packed
+            if np.size(positions) <= _COO_CACHE_MAX_NNZ:
+                with profiling.span("stpu.layout.coo_copy"):
+                    bm.coo = (
+                        np.array(row_ids, dtype=np.int64, copy=True),
+                        np.array(positions, dtype=np.int64, copy=True),
+                    )
+            return bm
 
     @classmethod
     def from_position_lists(
@@ -321,7 +332,7 @@ class BitMatrix:
         def build():
             nz = np.zeros(n_pad, dtype=np.int32)
             nz[: self.n] = self.row_nnz.astype(np.int32)
-            return torch.from_numpy(nz).to(device)
+            return profiling.upload(torch.from_numpy(nz), device)
 
         return self.device_cached(("nnz", int(n_pad)), build, device)
 

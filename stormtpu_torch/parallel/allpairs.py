@@ -17,8 +17,10 @@ the words instead: every rank counts its word slice (K2-tri tiles, or K5's
 work list on block-clustered inputs) and :func:`psum` merges the exact int32
 partials.
 
-Under ``stream.record_stages()`` the ring records its block kernels as
-``kernel`` and its sums and hops as ``collective``.
+The ring's block kernels are the spans ``stpu.parallel.kernel`` and its
+sums and hops ``stpu.parallel.collective`` (``utils.profiling``); under
+``utils.profiling.record_stages()`` they are the stages ``kernel`` and
+``collective``.
 
 The JAX package's ``sharded fn``s map global arrays to global arrays. Here
 each is a function of this rank's shard that returns this rank's part of
@@ -28,6 +30,7 @@ package's compile caches have no counterpart: there is nothing to compile.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -42,10 +45,11 @@ from stormtpu_torch.parallel.mesh import (
     ppermute,
     psum,
 )
-from stormtpu_torch.stream import _stage
-from stormtpu_torch.utils import download, round_up
+from stormtpu_torch.utils import download, profiling, round_up
 
 __all__ = ["distributed_count_matrix", "ring_count_rows", "ring_count_rows_2d"]
+
+_stage = functools.partial(profiling.stage, "parallel")
 
 BlockFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 

@@ -27,6 +27,7 @@ Every entry point takes ``device=None`` (the card) or ``device="cpu"``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -35,10 +36,17 @@ import torch
 from stormtpu_torch.api import MatrixLike, _as_bitmatrix
 from stormtpu_torch.config import EngineConfig, default_config
 from stormtpu_torch.kernels import count_block_auto
-from stormtpu_torch.stream import _stage
-from stormtpu_torch.utils import download, resolve_device, round_up, triangular_tile_ids
+from stormtpu_torch.utils import (
+    download,
+    profiling,
+    resolve_device,
+    round_up,
+    triangular_tile_ids,
+)
 
 __all__ = ["pair_counts", "topk_neighbors", "pairs_above"]
+
+_stage = functools.partial(profiling.stage, "query")
 
 # Per-operand word budget for the pair_counts gather (~256 MB).
 _PAIR_GATHER_MAX_WORDS = 1 << 26
@@ -677,7 +685,7 @@ def _validate_screen(measure: str, threshold: float) -> np.float32:
 def _gather_hit_words(flat: torch.Tensor, ri: np.ndarray, wi: np.ndarray) -> np.ndarray:
     """The words ``flat[ri[k], wi[k]]`` of a device bitmap (or counts
     block), gathered on its device and downloaded in one copy."""
-    at = torch.from_numpy(np.stack([ri, wi]).astype(np.int64)).to(flat.device)
+    at = profiling.upload(torch.from_numpy(np.stack([ri, wi]).astype(np.int64)), flat.device)
     return download(flat[at[0], at[1]])
 
 

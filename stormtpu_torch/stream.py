@@ -29,10 +29,9 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
-import contextlib
+import functools
 import json
 import os
-import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -46,10 +45,12 @@ from stormtpu_torch.utils import (
     assemble_stripe,
     assemble_stripe_torch,
     download,
+    profiling,
     resolve_device,
     round_up,
     triangular_tile_ids,
 )
+from stormtpu_torch.utils.profiling import StageTimes, record_stages  # noqa: F401
 
 __all__ = [
     "stream_count_matrix",
@@ -108,6 +109,7 @@ def _device_refuse_budget(device) -> int:
         return int(env)
     dev = torch.device(device)
     if dev.type == "cuda":
+        profiling.count("mem_queries")
         free, _total = torch.cuda.mem_get_info(dev)
         idle = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
         return int(free + idle)
@@ -150,72 +152,12 @@ def _wants_operand_streaming(n_pad: int, w_pad: int, sb: int, device) -> bool:
 
 
 # ------------------------------------------------------------- stage timing
-class StageTimes:
-    """What :func:`record_stages` collects over the walks run inside it,
-    summed over their stripes: ``seconds[stage]`` on the host clock with
-    the device synchronised at both ends of the stage, ``device_ms[stage]``
-    by CUDA events around the same stage (card only), ``stripes`` computed
-    (resumed ones are not), ``launched``, those that ran a kernel, and
-    ``routes``: how many stripes or chunks took each dispatch route of a
-    reduction over K2-tri's tiles (``kernels.mxu.topk_route`` and
-    ``hist_route``)."""
-
-    def __init__(self) -> None:
-        self.seconds: dict[str, float] = {}
-        self.device_ms: dict[str, float] = {}
-        self.stripes = 0
-        self.launched = 0
-        self.routes: dict[str, int] = {}
-
-
-_recorder: Optional[StageTimes] = None
-
-
-@contextlib.contextmanager
-def record_stages() -> Iterator[StageTimes]:
-    """Measure the stages of every walk run in this context. A measuring
-    tool: a recorded walk runs its stages one after another (it
-    synchronises the device around each stage and waits for each stripe's
-    file before it goes on), so it is slower than a plain one."""
-    global _recorder
-    previous, _recorder = _recorder, StageTimes()
-    try:
-        yield _recorder
-    finally:
-        _recorder = previous
-
-
-@contextlib.contextmanager
-def _stage(name: str, dev: torch.device):
-    rec = _recorder
-    if rec is None:
-        yield
-        return
-    on_card = dev.type == "cuda"
-    if on_card:
-        torch.cuda.synchronize(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    yield
-    if on_card:
-        stop.record()
-        torch.cuda.synchronize(dev)
-        rec.device_ms[name] = rec.device_ms.get(name, 0.0) + start.elapsed_time(stop)
-    rec.seconds[name] = rec.seconds.get(name, 0.0) + time.perf_counter() - t0
-
-
-def _route(name: str) -> None:
-    """Count one stripe or chunk on the reduction route ``name``."""
-    if _recorder is not None:
-        _recorder.routes[name] = _recorder.routes.get(name, 0) + 1
-
-
-def _count_stripe(launched: bool) -> None:
-    if _recorder is not None:
-        _recorder.stripes += 1
-        _recorder.launched += bool(launched)
+# The recorder lives in ``utils.profiling``; these are the names the walks
+# and their callers use.
+_stage = functools.partial(profiling.stage, "stream")
+_span = profiling.span
+_route = profiling.route
+_count_stripe = profiling.count_stripe
 
 
 # ------------------------------------------------------------- host helpers
@@ -414,7 +356,7 @@ class _StripeWriter:
         self.writing += 1
         self.pending.append((members["i"], members["j"], future, nbytes))
         self.held += nbytes
-        if _recorder is not None:  # a recorded walk takes its stages in order
+        if profiling.synchronised():  # a recorded walk takes its stages in order
             while self.pending:
                 self._complete_oldest()
 
@@ -452,13 +394,16 @@ class _SliceBuffer:
             host = dst
         else:
             if self.staging[half] is None:
+                profiling.count("pinned_allocs")
                 self.staging[half] = torch.empty(dst.shape, dtype=torch.int32, pin_memory=True)
             else:
-                self.copied[half].synchronize()
+                with profiling.wait("staging"):
+                    self.copied[half].synchronize()
             host = self.staging[half]
         _host_superblock(self.bm.packed, self.bm.n, sb, dst.shape[1], i,
                          out=host.numpy().view(np.uint32))
         if host is not dst:
+            profiling.count("h2d_bytes", dst.numel() * 4)
             dst.copy_(host, non_blocking=True)
             self.copied[half] = torch.cuda.Event()
             self.copied[half].record()
@@ -1004,7 +949,8 @@ def _stripe_nonzeros(stripe: torch.Tensor) -> tuple[np.ndarray, np.ndarray, np.n
     """(rows, cols, values) of a K4 stripe's nonzero counts in row-major
     order, rows and columns int64 as ``np.nonzero`` gives them: the stripe
     is compacted on its device and only the nonzeros come back."""
-    nz = torch.nonzero(stripe)
+    with profiling.wait("nonzero"):
+        nz = torch.nonzero(stripe)
     vals = stripe[nz[:, 0], nz[:, 1]]
     nz = download(nz)
     return nz[:, 0], nz[:, 1], download(vals)
@@ -1138,9 +1084,19 @@ def _sink_geometry(xd: torch.Tensor, n: int, cfg: EngineConfig, superblock_rows:
         raise ValueError("xd must be word-padded to a tile_words multiple")
     if n_pad % superblock_rows:
         grow = round_up(n_pad, superblock_rows) - n_pad
-        xd = torch.cat([xd, torch.zeros((grow, w_pad), dtype=xd.dtype, device=xd.device)])
+        with _span("stpu.kernels.pad"):
+            xd = torch.cat([xd, torch.zeros((grow, w_pad), dtype=xd.dtype, device=xd.device)])
+        profiling.count("pad_bytes", xd.numel() * xd.element_size())
         n_pad += grow
     return xd, tile_rows, tile_words, superblock_rows, n_pad // superblock_rows
+
+
+def _read_back(t: torch.Tensor) -> np.ndarray:
+    """A small device result on the host (a pageable copy the host waits
+    for); counts ``d2h_bytes``."""
+    profiling.count("d2h_bytes", t.numel() * t.element_size())
+    with profiling.wait("read_back"):
+        return t.cpu().numpy()
 
 
 def _checksum_and_samples(tiles: torch.Tensor, st, sr, sc) -> tuple[int, np.ndarray]:
@@ -1148,11 +1104,11 @@ def _checksum_and_samples(tiles: torch.Tensor, st, sr, sc) -> tuple[int, np.ndar
     sampled entries ``tiles[st, sr, sc]``, in one read-back."""
     dev = tiles.device
     with _stage("reduce", dev):
-        idx = torch.from_numpy(np.stack([st, sr, sc]).astype(np.int64)).to(dev)
+        idx = profiling.upload(torch.from_numpy(np.stack([st, sr, sc]).astype(np.int64)), dev)
         chk = (tiles % 251).sum(dtype=torch.int64)
         both = torch.cat([chk.reshape(1), tiles[idx[0], idx[1], idx[2]].to(torch.int64)])
     with _stage("read_back", dev):
-        host = both.cpu().numpy()
+        host = _read_back(both)
     return _wrap_int32(int(host[0])), host[1:].astype(np.int32)
 
 
@@ -1416,58 +1372,60 @@ def stream_count_histogram(
             f"({superblock_rows} after tile rounding)"
         )
 
-    lane = torch.arange(tile_rows, dtype=torch.int32, device=dev)
-    hist_d = torch.zeros(n_bins, dtype=torch.int64, device=dev)
-    route = mxu.hist_route(n_bins)
-    skipped_mass = 0
-    total = n_super * (n_super + 1) // 2
-    done = 0
-    for i, j in _superblock_pairs(n_super):
-        if occupancy is not None and not (occupancy[i] & occupancy[j]).any():
-            # every pair in this stripe counts exactly 0 → its valid-pair
-            # mass goes to bin 0 arithmetically
-            skipped_mass += _stripe_pair_mass(n, superblock_rows, i, j)
-            _count_stripe(False)
+    with _span("stpu.stream.job") as job:
+        lane = torch.arange(tile_rows, dtype=torch.int32, device=dev)
+        hist_d = torch.zeros(n_bins, dtype=torch.int64, device=dev)
+        route = mxu.hist_route(n_bins)
+        skipped_mass = 0
+        total = n_super * (n_super + 1) // 2
+        done = 0
+        for i, j in _superblock_pairs(n_super):
+            if occupancy is not None and not (occupancy[i] & occupancy[j]).any():
+                # every pair in this stripe counts exactly 0 → its valid-pair
+                # mass goes to bin 0 arithmetically
+                skipped_mass += _stripe_pair_mass(n, superblock_rows, i, j)
+                _count_stripe(False)
+                done += 1
+                if progress is not None:
+                    progress(done, total)
+                continue
+            with _span("stpu.stream.stripe", job.number, i, j):
+                loc_i, loc_j = _stripe_tile_ids(tiles_per_super, i == j)
+                with _stage("plan", dev):
+                    ids = mxu.device_tile_ids(
+                        loc_i + i * tiles_per_super, loc_j + j * tiles_per_super, nb, dev
+                    )
+                _route(route)
+                if route == mxu.ROUTE_HIST:
+                    with _stage("kernel", dev):
+                        hist_d += mxu.count_tiles_hist(
+                            xd, *ids, tile_rows=tile_rows, tile_words=tile_words, n_real=n,
+                            bin_width=bin_width, n_bins=n_bins, variant=cfg.k2_variant, checked=ids,
+                        )
+                else:
+                    with _stage("kernel", dev):
+                        tiles = mxu.count_tiles_pallas_mxu(
+                            xd, *ids, tile_rows=tile_rows, tile_words=tile_words,
+                            variant=cfg.k2_variant, checked=ids,
+                        )
+                    with _stage("reduce", dev):
+                        rows_g = ids.ibs[:, None] * tile_rows + lane[None, :]
+                        cols_g = ids.jbs[:, None] * tile_rows + lane[None, :]
+                        # strict upper triangle within n: gi < gj < n (gi < n
+                        # follows); zero-padding rows/tiles fail it, diagonal tiles
+                        # keep r < c
+                        valid = (rows_g[:, :, None] < cols_g[:, None, :]) & (cols_g[:, None, :] < n)
+                        bins = torch.clamp(tiles // bin_width, max=n_bins - 1)
+                        # invalid entries go to a spare bin past the last, then dropped
+                        hist_d += _bin_counts(torch.where(valid, bins, n_bins), n_bins + 1)[:n_bins]
+                    del tiles, valid, bins
+                _count_stripe(True)
             done += 1
             if progress is not None:
                 progress(done, total)
-            continue
-        loc_i, loc_j = _stripe_tile_ids(tiles_per_super, i == j)
-        with _stage("plan", dev):
-            ids = mxu.device_tile_ids(
-                loc_i + i * tiles_per_super, loc_j + j * tiles_per_super, nb, dev
-            )
-        _route(route)
-        if route == mxu.ROUTE_HIST:
-            with _stage("kernel", dev):
-                hist_d += mxu.count_tiles_hist(
-                    xd, *ids, tile_rows=tile_rows, tile_words=tile_words, n_real=n,
-                    bin_width=bin_width, n_bins=n_bins, variant=cfg.k2_variant, checked=ids,
-                )
-        else:
-            with _stage("kernel", dev):
-                tiles = mxu.count_tiles_pallas_mxu(
-                    xd, *ids, tile_rows=tile_rows, tile_words=tile_words,
-                    variant=cfg.k2_variant, checked=ids,
-                )
-            with _stage("reduce", dev):
-                rows_g = ids.ibs[:, None] * tile_rows + lane[None, :]
-                cols_g = ids.jbs[:, None] * tile_rows + lane[None, :]
-                # strict upper triangle within n: gi < gj < n (gi < n
-                # follows); zero-padding rows/tiles fail it, diagonal tiles
-                # keep r < c
-                valid = (rows_g[:, :, None] < cols_g[:, None, :]) & (cols_g[:, None, :] < n)
-                bins = torch.clamp(tiles // bin_width, max=n_bins - 1)
-                # invalid entries go to a spare bin past the last, then dropped
-                hist_d += _bin_counts(torch.where(valid, bins, n_bins), n_bins + 1)[:n_bins]
-            del tiles, valid, bins
-        _count_stripe(True)
-        done += 1
-        if progress is not None:
-            progress(done, total)
-    with _stage("read_back", dev):
-        hist_total = hist_d.cpu().numpy()
-    hist_total[0] += skipped_mass
+        with _stage("read_back", dev):
+            hist_total = _read_back(hist_d)
+        hist_total[0] += skipped_mass
     return _hist_manifest(n, m_bits, superblock_rows, n_super, "mxu",
                           n_bins, bin_width, hist_total)
 

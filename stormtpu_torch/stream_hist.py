@@ -188,6 +188,7 @@ def stream_hist_streamed(
     matrix never has to fit there. Co-empty stripes bin to 0 on the host
     and skip the upload."""
     from stormtpu_torch.stream import (
+        _read_back,
         _superblock_pairs,
         cap_hist_superblock,
         default_hist_bin_width,
@@ -229,7 +230,7 @@ def stream_hist_streamed(
         done += 1
         if progress is not None:
             progress(done, total)
-    hist += hist_d.cpu().numpy()
+    hist += _read_back(hist_d)
     return _hist_manifest(
         n, bm.m_bits, sb, n_super, "mxu", n_bins, bin_width, hist,
         extra={"operand_streaming": True, "stripes_skipped": skipped},
@@ -254,6 +255,7 @@ def stream_hist_sparse(
     card, as in the counts walk."""
     from stormtpu_torch import native
     from stormtpu_torch.stream import (
+        _read_back,
         _SparseStripePlan,
         _stage,
         _superblock_pairs,
@@ -318,7 +320,7 @@ def stream_hist_sparse(
         done += 1
         if progress is not None:
             progress(done, total)
-    hist += hist_d.cpu().numpy()
+    hist += _read_back(hist_d)
     return _hist_manifest(
         n, bm.m_bits, sb, n_super, "sparse_outer", n_bins, bin_width, hist,
         extra={"stripe_kernels": stripe_kernels},
@@ -350,6 +352,7 @@ def stream_hist_clustered(
     )
     from stormtpu_torch.stream import (
         _device_operand_budget,
+        _read_back,
         _SliceBuffer,
         _stage,
         _superblock_pairs,
@@ -428,8 +431,8 @@ def stream_hist_clustered(
         if progress is not None:
             progress(done, total)
     with _stage("read_back", dev):
-        hist += hist_d.cpu().numpy()
-        hist[0] -= int(valid_d.cpu())
+        hist += _read_back(hist_d)
+        hist[0] -= int(_read_back(valid_d))
     return _hist_manifest(
         n, bm.m_bits, sb, n_super, "clustered", n_bins, bin_width, hist,
         extra={"work_items": work_items, "stripes_skipped": skipped,

@@ -70,13 +70,14 @@ from stormtpu_torch.stream import (
     _count_stripe,
     _host_superblock,
     _route,
+    _span,
     _stage,
     _stripe_nonzeros,
     _stripe_tile_ids,
     _tile_stripe,
     _wants_operand_streaming,
 )
-from stormtpu_torch.utils import download, next_pow2, resolve_device, round_up
+from stormtpu_torch.utils import download, next_pow2, profiling, resolve_device, round_up
 
 __all__ = [
     "stream_topk_neighbors",
@@ -458,7 +459,7 @@ def _stripe_topk_sets(source: _StripeCounts, i: int, j: int, k: int):
             # the upper triangle's sets into the tps × tps grid, the lower
             # tiles' slots (−1, −1)
             loc_i, loc_j = _stripe_tile_ids(tps, True)
-            at = torch.from_numpy(loc_i.astype(np.int64) * tps + loc_j).to(dev)
+            at = profiling.upload(torch.from_numpy(loc_i.astype(np.int64) * tps + loc_j), dev)
             full = []
             for x in sets:
                 g = torch.full((tps * tps, *x.shape[1:]), -1, dtype=x.dtype, device=dev)
@@ -548,15 +549,18 @@ def _stripe_screen(counts: torch.Tensor, nnz_i: torch.Tensor, nnz_j: torch.Tenso
 def _start_download(t: torch.Tensor):
     """Start copying ``t`` to the host without waiting for it; the
     returned call waits for the copy and gives the array."""
+    profiling.count("d2h_bytes", t.numel() * t.element_size())
     if t.device.type != "cuda":
         return t.numpy
+    profiling.count("pinned_allocs")
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     copied = torch.cuda.Event()
     copied.record()
 
     def wait() -> np.ndarray:
-        copied.synchronize()
+        with profiling.wait("copy"):
+            copied.synchronize()
         return host.numpy()
 
     return wait
@@ -888,230 +892,234 @@ def stream_topk_neighbors(
     fingerprint; a mismatch raises (``resume=False`` overwrites)."""
     if not 1 <= k < max(bm.n, 2):
         raise ValueError(f"k must be in [1, N-1], got k={k}, N={bm.n}")
-    dev = resolve_device(device)
-    walk, sparse_mode, kernel_name = _walk_resolution(bm, superblock_rows, kernel, config,
-                                                      bitmap=False, device=dev)
-    sb, n_pad, n_super = walk.sb, walk.n_pad, walk.n_super
-    if k > sb:
-        raise ValueError(
-            f"k={k} exceeds superblock_rows={sb}: each stripe ranks only one "
-            f"superblock of partners; raise superblock_rows"
-        )
-    if measure != "count":
-        from stormtpu_torch.query import _validate_screen
+    with _span("stpu.stream.job") as job:
+        dev = resolve_device(device)
+        walk, sparse_mode, kernel_name = _walk_resolution(bm, superblock_rows, kernel, config,
+                                                          bitmap=False, device=dev)
+        sb, n_pad, n_super = walk.sb, walk.n_pad, walk.n_super
+        if k > sb:
+            raise ValueError(
+                f"k={k} exceeds superblock_rows={sb}: each stripe ranks only one "
+                f"superblock of partners; raise superblock_rows"
+            )
+        if measure != "count":
+            from stormtpu_torch.query import _validate_screen
 
-        _validate_screen(measure, 1.0)  # validates the measure name
-    plan = None
-    if sparse_mode:
-        from stormtpu_torch.stream import _SparseStripePlan
+            _validate_screen(measure, 1.0)  # validates the measure name
+        plan = None
+        if sparse_mode:
+            from stormtpu_torch.stream import _SparseStripePlan
 
-        with _stage("plan", dev):
-            plan = _SparseStripePlan(bm, sb, n_super, dev)
+            with _stage("plan", dev):
+                plan = _SparseStripePlan(bm, sb, n_super, dev)
 
-    if measure == "count":
-        best_v = np.full((n_pad, k), -1, dtype=np.int64)
-    else:
-        best_v = np.full((n_pad, k), -np.inf, dtype=np.float64)
-    best_i = np.zeros((n_pad, k), dtype=np.int32)
-    start_i = 0
-    ckpt = os.path.join(out_dir, "topk_ckpt.npz") if out_dir else None
-    params = _topk_ckpt_params(bm, k, sb, kernel_name)
-    if measure != "count":
-        params["measure"] = measure
-    # an extending walk skips the stripes wholly inside the old complete
-    # superblocks (their candidates already sit in the running best); the
-    # key rides in params, so that an interrupted extend resumes only as one
-    j_skip = 0
-    if _extend_from is not None:
-        params["extend_from"] = int(_extend_from)
-        j_skip = int(_extend_from) // sb
-    if ckpt and resume and os.path.exists(ckpt):
-        with np.load(ckpt, allow_pickle=False) as z:
-            got = json.loads(str(z["params"]))
-            if got != params:
-                raise ValueError(f"checkpoint {ckpt} was written for {got}, not {params}")
-            best_v = z["best_v"]
-            best_i = z["best_i"]
-            start_i = int(z["next_i"])
-    elif out_dir:
-        os.makedirs(out_dir, exist_ok=True)
+        if measure == "count":
+            best_v = np.full((n_pad, k), -1, dtype=np.int64)
+        else:
+            best_v = np.full((n_pad, k), -np.inf, dtype=np.float64)
+        best_i = np.zeros((n_pad, k), dtype=np.int32)
+        start_i = 0
+        ckpt = os.path.join(out_dir, "topk_ckpt.npz") if out_dir else None
+        params = _topk_ckpt_params(bm, k, sb, kernel_name)
+        if measure != "count":
+            params["measure"] = measure
+        # an extending walk skips the stripes wholly inside the old complete
+        # superblocks (their candidates already sit in the running best); the
+        # key rides in params, so that an interrupted extend resumes only as one
+        j_skip = 0
+        if _extend_from is not None:
+            params["extend_from"] = int(_extend_from)
+            j_skip = int(_extend_from) // sb
+        if ckpt and resume and os.path.exists(ckpt):
+            with np.load(ckpt, allow_pickle=False) as z:
+                got = json.loads(str(z["params"]))
+                if got != params:
+                    raise ValueError(f"checkpoint {ckpt} was written for {got}, not {params}")
+                best_v = z["best_v"]
+                best_i = z["best_i"]
+                start_i = int(z["next_i"])
+        elif out_dir:
+            os.makedirs(out_dir, exist_ok=True)
 
-    occ_sb = _superblock_occupancy(bm, n_pad, sb)
-    nnz_pad = np.zeros(n_pad, dtype=np.int64)
-    nnz_pad[: bm.n] = bm.row_nnz
-    source = _StripeCounts(bm, walk, dev)
-    n = bm.n
-    # the count top-k's route on dense stripes: K2-topk on K2's stripes
-    route = topk_route(k) if walk.kernel == "mxu" else f"store (stripe kernel {walk.kernel})"
-    # the running best lives on the walk's device and is merged there
-    best_v = torch.from_numpy(np.ascontiguousarray(best_v)).to(dev)
-    best_i = torch.from_numpy(np.ascontiguousarray(best_i)).to(dev)
+        occ_sb = _superblock_occupancy(bm, n_pad, sb)
+        nnz_pad = np.zeros(n_pad, dtype=np.int64)
+        nnz_pad[: bm.n] = bm.row_nnz
+        source = _StripeCounts(bm, walk, dev)
+        n = bm.n
+        # the count top-k's route on dense stripes: K2-topk on K2's stripes
+        route = topk_route(k) if walk.kernel == "mxu" else f"store (stripe kernel {walk.kernel})"
+        # the running best lives on the walk's device and is merged there
+        best_v = profiling.upload(torch.from_numpy(np.ascontiguousarray(best_v)), dev)
+        best_i = profiling.upload(torch.from_numpy(np.ascontiguousarray(best_i)), dev)
 
-    def merge(r: int, cv, ci) -> None:
-        """Merge candidates of superblock r's rows (global partner ids;
-        host arrays or tensors on the walk's device)."""
-        with _stage("merge", dev):
-            _merge_topk_torch(best_v, best_i, r * sb, torch.as_tensor(cv, device=dev),
-                              torch.as_tensor(ci, device=dev), dedup=_extend_from is not None)
+        def merge(r: int, cv, ci) -> None:
+            """Merge candidates of superblock r's rows (global partner ids;
+            host arrays or tensors on the walk's device)."""
+            with _stage("merge", dev):
+                _merge_topk_torch(best_v, best_i, r * sb, torch.as_tensor(cv, device=dev),
+                                  torch.as_tensor(ci, device=dev), dedup=_extend_from is not None)
 
-    def save_checkpoint(next_i: int) -> None:
-        with _stage("save", dev):
-            _save_atomic(ckpt, params=json.dumps(params), best_v=download(best_v),
-                         best_i=download(best_i), next_i=next_i)
+        def save_checkpoint(next_i: int) -> None:
+            with _stage("save", dev):
+                _save_atomic(ckpt, params=json.dumps(params), best_v=download(best_v),
+                             best_i=download(best_i), next_i=next_i)
 
-    def valid_rows(r: int) -> int:
-        return max(0, min(n - r * sb, sb))
+        def valid_rows(r: int) -> int:
+            return max(0, min(n - r * sb, sb))
 
-    def zero_staircase(i: int, j: int, stripe) -> None:
-        """phi / r²: merge both sides' zero-intersection candidates."""
-        va, vb = valid_rows(i), valid_rows(j)
-        zv, zi = _k4_zero_topk(stripe, nnz_pad[i * sb:(i + 1) * sb],
-                               nnz_pad[j * sb:(j + 1) * sb], bm.m_bits, measure, k,
-                               diagonal=i == j, valid_a=va, valid_b=vb, sb_rows=sb)
-        merge(i, zv, zi + j * sb)
-        if i != j:
-            zv, zi = _k4_zero_topk(None if stripe is None else stripe.T,
-                                   nnz_pad[j * sb:(j + 1) * sb],
-                                   nnz_pad[i * sb:(i + 1) * sb], bm.m_bits, measure, k,
-                                   diagonal=False, valid_a=vb, valid_b=va, sb_rows=sb)
-            merge(j, zv, zi + i * sb)
-
-    if measure != "count":
-        from stormtpu_torch.cross import _MEASURE_TOPK_SLACK
-        from stormtpu_torch.setops import derive_similarity_torch
-
-        kk0 = int(min(next_pow2(max(2 * k, k + 8)), sb))
-        m_f = float(np.float32(bm.m_bits))
-        nnz_dev = torch.from_numpy(nnz_pad).to(dev)
-        lane = torch.arange(sb, device=dev)
-
-    def measure_stripe(i: int, j: int, counts: torch.Tensor):
-        """Certified candidates of a dense stripe: the float64 rescore
-        (``derive_similarity_torch``: the host formulas' values bit for
-        bit) of the float32 top-kk, kk doubled until the stripe's own top-k
-        provably lies inside (at kk = sb the stripe is enumerated). One
-        flag a round is read back."""
-        n_valid_j = valid_rows(j) - (1 if i == j else 0)
-        n_valid_i = valid_rows(i) - (1 if i == j else 0)
-        kk = kk0
-        while True:
-            out = _stripe_topk_measure(
-                counts, nnz_dev[i * sb:(i + 1) * sb], nnz_dev[j * sb:(j + 1) * sb],
-                i * sb, j * sb, n, m_f, measure=measure, kk=kk, diagonal=i == j)
-            sides = []
-            checks = []
-            with _stage("rescore", dev):
-                for sv, ix, cv, r0, c0, n_valid in ((*out[0:3], i, j, n_valid_j),
-                                                    (*out[3:6], j, i, n_valid_i)):
-                    if sv is None:
-                        sides.append(None)
-                        continue
-                    f = derive_similarity_torch(cv, nnz_dev[r0 * sb:(r0 + 1) * sb, None],
-                                                nnz_dev[c0 * sb + ix], bm.m_bits, measure)
-                    f = torch.where(sv > -torch.inf, f, -torch.inf)
-                    sides.append((f, ix + c0 * sb))
-                    if n_valid > kk:
-                        kth = torch.topk(f, k, dim=1).values[:, k - 1]
-                        ok = kth > sv[:, -1] + _MEASURE_TOPK_SLACK
-                        checks.append(ok | (lane + r0 * sb >= n))
-                certified = not checks or bool(torch.cat(checks).all())
-            if certified or kk >= sb:
-                return sides
-            kk = int(min(kk * 2, sb))
-
-    for i in range(start_i, n_super):
-        dirty = False
-        for j in range(i, n_super):
-            if j < j_skip:
-                continue  # both superblocks inside the old complete range
-            if occ_sb is not None and not (occ_sb[i] & occ_sb[j]).any():
-                # co-empty stripe: every count is zero. Count and the
-                # nonnegative measures gain nothing (the no-partner
-                # convention covers it); phi / r² take the staircase
-                if measure in ("phi", "r2"):
-                    zero_staircase(i, j, None)
-                    dirty = True
-                continue
-            dirty = True
-            # phi / r²'s staircase is host work the cost model is charged for
-            z_extra = 0
-            if plan is not None and measure in ("phi", "r2"):
-                z_extra = (1 if i == j else 2) * (sb * (k + 1) + plan.emissions(i, j))
-            if plan is not None:
-                with _stage("plan", dev):
-                    k4 = plan.use_k4(i, j, extra_emissions=z_extra, emission_path=True)
-            else:
-                k4 = False
-            if k4:
-                with _stage("k4", dev):
-                    stripe = _k4_stripe(plan, i, j, sb)
-                _count_stripe(False)
-                with _stage("merge", dev):
-                    if measure == "count":
-                        vi, ii, vj, ij = _stripe_topk_candidates_k4(stripe, k, diagonal=i == j)
-                    else:
-                        # exact COO scores (zero-intersection pairs score 0
-                        # for jaccard / dice / cosine / overlap)
-                        li, lj, vv = _stripe_nz(stripe)
-                        if i == j:
-                            nz = li != lj
-                            li, lj, vv = li[nz], lj[nz], vv[nz]
-                        from stormtpu_torch.setops import derive_similarity
-
-                        scores = derive_similarity(vv, nnz_pad[i * sb + li],
-                                                   nnz_pad[j * sb + lj], bm.m_bits, measure)
-                        vi, ii = _coo_rank_topk(li, lj, scores, sb, k, fill=-np.inf)
-                        vj, ij = ((None, None) if i == j else
-                                  _coo_rank_topk(lj, li, scores, sb, k, fill=-np.inf))
-                merge(i, vi, ii + j * sb)
-                if i != j:
-                    merge(j, vj, ij + i * sb)
-                if measure in ("phi", "r2"):
-                    zero_staircase(i, j, stripe)
-                continue
-            if measure == "count":
-                _route(route)
-                if route == ROUTE_TOPK:
-                    vi, ii, vj, ij = _stripe_topk_sets(source, i, j, k)
-                    _count_stripe(True)
-                    merge(i, vi, ii)
-                    if i != j:
-                        merge(j, vj, ij)
-                    continue
-            counts = _stripe_counts(source, i, j)
-            _count_stripe(True)
-            if measure != "count":
-                side_i, side_j = measure_stripe(i, j, counts)
-                merge(i, *side_i)
-                if side_j is not None:
-                    merge(j, *side_j)
-                continue
-            vi, ii, vj, ij = _stripe_topk(counts, i * sb, j * sb, n, k=k, diagonal=i == j)
-            merge(i, vi, ii + j * sb)
+        def zero_staircase(i: int, j: int, stripe) -> None:
+            """phi / r²: merge both sides' zero-intersection candidates."""
+            va, vb = valid_rows(i), valid_rows(j)
+            zv, zi = _k4_zero_topk(stripe, nnz_pad[i * sb:(i + 1) * sb],
+                                   nnz_pad[j * sb:(j + 1) * sb], bm.m_bits, measure, k,
+                                   diagonal=i == j, valid_a=va, valid_b=vb, sb_rows=sb)
+            merge(i, zv, zi + j * sb)
             if i != j:
-                merge(j, vj, ij + i * sb)
-        if ckpt and dirty:
-            # a crash restarts at the first unfinished row (its partial
-            # merges die with the running best, so nothing is merged
-            # twice); skipped rows write nothing
-            save_checkpoint(i + 1)
-    if ckpt and start_i < n_super:
-        # completion marker: trailing skipped rows write no checkpoint, and
-        # the extend wrapper needs an unambiguous "every stripe merged"
-        save_checkpoint(n_super)
-    with _stage("download", dev):
-        best_v = download(best_v[:n])
-        best_i = download(best_i[:n])
-    order = np.argsort(-best_v, axis=1, kind="stable")
-    vals = np.take_along_axis(best_v, order, axis=1)
-    idx = np.take_along_axis(best_i, order, axis=1)
-    # as query.topk_neighbors: only real partners survive
-    if measure != "count":
-        valid = np.isfinite(vals) & (idx < n)
-        return np.where(valid, vals, 0.0), np.where(valid, idx, 0).astype(np.int32)
-    valid = (vals >= 0) & (idx < n)
-    return (np.where(valid, vals, 0).astype(np.int32),
-            np.where(valid, idx, 0).astype(np.int32))
+                zv, zi = _k4_zero_topk(None if stripe is None else stripe.T,
+                                       nnz_pad[j * sb:(j + 1) * sb],
+                                       nnz_pad[i * sb:(i + 1) * sb], bm.m_bits, measure, k,
+                                       diagonal=False, valid_a=vb, valid_b=va, sb_rows=sb)
+                merge(j, zv, zi + i * sb)
+
+        if measure != "count":
+            from stormtpu_torch.cross import _MEASURE_TOPK_SLACK
+            from stormtpu_torch.setops import derive_similarity_torch
+
+            kk0 = int(min(next_pow2(max(2 * k, k + 8)), sb))
+            m_f = float(np.float32(bm.m_bits))
+            nnz_dev = profiling.upload(torch.from_numpy(nnz_pad), dev)
+            lane = torch.arange(sb, device=dev)
+
+        def measure_stripe(i: int, j: int, counts: torch.Tensor):
+            """Certified candidates of a dense stripe: the float64 rescore
+            (``derive_similarity_torch``: the host formulas' values bit for
+            bit) of the float32 top-kk, kk doubled until the stripe's own top-k
+            provably lies inside (at kk = sb the stripe is enumerated). One
+            flag a round is read back."""
+            n_valid_j = valid_rows(j) - (1 if i == j else 0)
+            n_valid_i = valid_rows(i) - (1 if i == j else 0)
+            kk = kk0
+            while True:
+                out = _stripe_topk_measure(
+                    counts, nnz_dev[i * sb:(i + 1) * sb], nnz_dev[j * sb:(j + 1) * sb],
+                    i * sb, j * sb, n, m_f, measure=measure, kk=kk, diagonal=i == j)
+                sides = []
+                checks = []
+                with _stage("rescore", dev):
+                    for sv, ix, cv, r0, c0, n_valid in ((*out[0:3], i, j, n_valid_j),
+                                                        (*out[3:6], j, i, n_valid_i)):
+                        if sv is None:
+                            sides.append(None)
+                            continue
+                        f = derive_similarity_torch(cv, nnz_dev[r0 * sb:(r0 + 1) * sb, None],
+                                                    nnz_dev[c0 * sb + ix], bm.m_bits, measure)
+                        f = torch.where(sv > -torch.inf, f, -torch.inf)
+                        sides.append((f, ix + c0 * sb))
+                        if n_valid > kk:
+                            kth = torch.topk(f, k, dim=1).values[:, k - 1]
+                            ok = kth > sv[:, -1] + _MEASURE_TOPK_SLACK
+                            checks.append(ok | (lane + r0 * sb >= n))
+                    with profiling.wait("flag"):
+                        certified = not checks or bool(torch.cat(checks).all())
+                if certified or kk >= sb:
+                    return sides
+                kk = int(min(kk * 2, sb))
+
+        for i in range(start_i, n_super):
+            dirty = False
+            for j in range(i, n_super):
+                if j < j_skip:
+                    continue  # both superblocks inside the old complete range
+                if occ_sb is not None and not (occ_sb[i] & occ_sb[j]).any():
+                    # co-empty stripe: every count is zero. Count and the
+                    # nonnegative measures gain nothing (the no-partner
+                    # convention covers it); phi / r² take the staircase
+                    if measure in ("phi", "r2"):
+                        zero_staircase(i, j, None)
+                        dirty = True
+                    continue
+                dirty = True
+                with _span("stpu.stream.stripe", job.number, i, j):
+                    # phi / r²'s staircase is host work the cost model is charged for
+                    z_extra = 0
+                    if plan is not None and measure in ("phi", "r2"):
+                        z_extra = (1 if i == j else 2) * (sb * (k + 1) + plan.emissions(i, j))
+                    if plan is not None:
+                        with _stage("plan", dev):
+                            k4 = plan.use_k4(i, j, extra_emissions=z_extra, emission_path=True)
+                    else:
+                        k4 = False
+                    if k4:
+                        with _stage("k4", dev):
+                            stripe = _k4_stripe(plan, i, j, sb)
+                        _count_stripe(False)
+                        with _stage("merge", dev):
+                            if measure == "count":
+                                vi, ii, vj, ij = _stripe_topk_candidates_k4(stripe, k,
+                                                                            diagonal=i == j)
+                            else:
+                                # exact COO scores (zero-intersection pairs score 0
+                                # for jaccard / dice / cosine / overlap)
+                                li, lj, vv = _stripe_nz(stripe)
+                                if i == j:
+                                    nz = li != lj
+                                    li, lj, vv = li[nz], lj[nz], vv[nz]
+                                from stormtpu_torch.setops import derive_similarity
+
+                                scores = derive_similarity(vv, nnz_pad[i * sb + li],
+                                                           nnz_pad[j * sb + lj], bm.m_bits, measure)
+                                vi, ii = _coo_rank_topk(li, lj, scores, sb, k, fill=-np.inf)
+                                vj, ij = ((None, None) if i == j else
+                                          _coo_rank_topk(lj, li, scores, sb, k, fill=-np.inf))
+                        merge(i, vi, ii + j * sb)
+                        if i != j:
+                            merge(j, vj, ij + i * sb)
+                        if measure in ("phi", "r2"):
+                            zero_staircase(i, j, stripe)
+                        continue
+                    if measure == "count":
+                        _route(route)
+                        if route == ROUTE_TOPK:
+                            vi, ii, vj, ij = _stripe_topk_sets(source, i, j, k)
+                            _count_stripe(True)
+                            merge(i, vi, ii)
+                            if i != j:
+                                merge(j, vj, ij)
+                            continue
+                    counts = _stripe_counts(source, i, j)
+                    _count_stripe(True)
+                    if measure != "count":
+                        side_i, side_j = measure_stripe(i, j, counts)
+                        merge(i, *side_i)
+                        if side_j is not None:
+                            merge(j, *side_j)
+                        continue
+                    vi, ii, vj, ij = _stripe_topk(counts, i * sb, j * sb, n, k=k, diagonal=i == j)
+                    merge(i, vi, ii + j * sb)
+                    if i != j:
+                        merge(j, vj, ij + i * sb)
+            if ckpt and dirty:
+                # a crash restarts at the first unfinished row (its partial
+                # merges die with the running best, so nothing is merged
+                # twice); skipped rows write nothing
+                save_checkpoint(i + 1)
+        if ckpt and start_i < n_super:
+            # completion marker: trailing skipped rows write no checkpoint, and
+            # the extend wrapper needs an unambiguous "every stripe merged"
+            save_checkpoint(n_super)
+        with _stage("download", dev):
+            best_v = download(best_v[:n])
+            best_i = download(best_i[:n])
+        order = np.argsort(-best_v, axis=1, kind="stable")
+        vals = np.take_along_axis(best_v, order, axis=1)
+        idx = np.take_along_axis(best_i, order, axis=1)
+        # as query.topk_neighbors: only real partners survive
+        if measure != "count":
+            valid = np.isfinite(vals) & (idx < n)
+            return np.where(valid, vals, 0.0), np.where(valid, idx, 0).astype(np.int32)
+        valid = (vals >= 0) & (idx < n)
+        return (np.where(valid, vals, 0).astype(np.int32),
+                np.where(valid, idx, 0).astype(np.int32))
 
 
 # ---------------------------------------------------------------- screens
@@ -1244,144 +1252,146 @@ def stream_pairs_above(
     from stormtpu_torch.query import _gather_hit_words, _validate_screen
 
     dev_thresh = float(_validate_screen(measure, threshold))
-    dev = resolve_device(device)
-    walk, sparse_mode, kernel_name = _walk_resolution(bm, superblock_rows, kernel, config,
-                                                      bitmap=True, device=dev)
-    sb, n_pad, n_super = walk.sb, walk.n_pad, walk.n_super
-    plan = None
-    if sparse_mode:
-        from stormtpu_torch.stream import _SparseStripePlan
+    with _span("stpu.stream.job") as job:
+        dev = resolve_device(device)
+        walk, sparse_mode, kernel_name = _walk_resolution(bm, superblock_rows, kernel, config,
+                                                          bitmap=True, device=dev)
+        sb, n_pad, n_super = walk.sb, walk.n_pad, walk.n_super
+        plan = None
+        if sparse_mode:
+            from stormtpu_torch.stream import _SparseStripePlan
 
-        with _stage("plan", dev):
-            plan = _SparseStripePlan(bm, sb, n_super, dev)
-    nnz = np.zeros(n_pad, dtype=np.int32)
-    nnz[: bm.n] = bm.row_nnz
-    nnz_dev = None
-    m_f = float(np.float32(bm.m_bits))
-    out_i: list[np.ndarray] = []
-    out_j: list[np.ndarray] = []
-    out_c: list[np.ndarray] = []
-    params = _screen_store_params(bm, sb, kernel_name, measure, threshold)
-    store = _StripeStore(
-        out_dir, "screen_manifest.json", "hits_",
-        params if _extend_from is None else dict(params, extend_from=int(_extend_from)),
-        resume)
+            with _stage("plan", dev):
+                plan = _SparseStripePlan(bm, sb, n_super, dev)
+        nnz = np.zeros(n_pad, dtype=np.int32)
+        nnz[: bm.n] = bm.row_nnz
+        nnz_dev = None
+        m_f = float(np.float32(bm.m_bits))
+        out_i: list[np.ndarray] = []
+        out_j: list[np.ndarray] = []
+        out_c: list[np.ndarray] = []
+        params = _screen_store_params(bm, sb, kernel_name, measure, threshold)
+        store = _StripeStore(
+            out_dir, "screen_manifest.json", "hits_",
+            params if _extend_from is None else dict(params, extend_from=int(_extend_from)),
+            resume)
 
-    def emit(i, j, gi, gj, cvals):
-        out_i.append(gi)
-        out_j.append(gj)
-        out_c.append(cvals)
-        with _stage("save", dev):
-            store.save(i, j, ii=gi, jj=gj, counts=cvals)
+        def emit(i, j, gi, gj, cvals):
+            out_i.append(gi)
+            out_j.append(gj)
+            out_c.append(cvals)
+            with _stage("save", dev):
+                store.save(i, j, ii=gi, jj=gj, counts=cvals)
 
-    def r2_zero_plan(i, j):
-        return _r2_zero_plan(nnz[i * sb:(i + 1) * sb], nnz[j * sb:(j + 1) * sb], bm.m_bits,
-                             threshold)
+        def r2_zero_plan(i, j):
+            return _r2_zero_plan(nnz[i * sb:(i + 1) * sb], nnz[j * sb:(j + 1) * sb], bm.m_bits,
+                                 threshold)
 
-    # co-empty stripes have all-zero counts, which pass no count screen
-    # (threshold >= 1), no positive jaccard / dice / cosine / overlap
-    # threshold, and no phi threshold (zero-intersection phi is <= 0); r²
-    # scores zero-intersection pairs, and a co-empty stripe is nothing else:
-    # the staircase emits its hits on the host
-    occ_sb = _superblock_occupancy(bm, n_pad, sb)
-    empty64 = np.zeros(0, dtype=np.int64)
-    source = _StripeCounts(bm, walk, dev)
-    # a dense stripe's hits are fetched while the next stripe runs: its
-    # summary's copy starts when it is screened, and the host waits for it
-    # only after the next stripe is launched
-    pending = None
+        # co-empty stripes have all-zero counts, which pass no count screen
+        # (threshold >= 1), no positive jaccard / dice / cosine / overlap
+        # threshold, and no phi threshold (zero-intersection phi is <= 0); r²
+        # scores zero-intersection pairs, and a co-empty stripe is nothing else:
+        # the staircase emits its hits on the host
+        occ_sb = _superblock_occupancy(bm, n_pad, sb)
+        empty64 = np.zeros(0, dtype=np.int64)
+        source = _StripeCounts(bm, walk, dev)
+        # a dense stripe's hits are fetched while the next stripe runs: its
+        # summary's copy starts when it is screened, and the host waits for it
+        # only after the next stripe is launched
+        pending = None
 
-    def finish(i, j, counts, hits_d, summary) -> None:
-        with _stage("download", dev):
-            li, lj = _fetch_hits(hits_d, summary(), sb)
-            # the hits' counts, gathered from the stripe still on the device
-            cvals = (_gather_hit_words(counts, li, lj).astype(np.int64) if li.size
-                     else empty64)
-        emit(i, j, li + i * sb, lj + j * sb, cvals)
+        def finish(i, j, counts, hits_d, summary) -> None:
+            with _stage("download", dev):
+                li, lj = _fetch_hits(hits_d, summary(), sb)
+                # the hits' counts, gathered from the stripe still on the device
+                cvals = (_gather_hit_words(counts, li, lj).astype(np.int64) if li.size
+                         else empty64)
+            emit(i, j, li + i * sb, lj + j * sb, cvals)
 
-    for i in range(n_super):
-        for j in range(i, n_super):
-            done = store.load(i, j)
-            if done is not None:
-                if done["ii"].size:
-                    out_i.append(done["ii"])
-                    out_j.append(done["jj"])
-                    out_c.append(done["counts"])
-                continue
-            if occ_sb is not None and not (occ_sb[i] & occ_sb[j]).any():
-                if measure == "r2":
-                    z_total, z_mat = r2_zero_plan(i, j)
-                    if z_total:
-                        zr, zc = z_mat(None, i == j)
-                        emit(i, j, zr.astype(np.int64) + i * sb, zc.astype(np.int64) + j * sb,
-                             np.zeros(zr.size, dtype=np.int64))
-                        continue
-                emit(i, j, empty64, empty64, empty64)
-                continue
-            if plan is not None:
-                # r²'s staircase is counted first: the cost model is charged
-                # for its host work
-                z_total, z_mat = r2_zero_plan(i, j) if measure == "r2" else (0, None)
-                with _stage("plan", dev):
-                    k4 = plan.use_k4(i, j, extra_emissions=z_total, emission_path=True)
-                if k4:
-                    with _stage("k4", dev):
-                        stripe = _k4_stripe(plan, i, j, sb)
-                    _count_stripe(False)
-                    with _stage("merge", dev):
-                        li, lj, vv = _stripe_nz(stripe)
-                        if i == j:
-                            up = li < lj  # strict upper triangle, no self
-                            li, lj, vv = li[up], lj[up], vv[up]
-                        gi = li.astype(np.int64) + i * sb
-                        gj = lj.astype(np.int64) + j * sb
-                        if measure == "count":
-                            keep = vv >= threshold
-                        else:
-                            from stormtpu_torch.setops import derive_similarity
-
-                            keep = derive_similarity(vv, nnz[gi], nnz[gj], bm.m_bits,
-                                                     measure) >= threshold
-                        gi, gj, vv = gi[keep], gj[keep], vv[keep]
-                        if z_total:
-                            zr, zc = z_mat(stripe, i == j)
-                            gi = np.concatenate([gi, zr + i * sb])
-                            gj = np.concatenate([gj, zc + j * sb])
-                            vv = np.concatenate([vv, np.zeros(zr.size, dtype=vv.dtype)])
-                    emit(i, j, gi, gj, vv.astype(np.int64))
+        for i in range(n_super):
+            for j in range(i, n_super):
+                done = store.load(i, j)
+                if done is not None:
+                    if done["ii"].size:
+                        out_i.append(done["ii"])
+                        out_j.append(done["jj"])
+                        out_c.append(done["counts"])
                     continue
-            if nnz_dev is None:
-                nnz_dev = torch.from_numpy(nnz).to(dev)
-            counts = _stripe_counts(source, i, j)
-            _count_stripe(True)
-            hits_d, summary_d = _stripe_screen(
-                counts, nnz_dev[i * sb:(i + 1) * sb], nnz_dev[j * sb:(j + 1) * sb],
-                i * sb, j * sb, bm.n, dev_thresh, m_f, measure=measure)
-            launched = (i, j, counts, hits_d, _start_download(summary_d))
-            if pending is not None:
-                finish(*pending)
-            pending = launched
-            del counts, hits_d, summary_d
-    if pending is not None:
-        finish(*pending)
-    if _extend_from is not None:
-        store.finish(params)
-    if not out_i:
-        empty_v = np.zeros(0, np.int32) if measure == "count" else np.zeros(0, np.float64)
-        return np.zeros(0, np.int32), np.zeros(0, np.int32), empty_v
-    ii = np.concatenate(out_i)
-    jj = np.concatenate(out_j)
-    counts = np.concatenate(out_c)
-    # stripes emit superblock-pair-major; the contract is row-major
-    order = np.lexsort((jj, ii))
-    ii, jj, counts = ii[order], jj[order], counts[order]
-    if measure == "count":
-        return ii.astype(np.int32), jj.astype(np.int32), counts.astype(np.int32)
-    from stormtpu_torch.setops import derive_similarity
+                if occ_sb is not None and not (occ_sb[i] & occ_sb[j]).any():
+                    if measure == "r2":
+                        z_total, z_mat = r2_zero_plan(i, j)
+                        if z_total:
+                            zr, zc = z_mat(None, i == j)
+                            emit(i, j, zr.astype(np.int64) + i * sb, zc.astype(np.int64) + j * sb,
+                                 np.zeros(zr.size, dtype=np.int64))
+                            continue
+                    emit(i, j, empty64, empty64, empty64)
+                    continue
+                with _span("stpu.stream.stripe", job.number, i, j):
+                    if plan is not None:
+                        # r²'s staircase is counted first: the cost model is charged
+                        # for its host work
+                        z_total, z_mat = r2_zero_plan(i, j) if measure == "r2" else (0, None)
+                        with _stage("plan", dev):
+                            k4 = plan.use_k4(i, j, extra_emissions=z_total, emission_path=True)
+                        if k4:
+                            with _stage("k4", dev):
+                                stripe = _k4_stripe(plan, i, j, sb)
+                            _count_stripe(False)
+                            with _stage("merge", dev):
+                                li, lj, vv = _stripe_nz(stripe)
+                                if i == j:
+                                    up = li < lj  # strict upper triangle, no self
+                                    li, lj, vv = li[up], lj[up], vv[up]
+                                gi = li.astype(np.int64) + i * sb
+                                gj = lj.astype(np.int64) + j * sb
+                                if measure == "count":
+                                    keep = vv >= threshold
+                                else:
+                                    from stormtpu_torch.setops import derive_similarity
 
-    vals = derive_similarity(counts, bm.row_nnz[ii], bm.row_nnz[jj], bm.m_bits, measure)
-    keep = vals >= threshold
-    return ii[keep].astype(np.int32), jj[keep].astype(np.int32), vals[keep]
+                                    keep = derive_similarity(vv, nnz[gi], nnz[gj], bm.m_bits,
+                                                             measure) >= threshold
+                                gi, gj, vv = gi[keep], gj[keep], vv[keep]
+                                if z_total:
+                                    zr, zc = z_mat(stripe, i == j)
+                                    gi = np.concatenate([gi, zr + i * sb])
+                                    gj = np.concatenate([gj, zc + j * sb])
+                                    vv = np.concatenate([vv, np.zeros(zr.size, dtype=vv.dtype)])
+                            emit(i, j, gi, gj, vv.astype(np.int64))
+                            continue
+                    if nnz_dev is None:
+                        nnz_dev = profiling.upload(torch.from_numpy(nnz), dev)
+                    counts = _stripe_counts(source, i, j)
+                    _count_stripe(True)
+                    hits_d, summary_d = _stripe_screen(
+                        counts, nnz_dev[i * sb:(i + 1) * sb], nnz_dev[j * sb:(j + 1) * sb],
+                        i * sb, j * sb, bm.n, dev_thresh, m_f, measure=measure)
+                    launched = (i, j, counts, hits_d, _start_download(summary_d))
+                    if pending is not None:
+                        finish(*pending)
+                    pending = launched
+                    del counts, hits_d, summary_d
+        if pending is not None:
+            finish(*pending)
+        if _extend_from is not None:
+            store.finish(params)
+        if not out_i:
+            empty_v = np.zeros(0, np.int32) if measure == "count" else np.zeros(0, np.float64)
+            return np.zeros(0, np.int32), np.zeros(0, np.int32), empty_v
+        ii = np.concatenate(out_i)
+        jj = np.concatenate(out_j)
+        counts = np.concatenate(out_c)
+        # stripes emit superblock-pair-major; the contract is row-major
+        order = np.lexsort((jj, ii))
+        ii, jj, counts = ii[order], jj[order], counts[order]
+        if measure == "count":
+            return ii.astype(np.int32), jj.astype(np.int32), counts.astype(np.int32)
+        from stormtpu_torch.setops import derive_similarity
+
+        vals = derive_similarity(counts, bm.row_nnz[ii], bm.row_nnz[jj], bm.m_bits, measure)
+        keep = vals >= threshold
+        return ii[keep].astype(np.int32), jj[keep].astype(np.int32), vals[keep]
 
 
 # ------------------------------------------------- pairwise-complete screen

@@ -16,6 +16,8 @@ import weakref
 import numpy as np
 import torch
 
+from stormtpu_torch.utils import profiling
+
 __all__ = [
     "round_up",
     "next_pow2",
@@ -195,6 +197,12 @@ def download(t: torch.Tensor) -> np.ndarray:
     result that would pass that goes through ``.cpu()`` into pageable
     memory. When a result dies its buffer returns to PyTorch's host cache,
     which keeps it page-locked for the next download of its size class."""
+    profiling.count("d2h_bytes", t.numel() * t.element_size())
+    with profiling.wait("download"):
+        return _download(t)
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
     global _pinned_live_bytes
     if t.device.type != "cuda":
         return t.numpy()
@@ -206,6 +214,7 @@ def download(t: torch.Tensor) -> np.ndarray:
     if not pinned:
         return t.cpu().numpy()
     try:
+        profiling.count("pinned_allocs")
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t)
         out = host.numpy()
