@@ -3052,10 +3052,16 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         max_err["k2_tri"] = max(max_err["k2_tri"], exact_diff(torch, got, want))
         a = words[: max(1, words.shape[0] // 3)]
+        # K2-rect's card route on the operands as they are (true rows and
+        # words), held to the plain version on the tile-padded operands
         (ap, bp), rkw = rect_inputs(a, words)
-        got_r = mxu._count_block_padded(ap, bp, variant=cfg.k2_variant, **rkw)
-        want_r = mxu.count_block_plain(ap, bp, tile_words=rkw["tile_words"])
+        reset_launches()
+        got_r = mxu.count_block_pallas_mxu(to_device_words(a, dev), to_device_words(words, dev))
+        want_r = mxu.count_block_plain(ap, bp, tile_words=rkw["tile_words"])[
+            : a.shape[0], : words.shape[0]]
         torch.cuda.synchronize()
+        if launch_counts()["k2_rect"] != 1:
+            raise AssertionError(f"{label}: the card route did not launch K2-rect once")
         max_err["k2_rect"] = max(max_err["k2_rect"], exact_diff(torch, got_r, want_r))
         if expect_all is not None:
             n = words.shape[0]
@@ -3235,7 +3241,12 @@ def main(argv=None) -> int:
     max_err["k2_rect"] = max(max_err["k2_rect"], exact_diff(torch, got, want))
     exact_diff(torch, mxu._count_block_padded(ap, bp, variant=cfg.k2_variant,
                                               previous_body=True, **rkw), want)
+    # the card route (count_block_pallas_mxu) on the same operands unpadded
+    ad, bd = to_device_words(words_a, dev), to_device_words(words, dev)
+    exact_diff(torch, mxu.count_block_pallas_mxu(ad, bd),
+               want[: words_a.shape[0], : words.shape[0]])
     del got, want
+    route_ms = cuda_ms(torch, lambda: mxu.count_block_pallas_mxu(ad, bd), reps=5)
     plain_ms = cuda_ms(torch, lambda: mxu.count_block_plain(ap, bp, tile_words=rkw["tile_words"]), reps=2)
     kern_ms = cuda_ms(torch, lambda: mxu._count_block_padded(ap, bp, variant=cfg.k2_variant, **rkw), reps=5)
     old_ms = cuda_ms(torch, lambda: mxu._count_block_padded(
@@ -3248,9 +3259,11 @@ def main(argv=None) -> int:
     bounds = k2_bounds(2.0 * na_pad * nb_pad * w_pad * 32,
                        4.0 * ((na_pad + nb_pad) * w_pad + na_pad * nb_pad))
     timings["k2_rect"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              previous_body_ms=old_ms,
+                              previous_body_ms=old_ms, card_route_ms=route_ms,
                               registers=regs["now"]["k2_rect"], **bounds)
-    print(f"[timing] k2_rect {na_pad} x {nb_pad} W_pad={w_pad}: kernel {kern_ms:.3f} ms "
+    print(f"[timing] k2_rect card route (count_block_pallas_mxu) {ad.shape[0]} x "
+          f"{bd.shape[0]} W={ad.shape[1]}, unpadded: {route_ms:.3f} ms")
+    print(f"[timing] k2_rect tile-padded form {na_pad} x {nb_pad} W_pad={w_pad}: kernel {kern_ms:.3f} ms "
           f"({regs['now']['k2_rect']} registers a thread), previous body "
           f"{old_ms:.3f} ms ({regs['previous']['k2_rect']} registers), "
           f"plain {plain_ms:.3f} ms, _int_mm on unpacked int8 {lib_ms:.3f} ms, "
@@ -3260,7 +3273,7 @@ def main(argv=None) -> int:
           f"{wall_tri_fresh:.3f} s while the first result is alive (pins a fresh buffer) and "
           f"{wall_tri_warm:.3f} s after both were released (cached buffer); count_block wall "
           f"{wall_rect:.3f} s")
-    del u, ua, targs, ap, bp
+    del u, ua, targs, ap, bp, ad, bd
     torch.cuda.empty_cache()
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -43,11 +43,11 @@ SOURCES = {
         "k2_sub_tiles": ((_I,), _I),
         "k2_sub_tiles_prev": ((_I,), _I),
         "k2_tri_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
-        "k2_rect_launch": ((_VP, _VP, _VP, _LL, _LL, _LL, _VP), _I),
+        "k2_rect_launch": ((_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP), _I),
         "k5_launch": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _LL, _VP), _I),
         # the previous tile body, for timing beside the one above
         "k2_tri_launch_prev": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
-        "k2_rect_launch_prev": ((_VP, _VP, _VP, _LL, _LL, _LL, _VP), _I),
+        "k2_rect_launch_prev": ((_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP), _I),
         "k5_launch_prev": ((_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _VP), _I),
     },
     "tc_rate": {

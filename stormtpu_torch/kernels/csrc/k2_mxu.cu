@@ -5,7 +5,8 @@
 //   stormtpu/kernels/mxu.py        _k2_kernel / _k2_kernel_planes
 //                                  (triangular tile list, count_tiles_pallas_mxu)
 //   stormtpu/kernels/mxu.py        _k2_rect_concat / _k2_rect_planes
-//                                  (rectangular grid, _count_block_padded)
+//                                  (rectangular grid, count_block_pallas_mxu
+//                                  and _count_block_padded)
 //   stormtpu/kernels/clustered.py  _k5_kernel_concat / _k5_kernel_planes
 //                                  (work list, count_tiles_worklist)
 //
@@ -96,9 +97,10 @@ struct WorkListSource {
   }
 };
 
-// out[r, c] = acc[r, c] for r < a_rows, c < b_rows (b_rows is even); out has
-// row stride ldo. m16n8 accumulator layout: c0, c1 at (grp, 2q + {0,1});
-// c2, c3 at row grp + 8.
+// out[r, c] = acc[r, c] for r < a_rows, c < b_rows; out has row stride ldo
+// (even; an odd b_rows also writes column b_rows, which the pitch must
+// hold). m16n8 accumulator layout: c0, c1 at (grp, 2q + {0,1}); c2, c3 at
+// row grp + 8.
 template <int WARPS_N, int MT, int NT>
 __device__ __forceinline__ void store_frags(const int (&acc)[MT][NT][4],
                                             int a_rows, int b_rows,
@@ -437,11 +439,14 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
   cp_async_wait<0>();
 }
 
+// Rectangular form: blockIdx.x = BN-row block of B, blockIdx.y = BM-row
+// block of A. The ragged edges of both are masked here (rows past na or nb
+// load as zeros and are not stored), so the operands need no row padding.
 template <class Body>
 __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
     k2_rect_kernel(const uint32_t* __restrict__ a,
                    const uint32_t* __restrict__ b, int* __restrict__ out,
-                   int64_t na, int64_t nb, int64_t w) {
+                   int64_t na, int64_t nb, int64_t w, int64_t ldo) {
   extern __shared__ __align__(1024) uint32_t smem_dyn[];
   constexpr int BM = Body::BM, BN = Body::BN;
   const int64_t ra = static_cast<int64_t>(blockIdx.y) * BM;
@@ -452,20 +457,23 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
   zero_frags(acc.v);
   const RowPairSource src{a + ra * w, b + rb * w, static_cast<int>(w)};
   Body::accumulate(acc, src, a_rows, b_rows, w, smem_dyn);
-  Body::store(acc, a_rows, b_rows, out + ra * nb + rb, nb);
+  Body::store(acc, a_rows, b_rows, out + ra * ldo + rb, ldo);
 }
 
-// a: [na, w], b: [nb, w] words; out: int32 [na, nb].
+// a: [na, w], b: [nb, w] words, w a multiple of 4 (a 16-byte vector is
+// loaded whole, and must not reach into the next row); out: int32 [na, ldo]
+// with ldo even and ldo > nb when nb is odd (the stores go out as int2 at
+// even columns: an odd nb writes column nb, which is never read).
 template <class Body>
 int rect_launch(const void* a, const void* b, void* out, long long na,
-                long long nb, long long w, void* stream) {
+                long long nb, long long w, long long ldo, void* stream) {
   const dim3 grid(static_cast<unsigned>((nb + Body::BN - 1) / Body::BN),
                   static_cast<unsigned>((na + Body::BM - 1) / Body::BM));
   return launch<Body>(k2_rect_kernel<Body>, grid, stream,
                       static_cast<const uint32_t*>(a),
                       static_cast<const uint32_t*>(b), static_cast<int*>(out),
                       static_cast<int64_t>(na), static_cast<int64_t>(nb),
-                      static_cast<int64_t>(w));
+                      static_cast<int64_t>(w), static_cast<int64_t>(ldo));
 }
 
 // packed: int32/uint32 [n_pad, w]; ibs, jbs: int32 [t]; out: int32 [t, ti, ti].
@@ -497,8 +505,8 @@ int k2_tri_launch(const void* packed, const void* ibs, const void* jbs,
 }
 
 int k2_rect_launch(const void* a, const void* b, void* out, long long na,
-                   long long nb, long long w, void* stream) {
-  return rect_launch<B1Wgmma>(a, b, out, na, nb, w, stream);
+                   long long nb, long long w, long long ldo, void* stream) {
+  return rect_launch<B1Wgmma>(a, b, out, na, nb, w, ldo, stream);
 }
 
 // packed: int32/uint32 [n_pad, w]; ibs, jbs, gsel: int32 [t_work]; units:
@@ -529,8 +537,9 @@ int k2_tri_launch_prev(const void* packed, const void* ibs, const void* jbs,
 }
 
 int k2_rect_launch_prev(const void* a, const void* b, void* out, long long na,
-                        long long nb, long long w, void* stream) {
-  return rect_launch<S8Body>(a, b, out, na, nb, w, stream);
+                        long long nb, long long w, long long ldo,
+                        void* stream) {
+  return rect_launch<S8Body>(a, b, out, na, nb, w, ldo, stream);
 }
 
 int k5_launch_prev(const void* packed, const void* ibs, const void* jbs,

@@ -180,8 +180,9 @@ struct B1Wgmma {
 
   // m64nN accumulator layout: warp w of the group owns rows 16w..16w+15;
   // v[4j], v[4j+1] at (row grp, columns 8j + 2q + {0,1}); v[4j+2], v[4j+3]
-  // at row grp + 8. Stores go out as int2: the callers' column counts are
-  // even and their rows 8-byte aligned (tile sizes are multiples of 8).
+  // at row grp + 8. Stores go out as int2 at even columns: the callers'
+  // rows are 8-byte aligned (an even ldo) and a column count is even, or
+  // the row pitch has a spare column past it (K2-rect's ragged B edge).
   //
   // out[r, c] = acc[r, c] for r < a_rows, c < b_rows; row stride ldo.
   static __device__ __forceinline__ void store(const Acc& acc, int a_rows,

@@ -6,12 +6,24 @@ launch counter (``LAUNCHES``):
 
 - :func:`count_tiles_pallas_mxu` — the triangular tile list (CUDA entry
   ``k2_tri_launch`` in ``csrc/k2_mxu.cu``);
-- :func:`_count_block_padded` — the rectangular grid (``k2_rect_launch``);
+- :func:`count_block_pallas_mxu` and :func:`_count_block_padded` — the
+  rectangular grid (``k2_rect_launch``);
 - :func:`count_tiles_topk` — K2-topk: the tile list's per-row and
   per-column top-k candidate sets, the tiles never stored
   (``k2_topk_launch`` in ``csrc/k2_epilogue.cu``);
 - :func:`count_tiles_hist` — K2-hist: the bin counts of the tile list's
   valid pairs (``k2_hist_launch``).
+
+What is padded, and why. The JAX package pads every operand to whole
+tiles, rows and words, and the plain versions keep that geometry: they
+unpack whole K steps of ``tile_words`` words. The CUDA kernels mask the
+ragged row edges themselves and load a row as 16-byte vectors of 4 words.
+So K2-rect's card route (:func:`count_block_pallas_mxu` on card operands)
+pads no rows: an operand that is contiguous, 16-byte aligned int32 with
+W % 4 == 0 goes in as it is, any other is copied with its words padded to a
+multiple of 4 (:func:`rect_operand`). CPU operands are padded to the tile
+for the plain version. The tile walks' operands (K2-tri, K2-topk, K2-hist)
+are padded to the tile by their callers, which index tiles by row block.
 
 The callers choose between the two epilogue kernels and storing the tiles
 by dispatch rules named here (:func:`topk_route`, :func:`hist_route`).
@@ -79,6 +91,7 @@ __all__ = [
     "hist_route",
     "count_block_plain",
     "count_block_pallas_mxu",
+    "rect_operand",
     "count_matrix_pallas_mxu",
     "reset_launches",
 ]
@@ -97,6 +110,12 @@ HIST_EPI_MAX_BINS = 4096
 # one candidate set a row and a column of each, and the plain versions lay
 # their sets out the same way.
 EPI_BLOCK = (128, 256)
+
+# K2-rect loads a row's words as whole 16-byte vectors, so its card route
+# (count_block_pallas_mxu) takes rows of a multiple of 4 words; its output
+# pitch is the same multiple, which keeps the int2 stores aligned and gives
+# an odd Nb's last store a column to spare.
+RECT_WORD_ALIGN = 4
 
 # Dispatch routes of a reduction over K2-tri's tiles, by the names that
 # ``utils.profiling.record_stages`` records (and ``routes.<name>`` counts)
@@ -457,6 +476,25 @@ def count_tiles_pallas_mxu(
     return out
 
 
+def _rect_launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                 previous_body: bool) -> None:
+    """Launch K2-rect: counts of card operands a [Na, W] and b [Nb, W]
+    (contiguous, 16-byte aligned int32, W % 4 == 0) into ``out``'s first Nb
+    columns; ``out`` is int32 [Na, ldo], contiguous, ldo even and past Nb
+    when Nb is odd (the kernel's int2 stores)."""
+    na, w = a.shape
+    nb = b.shape[0]
+    from stormtpu_torch.kernels._build import library
+
+    if -(-na // library("k2_mxu").k2_block_rows()) > 65535:
+        raise ValueError(f"{name}: Na={na} exceeds the grid limit")
+    _launch_k2(
+        "k2_rect_launch", a.device, previous_body,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), na, nb, w, out.shape[1],
+    )
+    LAUNCHES["k2_rect"] += 1
+
+
 def _count_block_padded(
     a_pad: torch.Tensor,
     b_pad: torch.Tensor,
@@ -467,7 +505,11 @@ def _count_block_padded(
     previous_body: bool = False,
 ) -> torch.Tensor:
     """Rectangular counts int32 [Na_pad, Nb_pad] of two padded packed
-    matrices int32 [Na_pad, W_pad] and [Nb_pad, W_pad]."""
+    matrices int32 [Na_pad, W_pad] and [Nb_pad, W_pad], rows and words
+    multiples of the tile (``tile_rows``, ``tile_words``): the JAX package's
+    geometry, which the plain version keeps, since it unpacks whole K steps
+    of ``tile_words`` words. The CUDA kernel needs none of it, and
+    :func:`count_block_pallas_mxu` comes here only with CPU operands."""
     _check_variant(variant)
     _check_geometry("_count_block_padded", a_pad, tile_rows, tile_words)
     _check_geometry("_count_block_padded", b_pad, tile_rows, tile_words)
@@ -481,18 +523,9 @@ def _count_block_padded(
         raise ValueError(f"unsupported device {a_pad.device}")
     _check_cuda_operand("_count_block_padded", a_pad)
     _check_cuda_operand("_count_block_padded", b_pad)
-    na, w_pad = a_pad.shape
-    nb = b_pad.shape[0]
-    from stormtpu_torch.kernels._build import library
-
-    if -(-na // library("k2_mxu").k2_block_rows()) > 65535:
-        raise ValueError(f"_count_block_padded: Na_pad={na} exceeds the grid limit")
-    out = torch.empty((na, nb), dtype=torch.int32, device=a_pad.device)
-    _launch_k2(
-        "k2_rect_launch", a_pad.device, previous_body,
-        a_pad.data_ptr(), b_pad.data_ptr(), out.data_ptr(), na, nb, w_pad,
-    )
-    LAUNCHES["k2_rect"] += 1
+    out = torch.empty((a_pad.shape[0], b_pad.shape[0]), dtype=torch.int32,
+                      device=a_pad.device)
+    _rect_launch("_count_block_padded", a_pad, b_pad, out, previous_body)
     return out
 
 
@@ -635,6 +668,25 @@ def _pad(x: torch.Tensor, rows: int, words: int) -> torch.Tensor:
     return xp
 
 
+def rect_operand(x: torch.Tensor) -> torch.Tensor:
+    """Operand ``x`` [n, W] as K2-rect's card route takes it: ``x`` itself
+    when it is a contiguous, 16-byte aligned int32 tensor with W % 4 == 0,
+    else a copy int32 [n, round_up(W, 4)] whose words past W are zero (the
+    kernel loads a row's words as whole 16-byte vectors). Rows are never
+    padded: the kernel masks the ragged row edges."""
+    n, w = x.shape
+    words = round_up(w, RECT_WORD_ALIGN)
+    if (w == words and x.dtype == torch.int32 and x.is_contiguous()
+            and x.data_ptr() % 16 == 0):
+        return x
+    with profiling.span("stpu.kernels.pad"):
+        xp = torch.empty((n, words), dtype=torch.int32, device=x.device)
+        xp[:, :w] = x
+        xp[:, w:] = 0
+    profiling.count("pad_bytes", 4 * n * words)
+    return xp
+
+
 def count_block_pallas_mxu(
     a_packed: torch.Tensor,
     b_packed: torch.Tensor,
@@ -642,13 +694,28 @@ def count_block_pallas_mxu(
     config: Optional[EngineConfig] = None,
     variant: Optional[str] = None,
 ) -> torch.Tensor:
-    """Rectangular cross counts int32 [Na, Nb] on the operands' device."""
+    """Rectangular cross counts int32 [Na, Nb] on the operands' device (a
+    view, not always contiguous).
+
+    Card operands go to K2-rect with their true Na and Nb: the kernel
+    masks the ragged row edges, so a query of 64 rows is one row block and
+    the panel streams once. An operand is copied only when
+    :func:`rect_operand` cannot take it as it is, and then with its words
+    padded to a multiple of 4, never its rows; with no copy ``pad_bytes``
+    counts 0 and ``rect_unpadded`` one. CPU operands, whose plain version
+    unpacks whole K steps, are padded to the K2 tile, rows and words, and
+    take :func:`_count_block_padded`."""
     cfg = config or default_config()
     variant = variant or cfg.k2_variant
     na, w = a_packed.shape
     nb_rows, wb = b_packed.shape
     if w != wb:
         raise ValueError("word-count mismatch")
+    _check_variant(variant)
+    if a_packed.device.type == "cuda":
+        if b_packed.device != a_packed.device:
+            raise ValueError("operands on different devices")
+        return _count_block_card(a_packed, b_packed)
     ti, wk = k2_tile_shape(cfg, max(na, nb_rows), w)
     w_pad = round_up(w, wk)
     out = _count_block_padded(
@@ -659,6 +726,24 @@ def count_block_pallas_mxu(
         variant=variant,
     )
     return out[:na, :nb_rows]
+
+
+def _count_block_card(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K2-rect on card operands [Na, W] and [Nb, W], each as
+    :func:`rect_operand` gives it: counts int32 [Na, Nb], a view of
+    [Na, round_up(Nb, 4)] whose spare columns take the odd int2 half."""
+    na, nb = a.shape[0], b.shape[0]
+    ka, kb = rect_operand(a), rect_operand(b)
+    unpadded = ka is a and kb is b
+    if unpadded:
+        profiling.count("pad_bytes", 0)
+    out = torch.empty((na, round_up(nb, RECT_WORD_ALIGN)), dtype=torch.int32,
+                      device=a.device)
+    if na and nb:
+        _rect_launch("count_block_pallas_mxu", ka, kb, out, False)
+        if unpadded:
+            profiling.count("rect_unpadded")
+    return out[:, :nb]
 
 
 def count_matrix_pallas_mxu(

@@ -10,6 +10,8 @@ card run them without the JAX package's conftest:
 Counts are integers, so every comparison is exact equality.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from stormtpu_torch import BitMatrix, intersect_count_matrix, count_block
 from stormtpu_torch.config import EngineConfig
 from stormtpu_torch.kernels import clustered, dense, launch_counts, mxu, reset_launches
 from stormtpu_torch.layout import to_device_words
+from stormtpu_torch.utils import profiling
 from stormtpu_torch.oracle import oracle_count_block, oracle_count_matrix
 from stormtpu_torch.utils import (
     assemble_triangular,
@@ -90,6 +93,74 @@ def test_k2_rect_kernel_equals_plain(cuda, na, nb, w, ti, wk, density):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert np.array_equal(got.cpu().numpy()[:na, :nb], oracle_count_block(a, b))
+
+
+@functools.lru_cache(maxsize=None)
+def _ragged_operands(w):
+    """The largest A and B of the ragged grid at w words (uniform random
+    words) and their exact counts: each case takes leading rows of both."""
+    rng = np.random.default_rng(w)
+    a = rng.integers(0, 1 << 32, (max(RAGGED_NA), w), dtype=np.uint32)
+    b = rng.integers(0, 1 << 32, (max(RAGGED_NB), w), dtype=np.uint32)
+    return a, b, oracle_count_block(a, b)
+
+
+RAGGED_NA = (1, 63, 64, 65, 129, 300)
+RAGGED_NB = (1, 2, 255, 257, 1001)
+
+
+@pytest.mark.parametrize("w", (4, 36, 8196, 10))
+@pytest.mark.parametrize("nb", RAGGED_NB)
+@pytest.mark.parametrize("na", RAGGED_NA)
+def test_k2_rect_takes_ragged_operands_as_they_are(cuda, na, nb, w):
+    """K2-rect's card route at true Na and Nb: nothing padded when
+    W % 4 == 0 (no pad span, ``pad_bytes`` 0, every launch counted by
+    ``rect_unpadded``), only the words otherwise (W = 10); the previous
+    body takes the same pitch."""
+    a, b, full = _ragged_operands(w)
+    a, b, want = a[:na], b[:nb], full[:na, :nb]
+    ad, bd = to_device_words(a, cuda), to_device_words(b, cuda)
+    mxu.reset_launches()
+    with profiling.record() as rec:
+        got = mxu.count_block_pallas_mxu(ad, bd)
+    assert got.shape == (na, nb)
+    assert np.array_equal(got.cpu().numpy(), want)
+    as_is = w % 4 == 0
+    pads = sum(s.name == "stpu.kernels.pad" for s in rec.spans)
+    assert mxu.LAUNCHES["k2_rect"] == 1
+    if as_is:
+        assert rec.counters["pad_bytes"] == 0 and pads == 0
+        assert rec.counters["rect_unpadded"] == mxu.LAUNCHES["k2_rect"]
+        prev = torch.empty((na, round_up(nb, mxu.RECT_WORD_ALIGN)), dtype=torch.int32,
+                           device=cuda)
+        mxu._rect_launch("prev", ad, bd, prev, True)
+        assert torch.equal(prev[:, :nb], got)
+    else:
+        assert rec.counters["pad_bytes"] == 4 * (na + nb) * round_up(w, 4) and pads == 2
+        assert "rect_unpadded" not in rec.counters
+
+
+@pytest.mark.parametrize("kind", ("columns", "offset"))
+def test_k2_rect_copies_the_words_of_what_it_cannot_take(cuda, kind):
+    """A card operand that is not contiguous, or not 16-byte aligned, is
+    copied with its words alone (its rows kept): the same counts, one pad
+    of that operand's bytes, no ``rect_unpadded``."""
+    a, b, _ = _ragged_operands(36)
+    a, b = a[:65], b[:257, :32]
+    ad, bd = to_device_words(a, cuda)[:, :32], to_device_words(b, cuda)
+    if kind == "offset":
+        buf = torch.zeros(ad.numel() + 1, dtype=torch.int32, device=cuda)
+        buf[1:] = ad.reshape(-1)
+        ad = buf[1:].view(ad.shape)
+    want = oracle_count_block(a[:, :32], b)
+    mxu.reset_launches()
+    with profiling.record() as rec:
+        got = mxu.count_block_pallas_mxu(ad, bd)
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert mxu.LAUNCHES["k2_rect"] == 1
+    assert rec.counters["pad_bytes"] == 4 * 65 * 32
+    assert sum(s.name == "stpu.kernels.pad" for s in rec.spans) == 1
+    assert "rect_unpadded" not in rec.counters
 
 
 def test_entry_points_on_card_launch_the_kernels(cuda):

@@ -19,7 +19,7 @@ from stormtpu_torch.config import EngineConfig
 from stormtpu_torch.kernels.clustered import clustered_work_fraction
 from stormtpu_torch.layout import BitMatrix, to_device_words
 from stormtpu_torch.oracle import oracle_count_block, oracle_count_matrix
-from stormtpu_torch.utils import round_up, triangular_tile_ids
+from stormtpu_torch.utils import profiling, round_up, triangular_tile_ids
 
 from conftest import DENSITY_SWEEP
 
@@ -162,6 +162,117 @@ def test_plain_forms_do_not_count_launches():
     tm.count_tiles_topk(xp, *ids, tile_rows=32, tile_words=8, k=4, n_real=40)
     tm.count_tiles_hist(xp, *ids, tile_rows=32, tile_words=8, n_real=40, bin_width=8, n_bins=16)
     assert tm.LAUNCHES == {"k2_tri": 0, "k2_rect": 0, "k2_topk": 0, "k2_hist": 0}
+
+
+def _rect_operand(kind, words):
+    """``words`` (uint32 [n, w]) as int32 laid out as ``kind`` says."""
+    x = _t(words)
+    n, w = x.shape
+    if kind == "whole":
+        return x.clone()
+    if kind == "rows":  # rows 4.. of a larger matrix: contiguous, at 16·w bytes in
+        big = torch.zeros((n + 5, w), dtype=torch.int32)
+        big[4 : 4 + n] = x
+        return big[4 : 4 + n]
+    if kind == "row1":  # from row 1: contiguous, 4·w bytes in
+        big = torch.zeros((n + 1, w), dtype=torch.int32)
+        big[1:] = x
+        return big[1:]
+    if kind == "columns":  # the first w words of wider rows: not contiguous
+        big = torch.zeros((n, w + 4), dtype=torch.int32)
+        big[:, :w] = x
+        return big[:, :w]
+    if kind == "offset":  # contiguous, 4 bytes past an aligned address
+        flat = torch.zeros(n * w + 1, dtype=torch.int32)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(n, w)
+    if kind == "int64":  # the same words, not int32
+        return x.to(torch.int64)
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind,w,as_is,words", [
+    ("whole", 36, True, 36),
+    ("whole", 8196, True, 8196),
+    ("rows", 4, True, 4),
+    ("row1", 36, True, 36),         # 144 bytes in: still aligned
+    ("whole", 10, False, 12),       # the words alone padded, to a multiple of 4
+    ("rows", 1, False, 4),
+    ("rows", 10, False, 12),
+    ("row1", 10, False, 12),        # 40 bytes in
+    ("columns", 36, False, 36),     # copied, the words already a multiple of 4
+    ("columns", 10, False, 12),
+    ("offset", 36, False, 36),
+    ("int64", 36, False, 36),
+])
+def test_rect_operand_follows_the_operands_layout(kind, w, as_is, words):
+    """K2-rect's card route takes a contiguous, 16-byte aligned int32
+    operand with W % 4 == 0 as it is; any other is copied to int32
+    [n, round_up(W, 4)], its words zero-padded and its rows never."""
+    src = _words(7, w, 0.5, seed=w)
+    x = _rect_operand(kind, src)
+    with profiling.record() as rec:
+        got = tm.rect_operand(x)
+    assert (got is x) == as_is
+    assert got.dtype == torch.int32 and got.is_contiguous() and got.shape == (7, words)
+    assert got.data_ptr() % 16 == 0
+    want = np.zeros((7, words), np.uint32)
+    want[:, :w] = src
+    _eq(got.view(torch.int32), want.view(np.int32))
+    pads = sum(s.name == "stpu.kernels.pad" for s in rec.spans)
+    assert rec.counters.get("pad_bytes", 0) == (0 if as_is else 4 * 7 * words)
+    assert pads == (0 if as_is else 1)
+
+
+@pytest.mark.parametrize("na,nb,w,kind_a,kind_b", [
+    (1, 1, 4, "whole", "whole"),
+    (64, 255, 36, "whole", "whole"),
+    (65, 257, 10, "whole", "whole"),
+    (3, 2, 1, "whole", "whole"),
+    (65, 257, 36, "columns", "whole"),
+    (7, 9, 36, "whole", "offset"),
+])
+def test_rect_card_route_pads_words_only(monkeypatch, na, nb, w, kind_a, kind_b):
+    """The card route's Python side, its launch replaced by the plain
+    product: true rows, an operand copied only when it cannot go in as it
+    is and then its words padded to a multiple of 4, an output pitch of
+    round_up(Nb, 4) whose spare columns are never returned, and its
+    counters."""
+    launched = []
+
+    def launch(name, a, b, out, previous_body):
+        assert a.is_contiguous() and b.is_contiguous() and out.is_contiguous()
+        launched.append((a.shape, b.shape, out.shape))
+        out.fill_(-1)
+        out[:, : b.shape[0]] = tm.count_block_plain(a, b, tile_words=a.shape[1])
+
+    monkeypatch.setattr(tm, "_rect_launch", launch)
+    a, b = _words(na, w, 0.5, seed=na), _words(nb, w, 0.5, seed=nb + 1)
+    ta, tb = _rect_operand(kind_a, a), _rect_operand(kind_b, b)
+    words = round_up(w, 4)
+    with profiling.record() as rec:
+        got = tm._count_block_card(ta, tb)
+    assert launched == [((na, words), (nb, words), (na, round_up(nb, 4)))]
+    assert got.shape == (na, nb) and got.stride() == (round_up(nb, 4), 1)
+    _eq(got, oracle_count_block(a, b))
+    copied = [n for n, kind in ((na, kind_a), (nb, kind_b)) if words != w or kind != "whole"]
+    assert rec.counters["pad_bytes"] == 4 * words * sum(copied)
+    assert sum(s.name == "stpu.kernels.pad" for s in rec.spans) == len(copied)
+    assert rec.counters.get("rect_unpadded", 0) == (0 if copied else 1)
+
+
+@pytest.mark.parametrize("kind", ("whole", "columns"))
+def test_cpu_operands_take_the_tile_padded_form(kind):
+    """On the CPU every operand, laid out as it may be, is padded to the
+    K2 tile for the plain version; the card route's counter stays 0."""
+    a, b = _words(40, 36, 0.5, seed=1), _words(70, 36, 0.5, seed=2)
+    ad = _rect_operand(kind, a)
+    ti, wk = tm.k2_tile_shape(EngineConfig(), 70, 36)
+    with profiling.record() as rec:
+        got = tm.count_block_pallas_mxu(ad, _t(b))
+    _eq(got, oracle_count_block(a, b))
+    assert rec.counters["pad_bytes"] == 4 * round_up(36, wk) * (round_up(40, ti) + round_up(70, ti))
+    assert "rect_unpadded" not in rec.counters
 
 
 @pytest.mark.parametrize("clustered", (False, True))
