@@ -13,7 +13,9 @@ names the ranks as the JAX mesh names devices (``make_row_mesh``,
   bits axis (K2 tiles or K5 work lists, summed) and the 2-D form
 - ``columns``, ``setops``, ``stats`` — column counts, set operations and
   similarity matrices, row sums and pair-count histograms on the mesh
-- ``query``, ``cross`` — top-k partners and threshold screens
+- ``query``, ``cross`` — top-k partners and threshold screens; the top-k
+  also over a panel no process holds whole (``RowShard``, ``shard_rows``,
+  importable here beside the JAX package's 15 names of ``__all__``)
 - ``multihost`` — joining a group, and the distributed streaming walk
 - ``scaling``   — the scaling measurement harness
 - ``dryrun``    — spawned process groups, and the multi-rank dry run
@@ -31,8 +33,10 @@ from stormtpu_torch.parallel.multihost import (
     initialize_multihost,
 )
 from stormtpu_torch.parallel.query import (
+    RowShard,
     distributed_pairs_above,
     distributed_topk_neighbors,
+    shard_rows,
 )
 from stormtpu_torch.parallel.scaling import measure_scaling
 from stormtpu_torch.parallel.setops import (

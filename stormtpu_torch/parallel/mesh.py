@@ -10,11 +10,15 @@ devices: ``axis_names``, ``shape[axis]``, ``devices`` (the grid of global
 ranks), plus what one rank needs: its ``rank``, its ``device``, the group's
 ``backend`` and one process group for each line of the grid it lies on.
 
-The JAX collectives map onto three helpers, the only code that knows the
+The JAX collectives map onto these helpers, the only code that knows the
 backend:
 
 - ``lax.psum`` → :func:`psum` (``all_reduce``, exact for int32);
-- ``lax.ppermute`` by a shift → :func:`ppermute` (``batch_isend_irecv``);
+- ``lax.ppermute`` by a shift → :func:`ppermute` (``batch_isend_irecv``),
+  and :func:`ring_shift_`, the same rotation written into the buffer it
+  sends from, a chunk at a time through one staging buffer
+  (:func:`shift_stage`): a shard too large to be held three times shifts
+  beside two;
 - ``fetch_global`` → :func:`fetch_global` (an all-gather of row shards).
 
 gloo has no send or receive of CUDA tensors, so on gloo a CUDA tensor goes
@@ -41,7 +45,7 @@ import torch
 import torch.distributed as dist
 
 from stormtpu_torch.config import default_config
-from stormtpu_torch.utils import download, resolve_device
+from stormtpu_torch.utils import download, profiling, resolve_device
 
 __all__ = [
     "Mesh",
@@ -55,10 +59,16 @@ __all__ = [
     "ppermute",
     "psum",
     "rank_device",
+    "ring_shift_",
+    "shift_stage",
 ]
 
 #: timeout of the groups this module starts itself
 GROUP_TIMEOUT_S = 600
+
+#: the largest staging buffer :func:`shift_stage` makes; it takes at most
+#: an eighth of the device memory free beside the buffer it shifts
+SHIFT_STAGE_MAX_BYTES = 1 << 30
 
 
 def rank_device(device=None) -> torch.device:
@@ -304,6 +314,72 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, shift: int) -> torch.Tensor
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return recv.to(x.device) if staged else recv
+
+
+def shift_stage(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The staging buffer of :func:`ring_shift_` for buffers shaped like
+    ``x``: a flat tensor of ``x``'s dtype, as long as every rank of the
+    line along ``axis`` can spare (an eighth of its free device memory, at
+    most :data:`SHIFT_STAGE_MAX_BYTES`, never more than ``x``), agreed by a
+    minimum over the line. It lies where the send leaves from: on the
+    device, or in page-locked host memory where gloo carries a CUDA
+    tensor. Every rank of the line must call it."""
+    ranks, group = mesh.lines[axis]
+    item = x.element_size()
+    elems = max(1, min(x.numel(), SHIFT_STAGE_MAX_BYTES // item))
+    if x.device.type == "cuda" and not _staged(mesh, x):
+        profiling.count("mem_queries")
+        free, _total = torch.cuda.mem_get_info(x.device)
+        elems = max(1, min(elems, free // 8 // item))
+    if len(ranks) > 1:
+        agreed = torch.tensor([elems], dtype=torch.int64,
+                              device="cpu" if mesh.backend == "gloo" else x.device)
+        dist.all_reduce(agreed, op=dist.ReduceOp.MIN, group=group)
+        elems = int(agreed.item())
+    if _staged(mesh, x):
+        return torch.empty(elems, dtype=x.dtype, pin_memory=True)
+    return torch.empty(elems, dtype=x.dtype, device=x.device)
+
+
+def ring_shift_(x: torch.Tensor, mesh: Mesh, axis: str, shift: int,
+                stage: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rotate the contiguous ``x`` along ``axis`` in place: afterwards it
+    holds what the rank ``shift`` places back held, as :func:`ppermute`
+    returns, and this rank's old contents are at the rank ``shift`` places
+    on. It moves a chunk of ``stage``'s length at a time: the chunk is
+    copied into ``stage``, sent from there, and the chunk from the other
+    side lands where it was. ``stage`` (default: :func:`shift_stage`) must
+    be as long on every rank of the line; its chunks need not divide
+    ``x``. On gloo a CUDA buffer's chunks go through page-locked host
+    memory. Returns ``x``."""
+    ranks, group = mesh.lines[axis]
+    r = len(ranks)
+    if shift % r == 0:
+        return x
+    if not x.is_contiguous():
+        raise ValueError("ring_shift_ rotates a contiguous buffer in place")
+    my = ranks.index(mesh.rank)
+    dst, src = ranks[(my + shift) % r], ranks[(my - shift) % r]
+    if stage is None:
+        stage = shift_stage(x, mesh, axis)
+    staged = _staged(mesh, x)
+    if stage.dtype != x.dtype or stage.device != (torch.device("cpu") if staged else x.device):
+        raise ValueError(f"the stage must be {x.dtype} where the send leaves from "
+                         f"(shift_stage), got {stage.dtype} on {stage.device}")
+    landing = torch.empty(stage.shape, dtype=stage.dtype, pin_memory=True) if staged else None
+    flat = x.view(-1)
+    c = stage.numel()
+    for a in range(0, flat.numel(), c):
+        part = flat[a : a + c]
+        send = stage[: part.numel()]
+        send.copy_(part)
+        recv = landing[: part.numel()] if staged else part
+        ops = [dist.P2POp(dist.isend, send, dst, group), dist.P2POp(dist.irecv, recv, src, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if staged:
+            part.copy_(recv)
+    return x
 
 
 def fetch_global(x_local: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) -> np.ndarray:

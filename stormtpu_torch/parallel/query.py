@@ -13,6 +13,12 @@ rank is O(N·k) (top-k) or one bit a pair (screens).
 - **Top-k** runs the full square ring: a row's best k says nothing about
   its column's, so there is no mirror to ship.
 
+The top-k's rows ring also takes a :class:`RowShard`: this rank's rows,
+already on its device, which the caller fills itself (the rows
+:func:`shard_rows` names), so that no process ever holds the whole panel.
+Its partner shard moves on in place (``mesh.ring_shift_``), so a rank
+holds two shards and a staging buffer, never three.
+
 Both offer the bits axis (``shard_axis="bits"``) on a 1-D mesh: each rank
 holds a word slice of every row, the K2-tri tiles of each chunk are summed
 over the ranks to the exact tiles, then screened (:func:`_kshard_hits`) or
@@ -23,7 +29,9 @@ before the ring bookkeeping.
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -39,6 +47,8 @@ from stormtpu_torch.parallel.mesh import (
     make_row_mesh,
     ppermute,
     psum,
+    ring_shift_,
+    shift_stage,
 )
 from stormtpu_torch.query import (
     _TILE_GROUP,
@@ -54,9 +64,56 @@ from stormtpu_torch.query import (
     _validate_screen,
     _word_summary,
 )
-from stormtpu_torch.utils import download, next_pow2, round_up
+from stormtpu_torch.utils import download, next_pow2, profiling, round_up
 
-__all__ = ["distributed_topk_neighbors", "distributed_pairs_above"]
+__all__ = ["RowShard", "distributed_topk_neighbors", "distributed_pairs_above", "shard_rows"]
+
+_stage = functools.partial(profiling.stage, "parallel")
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """One rank's rows of a row-sharded panel, already on its device: the
+    input form of :func:`distributed_topk_neighbors` for a panel no process
+    holds whole.
+
+    ``words``: int32 [rows, ⌈m_bits/32⌉] on the rank's device (the bit
+    view of the packed uint32 words), global rows ``row0`` … ``row0 +
+    rows``; ``n`` and ``m_bits``: the whole panel's rows and bits. Every
+    rank of the mesh passes its own: exactly the rows :func:`shard_rows`
+    names (those past ``n`` are padding, of any content)."""
+
+    words: torch.Tensor
+    row0: int
+    n: int
+    m_bits: int
+
+
+def _ring_geometry(n: int, m_bits: int, r: int, device, block_rows: Optional[int]):
+    """(block_rows, n_loc) of the rows ring: N padded to R·block_rows rows,
+    a rank's shard n_loc of them."""
+    if block_rows is None:
+        block_rows = _default_block_rows(m_bits, -(-n // r), device)
+    n_pad = round_up(max(n, r), r * block_rows)
+    return block_rows, n_pad // r
+
+
+def shard_rows(n: int, m_bits: int, mesh: Optional[Mesh] = None, *,
+               block_rows: Optional[int] = None, device=None) -> tuple[int, int]:
+    """The global rows [row0, row1) this rank holds in the rows ring of
+    :func:`distributed_topk_neighbors` over an N × ``m_bits`` panel on
+    ``mesh`` (default: :func:`make_row_mesh` on ``device``) with
+    ``block_rows`` (default: the entry point's own). Rows from ``n`` on
+    are padding: the last ranks' ranges run past ``n``, or lie wholly
+    past it. Fill a :class:`RowShard` with exactly these rows."""
+    if mesh is None:
+        mesh = make_row_mesh(device=device)
+    if len(mesh.axis_names) != 1:
+        raise ValueError("a RowShard lies on a 1-D row mesh")
+    axis = mesh.axis_names[0]
+    _, n_loc = _ring_geometry(n, m_bits, mesh.shape[axis], mesh.device, block_rows)
+    row0 = mesh.axis_index(axis) * n_loc
+    return row0, row0 + n_loc
 
 
 def _sharded_operands(bm, mesh: Mesh, n_pad: int):
@@ -100,38 +157,105 @@ def _ring_topk_local(mesh: Mesh, axis: str, r: int, n_loc: int, k: int, block_ro
     candidates a step and the top-k of (running ∪ new) loses nothing. Tie
     order may differ from the single-device form; values do not.
     ``psum_axis``: 2-D mesh — each count block is summed over the bits
-    axis, exactly, before the merge touches it."""
+    axis, exactly, before the merge touches it.
+
+    The partner shard takes one hop a step: the first into a second
+    buffer, the later ones in place through one staging buffer, so a rank
+    holds two shards at most. Spans: ``stpu.parallel.step`` (s),
+    ``.kernel``, ``.merge``, ``.collective`` (the hops); counters
+    ``ring_steps``, ``shift_bytes``, and on a card ``shift_device_us`` and
+    ``merge_device_us`` through ``clock`` (a ``profiling.DeviceClock``)."""
     kk = min(k, n_loc)
 
-    def local_fn(x_local: torch.Tensor):
+    def local_fn(x_local: torch.Tensor, clock: profiling.DeviceClock):
         dev = x_local.device
         my = mesh.axis_index(axis)
         buf = x_local
+        stage = None
         best_v = torch.full((n_loc, k), -1, dtype=torch.int32, device=dev)
         best_i = torch.zeros((n_loc, k), dtype=torch.int64, device=dev)
         lane = torch.arange(block_rows, device=dev)
         cols = torch.arange(n_loc, device=dev)
         for s in range(r):
-            c0 = ((my + s) % r) * n_loc
-            for b0 in range(0, n_loc, block_rows):
-                counts = count_block_auto(x_local[b0 : b0 + block_rows], buf).to(torch.int32)
-                if psum_axis is not None:
-                    counts = psum(counts, mesh, psum_axis)
-                row_g = lane + my * n_loc + b0
-                col_g = cols + c0
-                counts = counts.masked_fill(
-                    (row_g[:, None] == col_g[None, :]) | (col_g[None, :] >= n_real), -1)
-                v, i = torch.topk(counts, kk, dim=1)
-                cand_v = torch.cat([best_v[b0 : b0 + block_rows], v], dim=1)
-                cand_i = torch.cat([best_i[b0 : b0 + block_rows], i + c0], dim=1)
-                nv, sel = torch.topk(cand_v, k, dim=1)
-                best_v[b0 : b0 + block_rows] = nv
-                best_i[b0 : b0 + block_rows] = torch.gather(cand_i, 1, sel)
-            if s < r - 1:
-                buf = ppermute(buf, mesh, axis, -1)
+            with profiling.span("stpu.parallel.step", s):
+                c0 = ((my + s) % r) * n_loc
+                for b0 in range(0, n_loc, block_rows):
+                    with _stage("kernel", dev):
+                        counts = count_block_auto(x_local[b0 : b0 + block_rows], buf)
+                    if psum_axis is not None:
+                        with _stage("collective", dev):
+                            counts = psum(counts.to(torch.int32), mesh, psum_axis)
+                    with _stage("merge", dev), clock.time("merge_device_us"):
+                        row_g = lane + my * n_loc + b0
+                        col_g = cols + c0
+                        counts = counts.to(torch.int32).masked_fill(
+                            (row_g[:, None] == col_g[None, :]) | (col_g[None, :] >= n_real), -1)
+                        v, i = torch.topk(counts, kk, dim=1)
+                        cand_v = torch.cat([best_v[b0 : b0 + block_rows], v], dim=1)
+                        cand_i = torch.cat([best_i[b0 : b0 + block_rows], i + c0], dim=1)
+                        nv, sel = torch.topk(cand_v, k, dim=1)
+                        best_v[b0 : b0 + block_rows] = nv
+                        best_i[b0 : b0 + block_rows] = torch.gather(cand_i, 1, sel)
+                    del counts  # its memory serves the next block's kernel
+                if s < r - 1:
+                    with _stage("collective", dev), clock.time("shift_device_us"):
+                        if buf is x_local:
+                            buf = ppermute(x_local, mesh, axis, -1)
+                        else:
+                            if stage is None:
+                                stage = shift_stage(buf, mesh, axis)
+                            ring_shift_(buf, mesh, axis, -1, stage)
+                    profiling.count("shift_bytes", buf.numel() * buf.element_size())
+                profiling.count("ring_steps")
         return best_v, best_i.to(torch.int32)
 
     return local_fn
+
+
+def _ring_topk_job(x_local: torch.Tensor, mesh: Mesh, k: int, block_rows: int, n_loc: int,
+                   n_real: int):
+    """One whole rows-ring top-k over this rank's shard ``x_local`` (its
+    word slice on a 2-D mesh): the ring, then the all-gather of every
+    rank's rows. Returns host (vals, idx) [N, k] with masked (−1) entries
+    left in. Spans ``stpu.parallel.job`` (k, N, ranks) round it all and
+    ``stpu.parallel.collective`` round the all-gather."""
+    axis = mesh.axis_names[0]
+    r = mesh.shape[axis]
+    dev = x_local.device
+    clock = profiling.DeviceClock(dev)
+    with profiling.span("stpu.parallel.job", k, n_real, r):
+        vals_d, idx_d = _ring_topk_local(mesh, axis, r, n_loc, k, block_rows, n_real,
+                                         psum_axis=bit_axis_of(mesh))(x_local, clock)
+        with _stage("collective", dev):
+            vals = fetch_global(vals_d, mesh)[:n_real]
+            idx = fetch_global(idx_d, mesh)[:n_real]
+        # the downloads above waited for the device
+        clock.count()
+    return vals, idx
+
+
+def _shard_operand(shard: RowShard, mesh: Mesh, k: int, block_rows: Optional[int]):
+    """(x_local, block_rows, n_loc) of a :class:`RowShard`, checked against
+    the ring's geometry on ``mesh``."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError("a RowShard runs on a 1-D row mesh")
+    axis = mesh.axis_names[0]
+    if not 1 <= k < max(shard.n, 2):
+        raise ValueError(f"k must be in [1, N-1], got k={k}, N={shard.n}")
+    w = shard.words
+    words = -(-shard.m_bits // 32)
+    if w.dtype != torch.int32 or w.dim() != 2 or w.shape[1] != words:
+        raise ValueError(f"a RowShard's words are int32 [rows, {words}], got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    if w.device != mesh.device:
+        raise ValueError(f"this rank's shard lies on {w.device}, its mesh on {mesh.device}")
+    block_rows, n_loc = _ring_geometry(shard.n, shard.m_bits, mesh.shape[axis], mesh.device,
+                                       block_rows)
+    row0 = mesh.axis_index(axis) * n_loc
+    if shard.row0 != row0 or w.shape[0] != n_loc:
+        raise ValueError(f"this rank holds rows [{row0}, {row0 + n_loc}) of the ring "
+                         f"(shard_rows), got {w.shape[0]} rows from {shard.row0}")
+    return w.contiguous(), block_rows, n_loc
 
 
 def _ring_topk_measure_local(mesh: Mesh, axis: str, r: int, n_loc: int, kk: int,
@@ -240,7 +364,7 @@ def _kshard_tile_ids(bm, r: int):
 
 
 def distributed_topk_neighbors(
-    x: MatrixLike,
+    x: Union[MatrixLike, RowShard],
     k: int,
     *,
     mesh: Optional[Mesh] = None,
@@ -264,7 +388,21 @@ def distributed_topk_neighbors(
 
     ``shard_axis="bits"`` (1-D mesh, ≥ 128 words a rank): each rank's word
     slice, the K2-tri tiles summed before the merge; fewer words fall back
-    to the ring."""
+    to the ring.
+
+    ``x`` may be a :class:`RowShard`, this rank's rows on its device (each
+    rank passes its own; :func:`shard_rows` names them): the count top-k
+    on the rows ring of a 1-D mesh, which no rank then reads past its own
+    shard and the partner shard passing through. Every rank returns the
+    whole result, as from the host form."""
+    if isinstance(x, RowShard):
+        if mesh is None:
+            mesh = make_row_mesh(device=x.words.device if device is None else device)
+        if shard_axis != "rows" or measure != "count":
+            raise ValueError("a RowShard runs the count top-k on the rows ring "
+                             "(shard_axis='rows', measure='count')")
+        x_local, block_rows, n_loc = _shard_operand(x, mesh, k, block_rows)
+        return _reported(*_ring_topk_job(x_local, mesh, k, block_rows, n_loc, x.n))
     bm = _as_bitmatrix(x)
     if mesh is None:
         mesh = make_row_mesh(device=device)
@@ -302,19 +440,22 @@ def distributed_topk_neighbors(
             x_local, ibs, jbs, k=k, ti=ti, wk=wk, variant=default_config().k2_variant,
             n_real=bm.n, psum=lambda tiles: psum(tiles, mesh, axis))
         vals, idx = download(vals_d[: bm.n]), download(idx_d[: bm.n])
-    else:
-        if block_rows is None:
-            block_rows = _default_block_rows(bm.m_bits, -(-bm.n // r), mesh.device)
-        n_pad = round_up(max(bm.n, r), r * block_rows)
-        n_loc = n_pad // r
-        x_local, _, _ = _sharded_operands(bm, mesh, n_pad)
-        vals_d, idx_d = _ring_topk_local(mesh, axis, r, n_loc, k, block_rows, bm.n,
-                                         psum_axis=bit_axis_of(mesh))(x_local)
-        vals = fetch_global(vals_d, mesh)[: bm.n]
-        idx = fetch_global(idx_d, mesh)[: bm.n]
-    # a masked entry (−1) is ranked only where a row has fewer than k
-    # partners, that is at N = 1: it is reported as (0, 0), as the
-    # single-device form does
+        return _reported(vals, idx)
+    block_rows, n_loc = _ring_geometry(bm.n, bm.m_bits, r, mesh.device, block_rows)
+    if bit_axis_of(mesh) is None:
+        # the same shard a caller of the sharded form fills on its device
+        row0 = mesh.axis_index(axis) * n_loc
+        shard = RowShard(local_shard(bm.packed, (row0, row0 + n_loc), (0, bm.n_words),
+                                     mesh.device), row0, bm.n, bm.m_bits)
+        return distributed_topk_neighbors(shard, k, mesh=mesh, block_rows=block_rows)
+    x_local, _, _ = _sharded_operands(bm, mesh, n_loc * r)
+    return _reported(*_ring_topk_job(x_local, mesh, k, block_rows, n_loc, bm.n))
+
+
+def _reported(vals: np.ndarray, idx: np.ndarray):
+    """A masked entry (−1) is ranked only where a row has fewer than k
+    partners, that is at N = 1: it is reported as (0, 0), as the
+    single-device form does."""
     valid = vals >= 0
     return np.where(valid, vals, 0), np.where(valid, idx, 0)
 

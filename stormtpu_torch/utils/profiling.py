@@ -63,6 +63,7 @@ __all__ = [
     "Recording",
     "SpanRecord",
     "StageTimes",
+    "DeviceClock",
 ]
 
 # Spans one recording keeps; later ones are counted in ``dropped``.
@@ -314,6 +315,49 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
     count("h2d_bytes", t.numel() * t.element_size())
     with wait("upload"):
         return t.to(device)
+
+
+class _EventPair:
+    __slots__ = ("clock", "counter", "start")
+
+    def __init__(self, clock: "DeviceClock", counter: str):
+        self.clock, self.counter = clock, counter
+
+    def __enter__(self) -> "_EventPair":
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.clock.pairs.setdefault(self.counter, []).append((self.start, end))
+        return False
+
+
+class DeviceClock:
+    """Device time of chosen points of one job, as counters: each
+    :meth:`time` context records a pair of CUDA events round what it
+    encloses, and :meth:`count` adds each counter's summed µs to the open
+    recordings. It records only on a card and while the span points
+    record (inside :func:`record` or :func:`record_stages`, or under a
+    ``torch.profiler`` session), and it synchronises nothing itself: call
+    :meth:`count` where the host has waited for the device anyway."""
+
+    def __init__(self, device):
+        self.on = torch.device(device).type == "cuda" and bool(_live or _ap._is_profiler_enabled)
+        self.pairs: dict = {}
+
+    def time(self, counter: str):
+        """A context whose device time adds to the counter ``counter``."""
+        return _EventPair(self, counter) if self.on else _NOOP
+
+    def count(self) -> None:
+        for counter, pairs in self.pairs.items():
+            pairs[-1][1].synchronize()
+            us = 1e3 * sum(a.elapsed_time(b) for a, b in pairs)
+            count(counter, int(round(us)))
+        self.pairs = {}
 
 
 def synchronised() -> bool:

@@ -1231,6 +1231,33 @@ def test_parallel_one_rank_nccl_group_equals_the_oracle(cuda, case):
     assert launch_counts()[kernel] >= 1
 
 
+def test_sharded_topk_on_four_nccl_ranks(cuda):
+    """Four NCCL ranks, one a card: the top-k's sharded form (each rank's
+    ``RowShard`` made from its own rows on its card) equals the host form
+    and the oracle's counts, and the in-place ring shift equals
+    ``ppermute`` (a staging buffer of 1,000 elements over 3,003). The
+    group is killed past 300 s."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA cards (one NCCL rank a card)")
+    import torch_parallel_cases as cases
+
+    from stormtpu_torch.parallel.dryrun import run_group
+
+    out = run_group(4, "nccl", "cuda", cases.sharded_topk_group, timeout=300)
+    packed = cases.dense_packed(1000, 8192, 0.3, seed=17)
+    c = oracle_count_matrix(packed).astype(np.int64)
+    np.fill_diagonal(c, -1)
+    for rank, got in enumerate(out):
+        assert got["backend"] == "nccl" and got["shift_equal"], rank
+        for form in ("padded", "ones"):
+            for a, b in zip(got[form], got["host"]):
+                np.testing.assert_array_equal(a, b)
+        vals, idx = got["padded"]
+        np.testing.assert_array_equal(vals, -np.sort(-c, axis=1)[:, :9])
+        assert np.array_equal(np.take_along_axis(c, idx.astype(np.int64), axis=1), vals)
+        assert all(len(set(r)) == 9 for r in idx.tolist())
+
+
 # ------------------------------------------------ K2-topk and K2-hist
 def _epilogue_case(cuda, n, w, ti, wk, density, seed, order):
     """A padded operand on the card and a tile list: the upper triangle

@@ -2,7 +2,10 @@
 ``stormtpu.parallel`` on the CPU: the ring and bits-axis top-k (counts and
 certified measures), the triangular ring and bits-axis screens, the
 cross-set queries, row sums and the ring and stripe histograms, on 1-D
-meshes of 1, 2, 3, 4, 5 and 8 ranks and on 2×2 and 4×2 grids.
+meshes of 1, 2, 3, 4, 5 and 8 ranks and on 2×2 and 4×2 grids. The top-k's
+sharded form (each rank's ``RowShard``) against the host form, the JAX
+package and a plain float32 product of the unpacked bits; the in-place
+ring shift against ``ppermute``.
 
 As in ``test_torch_parallel.py``: one spawned group of 8 gloo ranks runs
 every case (``torch_parallel_cases.run_query``), and each case is one test
@@ -19,6 +22,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 import torch_parallel_cases as cases
 from stormtpu import parallel as jp
@@ -209,3 +213,88 @@ def test_queries_refuse_as_jax(ranks):
     # the JAX package bins with a zero width unchecked (a known reference
     # defect, ROADMAP §3); the port refuses it on every route
     assert errs["hist_width"] == "bin_width must be >= 1"
+
+
+# ------------------------------------------------------------ sharded form
+SHARDED_PAIRS = [(case, shape) for case, (_, shapes) in cases.SHARDED.items()
+                 for shape in shapes]
+SHARDED_ARGS = {"sharded_topk": ("topk", 5, 8), "sharded_k_past_shard": ("topk_small", 7, 4),
+                "sharded_k_max": ("topk_small", 20, 4), "sharded_default_blocks": ("topk_sparse", 8,
+                                                                                   None)}
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_counts(name):
+    """Exact counts as a float32 product of the unpacked bits (TF32 off),
+    plain torch: every sum is a whole number below 2**24."""
+    packed = _data()[name][0]
+    bits = torch.from_numpy(np.unpackbits(packed.view(np.uint8), axis=1,
+                                          bitorder="little").astype(np.float32))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return (bits @ bits.T).round().to(torch.int64).numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("case,shape", SHARDED_PAIRS, ids=[f"{c}-{s}" for c, s in SHARDED_PAIRS])
+def test_sharded_form_equals_host_form_jax_and_plain(ranks, case, shape):
+    got = ranks[0][(case, shape)]
+    name, k, block_rows = SHARDED_ARGS[case]
+    what = f"{case} on {shape}"
+    for form in ("padded", "ones"):
+        _equal(got[form], got["host"], f"{what} ({form} shard)")
+    vals, idx = got["padded"]
+    kw = {} if block_rows is None else {"block_rows": block_rows}
+    want = jp.distributed_topk_neighbors(_jbm(name), k, mesh=jp.make_row_mesh(8), **kw)
+    _equal(vals, want[0], what)
+    c = _plain_counts(name)
+    np.testing.assert_array_equal(c, _counts(name))
+    c_off = c.copy()
+    np.fill_diagonal(c_off, -1)
+    np.testing.assert_array_equal(vals, -np.sort(-c_off, axis=1)[:, :k], err_msg=what)
+    _valid_indices(c, vals, idx, what)
+    assert vals.dtype == np.int32 and idx.dtype == np.int32
+
+
+def test_sharded_form_is_the_same_on_every_rank(ranks):
+    for case, shape in SHARDED_PAIRS:
+        have = [rk for rk in range(cases.WORLD) if (case, shape) in ranks[rk]]
+        assert len(have) == int(shape[1:])
+        for rk in have[1:]:
+            _equal(ranks[rk][(case, shape)]["padded"], ranks[0][(case, shape)]["padded"],
+                   f"{case} {shape} rank {rk}")
+
+
+@pytest.mark.parametrize("shape", cases.SHAPES)
+def test_ring_shift_in_place_equals_ppermute(ranks, shape):
+    """Staging buffers of 7 and 4 elements (neither divides the 15 of the
+    buffer), of the whole buffer and as ``shift_stage`` sizes it; shifts
+    −1 and 2; on every rank of the mesh."""
+    for rk in range(cases.WORLD):
+        got = ranks[rk].get(("shifts", shape))
+        if got is None:
+            continue
+        r = int(shape[1:]) if shape.startswith("r") else int(shape[1:].split("x")[0])
+        line = rk if shape.startswith("r") else rk // int(shape.split("x")[1])
+        assert len(got) == 8
+        for (shift, c), (same, equal, arr) in got.items():
+            assert same and equal, (shape, rk, shift, c)
+            # the rank ``shift`` places back along the rows axis sent it
+            src = (line - shift) % r
+            src_rank = src if shape.startswith("r") else src * int(shape.split("x")[1]) + (
+                rk % int(shape.split("x")[1]))
+            assert np.array_equal(arr, np.arange(15).reshape(5, 3) + 100 * src_rank)
+
+
+def test_sharded_form_refuses_a_wrong_shard(ranks):
+    errs = ranks[0][("sharded_errors", "world")]
+    assert errs["row0"] == "this rank holds rows [0, 4) of the ring (shard_rows), got 4 rows from 1"
+    assert errs["rows"] == "this rank holds rows [0, 4) of the ring (shard_rows), got 5 rows from 0"
+    assert errs["words"] == "a RowShard's words are int32 [rows, 16], got torch.int32 (4, 15)"
+    assert errs["measure"].startswith("a RowShard runs the count top-k on the rows ring")
+    assert errs["k"] == "k must be in [1, N-1], got k=21, N=21"
+    assert errs["strided"] == "ring_shift_ rotates a contiguous buffer in place"
+    assert errs["stage"] == ("the stage must be torch.int32 where the send leaves from "
+                             "(shift_stage), got torch.float32 on cpu")

@@ -384,10 +384,138 @@ def _query_errors(device) -> dict:
     return out
 
 
+def _row_shard(mesh, d, name, block_rows, fill: int = 0):
+    """This rank's :class:`RowShard` of ``d[name]``, made from its own rows
+    only (:func:`shard_rows`'s range), its padding rows ``fill``."""
+    import torch
+
+    from stormtpu_torch.parallel import RowShard, shard_rows
+
+    packed, m = d[name]
+    n = packed.shape[0]
+    row0, row1 = shard_rows(n, m, mesh, block_rows=block_rows)
+    real = packed[min(row0, n) : min(row1, n)]
+    words = np.full((row1 - row0, packed.shape[1]), fill, np.uint32)
+    words[: real.shape[0]] = real
+    return RowShard(torch.from_numpy(words.view(np.int32)).to(mesh.device), row0, n, m)
+
+
+def _sharded_topk(name, k, block_rows=None):
+    """The sharded form, its padding rows zero and all ones (padding of any
+    content is never ranked), beside the host form on the same mesh."""
+    def fn(mesh, d):
+        from stormtpu_torch.parallel import distributed_topk_neighbors
+
+        got = [distributed_topk_neighbors(_row_shard(mesh, d, name, block_rows, fill), k,
+                                          mesh=mesh, block_rows=block_rows)
+               for fill in (0, 0xFFFFFFFF)]
+        host = distributed_topk_neighbors(bitmatrix(d, name), k, mesh=mesh,
+                                          block_rows=block_rows)
+        return {"padded": got[0], "ones": got[1], "host": host}
+
+    return fn
+
+
+#: the sharded form: N not a multiple of R·block (at R = 5 and 8 the last
+#: ranks' shards are all padding), k above a shard's rows, k = N − 1
+SHARDED = {
+    "sharded_topk": (_sharded_topk("topk", 5, block_rows=8), ALL_1D),
+    "sharded_k_past_shard": (_sharded_topk("topk_small", 7, block_rows=4), ALL_1D),
+    "sharded_k_max": (_sharded_topk("topk_small", 20, block_rows=4), ("r3", "r8")),
+    "sharded_default_blocks": (_sharded_topk("topk_sparse", 8), ("r2", "r5")),
+}
+
+
+def _shifts(mesh, d):
+    """``ring_shift_`` beside ``ppermute`` on a 5 × 3 buffer: staging
+    buffers of 7 and 4 elements (neither divides 15), of the whole buffer,
+    and the one :func:`shift_stage` sizes; shifts −1 and 2."""
+    import torch
+
+    from stormtpu_torch.parallel.mesh import ppermute, ring_shift_, shift_stage
+
+    axis = mesh.axis_names[0]
+    x = torch.arange(15, dtype=torch.int32).reshape(5, 3) + 100 * mesh.rank
+    out = {}
+    for shift in (-1, 2):
+        want = ppermute(x, mesh, axis, shift)
+        for c in (7, 4, 15, None):
+            stage = shift_stage(x, mesh, axis) if c is None else torch.empty(c, dtype=x.dtype)
+            buf = x.clone()
+            got = ring_shift_(buf, mesh, axis, shift, stage)
+            out[(shift, c)] = (got is buf, bool(torch.equal(got, want)), got.numpy().copy())
+    return out
+
+
+def _sharded_errors(device) -> dict:
+    import torch
+
+    from stormtpu_torch.parallel import RowShard, distributed_topk_neighbors, make_row_mesh
+    from stormtpu_torch.parallel.mesh import ring_shift_
+
+    mesh = make_row_mesh(device=device)
+    d = data()
+    good = _row_shard(mesh, d, "topk_small", 4)
+    out = {}
+    for key, call in (
+        ("row0", lambda: distributed_topk_neighbors(
+            RowShard(good.words, good.row0 + 1, good.n, good.m_bits), 3, mesh=mesh,
+            block_rows=4)),
+        ("rows", lambda: distributed_topk_neighbors(
+            RowShard(torch.cat([good.words, good.words[:1]]), good.row0, good.n, good.m_bits),
+            3, mesh=mesh,
+            block_rows=4)),
+        ("words", lambda: distributed_topk_neighbors(
+            RowShard(good.words[:, :-1], good.row0, good.n, good.m_bits), 3, mesh=mesh,
+            block_rows=4)),
+        ("measure", lambda: distributed_topk_neighbors(good, 3, mesh=mesh, block_rows=4,
+                                                       measure="jaccard")),
+        ("k", lambda: distributed_topk_neighbors(good, good.n, mesh=mesh, block_rows=4)),
+        ("strided", lambda: ring_shift_(torch.zeros(4, 6)[:, ::2], mesh,
+                                        mesh.axis_names[0], 1)),
+        ("stage", lambda: ring_shift_(torch.zeros(4, 6, dtype=torch.int32), mesh,
+                                      mesh.axis_names[0], 1, torch.empty(5))),
+    ):
+        try:
+            call()
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
+    return out
+
+
 def run_query(device) -> dict:
     out = _run(device, QUERY)
+    out.update(_run(device, SHARDED))
+    out.update(_run(device, {"shifts": (_shifts, ALL_1D + ALL_2D)}))
     out[("errors", "world")] = _query_errors(device)
+    out[("sharded_errors", "world")] = _sharded_errors(device)
     return out
+
+
+def sharded_topk_group(device) -> dict:
+    """Four ranks of a group, one a card (``run_group(4, "nccl",
+    "cuda", ...)``): the sharded form over a 1,000 × 8,192-bit panel, the
+    host form, and the in-place shift beside ``ppermute``, on the cards."""
+    import torch
+
+    from stormtpu_torch.parallel import make_row_mesh
+    from stormtpu_torch.parallel.mesh import ppermute, ring_shift_
+
+    mesh = make_row_mesh(device=device)
+    d = {"panel": (dense_packed(1000, 8192, 0.3, seed=17), 8192)}
+    got = _sharded_topk("panel", 9)(mesh, d)
+    axis = mesh.axis_names[0]
+    x = torch.arange(3 * 1001, dtype=torch.int32, device=mesh.device).reshape(3, 1001)
+    x += 10**6 * mesh.rank
+    want = ppermute(x, mesh, axis, -1)
+    # gloo carries a card's tensor through page-locked host memory
+    stage = (torch.empty(1000, dtype=x.dtype, pin_memory=True) if mesh.backend == "gloo"
+             else torch.empty(1000, dtype=x.dtype, device=mesh.device))
+    shifted = ring_shift_(x.clone(), mesh, axis, -1, stage)
+    got["shift_equal"] = bool(torch.equal(shifted, want))
+    got["backend"] = mesh.backend
+    return got
 
 
 # ----------------------------------------------------------------- multihost
