@@ -226,7 +226,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     BASELINE.json config 2 (1,000 x 65,536 bits) and
     ``intersect_count_matrix`` launching K2-tri, equal to numpy's matrix;
     and each ``examples/torch_*.py`` as a subprocess on the card, all
-    started together, each exiting 0 with its closing line.
+    started together, each exiting 0 with its closing line;
+36. (run right after phase 2) K2-rect past one 128-row sub-tile row of A,
+    on the TMA body: ``count_block_pallas_mxu`` at Na 129, 200, 256, 384,
+    512 against Nb 1, 255, 257, 4,099 at W 4, 36 and 8,192 words, both
+    operands row views at an offset (as the rows ring's
+    ``x_local[b0:b0 + 256]``), each equal to the plain version exactly; one
+    launch a call, taken as it is (``rect_unpadded``), and ``rect_shared_b``
+    counted on the launches in clusters of two (even sub-tile row counts)
+    and on no other. Then the ring's block of config 5 at its size (256
+    against 250,112 rows of 32,768 words, a 32.8-GB shard made on the card,
+    both row views): one launch in clusters of two, equal to the plain
+    version over every chunk of 8,192 B rows.
 
 Phases 20-28 print each call's wall time and a ``[breakdown]`` of its
 stages (K2 by CUDA events, the screen, merge and bin passes, the summary
@@ -319,6 +330,15 @@ CFG3_R2 = 5e-5          # phase 27's r2 screen: pairs that share a bit
 CFG4_BINS, CFG4_TAIL_SD = 64, 5.5
 CFG4_TOPK_K, CFG4_TOPK_ROWS = 8, 256
 CFG4_HOST_FACTOR = 2    # host bytes phase 24 needs per byte of its packed matrix
+# phase 36: K2-rect on the TMA body (A past one 128-row sub-tile row)
+RECT_TMA_NA = (129, 200, 256, 384, 512)
+RECT_TMA_NB = (1, 255, 257, 4099)
+RECT_TMA_W = (4, 36, 8192)
+# and the rows ring's block of config 5 at its size: query rows, shard rows,
+# words (a 32.8-GB B operand), held to the plain version over chunks of
+# RECT_RING_PLAIN rows and words
+RECT_RING_BLOCK = (256, 250_112, 32_768)
+RECT_RING_PLAIN = (8192, 4096)
 # phase 29: the block kernels' crossover, K2-rect against the plain int8 product
 CROSS_ROWS, CROSS_BITS = 4096, (1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 17)
 # phase 30: a PLINK trio of the 1000 Genomes phase 3 cohort's size
@@ -433,6 +453,74 @@ def exact_diff(torch, got, want) -> int:
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()) if got.numel() else 0
     if err:
         raise AssertionError(f"kernel differs from its plain version by up to {err}")
+    return err
+
+
+def rect_tma_phase(torch, dev, rng) -> int:
+    """Phase 36: K2-rect's TMA form at ragged shapes against the plain
+    version; returns the largest difference (0, or it raises)."""
+    from stormtpu_torch.kernels import launch_counts, mxu, reset_launches
+    from stormtpu_torch.layout import to_device_words
+    from stormtpu_torch.utils import profiling
+
+    err, shared, calls = 0, 0, 0
+    na_max, nb_max = max(RECT_TMA_NA), max(RECT_TMA_NB)
+    for w in RECT_TMA_W:
+        a = to_device_words(rng.integers(0, 1 << 32, (na_max + 5, w), dtype=np.uint32),
+                            dev)[3 : 3 + na_max]
+        b = to_device_words(rng.integers(0, 1 << 32, (nb_max + 7, w), dtype=np.uint32),
+                            dev)[5 : 5 + nb_max]
+        want = mxu.count_block_plain(a, b, tile_words=min(w, 1024))
+        for na in RECT_TMA_NA:
+            for nb in RECT_TMA_NB:
+                reset_launches()
+                with profiling.record() as rec:
+                    got = mxu.count_block_pallas_mxu(a[:na], b[:nb])
+                err = max(err, exact_diff(torch, got, want[:na, :nb]))
+                paired = int(mxu.rect_cluster(na) == 2)
+                if (launch_counts()["k2_rect"], rec.counters.get("rect_unpadded", 0),
+                        rec.counters.get("rect_shared_b", 0)) != (1, 1, paired):
+                    raise AssertionError(f"K2-rect {na} x {nb} x {w}: launches "
+                                         f"{launch_counts()['k2_rect']}, counters {rec.counters}")
+                shared += paired
+                calls += 1
+        del a, b, want, got
+        torch.cuda.empty_cache()
+    print(f"[rect tma] K2-rect at Na {RECT_TMA_NA} x Nb {RECT_TMA_NB} x W {RECT_TMA_W} words, "
+          f"row views taken as they are: {calls} calls exact, {shared} in clusters of two "
+          f"(rect_shared_b), the rest clusters of one")
+
+    # the ring's block: x_local[b0:b0 + 256] of one shard against another
+    # rank's whole shard, both views at a row offset, made on the card
+    na, nb, w = RECT_RING_BLOCK
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    x_local = torch.empty((na + 1024, w), dtype=torch.int32, device=dev)
+    shard = torch.empty((nb + 8, w), dtype=torch.int32, device=dev)
+    for x in (x_local, shard):
+        x.random_(-(1 << 31), 1 << 31, generator=gen)
+    a, b = x_local[512 : 512 + na], shard[4 : 4 + nb]
+    reset_launches()
+    t0 = time.perf_counter()
+    with profiling.record() as rec:
+        got = mxu.count_block_pallas_mxu(a, b)
+        torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    if (launch_counts()["k2_rect"], rec.counters.get("rect_unpadded", 0),
+            rec.counters.get("rect_shared_b", 0)) != (1, 1, int(mxu.rect_cluster(na) == 2)):
+        raise AssertionError(f"K2-rect {na} x {nb} x {w}: launches "
+                             f"{launch_counts()['k2_rect']}, counters {rec.counters}")
+    rows, words = RECT_RING_PLAIN
+    for r0 in range(0, nb, rows):
+        want = mxu.count_block_plain(a, b[r0 : r0 + rows], tile_words=words)
+        err = max(err, exact_diff(torch, got[:, r0 : r0 + rows], want))
+    print(f"[rect tma] the ring block {na} x {nb} x {w} words (row views at offsets 512 and 4; "
+          f"B {4 * nb * w / 1e9:.1f} GB): one launch in clusters of "
+          f"{mxu.rect_cluster(na)} (rect_shared_b {rec.counters.get('rect_shared_b', 0)}), "
+          f"{call_s * 1e3:.1f} ms the first call, equal to the plain version over all "
+          f"{-(-nb // rows)} chunks of {rows} B rows")
+    del x_local, shard, a, b, got, want
+    torch.cuda.empty_cache()
     return err
 
 
@@ -3081,6 +3169,10 @@ def main(argv=None) -> int:
                    random_words(rng, MID_N, MID_M, density))
     check_both(f"all-ones N={ALL_ONES_N} M={ALL_ONES_M}",
                random_words(rng, ALL_ONES_N, ALL_ONES_M, 1.0), expect_all=ALL_ONES_M)
+    # 36: K2-rect's TMA form at ragged shapes (its own generator: the later
+    # phases draw what they drew before)
+    max_err["k2_rect"] = max(max_err["k2_rect"],
+                             rect_tma_phase(torch, dev, np.random.default_rng(args.seed + 36)))
 
     # --------------------------------------------------------- 3 main path
     words = rng.integers(0, 1 << 32, size=(MAIN_N, MAIN_M // 32), dtype=np.uint32)
@@ -3258,13 +3350,19 @@ def main(argv=None) -> int:
     na_pad, nb_pad = ap.shape[0], bp.shape[0]
     bounds = k2_bounds(2.0 * na_pad * nb_pad * w_pad * 32,
                        4.0 * ((na_pad + nb_pad) * w_pad + na_pad * nb_pad))
+    # the kernel the shape rule launches at this Na: the TMA body's
+    # k2_rect_tma_kernel<cluster>, or the cp.async body's at one sub-tile row
+    rect_c = mxu.rect_cluster(na_pad)
+    rect_kernel = f"k2_rect_tma_kernel<{rect_c}>" if rect_c else "k2_rect_kernel<B1Wgmma>"
+    rect_regs = (registers("k2_rect_tma_kernel", f"ILi{rect_c}E") if rect_c
+                 else regs["now"]["k2_rect"])
     timings["k2_rect"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
                               previous_body_ms=old_ms, card_route_ms=route_ms,
-                              registers=regs["now"]["k2_rect"], **bounds)
+                              launch_kernel=rect_kernel, registers=rect_regs, **bounds)
     print(f"[timing] k2_rect card route (count_block_pallas_mxu) {ad.shape[0]} x "
           f"{bd.shape[0]} W={ad.shape[1]}, unpadded: {route_ms:.3f} ms")
     print(f"[timing] k2_rect tile-padded form {na_pad} x {nb_pad} W_pad={w_pad}: kernel {kern_ms:.3f} ms "
-          f"({regs['now']['k2_rect']} registers a thread), previous body "
+          f"({rect_kernel}, {rect_regs} registers a thread), previous body "
           f"{old_ms:.3f} ms ({regs['previous']['k2_rect']} registers), "
           f"plain {plain_ms:.3f} ms, _int_mm on unpacked int8 {lib_ms:.3f} ms, "
           f"bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, {bounds['bound_rate']}; "

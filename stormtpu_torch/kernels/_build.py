@@ -44,6 +44,7 @@ SOURCES = {
         "k2_sub_tiles_prev": ((_I,), _I),
         "k2_tri_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
         "k2_rect_launch": ((_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP), _I),
+        "k2_rect_tma_launch": ((_VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP), _I),
         "k5_launch": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _LL, _VP), _I),
         # the previous tile body, for timing beside the one above
         "k2_tri_launch_prev": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),

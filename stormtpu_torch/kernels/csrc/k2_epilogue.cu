@@ -466,8 +466,10 @@ struct HistKernel {
 template <class Kernel, class... Args>
 int launch_by_shape(int ti, dim3 grid, void* stream, Args... args) {
   if (epi_cluster(ti) == 2)
-    return launch_cluster<B1WgmmaTma<2>, 2>(Kernel::template of<2>(), grid, stream, args...);
-  return launch_cluster<B1WgmmaTma<1>, 1>(Kernel::template of<1>(), grid, stream, args...);
+    return launch_cluster<B1WgmmaTma<2>>(Kernel::template of<2>(), grid, dim3(1, 2, 1), stream,
+                                         args...);
+  return launch_cluster<B1WgmmaTma<1>>(Kernel::template of<1>(), grid, dim3(1, 1, 1), stream,
+                                       args...);
 }
 
 }  // namespace

@@ -39,6 +39,16 @@
 //    zero bits add nothing), so one loader serves every tile size and K5's
 //    K-groups; a tensor map per operand (TMA) would save the address
 //    arithmetic but not the L2 traffic that sets the pace.
+//  - K2-rect at more than one 128-row sub-tile row of A (Na > 128: the
+//    rows ring's blocks of 256 query rows against a 250,112-row shard) runs
+//    on tile::B1WgmmaTma instead (csrc/tile_body_tma.cuh): there the blocks
+//    of every A sub-tile row read the same B tile, and in the cp.async
+//    form's order (B tile fastest) a B tile's two readers run a whole pass
+//    over B apart, so the shard came from device memory once per sub-tile
+//    row. The TMA form lays the blocks of one B tile next to each other and
+//    pairs sub-tile rows 2q, 2q + 1 in a cluster that multicasts the B rows
+//    into both (k2_rect_tma_kernel below). Na <= 128 (the lookups' 64 query
+//    rows: one sub-tile row, nothing to share) keeps the cp.async form.
 //  - The tile body (tile::B1Wgmma in csrc/tile_body.cuh, which K1 shares)
 //    is 128 x 256 a block, the widest tile whose sums fit the registers:
 //    two warpgroups, each issuing wgmma.m64n256k256 with both operands read
@@ -63,7 +73,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "tile_body.cuh"
+#include "tile_body_tma.cuh"
 
 namespace {
 
@@ -476,6 +486,43 @@ int rect_launch(const void* a, const void* b, void* out, long long na,
                       static_cast<int64_t>(w), static_cast<int64_t>(ldo));
 }
 
+// Rectangular form on the TMA body, A sub-tile fastest: block x is sub-tile
+// row x % nsub_m of A against B tile x / nsub_m, so the blocks that read
+// one B tile are neighbours in launch order, and with CLUSTER = 2 (nsub_m
+// even) sub-tile rows 2q, 2q + 1 form a cluster that loads the tile's B rows
+// once, each block half of them multicast into both. A and B each have
+// their own tensor map, whose zero fill stands in for the rows past na or
+// nb and the words past w; the store masks them as k2_rect_kernel's does.
+template <int CLUSTER>
+__global__ void __launch_bounds__(B1WgmmaTma<CLUSTER>::THREADS, 1)
+    k2_rect_tma_kernel(__grid_constant__ const CUtensorMap map_a,
+                       __grid_constant__ const CUtensorMap map_b, int* __restrict__ out,
+                       int64_t na, int64_t nb, int64_t w, int64_t ldo, int nsub_m) {
+  using Body = B1WgmmaTma<CLUSTER>;
+  extern __shared__ __align__(1024) uint32_t smem_dyn[];
+  const int64_t ra = static_cast<int64_t>(blockIdx.x % nsub_m) * Body::BM;
+  const int64_t rb = static_cast<int64_t>(blockIdx.x / nsub_m) * Body::BN;
+  const int chunks = static_cast<int>((w + KW - 1) / KW);
+  // w >= 1 (the launcher refuses less). Told so, the compiler drops the
+  // loop's zero-trip path, whose zeroed sums ptxas took for writes inside
+  // the product pipeline: it then waited for each product before issuing
+  // the next (C7515, "wgmma serialized"): 0.7 ms of a ring block's 13 on an
+  // H100.
+  __builtin_assume(chunks > 0);
+  Body::init(smem_dyn);
+  if (Body::is_producer()) {
+    Body::produce(&map_a, &map_b, smem_dyn, chunks, static_cast<int>(ra),
+                  static_cast<int>(rb));
+  } else {
+    typename Body::Acc acc;
+    Body::consume(acc, smem_dyn, chunks);
+    const int a_rows = static_cast<int>(min(static_cast<int64_t>(Body::BM), na - ra));
+    const int b_rows = static_cast<int>(min(static_cast<int64_t>(Body::BN), nb - rb));
+    B1Wgmma::store(acc, a_rows, b_rows, out + ra * ldo + rb, ldo);
+    Body::finish();
+  }
+}
+
 // packed: int32/uint32 [n_pad, w]; ibs, jbs: int32 [t]; out: int32 [t, ti, ti].
 template <class Body>
 int tri_launch(const void* packed, const void* ibs, const void* jbs, void* out,
@@ -507,6 +554,36 @@ int k2_tri_launch(const void* packed, const void* ibs, const void* jbs,
 int k2_rect_launch(const void* a, const void* b, void* out, long long na,
                    long long nb, long long w, long long ldo, void* stream) {
   return rect_launch<B1Wgmma>(a, b, out, na, nb, w, ldo, stream);
+}
+
+// The same on the TMA body, in clusters of `cluster` blocks (kernels/mxu.py's
+// rect_cluster(na) says which: 1, or 2 when ceil(na / 128) is even).
+// Refuses (cudaErrorInvalidValue, nothing launched) what TMA does not take:
+// a base not 16-byte aligned, w % 4 != 0, a row coordinate or a block count
+// past int32; and another cluster, an ldo that is odd or leaves no spare
+// column for an odd nb.
+int k2_rect_tma_launch(const void* a, const void* b, void* out, long long na,
+                       long long nb, long long w, long long ldo, int cluster,
+                       void* stream) {
+  using Tma = B1WgmmaTma<1>;
+  const long long nsub_m = (na + Tma::BM - 1) / Tma::BM;
+  const long long nsub_n = (nb + Tma::BN - 1) / Tma::BN;
+  if (na < 1 || nb < 1 || (cluster != 1 && cluster != 2) || nsub_m % cluster ||
+      na + Tma::BM >= (1ll << 31) || nb + Tma::BN >= (1ll << 31) || w + KW >= (1ll << 31) ||
+      nsub_m * nsub_n >= (1ll << 31) || ldo % 2 || ldo < nb + nb % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_b;
+  if (const int e = encode_operand_map(&map_a, a, na, w)) return e;
+  if (const int e = encode_operand_map(&map_b, b, nb, w)) return e;
+  const dim3 grid(static_cast<unsigned>(nsub_m * nsub_n));
+  auto* const o = static_cast<int*>(out);
+  const int64_t na_ = na, nb_ = nb, w_ = w, ldo_ = ldo;
+  const int m = static_cast<int>(nsub_m);
+  if (cluster == 2)
+    return launch_cluster<B1WgmmaTma<2>>(k2_rect_tma_kernel<2>, grid, dim3(2, 1, 1), stream,
+                                         map_a, map_b, o, na_, nb_, w_, ldo_, m);
+  return launch_cluster<B1WgmmaTma<1>>(k2_rect_tma_kernel<1>, grid, dim3(1, 1, 1), stream,
+                                       map_a, map_b, o, na_, nb_, w_, ldo_, m);
 }
 
 // packed: int32/uint32 [n_pad, w]; ibs, jbs, gsel: int32 [t_work]; units:

@@ -1,4 +1,5 @@
-// The tile body of K2-topk and K2-hist (csrc/k2_epilogue.cu): the sums of
+// The tile body of K2-topk and K2-hist (csrc/k2_epilogue.cu) and of K2-rect
+// at more than one 128-row sub-tile row of A (csrc/k2_mxu.cu): the sums of
 // tile::B1Wgmma (csrc/tile_body.cuh), exact popcount(A_row AND B_row) of
 // packed bit rows on the tensor cores' binary product, with a main loop
 // built for Hopper's copy engine instead of the threads' cp.async.
@@ -43,7 +44,9 @@
 //    + si pairs si = 2q, 2q + 1 of one sj); an odd nsub_m (ti <= 128 gives
 //    one) launches clusters of one, whose block loads all of its B rows.
 //    Both are instances of one template; neither is a fallback for the
-//    other (k2_epilogue.cu's launchers).
+//    other (k2_epilogue.cu's launchers). K2-rect lays its blocks out the
+//    same way over its A sub-tile rows (k2_mxu.cu), and reads A and B
+//    through a map each (produce's two-map form).
 //
 // Host side: the launcher encodes the map with cuTensorMapEncodeTiled,
 // reached through the runtime's driver entry point (no link against the
@@ -191,9 +194,9 @@ struct B1WgmmaTma {
                 "the rebalanced registers fit the SM");
   static_assert(BM == BOX_ROWS && BN == 2 * BOX_ROWS, "A is one box, B two");
 
-  struct Acc {
-    int v[BN / 2];
-  };
+  // B1Wgmma's accumulators, so that its store writes these sums too
+  using Acc = B1Wgmma::Acc;
+  static_assert(B1Wgmma::BM == BM && B1Wgmma::BN == BN, "one accumulator layout");
 
   static __device__ __forceinline__ uint32_t full_bar(uint32_t base, int s) {
     return base + RING_BYTES + s * 8;
@@ -225,10 +228,20 @@ struct B1WgmmaTma {
   // rows row_b.. of `map`, then the exit barrier.
   static __device__ __forceinline__ void produce(const CUtensorMap* map, uint32_t* smem,
                                                  int n, int row_a, int row_b) {
+    produce(map, map, smem, n, row_a, row_b);
+  }
+
+  // The same with A's rows from map_a and B's from map_b.
+  static __device__ __forceinline__ void produce(const CUtensorMap* map_a,
+                                                 const CUtensorMap* map_b, uint32_t* smem,
+                                                 int n, int row_a, int row_b) {
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == CONSUMERS) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map_a))
                    : "memory");
+      if (map_b != map_a)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map_b))
+                     : "memory");
       const uint32_t base = smem_u32(smem);
       const uint32_t half = CLUSTER == 2 ? cluster_rank() : 0u;
       for (int f = 0; f < n; ++f) {
@@ -240,13 +253,13 @@ struct B1WgmmaTma {
         const uint32_t bar = full_bar(base, s);
         const int col = f * KW;
         mbar_arrive_expect_tx(bar, STAGE_BYTES);
-        tma_load(st, map, bar, col, row_a);
+        tma_load(st, map_a, bar, col, row_a);
         if constexpr (CLUSTER == 2) {
           const uint32_t off = (BM + half * BOX_ROWS) * ROW_BYTES;
-          tma_load_multicast(st + off, map, bar, col, row_b + half * BOX_ROWS, 0x3);
+          tma_load_multicast(st + off, map_b, bar, col, row_b + half * BOX_ROWS, 0x3);
         } else {
-          tma_load(st + BM * ROW_BYTES, map, bar, col, row_b);
-          tma_load(st + BM * ROW_BYTES + BOX_BYTES, map, bar, col, row_b + BOX_ROWS);
+          tma_load(st + BM * ROW_BYTES, map_b, bar, col, row_b);
+          tma_load(st + BM * ROW_BYTES + BOX_BYTES, map_b, bar, col, row_b + BOX_ROWS);
         }
       }
     }
@@ -342,19 +355,20 @@ inline int encode_operand_map(CUtensorMap* map, const void* packed, int64_t rows
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launch `kernel` in clusters of (1, CLUSTER, 1) blocks of Body::THREADS
-// threads and Body::SMEM_BYTES of dynamic shared memory.
-template <class Body, int CLUSTER, class... KArgs, class... Args>
-int launch_cluster(void (*kernel)(KArgs...), dim3 grid, void* stream, Args... args) {
+// Launch `kernel` in clusters of `cluster` blocks of Body::THREADS threads
+// and Body::SMEM_BYTES of dynamic shared memory.
+template <class Body, class... KArgs, class... Args>
+int launch_cluster(void (*kernel)(KArgs...), dim3 grid, dim3 cluster, void* stream,
+                   Args... args) {
   cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        Body::SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = CLUSTER;
-  attr[0].val.clusterDim.z = 1;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(Body::THREADS);

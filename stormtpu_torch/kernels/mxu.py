@@ -45,7 +45,8 @@ main loop (``csrc/tile_body_tma.cuh``: TMA loads, a producer warpgroup,
 and clusters of two blocks sharing their B rows by multicast); their
 ``previous_body=True`` launches their previous kernels, on K2-tri's loop.
 That argument is for measurement scripts only; nothing in the package
-sets it.
+sets it. K2-rect takes the same TMA loop when A has more than one 128-row
+sub-tile row, by the shape rule :func:`rect_cluster`.
 
 Exactness: products are 0/1 and sums are int32, exact for M < 2³¹
 (``EngineConfig.validate``). ``variant`` ("concat" or "planes") selects
@@ -92,6 +93,7 @@ __all__ = [
     "count_block_plain",
     "count_block_pallas_mxu",
     "rect_operand",
+    "rect_cluster",
     "count_matrix_pallas_mxu",
     "reset_launches",
 ]
@@ -116,6 +118,11 @@ EPI_BLOCK = (128, 256)
 # pitch is the same multiple, which keeps the int2 stores aligned and gives
 # an odd Nb's last store a column to spare.
 RECT_WORD_ALIGN = 4
+# The A rows of one K2-rect block (a sub-tile row), on every body: the grid
+# limit and the shape rule (:func:`rect_cluster`) count in them.
+RECT_BLOCK_ROWS = 128
+# Blocks a launch may stack along A on the cp.async body (CUDA's grid.y).
+_RECT_MAX_SUB_ROWS = 65535
 
 # Dispatch routes of a reduction over K2-tri's tiles, by the names that
 # ``utils.profiling.record_stages`` records (and ``routes.<name>`` counts)
@@ -476,23 +483,46 @@ def count_tiles_pallas_mxu(
     return out
 
 
+def rect_cluster(na: int) -> int:
+    """K2-rect's shape rule, by the A operand's row count alone: 0, the
+    ``cp.async`` body (``k2_rect_launch``), when A is one sub-tile row of
+    ``RECT_BLOCK_ROWS`` (Na ≤ 128: nothing to share, and the lookups'
+    panel already streams once); else the cluster of the TMA body
+    (``k2_rect_tma_launch``), whose blocks of one B tile run side by side:
+    2 when A has an even number of sub-tile rows (rows 2q, 2q + 1 load each
+    B tile once, multicast into both), else 1."""
+    sub_rows = -(-na // RECT_BLOCK_ROWS)
+    if sub_rows <= 1:
+        return 0
+    return 2 if sub_rows % 2 == 0 else 1
+
+
 def _rect_launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
                  previous_body: bool) -> None:
     """Launch K2-rect: counts of card operands a [Na, W] and b [Nb, W]
-    (contiguous, 16-byte aligned int32, W % 4 == 0) into ``out``'s first Nb
-    columns; ``out`` is int32 [Na, ldo], contiguous, ldo even and past Nb
-    when Nb is odd (the kernel's int2 stores)."""
+    (contiguous, 16-byte aligned int32, W % 4 == 0; raises otherwise) into
+    ``out``'s first Nb columns; ``out`` is int32 [Na, ldo], contiguous, ldo
+    even and past Nb when Nb is odd (the kernel's int2 stores). The body is
+    :func:`rect_cluster`'s (``previous_body``: the int8 one); a launch in
+    clusters of two counts ``rect_shared_b``."""
     na, w = a.shape
-    nb = b.shape[0]
-    from stormtpu_torch.kernels._build import library
-
-    if -(-na // library("k2_mxu").k2_block_rows()) > 65535:
+    nb, wb = b.shape
+    if -(-na // RECT_BLOCK_ROWS) > _RECT_MAX_SUB_ROWS:
         raise ValueError(f"{name}: Na={na} exceeds the grid limit")
-    _launch_k2(
-        "k2_rect_launch", a.device, previous_body,
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), na, nb, w, out.shape[1],
-    )
+    for x in (a, b):
+        _check_cuda_operand(name, x)
+    if wb != w or w % RECT_WORD_ALIGN:
+        raise ValueError(f"{name}: rows of {w} and {wb} words; K2-rect takes equal "
+                         f"multiples of {RECT_WORD_ALIGN} (rect_operand copies others)")
+    cluster = 0 if previous_body else rect_cluster(na)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), na, nb, w, out.shape[1])
+    if cluster:
+        _launch_k2("k2_rect_tma_launch", a.device, False, *args, cluster)
+    else:
+        _launch_k2("k2_rect_launch", a.device, previous_body, *args)
     LAUNCHES["k2_rect"] += 1
+    if cluster == 2:
+        profiling.count("rect_shared_b")
 
 
 def _count_block_padded(
@@ -521,8 +551,6 @@ def _count_block_padded(
         return count_block_plain(a_pad, b_pad, tile_words=tile_words)
     if a_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {a_pad.device}")
-    _check_cuda_operand("_count_block_padded", a_pad)
-    _check_cuda_operand("_count_block_padded", b_pad)
     out = torch.empty((a_pad.shape[0], b_pad.shape[0]), dtype=torch.int32,
                       device=a_pad.device)
     _rect_launch("_count_block_padded", a_pad, b_pad, out, previous_body)
@@ -699,7 +727,9 @@ def count_block_pallas_mxu(
 
     Card operands go to K2-rect with their true Na and Nb: the kernel
     masks the ragged row edges, so a query of 64 rows is one row block and
-    the panel streams once. An operand is copied only when
+    the panel streams once; past 128 rows the blocks of each B tile run
+    together and share its rows (:func:`rect_cluster`), so B streams once
+    at any Na. An operand is copied only when
     :func:`rect_operand` cannot take it as it is, and then with its words
     padded to a multiple of 4, never its rows; with no copy ``pad_bytes``
     counts 0 and ``rect_unpadded`` one. CPU operands, whose plain version

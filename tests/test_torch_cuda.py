@@ -163,6 +163,88 @@ def test_k2_rect_copies_the_words_of_what_it_cannot_take(cuda, kind):
     assert "rect_unpadded" not in rec.counters
 
 
+RECT_TMA_NA = (129, 200, 256, 384, 512)
+RECT_TMA_NB = (1, 255, 257, 4099)
+
+
+@functools.lru_cache(maxsize=None)
+def _tma_rect_case(w):
+    """A [512, w] and B [4099, w] on the card as row views of larger
+    matrices (rows 3.. and 5..: the ring's ``x_local[b0:b0 + 256]``), and
+    their counts by the plain version: each case takes leading rows."""
+    rng = np.random.default_rng(w + 20)
+    dev = torch.device("cuda")
+    na, nb = max(RECT_TMA_NA), max(RECT_TMA_NB)
+    a = to_device_words(rng.integers(0, 1 << 32, (na + 5, w), dtype=np.uint32), dev)[3 : 3 + na]
+    b = to_device_words(rng.integers(0, 1 << 32, (nb + 7, w), dtype=np.uint32), dev)[5 : 5 + nb]
+    return a, b, mxu.count_block_plain(a, b, tile_words=min(w, 1024))
+
+
+@pytest.mark.parametrize("w", (4, 36, 8192))
+@pytest.mark.parametrize("nb", RECT_TMA_NB)
+@pytest.mark.parametrize("na", RECT_TMA_NA)
+def test_k2_rect_tma_body_equals_plain_at_ragged_shapes(cuda, na, nb, w):
+    """K2-rect past one sub-tile row of A runs on the TMA body (clusters of
+    two at an even sub-tile row count, else of one) and equals the plain
+    version exactly at ragged Na, Nb and W, on views at row offsets taken
+    as they are; at an even count the TMA body in clusters of one gives the
+    same counts."""
+    a, b, want = _tma_rect_case(w)
+    a, b, want = a[:na], b[:nb], want[:na, :nb]
+    mxu.reset_launches()
+    with profiling.record() as rec:
+        got = mxu.count_block_pallas_mxu(a, b)
+    assert torch.equal(got, want)
+    assert mxu.LAUNCHES["k2_rect"] == 1 and rec.counters["rect_unpadded"] == 1
+    cluster = mxu.rect_cluster(na)
+    assert cluster in (1, 2)
+    assert rec.counters.get("rect_shared_b", 0) == (1 if cluster == 2 else 0)
+    if cluster == 2:
+        from stormtpu_torch.kernels._build import library
+
+        alone = torch.empty((na, round_up(nb, mxu.RECT_WORD_ALIGN)), dtype=torch.int32,
+                            device=cuda)
+        assert library("k2_mxu").k2_rect_tma_launch(
+            a.data_ptr(), b.data_ptr(), alone.data_ptr(), na, nb, w, alone.shape[1], 1,
+            torch.cuda.current_stream().cuda_stream) == 0
+        assert torch.equal(alone[:, :nb], want)
+
+
+def test_rect_shared_b_counts_each_paired_launch(cuda):
+    """One ``rect_shared_b`` a K2-rect launch in clusters of two, none for
+    the cp.async body (Na ≤ 128) or clusters of one (three sub-tile rows)."""
+    a, b, want = _tma_rect_case(36)
+    mxu.reset_launches()
+    with profiling.record() as rec:
+        for na in (64, 129, 256, 384, 512, 128):
+            assert torch.equal(mxu.count_block_pallas_mxu(a[:na], b[:257]), want[:na, :257])
+    assert mxu.LAUNCHES["k2_rect"] == rec.counters["rect_unpadded"] == 6
+    assert rec.counters["rect_shared_b"] == 3
+
+
+def test_k2_rect_tma_launcher_refuses_what_it_does_not_take(cuda):
+    """``k2_rect_tma_launch`` returns cudaErrorInvalidValue (1), launching
+    nothing, for a cluster the shape cannot pair (two over three sub-tile
+    rows; 0; 3), a row of 6 words, a base 4 bytes off, an odd output pitch
+    and a pitch with no spare column for an odd Nb; the library's block
+    rows are the shape rule's."""
+    from stormtpu_torch.kernels._build import library
+
+    lib = library("k2_mxu")
+    assert lib.k2_block_rows() == mxu.RECT_BLOCK_ROWS
+    x = torch.zeros((384, 8), dtype=torch.int32, device=cuda)
+    out = torch.full((384, 8), -7, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    p, o = x.data_ptr(), out.data_ptr()
+    for args in ((p, p, o, 384, 8, 8, 8, 2), (p, p, o, 256, 8, 8, 8, 0),
+                 (p, p, o, 256, 8, 8, 8, 3), (p, p, o, 256, 8, 6, 8, 2),
+                 (p + 4, p, o, 256, 8, 8, 8, 2), (p, p + 4, o, 256, 8, 8, 8, 2),
+                 (p, p, o, 256, 7, 8, 7, 2), (p, p, o, 256, 7, 8, 6, 2)):
+        assert lib.k2_rect_tma_launch(*args, stream) == 1, args
+    torch.cuda.synchronize()
+    assert bool((out == -7).all())
+
+
 def test_entry_points_on_card_launch_the_kernels(cuda):
     rng = np.random.default_rng(5)
     m = (1 << 17) + 77
@@ -443,8 +525,16 @@ def test_previous_tile_body_equals_plain_and_the_build_has_no_spills(cuda):
     from stormtpu_torch.kernels._build import kernel_resources
 
     used = kernel_resources("k2_mxu")
-    assert len(used) == 6  # k2_tri, k2_rect, k5 on the tile body (k5 streaming) and the previous one
+    # k2_tri, k2_rect, k5 on the tile body (k5 streaming) and the previous
+    # one, and k2_rect on the TMA body in clusters of one and two
+    assert len(used) == 8
+    assert len([s for s in used if "k2_rect_tma_kernel" in s]) == 2
     assert all(v["spill_bytes"] == 0 for v in used.values())
+    from stormtpu_torch.kernels import _build
+
+    log = _build._target("k2_mxu").with_suffix(".log").read_text()
+    assert "setmaxnreg ignored" not in log
+    assert "C7515" not in log and "C7517" not in log  # no product waits on the one before
     xp = np.zeros((320, 72), np.uint32)
     xp[:300, :70] = _words(300, 70, 0.5, seed=3)
     x = to_device_words(xp, cuda)

@@ -261,6 +261,81 @@ def test_rect_card_route_pads_words_only(monkeypatch, na, nb, w, kind_a, kind_b)
     assert rec.counters.get("rect_unpadded", 0) == (0 if copied else 1)
 
 
+@pytest.mark.parametrize("na,cluster", [
+    (1, 0), (64, 0), (128, 0),      # one sub-tile row of A: the cp.async body
+    (129, 2), (200, 2), (256, 2),   # two: a cluster of two shares each B tile
+    (384, 1),                       # three: blocks alone, side by side
+    (512, 2),
+])
+def test_rect_shape_rule_picks_the_body_by_na(monkeypatch, na, cluster):
+    """K2-rect's shape rule depends on Na alone, and the wrapper hands the
+    library what it says: ``k2_rect_launch`` for one 128-row sub-tile row,
+    else ``k2_rect_tma_launch`` with the rule's cluster; ``rect_shared_b``
+    counts the launches in clusters of two; ``previous_body`` launches the
+    int8 body whatever Na."""
+    assert tm.rect_cluster(na) == cluster
+    calls = []
+    monkeypatch.setattr(tm, "_launch_k2",
+                        lambda entry, device, prev, *args: calls.append((entry, prev, args)))
+    a, b = torch.zeros((na, 8), dtype=torch.int32), torch.zeros((5, 8), dtype=torch.int32)
+    out = torch.zeros((na, 8), dtype=torch.int32)
+    tm.reset_launches()
+    with profiling.record() as rec:
+        tm._rect_launch("rule", a, b, out, False)
+        tm._rect_launch("rule", a, b, out, True)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), na, 5, 8, 8)
+    now = ("k2_rect_tma_launch", False, args + (cluster,)) if cluster else \
+        ("k2_rect_launch", False, args)
+    assert calls == [now, ("k2_rect_launch", True, args)]
+    assert tm.LAUNCHES["k2_rect"] == 2
+    assert rec.counters.get("rect_shared_b", 0) == (1 if cluster == 2 else 0)
+
+
+def _strided(x):
+    return torch.zeros((x.shape[0], x.shape[1] + 4), dtype=torch.int32)[:, : x.shape[1]]
+
+
+def _offset(x):
+    return torch.zeros(x.numel() + 1, dtype=torch.int32)[1:].view(x.shape)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("na_past_grid", ValueError, "grid limit"),
+    ("na_at_grid", ValueError, "contiguous"),  # past the grid check, stopped by the next
+    ("words_10", ValueError, "multiples of 4"),
+    ("words_differ", ValueError, "multiples of 4"),
+    ("int64", TypeError, "int32"),
+    ("strided_a", ValueError, "contiguous"),
+    ("offset_b", ValueError, "aligned"),
+])
+def test_rect_launch_refuses_what_the_kernel_does_not_take(monkeypatch, case, error, match):
+    """The K2-rect wrapper raises before any launch on what neither body
+    takes: Na past the grid's 65,535 sub-tile rows, rows whose words are
+    not a multiple of 4 (``rect_operand``'s copy pads them; bare operands
+    are refused), unequal words, and an operand that is not contiguous,
+    16-byte aligned int32."""
+    def launch(*_):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(tm, "_launch_k2", launch)
+    a, b = torch.zeros((3, 8), dtype=torch.int32), torch.zeros((5, 8), dtype=torch.int32)
+    limit = 65535 * tm.RECT_BLOCK_ROWS
+    a, b = {
+        "na_past_grid": (torch.zeros(8, dtype=torch.int32).expand(limit + 1, 8), b),
+        "na_at_grid": (torch.zeros(8, dtype=torch.int32).expand(limit, 8), b),
+        "words_10": (torch.zeros((3, 10), dtype=torch.int32),
+                     torch.zeros((5, 10), dtype=torch.int32)),
+        "words_differ": (a, b[:, :4].contiguous()),
+        "int64": (a.to(torch.int64), b),
+        "strided_a": (_strided(a), b),
+        "offset_b": (a, _offset(b)),
+    }[case]
+    tm.reset_launches()
+    with pytest.raises(error, match=match):
+        tm._rect_launch("refuse", a, b, torch.zeros((a.shape[0], 8), dtype=torch.int32), False)
+    assert tm.LAUNCHES["k2_rect"] == 0
+
+
 @pytest.mark.parametrize("kind", ("whole", "columns"))
 def test_cpu_operands_take_the_tile_padded_form(kind):
     """On the CPU every operand, laid out as it may be, is padded to the
