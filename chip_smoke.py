@@ -21,11 +21,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 4. ``count_block`` of 4096 × 16384 rows at the same width; the K2
    rectangular kernel must launch; sampled pairs checked;
 5. ``pair_count`` of one pair of 1,048,576 bits, checked against numpy;
-6. timings at the main-path shapes (CUDA events): each kernel, the
-   previous tile body (int8 ``mma.sync`` with the unpack fused in, kept in
-   the source for this) in the same run, its plain version (also compared,
-   exactly), one ``torch._int_mm`` call on pre-unpacked int8 operands as a
-   yardstick, and each kernel's bound; a ``[breakdown]`` of the warm call
+6. timings at the main-path shapes (CUDA events): each kernel, its plain
+   version (also compared, exactly), one ``torch._int_mm`` call on
+   pre-unpacked int8 operands as a yardstick, and each kernel's bound; a ``[breakdown]`` of the warm call
    (kernel, assembly of the N×N matrix on the card, one download); and
    phase 35's first part: K2-topk and K2-hist (``csrc/k2_epilogue.cu``) on
    the first chunk of ``topk_neighbors``' tile walk (1024 tiles), held to
@@ -39,9 +37,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    through the work list checked at plan time, on an all-ones 128 × 2^27
    work list, and a malformed list must raise on both routes; K1 at ragged
    N and M, densities 0.001 / 0.5 / 1.0, all ones at 2^27, and at tile
-   rows 8 / 40 / 128 / 136 on i-major, shuffled and odd-length tile lists,
-   the previous (CUDA-core) kernel held to the same plain version; K0 at
-   ragged W with salt 0 and 0xDEADBEEF and all ones;
+   rows 8 / 40 / 128 / 136 on i-major, shuffled and odd-length tile lists;
+   K0 at ragged W with salt 0 and 0xDEADBEEF and all ones;
 8. the clustered path: ``intersect_count_matrix`` with ``strategy="auto"``
    on a 16384 × 1,048,576-bit LD-block panel (16 blocks, boundaries drawn
    from the seed); D1 must choose ``clustered``, K5 must launch and K2 must
@@ -52,8 +49,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    matrix must equal phase 3's exactly;
 10. K0 on 16384 pairs of 1,048,576 bits, sampled rows checked;
 11. timings of K5, K1 and K0 as in phase 6; K5's launch alone, its wrapper
-    with the checked work list and with the read-back, apart; K1 beside its
-    previous kernel, against the bound of the instruction it issues.
+    with the checked work list and with the read-back, apart; K1 against
+    the bound of the instruction it issues.
 12. ``BASELINE.json`` config 4 at full scale through the checksum sink: an
     operand of 100,000 × 1,048,576 bits made on the card from the seed
     (12.5 GiB padded), ``stream_count_checksums`` at superblock 4096: 325
@@ -227,9 +224,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``intersect_count_matrix`` launching K2-tri, equal to numpy's matrix;
     and each ``examples/torch_*.py`` as a subprocess on the card, all
     started together, each exiting 0 with its closing line;
-36. (run right after phase 2) K2-rect past one 128-row sub-tile row of A,
-    on the TMA body: ``count_block_pallas_mxu`` at Na 129, 200, 256, 384,
-    512 against Nb 1, 255, 257, 4,099 at W 4, 36 and 8,192 words, both
+36. (run right after phase 2) K2-rect on the TMA body:
+    ``count_block_pallas_mxu`` at Na 1, 64, 128, 129, 200, 256, 384, 512
+    against Nb 1, 255, 257, 4,099 at W 4, 36 and 8,192 words, both
     operands row views at an offset (as the rows ring's
     ``x_local[b0:b0 + 256]``), each equal to the plain version exactly; one
     launch a call, taken as it is (``rect_unpadded``), and ``rect_shared_b``
@@ -330,8 +327,8 @@ CFG3_R2 = 5e-5          # phase 27's r2 screen: pairs that share a bit
 CFG4_BINS, CFG4_TAIL_SD = 64, 5.5
 CFG4_TOPK_K, CFG4_TOPK_ROWS = 8, 256
 CFG4_HOST_FACTOR = 2    # host bytes phase 24 needs per byte of its packed matrix
-# phase 36: K2-rect on the TMA body (A past one 128-row sub-tile row)
-RECT_TMA_NA = (129, 200, 256, 384, 512)
+# phase 36: K2-rect on the TMA body, clusters of one (Na <= 128, 384) and two
+RECT_TMA_NA = (1, 64, 128, 129, 200, 256, 384, 512)
 RECT_TMA_NB = (1, 255, 257, 4099)
 RECT_TMA_W = (4, 36, 8192)
 # and the rows ring's block of config 5 at its size: query rows, shard rows,
@@ -457,7 +454,7 @@ def exact_diff(torch, got, want) -> int:
 
 
 def rect_tma_phase(torch, dev, rng) -> int:
-    """Phase 36: K2-rect's TMA form at ragged shapes against the plain
+    """Phase 36: K2-rect at ragged shapes against the plain
     version; returns the largest difference (0, or it raises)."""
     from stormtpu_torch.kernels import launch_counts, mxu, reset_launches
     from stormtpu_torch.layout import to_device_words
@@ -550,12 +547,10 @@ def epilogue_kernels(torch, dev, x, ibs: np.ndarray, jbs: np.ndarray, tile_rows:
                      row_off: int = 0, col_off: int = 0, ops_per_s: float, label: str,
                      reps: int = 0) -> dict:
     """K2-topk and K2-hist on the tile list (ibs, jbs) of the card operand
-    ``x``, on the TMA body and on the previous one (``previous_body=True``),
-    each held to its plain version exactly (K2-topk's values and indices).
-    ``reps`` > 0: also their CUDA-event ms (the previous body's as
-    ``previous_body_ms``), the plain version's, K2-tri's and K2-tri's
-    followed by the same reduction in torch on its stored tiles (the
-    yardstick), and the bound of the work: K2-tri's ``2·pairs·M``
+    ``x``, each held to its plain version exactly (K2-topk's values and
+    indices). ``reps`` > 0: also their CUDA-event ms, the plain version's,
+    K2-tri's and K2-tri's followed by the same reduction in torch on its
+    stored tiles (the yardstick), and the bound of the work: K2-tri's ``2·pairs·M``
     operations at the measured b1 rate, against the bytes of the operand
     rows the list touches, the ids and the outputs. ``cluster``: the blocks
     a cluster of the TMA body held at these tiles. Returns {"k2_topk":
@@ -569,16 +564,14 @@ def epilogue_kernels(torch, dev, x, ibs: np.ndarray, jbs: np.ndarray, tile_rows:
     hist_kw = dict(n_bins=n_bins, bin_width=bin_width, **kw)
     plain = mxu.count_tiles_topk_plain(x, *ids, **topk_kw)
     plain_h = mxu.count_tiles_hist_plain(x, *ids, **hist_kw)
-    err_t = err_h = 0
-    for prev in (False, True):
-        sets = mxu.count_tiles_topk(x, *ids, checked=ids, previous_body=prev, **topk_kw)
-        hist = mxu.count_tiles_hist(x, *ids, checked=ids, previous_body=prev, **hist_kw)
-        torch.cuda.synchronize()
-        err_t = max(err_t, *(exact_diff(torch, g, w) for g, w in zip(sets, plain)))
-        err_h = max(err_h, exact_diff(torch, hist, plain_h))
-        if int(hist.sum()) == 0 and n_real > 1:
-            raise AssertionError(f"{label}: K2-hist binned no pair")
-    del plain, plain_h
+    sets = mxu.count_tiles_topk(x, *ids, checked=ids, **topk_kw)
+    hist = mxu.count_tiles_hist(x, *ids, checked=ids, **hist_kw)
+    torch.cuda.synchronize()
+    err_t = max(exact_diff(torch, g, w) for g, w in zip(sets, plain))
+    err_h = exact_diff(torch, hist, plain_h)
+    if int(hist.sum()) == 0 and n_real > 1:
+        raise AssertionError(f"{label}: K2-hist binned no pair")
+    del plain, plain_h, sets, hist
     cluster = mxu.epilogue_cluster(tile_rows)
     out = {"k2_topk": dict(max_abs_err=err_t, cluster=cluster),
            "k2_hist": dict(max_abs_err=err_h, cluster=cluster)}
@@ -586,7 +579,7 @@ def epilogue_kernels(torch, dev, x, ibs: np.ndarray, jbs: np.ndarray, tile_rows:
     print(f"[epilogue] {label}: T={t} tiles of {ti} rows at {w_pad} words, k={k}, {n_bins} "
           f"bins of width {bin_width}, row/col offsets {row_off}/{col_off}, n_real {n_real}: "
           f"K2-topk's sets (values and indices) and K2-hist's bins equal their plain versions "
-          f"exactly, on the TMA body (clusters of {cluster}) and on the previous one")
+          f"exactly (TMA body, clusters of {cluster})")
     if not reps:
         return out
     tri = lambda: mxu.count_tiles_pallas_mxu(x, *ids, tile_rows=ti, tile_words=tile_words,  # noqa: E731
@@ -602,28 +595,24 @@ def epilogue_kernels(torch, dev, x, ibs: np.ndarray, jbs: np.ndarray, tile_rows:
     kk = min(k, ti)
     sides = -(-ti // mxu.EPI_BLOCK[0]) + -(-ti // mxu.EPI_BLOCK[1])
     for name, fn, plain_fn, red, out_bytes in (
-            ("k2_topk", lambda prev: mxu.count_tiles_topk(x, *ids, checked=ids,
-                                                          previous_body=prev, **topk_kw),
+            ("k2_topk", lambda: mxu.count_tiles_topk(x, *ids, checked=ids, **topk_kw),
              lambda: mxu.count_tiles_topk_plain(x, *ids, **topk_kw), reduce_t,
              4.0 * 2 * t * sides * ti * kk),
-            ("k2_hist", lambda prev: mxu.count_tiles_hist(x, *ids, checked=ids,
-                                                          previous_body=prev, **hist_kw),
+            ("k2_hist", lambda: mxu.count_tiles_hist(x, *ids, checked=ids, **hist_kw),
              lambda: mxu.count_tiles_hist_plain(x, *ids, **hist_kw), reduce_h, 8.0 * n_bins)):
         b_ms, b_by = bound(ops, in_bytes + out_bytes, ops_per_s)
         out[name].update(
-            ms=cuda_ms(torch, lambda: fn(False), reps=reps),
-            previous_body_ms=cuda_ms(torch, lambda: fn(True), reps=reps),
+            ms=cuda_ms(torch, fn, reps=reps),
             plain_ms=cuda_ms(torch, plain_fn, reps=1, warmup=0),
             library_ms=cuda_ms(torch, lambda: red(tri()), reps=reps), k2_tri_ms=tri_ms,
             bound_ms=b_ms, bound_by=b_by, bound_rate="measured wgmma_b1_n256",
             shape=f"{t} tiles of {ti} rows, {w_pad} words ({label})")
         r = out[name]
         print(f"[timing] {name} {label}: kernel {r['ms']:.3f} ms (TMA body, clusters of "
-              f"{cluster}), previous body {r['previous_body_ms']:.3f} ms, K2-tri alone "
+              f"{cluster}), K2-tri alone "
               f"{tri_ms:.3f} ms (the kernel is {r['ms'] - tri_ms:+.3f} ms beside it), K2-tri + "
               f"the torch reduction {r['library_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {b_ms:.3f} ms ({b_by}); the kernel at {b_ms / r['ms']:.1%} of its bound, "
-              f"the previous body at {b_ms / r['previous_body_ms']:.1%}")
+              f"bound {b_ms:.3f} ms ({b_by}); the kernel at {b_ms / r['ms']:.1%} of its bound")
     return out
 
 
@@ -789,8 +778,7 @@ def stream_phases(torch, dev, cfg, rng, seed, bm_ld, ld_ref, k2_ops_per_s) -> di
     sub, n_sub = xd[r0:], n4 - r0
     got = stream.stream_count_histogram(sub, n_sub, CFG4_M, n_bins=HIST_BINS,
                                         superblock_rows=sb, device=dev)
-    full = mxu._count_block_padded(sub, sub, tile_rows=cfg.k2_tile_rows,
-                                   tile_words=cfg.k2_tile_words, variant=cfg.k2_variant)
+    full = mxu.count_block_pallas_mxu(sub, sub)
     idx = torch.arange(sub.shape[0], device=dev)
     upper = (idx[:, None] < idx[None, :]) & (idx[None, :] < n_sub)
     own = torch.bincount(torch.clamp(full[upper] // hist["bin_width"], max=HIST_BINS - 1),
@@ -1240,12 +1228,10 @@ def sparse_phases(torch, dev, cfg, rng) -> tuple:
                 raise AssertionError("config 3 A: K3's block differs from the K2 matrix")
             ti, wk = mxu.k2_tile_shape(cfg, n, bm.n_words)
             xa, xb = padded(bm.packed[:K3_A_ROWS], ti, wk), padded(bm.packed, ti, wk)
-            rect = mxu._count_block_padded(xa, xb, tile_rows=ti, tile_words=wk,
-                                           variant=cfg.k2_variant)
+            rect = mxu.count_block_pallas_mxu(xa, xb)
             if not torch.equal(rect[:K3_A_ROWS, :n], blk):
                 raise AssertionError("config 3 A: K2's rectangle differs from K3's block")
-            t["k2_rect_ms"] = cuda_ms(torch, lambda: mxu._count_block_padded(
-                xa, xb, tile_rows=ti, tile_words=wk, variant=cfg.k2_variant), reps=3)
+            t["k2_rect_ms"] = cuda_ms(torch, lambda: mxu.count_block_pallas_mxu(xa, xb), reps=3)
             print(f"[config 3] version A: K3 on rows 0..{K3_A_ROWS - 1} against all {n} (lists "
                   f"of {pos.shape[1]}) {t['k3_ms']:.3f} ms, equal to the K2 matrix's rows; K2's "
                   f"rectangle on the same block {t['k2_rect_ms']:.3f} ms (CUDA events)")
@@ -2016,8 +2002,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
     a_pad[: rows.size] = buf[torch.from_numpy(rows).to(dev)]
     b_pad = buf[:b_rows] if buf.shape[0] >= b_rows else mxu._pad(buf, b_rows, buf.shape[1])
     # the reference: K2-rect on those rows, a launch outside the path's calls
-    rect = mxu._count_block_padded(a_pad, b_pad, tile_rows=ti4, tile_words=wk4,
-                                   variant=cfg.k2_variant)[: rows.size, :n4].cpu().numpy()
+    rect = mxu.count_block_pallas_mxu(a_pad, b_pad)[: rows.size, :n4].cpu().numpy()
     if not np.array_equal(v4[rows], topk_of(rect, CFG4_TOPK_K, rows)):
         raise AssertionError("config 4 topk_neighbors: sampled rows differ from count_block")
     valid_indices("config 4 topk_neighbors", rect, v4[rows], i4[rows], rows)
@@ -3079,22 +3064,16 @@ def main(argv=None) -> int:
         for symbol, used in _build.kernel_resources(name).items():
             print(f"[build] {name}: {symbol}: {used['registers']} registers, "
                   f"{used['spill_bytes']} spill bytes")
-    # registers a thread of K2's, K5's and K1's kernels: those the wrappers launch
-    # ("now": on B1Wgmma, csrc/tile_body.cuh) and the previous ones (S8Body;
-    # K1's CUDA-core kernel)
+    # registers a thread of the kernels on B1Wgmma (csrc/tile_body.cuh) and of
+    # K2-rect's on the TMA body
     used = {**_build.kernel_resources("k2_mxu"), **_build.kernel_resources("k1_dense")}
 
     def registers(kernel: str, struct: str = "") -> int:
         return next(v["registers"] for sym, v in used.items() if kernel in sym and struct in sym)
 
-    regs = {"now": {"k2_tri": registers("k2_tri_kernel", "B1Wgmma"),
-                    "k2_rect": registers("k2_rect_kernel", "B1Wgmma"),
-                    "k5": registers("k5_stream_kernel", "B1Wgmma"),
-                    "k1": registers("k1_pair_kernel", "B1Wgmma")},
-            "previous": {"k2_tri": registers("k2_tri_kernel", "S8Body"),
-                         "k2_rect": registers("k2_rect_kernel", "S8Body"),
-                         "k5": registers("k5_kernel", "S8Body"),
-                         "k1": registers("k1_tri_kernel_prev")}}
+    regs = {"k2_tri": registers("k2_tri_kernel", "B1Wgmma"),
+            "k5": registers("k5_stream_kernel", "B1Wgmma"),
+            "k1": registers("k1_pair_kernel", "B1Wgmma")}
     rates = tc_rate.issue_rates(dev)
     for r in rates:
         print(f"[rate] {r['name']} issued back to back on every SM: {r['macs_per_s']:.4g} "
@@ -3281,12 +3260,9 @@ def main(argv=None) -> int:
     want = mxu.count_tiles_plain(*targs, **tkw)
     torch.cuda.synchronize()
     max_err["k2_tri"] = max(max_err["k2_tri"], exact_diff(torch, got, want))
-    exact_diff(torch, mxu.count_tiles_pallas_mxu(*targs, previous_body=True, **tkw), want)
     del got, want
     plain_ms = cuda_ms(torch, lambda: mxu.count_tiles_plain(*targs, **tkw), reps=2)
     kern_ms = cuda_ms(torch, lambda: mxu.count_tiles_pallas_mxu(*targs, **tkw), reps=5)
-    old_ms = cuda_ms(torch, lambda: mxu.count_tiles_pallas_mxu(*targs, previous_body=True,
-                                                               **tkw), reps=3)
     u = torch.empty((n_pad, w_pad * 32), dtype=torch.int8, device=dev)
     for r in range(0, n_pad, 2048):
         u[r : r + 2048] = unpack_to_int8(targs[0][r : r + 2048])
@@ -3296,12 +3272,10 @@ def main(argv=None) -> int:
     bounds = k2_bounds(2.0 * t_tiles * ti * ti * w_pad * 32,
                        4.0 * (n_pad * w_pad + 2 * t_tiles + t_tiles * ti * ti))
     timings["k2_tri"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             previous_body_ms=old_ms,
-                             registers=regs["now"]["k2_tri"], **bounds)
+                             registers=regs["k2_tri"], **bounds)
     print(f"[timing] k2_tri N_pad={n_pad} W_pad={w_pad} T={t_tiles} tile={ti}: kernel "
-          f"{kern_ms:.3f} ms ({regs['now']['k2_tri']} registers a thread), "
-          f"previous body {old_ms:.3f} ms ({regs['previous']['k2_tri']} "
-          f"registers), plain {plain_ms:.3f} ms, _int_mm full square on unpacked "
+          f"{kern_ms:.3f} ms ({regs['k2_tri']} registers a thread), "
+          f"plain {plain_ms:.3f} ms, _int_mm full square on unpacked "
           f"int8 {lib_ms:.3f} ms, bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, "
           f"{bounds['bound_rate']}; at the int8 data-sheet rate {bounds['bound_ms_int8']:.3f} ms)")
     # K2-topk and K2-hist at the main path's shapes: the first chunk of
@@ -3325,48 +3299,34 @@ def main(argv=None) -> int:
     if epi_single["k2_topk"]["cluster"] != 1 or epi_main["k2_topk"]["cluster"] != 2:
         raise AssertionError("the epilogues' shape rule: clusters of one at 128-row tiles, "
                              "of two at 256")
-    # rectangular K2 at count_block's shapes
+    # rectangular K2 at count_block's shapes: the card route on the operands
+    # as they are, held to the plain version on the tile-padded operands
     (ap, bp), rkw = rect_inputs(words_a, words)
-    got = mxu._count_block_padded(ap, bp, variant=cfg.k2_variant, **rkw)
-    want = mxu.count_block_plain(ap, bp, tile_words=rkw["tile_words"])
+    ad, bd = to_device_words(words_a, dev), to_device_words(words, dev)
+    rna, rnb, rw = ad.shape[0], bd.shape[0], ad.shape[1]
+    got = mxu.count_block_pallas_mxu(ad, bd)
+    want = mxu.count_block_plain(ap, bp, tile_words=rkw["tile_words"])[:rna, :rnb]
     torch.cuda.synchronize()
     max_err["k2_rect"] = max(max_err["k2_rect"], exact_diff(torch, got, want))
-    exact_diff(torch, mxu._count_block_padded(ap, bp, variant=cfg.k2_variant,
-                                              previous_body=True, **rkw), want)
-    # the card route (count_block_pallas_mxu) on the same operands unpadded
-    ad, bd = to_device_words(words_a, dev), to_device_words(words, dev)
-    exact_diff(torch, mxu.count_block_pallas_mxu(ad, bd),
-               want[: words_a.shape[0], : words.shape[0]])
     del got, want
-    route_ms = cuda_ms(torch, lambda: mxu.count_block_pallas_mxu(ad, bd), reps=5)
+    kern_ms = cuda_ms(torch, lambda: mxu.count_block_pallas_mxu(ad, bd), reps=5)
     plain_ms = cuda_ms(torch, lambda: mxu.count_block_plain(ap, bp, tile_words=rkw["tile_words"]), reps=2)
-    kern_ms = cuda_ms(torch, lambda: mxu._count_block_padded(ap, bp, variant=cfg.k2_variant, **rkw), reps=5)
-    old_ms = cuda_ms(torch, lambda: mxu._count_block_padded(
-        ap, bp, variant=cfg.k2_variant, previous_body=True, **rkw), reps=3)
     ua = torch.empty((ap.shape[0], w_pad * 32), dtype=torch.int8, device=dev)
     for r in range(0, ap.shape[0], 2048):
         ua[r : r + 2048] = unpack_to_int8(ap[r : r + 2048])
     lib_ms = cuda_ms(torch, lambda: torch._int_mm(ua, u.t()), reps=3)
-    na_pad, nb_pad = ap.shape[0], bp.shape[0]
-    bounds = k2_bounds(2.0 * na_pad * nb_pad * w_pad * 32,
-                       4.0 * ((na_pad + nb_pad) * w_pad + na_pad * nb_pad))
-    # the kernel the shape rule launches at this Na: the TMA body's
-    # k2_rect_tma_kernel<cluster>, or the cp.async body's at one sub-tile row
-    rect_c = mxu.rect_cluster(na_pad)
-    rect_kernel = f"k2_rect_tma_kernel<{rect_c}>" if rect_c else "k2_rect_kernel<B1Wgmma>"
-    rect_regs = (registers("k2_rect_tma_kernel", f"ILi{rect_c}E") if rect_c
-                 else regs["now"]["k2_rect"])
+    bounds = k2_bounds(2.0 * rna * rnb * rw * 32, 4.0 * ((rna + rnb) * rw + rna * rnb))
+    # the kernel the shape rule launches at this Na
+    rect_c = mxu.rect_cluster(rna)
+    rect_kernel = f"k2_rect_tma_kernel<{rect_c}>"
+    rect_regs = registers("k2_rect_tma_kernel", f"ILi{rect_c}E")
     timings["k2_rect"] = dict(ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              previous_body_ms=old_ms, card_route_ms=route_ms,
                               launch_kernel=rect_kernel, registers=rect_regs, **bounds)
-    print(f"[timing] k2_rect card route (count_block_pallas_mxu) {ad.shape[0]} x "
-          f"{bd.shape[0]} W={ad.shape[1]}, unpadded: {route_ms:.3f} ms")
-    print(f"[timing] k2_rect tile-padded form {na_pad} x {nb_pad} W_pad={w_pad}: kernel {kern_ms:.3f} ms "
-          f"({rect_kernel}, {rect_regs} registers a thread), previous body "
-          f"{old_ms:.3f} ms ({regs['previous']['k2_rect']} registers), "
-          f"plain {plain_ms:.3f} ms, _int_mm on unpacked int8 {lib_ms:.3f} ms, "
-          f"bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, {bounds['bound_rate']}; "
-          f"at the int8 data-sheet rate {bounds['bound_ms_int8']:.3f} ms)")
+    print(f"[timing] k2_rect card route (count_block_pallas_mxu) {rna} x {rnb} W={rw}: kernel "
+          f"{kern_ms:.3f} ms ({rect_kernel}, {rect_regs} registers a thread), plain "
+          f"{plain_ms:.3f} ms and _int_mm on unpacked int8 {lib_ms:.3f} ms (tile-padded "
+          f"operands), bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, "
+          f"{bounds['bound_rate']}; at the int8 data-sheet rate {bounds['bound_ms_int8']:.3f} ms)")
     print(f"[timing] intersect_count_matrix wall: first call {wall_tri:.3f} s, warm call "
           f"{wall_tri_fresh:.3f} s while the first result is alive (pins a fresh buffer) and "
           f"{wall_tri_warm:.3f} s after both were released (cached buffer); count_block wall "
@@ -3469,8 +3429,6 @@ def main(argv=None) -> int:
         want1 = dense.count_tiles_dense_plain(*args1, **kw1)
         torch.cuda.synchronize()
         max_err["k1"] = max(max_err["k1"], exact_diff(torch, got1, want1))
-        exact_diff(torch, dense.count_tiles_pallas_dense(*args1, previous_body=True, **kw1),
-                   want1)
         n = words.shape[0]
         if expect_all is not None and not bool((got1[0, :n, :n] == expect_all).all()):
             raise AssertionError(f"k1 {label}: counts are not all {expect_all}")
@@ -3497,15 +3455,11 @@ def main(argv=None) -> int:
             ids1 = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (ib, jb)]
             alone = int((dense.pair_units(ids1[0]) >= 0).sum()) * 2 - ib.size
             want1 = dense.count_tiles_dense_plain(xp1, *ids1, tile_rows=ti1, tile_words=24)
-            for previous in (False, True):
-                got1 = dense.count_tiles_pallas_dense(xp1, *ids1, tile_rows=ti1, tile_words=24,
-                                                      previous_body=previous)
-                torch.cuda.synchronize()
-                err = exact_diff(torch, got1, want1)
-                if not previous:
-                    max_err["k1"] = max(max_err["k1"], err)
+            got1 = dense.count_tiles_pallas_dense(xp1, *ids1, tile_rows=ti1, tile_words=24)
+            torch.cuda.synchronize()
+            max_err["k1"] = max(max_err["k1"], exact_diff(torch, got1, want1))
             print(f"[kernel vs plain] k1 tile rows {ti1}, {order} list of {ib.size} tiles "
-                  f"({alone} without a partner): kernel and previous kernel exact")
+                  f"({alone} without a partner): exact")
 
     for r, w in K0_CASES:
         a = random_words(rng, r, w * 32, 0.5)
@@ -3684,8 +3638,6 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     max_err["k5"] = max(max_err["k5"], exact_diff(torch, got, want))
     exact_diff(torch, bare5(), want)
-    exact_diff(torch, clustered.count_tiles_worklist(packed_ld, *work, previous_body=True,
-                                                     **kw5), want)
     ti5, wk5 = plan.ti, plan.wk
     # the launch alone: the C entry with the wrapper's own arguments, the units
     # longest first (the schedule) and in slot order (what the kernel's balance
@@ -3695,7 +3647,7 @@ def main(argv=None) -> int:
 
     def launch5(units):
         counter = torch.zeros(1, dtype=torch.int32, device=dev)
-        mxu._launch_k2("k5_launch", dev, False, packed_ld.data_ptr(),
+        mxu._launch("k2_mxu", "k5_launch", dev, packed_ld.data_ptr(),
                        *(t.data_ptr() for t in work.tensors[:3]), units.data_ptr(),
                        counter.data_ptr(), out5.data_ptr(), units.shape[0],
                        min(sms, units.shape[0]), ti5, wk5, packed_ld.shape[1])
@@ -3712,8 +3664,6 @@ def main(argv=None) -> int:
     launch_ms = cuda_ms(torch, lambda: launch5(work.units), reps=20)
     by_slot_ms = cuda_ms(torch, lambda: launch5(by_slot), reps=20)
     bare_ms = cuda_ms(torch, bare5, reps=20)
-    old_ms = cuda_ms(torch, lambda: clustered.count_tiles_worklist(
-        packed_ld, *work, previous_body=True, **kw5), reps=5)
     host_ms = {}
     for name, fn in (("checked", checked5), ("read-back", bare5)):
         torch.cuda.synchronize()
@@ -3734,8 +3684,7 @@ def main(argv=None) -> int:
                          launch_alone_ms=launch_ms, launch_alone_slot_order_ms=by_slot_ms,
                          read_back_route_ms=bare_ms, wrapper_host_ms=host_ms["checked"],
                          wrapper_host_read_back_ms=host_ms["read-back"],
-                         previous_body_ms=old_ms,
-                         registers=regs["now"]["k5"], distinct_slabs=slabs, **bounds,
+                         registers=regs["k5"], distinct_slabs=slabs, **bounds,
                          library="none: no one PyTorch call computes a "
                          "work-list accumulation")
     pad_args = [torch.from_numpy(x).to(dev)
@@ -3745,12 +3694,12 @@ def main(argv=None) -> int:
     del pad_args, out5, by_slot
     print(f"[timing] k5 LD panel n_work={plan.n_work} slots={n_vis} tile={ti5}x{wk5}: kernel "
           f"through its wrapper with the work list checked at plan time {kern_ms:.3f} ms "
-          f"({regs['now']['k5']} registers a thread), of which the wrapper holds the host "
+          f"({regs['k5']} registers a thread), of which the wrapper holds the host "
           f"{host_ms['checked']:.4f} ms a call; the launch alone {launch_ms:.3f} ms, with the "
           f"units in slot order {by_slot_ms:.3f} ms; through the wrapper's read-back route "
           f"{bare_ms:.3f} ms (host {host_ms['read-back']:.4f} ms a call; with the plan's "
           f"bucket padding, {plan.ibs_w.size} items into {plan.n_slots} slots: {pad_ms:.3f} "
-          f"ms); previous body {old_ms:.3f} ms ({regs['previous']['k5']} registers), plain "
+          f"ms); plain "
           f"{plain_ms:.3f} ms, bound {bounds['bound_ms']:.3f} ms ({bounds['bound_by']}, "
           f"{bounds['bound_rate']}; bytes alone {bounds['bytes_ms']:.3f} ms for {slabs} "
           f"distinct slabs of {ti5} rows x {wk5} words; at the int8 data-sheet rate "
@@ -3764,14 +3713,11 @@ def main(argv=None) -> int:
     n_pad1, w_pad1 = args1[0].shape
     ti1 = kw1["tile_rows"]
     kern_ms = cuda_ms(torch, lambda: dense.count_tiles_pallas_dense(*args1, **kw1), reps=5)
-    old_ms = cuda_ms(torch, lambda: dense.count_tiles_pallas_dense(
-        *args1, previous_body=True, **kw1), reps=2)
     # the work is K2's: 2 * pairs * M operations at the rate of the instruction
-    # the kernel issues; the previous kernel's bound (popcounts on the CUDA cores) beside it
+    # the kernel issues
     nbytes1 = 4.0 * (n_pad1 * w_pad1 + 2 * t1 + t1 * ti1 * ti1)
     bounds = k2_bounds(2.0 * t1 * ti1 * ti1 * w_pad1 * 32, nbytes1)
     del bounds["bound_ms_int8"]
-    popc_ms = bound(float(t1) * ti1 * ti1 * w_pad1, nbytes1, popc_per_s)[0]
     del args1
     mid_args, mid_kw = k1_inputs(random_words(rng, MID_N, MID_M, 0.5))
     got = dense.count_tiles_pallas_dense(*mid_args, **mid_kw)
@@ -3784,17 +3730,14 @@ def main(argv=None) -> int:
     kern_mid_ms = cuda_ms(torch, lambda: dense.count_tiles_pallas_dense(*mid_args, **mid_kw),
                           reps=5)
     timings["k1"] = dict(ms=kern_ms, plain_ms=plain_mid_ms, library_ms=int_mm_square_ms,
-                         previous_body_ms=old_ms, registers=regs["now"]["k1"],
-                         bound_ms_popc=popc_ms, **bounds,
+                         registers=regs["k1"], **bounds,
                          plain_shape=f"{MID_N} x {MID_M} bits", ms_at_plain_shape=kern_mid_ms,
                          library="torch._int_mm full square on unpacked int8 (phase 6)")
     print(f"[timing] k1 N_pad={n_pad1} W_pad={w_pad1} T={t1} tile={ti1}: kernel {kern_ms:.3f} "
-          f"ms ({regs['now']['k1']} registers a thread; {kern_ms / timings['k2_tri']['ms']:.2f}x "
-          f"K2-tri's time on the same rows), previous kernel {old_ms:.3f} ms "
-          f"({regs['previous']['k1']} registers), bound {bounds['bound_ms']:.3f} ms "
-          f"({bounds['bound_by']}, {bounds['bound_rate']}; the previous kernel's, "
-          f"{POPC_PER_CLOCK_PER_SM} popcounts/clock/SM x {sms} SMs x {clock_mhz:.0f} MHz: "
-          f"{popc_ms:.3f} ms), _int_mm full square {int_mm_square_ms:.3f} ms; at "
+          f"ms ({regs['k1']} registers a thread; {kern_ms / timings['k2_tri']['ms']:.2f}x "
+          f"K2-tri's time on the same rows), bound {bounds['bound_ms']:.3f} ms "
+          f"({bounds['bound_by']}, {bounds['bound_rate']}), _int_mm full square "
+          f"{int_mm_square_ms:.3f} ms; at "
           f"{MID_N} x {MID_M} bits (T={mid_args[1].numel()}): kernel {kern_mid_ms:.3f} ms, "
           f"plain {plain_mid_ms:.3f} ms")
     del mid_args

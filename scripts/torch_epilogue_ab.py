@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
-"""Time K2-topk and K2-hist (``csrc/k2_epilogue.cu``) on their TMA body and
-on the previous one (``previous_body=True``: K2-tri's main loop) beside
-K2-tri on the same tile lists, in one process on one card, to show what
-each main loop and the epilogues cost.
+"""Time K2-topk and K2-hist (``csrc/k2_epilogue.cu``, on the TMA body)
+beside K2-tri on the same tile lists, in one process on one card, to show
+what the main loops and the epilogues cost.
 
     python3 scripts/torch_epilogue_ab.py [--seed 0] [--only TEXT] [--reps 10]
 
@@ -17,9 +16,9 @@ apart say what the row and the column passes each cost. Last, the main
 path's first 4096 tiles at 128 rows: one sub-tile row a tile, so the TMA
 body runs its clusters of one (the other lists run clusters of two). On
 each list: K2-tri, K2-hist (64 bins) and K2-topk at k = 1, 4, 8, 16 and
-32, each on both bodies (``_prev_ms``), with the cluster size the TMA
-body launched; the two bodies' histograms and top-k sets (k = 1, 16) are
-held equal first.
+32, with the cluster size the TMA body launched; the histogram and the
+top-k sets (k = 1, 16) are held equal first to K2-tri's tiles reduced by
+torch (``mxu.tile_hist``, ``mxu.tile_topk_sets``).
 
 CUDA-event milliseconds, the mean of ``--reps`` launches after a warm-up;
 one JSON line a list, then the card's name and power limit. The lines
@@ -31,8 +30,8 @@ a profiler to wrap, as in
         -k regex:"k2_(hist|topk|tri)" --launch-count 6 \
         python3 scripts/torch_epilogue_ab.py --only stripe --reps 1
 
-(the first launches of each list: K2-tri, then K2-hist and K2-topk on the
-TMA body and on the previous one, held equal).
+(the first launches of each list: K2-tri, then K2-hist and K2-topk held
+to K2-tri's tiles).
 """
 
 from __future__ import annotations
@@ -107,20 +106,22 @@ def main(argv=None) -> int:
                "k2_tri_ms": cuda_ms(torch, lambda: mxu.count_tiles_pallas_mxu(x, *ids, **kw),
                                     reps=args.reps)}
         hkw = dict(n_real=n_real, bin_width=(x.shape[1] * 32 + 64) // 64, n_bins=64, **kw)
+        tiles = mxu.count_tiles_pallas_mxu(x, *ids, **kw)
+        red_kw = dict(n_real=n_real, bin_width=hkw["bin_width"], n_bins=64)
         same = torch.equal(mxu.count_tiles_hist(x, *ids, **hkw),
-                           mxu.count_tiles_hist(x, *ids, previous_body=True, **hkw))
+                           mxu.tile_hist(tiles, *ids, **red_kw))
         for k in (1, 16):
             same &= all(torch.equal(a, b) for a, b in zip(
                 mxu.count_tiles_topk(x, *ids, k=k, n_real=n_real, **kw),
-                mxu.count_tiles_topk(x, *ids, k=k, n_real=n_real, previous_body=True, **kw)))
+                mxu.tile_topk_sets(tiles, *ids, k=k, n_real=n_real)))
+        del tiles
         if not same:
-            raise AssertionError(f"{label}: the two bodies' results differ")
-        for suffix, prev in (("", False), ("_prev", True)):
-            row[f"k2_hist{suffix}_ms"] = cuda_ms(torch, lambda: mxu.count_tiles_hist(
-                x, *ids, previous_body=prev, **hkw), reps=args.reps)
-            for k in KS:
-                row[f"k2_topk_k{k}{suffix}_ms"] = cuda_ms(torch, lambda: mxu.count_tiles_topk(
-                    x, *ids, k=k, n_real=n_real, previous_body=prev, **kw), reps=args.reps)
+            raise AssertionError(f"{label}: the epilogues differ from K2-tri's tiles")
+        row["k2_hist_ms"] = cuda_ms(torch, lambda: mxu.count_tiles_hist(x, *ids, **hkw),
+                                    reps=args.reps)
+        for k in KS:
+            row[f"k2_topk_k{k}_ms"] = cuda_ms(torch, lambda: mxu.count_tiles_topk(
+                x, *ids, k=k, n_real=n_real, **kw), reps=args.reps)
         lines.append(row)
         print(json.dumps(row))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

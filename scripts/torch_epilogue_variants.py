@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time K2-topk's and K2-hist's TMA body (``csrc/tile_body_tma.cuh``,
 ``csrc/k2_epilogue.cu``) against variants of it that differ by one edit to
-the CUDA sources, each beside the previous body, to show what each part of
+the CUDA sources, each beside the shipped body, to show what each part of
 the design is worth and what the compiler does with the loop.
 
     python3 scripts/torch_epilogue_variants.py [--out _archive/epilogue_variants]
 
 Each variant is a copy of ``stormtpu_torch/`` under ``--out`` (a directory
-``.gitignore`` lists), built and timed in a process of its own:
+``.gitignore`` lists), built and timed in a process of its own, in turns
+(shipped, each variant, each variant again in reverse order, shipped):
 
 - ``shipped``: no edit;
 - ``no_multicast``: the shape rule returns clusters of one at every tile
@@ -22,16 +23,16 @@ on three tile lists of uniform words made on the card (the main path's
 first walk chunk, 1024 tiles of 256 rows at 8,192 words; a config-4
 stripe's 16 × 16 tiles of 256 rows at 32,768 words; the main operand's
 first 4096 tiles of 128 rows, clusters of one), K2-hist's (64 bins) and
-K2-topk's (k = 16) CUDA-event ms on the variant and on the previous body,
-in turns (variant, previous, variant, previous; the mean of 10 launches
-each), K2-tri's ms and whether both bodies' results were equal. Then the
-card's name and power limit. The lines also go to
-``chiprun_out/epilogue_variants.jsonl``.
+K2-topk's (k = 16) CUDA-event ms on its two turns beside the shipped
+body's two (the mean of 10 launches each), K2-tri's ms and whether its
+results equal the shipped body's. Then the card's name and power limit.
+The lines also go to ``chiprun_out/epilogue_variants.jsonl``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -130,21 +131,15 @@ def time_tree(tree: str) -> dict:
         ids = mxu.device_tile_ids(ib, jb, x.shape[0] // ti, dev)
         kw = dict(tile_rows=ti, tile_words=256, checked=ids, n_real=x.shape[0])
         hkw = dict(bin_width=(x.shape[1] * 32 + 64) // 64, n_bins=64, **kw)
-        equal = torch.equal(mxu.count_tiles_hist(x, *ids, **hkw),
-                            mxu.count_tiles_hist(x, *ids, previous_body=True, **hkw))
-        equal &= all(torch.equal(a, b) for a, b in zip(
-            mxu.count_tiles_topk(x, *ids, k=16, **kw),
-            mxu.count_tiles_topk(x, *ids, k=16, previous_body=True, **kw)))
-        row = {"equal": bool(equal), "cluster": mxu.epilogue_cluster(ti)}
-        for prev in (False, True, False, True):
-            tag = "_prev" if prev else ""
-            row.setdefault(f"k2_hist{tag}_ms", []).append(cuda_ms(
-                lambda: mxu.count_tiles_hist(x, *ids, previous_body=prev, **hkw)))
-            row.setdefault(f"k2_topk{tag}_ms", []).append(cuda_ms(
-                lambda: mxu.count_tiles_topk(x, *ids, k=16, previous_body=prev, **kw)))
-        row["k2_tri_ms"] = cuda_ms(lambda: mxu.count_tiles_pallas_mxu(
-            x, *ids, tile_rows=ti, tile_words=256, checked=ids))
-        out[label] = row
+        digest = hashlib.sha256()
+        for t in (mxu.count_tiles_hist(x, *ids, **hkw), *mxu.count_tiles_topk(x, *ids, k=16, **kw)):
+            digest.update(t.cpu().numpy().tobytes())
+        out[label] = {
+            "digest": digest.hexdigest()[:16], "cluster": mxu.epilogue_cluster(ti),
+            "k2_hist_ms": cuda_ms(lambda: mxu.count_tiles_hist(x, *ids, **hkw)),
+            "k2_topk_ms": cuda_ms(lambda: mxu.count_tiles_topk(x, *ids, k=16, **kw)),
+            "k2_tri_ms": cuda_ms(lambda: mxu.count_tiles_pallas_mxu(
+                x, *ids, tile_rows=ti, tile_words=256, checked=ids))}
     return out
 
 
@@ -164,14 +159,30 @@ def main(argv=None) -> int:
         print("torch_epilogue_variants: no CUDA card", file=sys.stderr)
         return 1
     out = Path(args.out)
-    lines = []
-    for name in VARIANTS:
-        tree = make_variant(out, name)
-        run = subprocess.run([sys.executable, __file__, "--time", str(tree)],
+    trees = {name: make_variant(out, name) for name in VARIANTS}
+    edited = [name for name in VARIANTS if name != "shipped"]
+    runs = {name: [] for name in VARIANTS}
+    for name in ["shipped", *edited, *reversed(edited), "shipped"]:
+        run = subprocess.run([sys.executable, __file__, "--time", str(trees[name])],
                              capture_output=True, text=True, timeout=900)
         if run.returncode:
             raise RuntimeError(f"variant {name} failed:\n{run.stdout}\n{run.stderr}")
-        row = {"variant": name, **json.loads(run.stdout.strip().splitlines()[-1])}
+        runs[name].append(json.loads(run.stdout.strip().splitlines()[-1]))
+    lines = []
+    for name in edited:
+        row = {"variant": name, "remarks": runs[name][0]["remarks"]}
+        for label, first in runs[name][0].items():
+            if label == "remarks":
+                continue
+            mine = [r[label] for r in runs[name]]
+            shipped = [r[label] for r in runs["shipped"]]
+            row[label] = {
+                "equal": all(m["digest"] == shipped[0]["digest"] for m in mine + shipped),
+                "cluster": first["cluster"],
+                **{key: [m[key] for m in mine] for key in ("k2_hist_ms", "k2_topk_ms",
+                                                           "k2_tri_ms")},
+                **{f"shipped_{key}": [s[key] for s in shipped]
+                   for key in ("k2_hist_ms", "k2_topk_ms")}}
         lines.append(row)
         print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

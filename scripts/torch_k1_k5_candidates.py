@@ -8,8 +8,8 @@ K1, at 16384 x 262144 bits (T = 8256 tiles of 128 x 128): the kernel the
 wrapper launches, on the i-major tile list and on the same tiles ordered
 in bands (does the tile order matter?), the straight route through K2's
 triangular kernel at TI = 128 (half of each block's B rows zero-filled),
-K2 itself at TI = 256 on the same rows, and the previous CUDA-core kernel. Each result is
-compared with K2's, exactly.
+and K2 itself at TI = 256 on the same rows. Each result is compared with
+K2's, exactly.
 
 K5, on the LD panel of ``chip_smoke.py`` (16384 x 1,048,576 bits, 16
 blocks): the launch alone (CUDA events around the C entry, the counter
@@ -109,15 +109,9 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} differs from K2 at TI=128")
-    got = dense.count_tiles_pallas_dense(xp, *ids128, tile_rows=128, tile_words=2048,
-                                         previous_body=True)
-    if not torch.equal(got, want):
-        raise AssertionError("previous K1 differs from K2 at TI=128")
     del got, want
     print("[k1] every candidate equals K2's tiles at TI=128, exactly")
     in_turns("k1", k1_cands, reps=5)
-    print(f"[k1] previous kernel (CUDA cores): "
-          f"{ms(lambda: dense.count_tiles_pallas_dense(xp, *ids128, tile_rows=128, tile_words=2048, previous_body=True), 2):.4f} ms")
     del xp, words
     torch.cuda.empty_cache()
 

@@ -15,22 +15,23 @@ of the same width (10 launches each); K1's walk on the same rows (T = 8256
 tiles of 128 × 128; 3 launches); K5 on ``chip_smoke.py``'s LD panel
 (16384 × 1,048,576 bits, 16 blocks; 20 launches) as the tree's own path
 calls it: with the work list checked at plan time where the tree has
-that, else with the wrapper's read-back; and K2-rect at one lookup of
-``c4.lookup64`` (64 query rows against 100,000 rows of 32,768 words, a
-13.1-GB panel made on the card), through ``count_block_pallas_mxu`` and
-through the library's ``k2_rect_launch``. One JSON line per turn, then
-the card's name and power limit.
+that, else with the wrapper's read-back; and K2-rect at the lookups of
+``c4.lookup64``'s shape, Na = 1, 16, 64 and 128 query rows against
+100,000 rows of 32,768 words (a 13.1-GB panel made on the card), through
+``count_block_pallas_mxu``, which both trees have whatever kernel it
+launches. K2-rect's rectangle goes through ``count_block_pallas_mxu`` too.
+One JSON line per turn, with a digest of each lookup's counts (the runs
+must agree), then the card's name and power limit.
 
 ``--rect`` times, in this tree, K2-rect's launches on one block of the
 rows ring of config 5 (256 query rows against a 250,112-row shard of
 32,768 words: a 32.8-GB B operand made on the card) and on one lookup of
-``c4.lookup64`` (64 against 100,000 rows of the same width): the
-``cp.async`` body in its launch order (B tile fastest, ``k2_rect_launch``),
-the TMA body in clusters of two and of one (``k2_rect_tma_launch``), the
-``cp.async`` body in the TMA body's order (A sub-tile fastest: a variant
-built here from ``csrc/tile_body.cuh``, which the program does not have),
-and the program's route (``count_block_pallas_mxu``, whose shape rule picks
-one of the first two). Each form runs twice (in order, then reversed) and
+``c4.lookup64`` (64 against 100,000 rows of the same width): the TMA body
+in clusters of two and of one (``k2_rect_tma_launch``), the ``cp.async``
+body in the TMA body's order (A sub-tile fastest: a variant built here
+from ``csrc/tile_body.cuh``, which the program does not have), and the
+program's route (``count_block_pallas_mxu``, whose shape rule picks one
+of the first two). Each form runs twice (in order, then reversed) and
 must give the same counts; one JSON line a shape, each time beside the
 operation bound (2·Na·Nb·M at the b1 rate, 1.583e16 bit-op/s) and the byte
 bound (both operands and the output once at 3.35 TB/s), then the card's
@@ -47,7 +48,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # --rect: this tree
 
 CHILD = r'''
-import json, numpy as np, torch
+import hashlib, json, numpy as np, torch
 import chip_smoke
 import stormtpu_torch as st
 from stormtpu_torch.kernels import _build, clustered, dense, mxu
@@ -72,8 +73,7 @@ def ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 tri = ms(lambda: mxu.count_tiles_pallas_mxu(xp, ibs, jbs, tile_rows=256, tile_words=256))
-rect = ms(lambda: mxu._count_block_padded(a, xp, tile_rows=256, tile_words=256,
-                                          variant="planes"))
+rect = ms(lambda: mxu.count_block_pallas_mxu(a, xp))
 ids128 = [torch.from_numpy(x).to(dev) for x in triangular_tile_ids(128)]
 k1 = ms(lambda: dense.count_tiles_pallas_dense(xp, *ids128, tile_rows=128, tile_words=2048),
         reps=3)
@@ -91,24 +91,21 @@ if hasattr(clustered, "DeviceWorklist"):
 k5 = ms(lambda: clustered.count_tiles_worklist(packed, *work, **kw), reps=20)
 del ld, bm, plan, packed, work
 torch.cuda.empty_cache()
-# one lookup of c4.lookup64: 64 query rows (a row view) against 100,000 rows
-# of 32,768 words, through the card route and through the kernel's entry
-panel = torch.empty((100_000 + 64, 32_768), dtype=torch.int32, device=dev)
+# lookups of c4.lookup64's shape: na query rows (a row view) against 100,000
+# rows of 32,768 words, through the card route
+panel = torch.empty((100_000 + 128, 32_768), dtype=torch.int32, device=dev)
 gen = torch.Generator(device=dev)
 gen.manual_seed(20)
 panel.random_(-(1 << 31), 1 << 31, generator=gen)
-q, b = panel[100_000:], panel[:100_000]
-out = torch.empty((64, 100_000), dtype=torch.int32, device=dev)
-stream = torch.cuda.current_stream().cuda_stream
-k2 = _build.library("k2_mxu")
-route = mxu.count_block_pallas_mxu(q, b)
-lookup_route = ms(lambda: mxu.count_block_pallas_mxu(q, b))
-lookup_kernel = ms(lambda: k2.k2_rect_launch(q.data_ptr(), b.data_ptr(), out.data_ptr(), 64,
-                                             100_000, 32_768, 100_000, stream))
-if not torch.equal(route, out):
-    raise AssertionError("the card route and k2_rect_launch differ at the lookup")
+b = panel[:100_000]
+lookup_ms, digest = {}, {}
+for na in (1, 16, 64, 128):
+    q = panel[100_000 : 100_000 + na]
+    got = mxu.count_block_pallas_mxu(q, b).contiguous().cpu().numpy()
+    digest[na] = hashlib.sha256(got.tobytes()).hexdigest()[:16]
+    lookup_ms[na] = ms(lambda: mxu.count_block_pallas_mxu(q, b))
 print(json.dumps({"k2_tri_ms": tri, "k2_rect_ms": rect, "k1_ms": k1, "k5_ms": k5,
-                  "lookup_route_ms": lookup_route, "lookup_kernel_ms": lookup_kernel}))
+                  "lookup_ms": lookup_ms, "lookup_digest": digest}))
 '''
 
 
@@ -230,7 +227,7 @@ def rect_forms(reps: int) -> int:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             return run
 
-        forms = {"cp_async_b_fastest": direct("cp_async_b_fastest", k2.k2_rect_launch)}
+        forms = {}
         if -(-na // mxu.RECT_BLOCK_ROWS) % 2 == 0:  # sub-tile rows that pair up
             forms["tma_cluster2"] = direct("tma_cluster2", k2.k2_rect_tma_launch, 2)
         forms["tma_cluster1"] = direct("tma_cluster1", k2.k2_rect_tma_launch, 1)
@@ -240,13 +237,13 @@ def rect_forms(reps: int) -> int:
         times = {k: [] for k in forms}
         for name in [*forms, *reversed(forms)]:
             times[name].append(ms(forms[name]))
-        want = outs["cp_async_b_fastest"][:, :nb]
+        want = outs["tma_cluster1"][:, :nb]
         for name, out in outs.items():
             if not torch.equal(out[:, :nb], want):
-                raise AssertionError(f"{name} differs from k2_rect_launch at {na} x {nb}")
+                raise AssertionError(f"{name} differs from tma_cluster1 at {na} x {nb}")
         plain = mxu.count_block_plain(a[:2], b[:512], tile_words=1024)
         if not torch.equal(plain, want[:2, :512]):
-            raise AssertionError(f"k2_rect_launch differs from the plain version at {na} x {nb}")
+            raise AssertionError(f"tma_cluster1 differs from the plain version at {na} x {nb}")
         ops = 2.0 * na * nb * WORDS * 32
         nbytes = 4.0 * ((na + nb) * WORDS + na * nb)
         print(json.dumps({
@@ -276,11 +273,15 @@ def main(argv=None) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     trees = {"parent": args[0], "change": args[1]}
+    digests = set()
     for name in ("parent", "change", "change", "parent"):
         r = subprocess.run([sys.executable, "-c", CHILD], cwd=trees[name],
                            capture_output=True, text=True, check=True, timeout=900)
-        print(json.dumps({"tree": name, **json.loads(r.stdout.strip().splitlines()[-1])}),
-              flush=True)
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        digests.add(json.dumps(line["lookup_digest"], sort_keys=True))
+        print(json.dumps({"tree": name, **line}), flush=True)
+    if len(digests) != 1:
+        raise AssertionError("the trees' lookup counts differ")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     return 0

@@ -41,15 +41,9 @@ SOURCES = {
     "k2_mxu": {
         "k2_block_rows": ((), _I),
         "k2_sub_tiles": ((_I,), _I),
-        "k2_sub_tiles_prev": ((_I,), _I),
         "k2_tri_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
-        "k2_rect_launch": ((_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP), _I),
         "k2_rect_tma_launch": ((_VP, _VP, _VP, _LL, _LL, _LL, _LL, _I, _VP), _I),
         "k5_launch": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _LL, _VP), _I),
-        # the previous tile body, for timing beside the one above
-        "k2_tri_launch_prev": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
-        "k2_rect_launch_prev": ((_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP), _I),
-        "k5_launch_prev": ((_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _VP), _I),
     },
     "tc_rate": {
         "tc_rate_kinds": ((), _I),
@@ -68,17 +62,10 @@ SOURCES = {
                             _LL, _I, _VP), _I),
         "k2_hist_launch": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _LL, _I, _I, _VP),
                            _I),
-        # the previous tile body, for timing beside the one above
-        "k2_topk_launch_prev": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL,
-                                 _LL, _I, _VP), _I),
-        "k2_hist_launch_prev": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _LL, _I, _I,
-                                 _VP), _I),
     },
     "k1_dense": {
         "k1_block_rows": ((), _I),
         "k1_tri_launch": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
-        # the previous kernel (CUDA cores), for timing beside the one above
-        "k1_tri_launch_prev": ((_VP, _VP, _VP, _VP, _I, _I, _LL, _VP), _I),
         "k0_stream_launch": ((_VP, _VP, _VP, _LL, _LL, _I, _VP), _I),
     },
     "k4_sparse": {

@@ -49,7 +49,7 @@ from stormtpu_torch.kernels.mxu import (
     _check_cuda_operand,
     _check_geometry,
     _check_variant,
-    _launch_k2,
+    _launch,
     count_matrix_pallas_mxu,
     k2_tile_shape,
 )
@@ -559,12 +559,11 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _k2_sub_tiles(tile_rows: int, previous_body: bool = False) -> int:
+def _k2_sub_tiles(tile_rows: int) -> int:
     """Blocks per tile_rows × tile_rows output tile of the CUDA tile body."""
     from stormtpu_torch.kernels._build import library
 
-    lib = library("k2_mxu")
-    return (lib.k2_sub_tiles_prev if previous_body else lib.k2_sub_tiles)(tile_rows)
+    return library("k2_mxu").k2_sub_tiles(tile_rows)
 
 
 def count_tiles_worklist(
@@ -579,7 +578,6 @@ def count_tiles_worklist(
     tile_rows: int,
     tile_words: int,
     variant: str = "planes",
-    previous_body: bool = False,
     checked: Optional[DeviceWorklist] = None,
 ) -> torch.Tensor:
     """``n_slots`` count tiles int32 [n_slots, TI, TI]: work item t adds
@@ -612,24 +610,18 @@ def count_tiles_worklist(
                       device=packed.device)
     if n_slots == 0:
         return out
-    if checked is not None and checked.units is not None and not previous_body:
+    if checked is not None and checked.units is not None:
         units = checked.units
     else:
         units = torch.from_numpy(
-            schedule_units(starts, _k2_sub_tiles(tile_rows, previous_body))
-        ).to(packed.device)
-    args = (packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), gsel.data_ptr(),
-            units.data_ptr())
+            schedule_units(starts, _k2_sub_tiles(tile_rows))).to(packed.device)
     n_units = units.shape[0]
-    if previous_body:
-        _launch_k2("k5_launch", packed.device, True, *args, out.data_ptr(), n_units,
-                   tile_rows, tile_words, w_pad)
-    else:
-        # the blocks' shared position in the schedule; one block an SM
-        counter = torch.zeros(1, dtype=torch.int32, device=packed.device)
-        _launch_k2("k5_launch", packed.device, False, *args, counter.data_ptr(),
-                   out.data_ptr(), n_units, min(_sm_count(packed.device), n_units),
-                   tile_rows, tile_words, w_pad)
+    # the blocks' shared position in the schedule; one block an SM
+    counter = torch.zeros(1, dtype=torch.int32, device=packed.device)
+    _launch("k2_mxu", "k5_launch", packed.device, packed.data_ptr(), ibs.data_ptr(),
+            jbs.data_ptr(), gsel.data_ptr(), units.data_ptr(), counter.data_ptr(),
+            out.data_ptr(), n_units, min(_sm_count(packed.device), n_units),
+            tile_rows, tile_words, w_pad)
     LAUNCHES["k5"] += 1
     return out
 

@@ -30,10 +30,6 @@
 //    load as zero (W is a multiple of 4: the loader reads 16-byte vectors).
 //    TI % 8 == 0 makes every stored row 8-byte aligned and every column
 //    count even, which the body's int2 stores need.
-//  - The previous kernel (k1_tri_kernel_prev: one __popc per pair and word
-//    on the CUDA cores, 64 x 64 outputs a block, a 4 x 4 register tile a
-//    thread, at 97% of the popcount issue rate and sixty times slower)
-//    stays for timing beside it only (chip_smoke.py).
 //
 // K0 computes out[r] = sum over words of popcount((A[r] ^ salt) & B[r]).
 // What bounds it: bytes, each word of A and B read once (2·R·W·4 bytes at
@@ -111,95 +107,7 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
                     o + static_cast<int64_t>(ti) * ti, ti);
 }
 
-// ------------------------------- the previous K1: __popc on the CUDA cores
-constexpr int SUB = 64;               // output rows and columns per block
-constexpr int KW = 32;                // packed words per shared-memory stage
-constexpr int LDS = KW + 1;           // odd row stride: conflict-free reads
-constexpr int TX = 16;                // threads along columns
-constexpr int TY = 16;                // threads along rows
-constexpr int THREADS = TX * TY;      // 256
-constexpr int RT = SUB / TY;          // 4 rows per thread
-constexpr int CT = SUB / TX;          // 4 columns per thread
-
-// Stage rows [0, rows) x words [k0, k0 + KW) (row stride w, a multiple of
-// 4) into shared memory; rows >= rows and words >= w are zero.
-__device__ __forceinline__ void load_stage(uint32_t* sm,
-                                           const uint32_t* __restrict__ g,
-                                           int rows, int64_t w, int64_t k0) {
-  constexpr int VEC_PER_ROW = KW / 4;
-  for (int v = threadIdx.x; v < SUB * VEC_PER_ROW; v += THREADS) {
-    const int r = v / VEC_PER_ROW;
-    const int c = (v % VEC_PER_ROW) * 4;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows && k0 + c < w) {
-      val = *reinterpret_cast<const uint4*>(g + r * w + k0 + c);
-    }
-    uint32_t* dst = sm + r * LDS + c;
-    dst[0] = val.x;
-    dst[1] = val.y;
-    dst[2] = val.z;
-    dst[3] = val.w;
-  }
-}
-
-// blockIdx.x = tile pair t, blockIdx.y = SUB x SUB sub-tile of the TI x TI
-// tile; out is int32 [T, ti, ti].
-__global__ void __launch_bounds__(THREADS)
-    k1_tri_kernel_prev(const uint32_t* __restrict__ packed,
-                  const int* __restrict__ ibs, const int* __restrict__ jbs,
-                  int* __restrict__ out, int ti, int64_t w) {
-  __shared__ uint32_t sa[SUB * LDS];
-  __shared__ uint32_t sb[SUB * LDS];
-
-  const int64_t t = blockIdx.x;
-  const int nsub = (ti + SUB - 1) / SUB;
-  const int si = blockIdx.y / nsub;
-  const int sj = blockIdx.y % nsub;
-  const int a_rows = min(SUB, ti - si * SUB);
-  const int b_rows = min(SUB, ti - sj * SUB);
-  const uint32_t* a = packed + (static_cast<int64_t>(ibs[t]) * ti + si * SUB) * w;
-  const uint32_t* b = packed + (static_cast<int64_t>(jbs[t]) * ti + sj * SUB) * w;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-
-  int acc[RT][CT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) acc[i][j] = 0;
-
-  for (int64_t k0 = 0; k0 < w; k0 += KW) {
-    load_stage(sa, a, a_rows, w, k0);
-    load_stage(sb, b, b_rows, w, k0);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KW; ++kk) {
-      uint32_t av[RT];
-      uint32_t bv[CT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) av[i] = sa[(ty + i * TY) * LDS + kk];
-#pragma unroll
-      for (int j = 0; j < CT; ++j) bv[j] = sb[(tx + j * TX) * LDS + kk];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] += __popc(av[i] & bv[j]);
-    }
-    __syncthreads();
-  }
-
-  int* o = out + t * ti * ti + static_cast<int64_t>(si) * SUB * ti + sj * SUB;
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int r = ty + i * TY;
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int c = tx + j * TX;
-      if (r < a_rows && c < b_rows) o[static_cast<int64_t>(r) * ti + c] = acc[i][j];
-    }
-  }
-}
-
+// ------------------------------------------------- K0 on the CUDA cores
 constexpr int K0_THREADS = 256;
 constexpr int K0_WARPS = K0_THREADS / 32;
 
@@ -258,17 +166,6 @@ int k1_tri_launch(const void* packed, const void* ibs, const void* jbs,
       static_cast<const int*>(ibs), static_cast<const int*>(jbs),
       static_cast<const int*>(units), static_cast<int*>(out), t, ti,
       static_cast<int64_t>(w));
-}
-
-// The previous kernel, for timing beside the above.
-int k1_tri_launch_prev(const void* packed, const void* ibs, const void* jbs,
-                       void* out, int t, int ti, long long w, void* stream) {
-  const int nsub = (ti + SUB - 1) / SUB;
-  const dim3 grid(static_cast<unsigned>(t), static_cast<unsigned>(nsub * nsub));
-  k1_tri_kernel_prev<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(packed), static_cast<const int*>(ibs),
-      static_cast<const int*>(jbs), static_cast<int*>(out), ti, w);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // a, b: int32/uint32 [r, w]; out: int32 [r]. salt is the uint32 salt's

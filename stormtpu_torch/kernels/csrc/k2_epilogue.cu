@@ -47,8 +47,7 @@
 //    ring's 192 KiB are free once the consumers' last full wait and product
 //    group are behind them (B1WgmmaTma::consume returns after a barrier).
 //    TMA fills a short sub-tile's missing rows with the next row block's
-//    rows where the previous body wrote zeros: both epilogues read only
-//    rows < a_rows and columns < b_rows.
+//    rows: both epilogues read only rows < a_rows and columns < b_rows.
 //  - Top-k: the block's 128 x 256 int32 sums, masked, are staged into the
 //    stages with a row stride of 257 words, so a warp reads a row (lanes on
 //    consecutive words) and a column (lanes on consecutive rows, banks
@@ -66,11 +65,6 @@
 //    shared memory with one atomic; the block then adds each bin's total to
 //    the device total with one 64-bit atomic. A launch's count never leaves
 //    int64.
-//  - The previous kernels (on tile::B1Wgmma, K2-tri's cp.async main loop,
-//    one block a sub-tile in si-major order) stay for timing beside the new
-//    ones only: the "_prev" launchers (previous_body=True on the wrappers;
-//    chip_smoke.py, scripts/torch_epilogue_ab.py). Both bodies run the same
-//    epilogues.
 //
 // Launch interface: plain C functions taking device pointers and the stream
 // as void*, returning the CUDA error of the launch (cudaErrorInvalidValue,
@@ -85,7 +79,7 @@ namespace {
 
 using namespace tile;
 
-constexpr int BM = 128, BN = 256;    // a block's sub-tile, both bodies
+constexpr int BM = 128, BN = 256;    // a block's sub-tile
 constexpr int EPI_THREADS = 256;     // the threads that hold a block's sums
 constexpr int WARPS = EPI_THREADS / 32;
 constexpr int TOPK_MAX = 32;         // kk a launch may ask for
@@ -93,9 +87,6 @@ constexpr int LDS = BN + 1;          // staged row stride, in words
 constexpr int HIST_MAX_BINS = 4096;  // a sub-histogram a warp in the stages
 constexpr int RING_BYTES = B1WgmmaTma<1>::RING_BYTES;
 
-static_assert(B1Wgmma::BM == BM && B1Wgmma::BN == BN && B1Wgmma::THREADS == EPI_THREADS &&
-                  B1Wgmma::SMEM_BYTES == RING_BYTES,
-              "the previous body holds its sums as the new one does");
 static_assert(B1WgmmaTma<2>::BM == BM && B1WgmmaTma<2>::BN == BN &&
                   B1WgmmaTma<2>::CONSUMERS == EPI_THREADS,
               "the consumers hold the sums");
@@ -138,15 +129,6 @@ __device__ __forceinline__ EpiBlock epi_block(int si, int sj, const int* ibs, co
   b.diag = row_off + ib * ti == col_off + jb * ti;
   return b;
 }
-
-// The barrier over the threads that hold the sums: the block's on the
-// previous body, named barrier 1 over the consumers on B1WgmmaTma.
-struct BlockSync {
-  static __device__ __forceinline__ void sync() { __syncthreads(); }
-};
-struct ConsumerSync {
-  static __device__ __forceinline__ void sync() { named_sync<1, EPI_THREADS>(); }
-};
 
 // The kk best (value, index) of LINES lines of the staged tile at once, by
 // value descending and index ascending: lane l's entry e of line q is
@@ -219,8 +201,8 @@ __device__ __forceinline__ void lines_topk(const int* const (&line)[LINES], int 
 }
 
 // K2-topk's reduction of one block's sums (accumulator layout: tile_body.cuh,
-// B1Wgmma::store_split), staged in `smem`, the ring.
-template <class Sync>
+// B1Wgmma::store_split), staged in `smem`, the ring. Its barriers are named
+// barrier 1 over the consumers, the threads that hold the sums.
 __device__ __forceinline__ void topk_epilogue(const int (&acc)[BN / 2], const EpiBlock& b,
                                               uint32_t* smem, int* __restrict__ row_v,
                                               int* __restrict__ row_i, int* __restrict__ col_v,
@@ -248,7 +230,7 @@ __device__ __forceinline__ void topk_epilogue(const int (&acc)[BN / 2], const Ep
       }
     }
   }
-  Sync::sync();
+  named_sync<1, EPI_THREADS>();
 
   // each row: its kk best over the block's columns; a warp takes rows
   // r and r + WARPS together
@@ -292,15 +274,15 @@ __device__ __forceinline__ void topk_epilogue(const int (&acc)[BN / 2], const Ep
   }
 }
 
-// K2-hist's reduction of one block's sums, its sub-histograms in `smem`.
-template <class Sync>
+// K2-hist's reduction of one block's sums, its sub-histograms in `smem`;
+// barriers as in topk_epilogue.
 __device__ __forceinline__ void hist_epilogue(const int (&acc)[BN / 2], const EpiBlock& b,
                                               uint32_t* smem,
                                               unsigned long long* __restrict__ hist,
                                               int64_t n_real, int bin_width, int n_bins) {
   unsigned* sub = smem;  // [WARPS][n_bins]
   for (int i = threadIdx.x; i < WARPS * n_bins; i += EPI_THREADS) sub[i] = 0u;
-  Sync::sync();
+  named_sync<1, EPI_THREADS>();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   unsigned* mine = sub + warp * n_bins;
@@ -334,7 +316,7 @@ __device__ __forceinline__ void hist_epilogue(const int (&acc)[BN / 2], const Ep
     }
   }
   if (run) atomicAdd(mine + cur, run);
-  Sync::sync();
+  named_sync<1, EPI_THREADS>();
   for (int i = threadIdx.x; i < n_bins; i += EPI_THREADS) {
     unsigned s = 0u;
 #pragma unroll
@@ -343,7 +325,7 @@ __device__ __forceinline__ void hist_epilogue(const int (&acc)[BN / 2], const Ep
   }
 }
 
-// ------------------------------------------------- on the new body
+// ------------------------------------------------------------- kernels
 // Blocks sj-major: a cluster's two blocks are sub-tile rows 2q, 2q + 1 of
 // one column block. Every thread reads its block's place; the producer
 // warpgroup loads, the consumers sum and reduce.
@@ -366,8 +348,7 @@ __global__ void __launch_bounds__(B1WgmmaTma<CLUSTER>::THREADS, 1)
   } else {
     typename Body::Acc acc;
     Body::consume(acc, smem_dyn, chunks);
-    topk_epilogue<ConsumerSync>(acc.v, b, smem_dyn, row_v, row_i, col_v, col_i, ti, n_real,
-                                kk);
+    topk_epilogue(acc.v, b, smem_dyn, row_v, row_i, col_v, col_i, ti, n_real, kk);
     Body::finish();
   }
 }
@@ -390,48 +371,9 @@ __global__ void __launch_bounds__(B1WgmmaTma<CLUSTER>::THREADS, 1)
   } else {
     typename Body::Acc acc;
     Body::consume(acc, smem_dyn, chunks);
-    hist_epilogue<ConsumerSync>(acc.v, b, smem_dyn, hist, n_real, bin_width, n_bins);
+    hist_epilogue(acc.v, b, smem_dyn, hist, n_real, bin_width, n_bins);
     Body::finish();
   }
-}
-
-// ------------------------------------------------- on the previous body
-// K2-tri's main loop (tile::B1Wgmma::accumulate) as it is, blocks si-major,
-// then the barrier after which the stages may be overwritten.
-__device__ __forceinline__ void run_tile_prev(B1Wgmma::Acc& acc, const EpiBlock& b,
-                                              const uint32_t* packed, int64_t w,
-                                              uint32_t* smem) {
-  zero_frags(acc.v);
-  const RowPairSource src{packed + b.row_a * w, packed + b.row_b * w, static_cast<int>(w)};
-  B1Wgmma::accumulate(acc, src, b.a_rows, b.b_rows, w, smem);
-  __syncthreads();  // both warpgroups' products have read their last stage
-}
-
-__global__ void __launch_bounds__(B1Wgmma::THREADS, B1Wgmma::MIN_BLOCKS)
-    k2_topk_kernel_prev(const uint32_t* __restrict__ packed, const int* __restrict__ ibs,
-                        const int* __restrict__ jbs, int* __restrict__ row_v,
-                        int* __restrict__ row_i, int* __restrict__ col_v,
-                        int* __restrict__ col_i, int ti, int64_t w, int64_t row_off,
-                        int64_t col_off, int64_t n_real, int kk) {
-  extern __shared__ __align__(1024) uint32_t smem_dyn[];
-  const EpiBlock b = epi_block(blockIdx.y / nsub_n(ti), blockIdx.y % nsub_n(ti), ibs, jbs,
-                               ti, row_off, col_off);
-  B1Wgmma::Acc acc;
-  run_tile_prev(acc, b, packed, w, smem_dyn);
-  topk_epilogue<BlockSync>(acc.v, b, smem_dyn, row_v, row_i, col_v, col_i, ti, n_real, kk);
-}
-
-__global__ void __launch_bounds__(B1Wgmma::THREADS, B1Wgmma::MIN_BLOCKS)
-    k2_hist_kernel_prev(const uint32_t* __restrict__ packed, const int* __restrict__ ibs,
-                        const int* __restrict__ jbs, unsigned long long* __restrict__ hist,
-                        int ti, int64_t w, int64_t row_off, int64_t col_off, int64_t n_real,
-                        int bin_width, int n_bins) {
-  extern __shared__ __align__(1024) uint32_t smem_dyn[];
-  const EpiBlock b = epi_block(blockIdx.y / nsub_n(ti), blockIdx.y % nsub_n(ti), ibs, jbs,
-                               ti, row_off, col_off);
-  B1Wgmma::Acc acc;
-  run_tile_prev(acc, b, packed, w, smem_dyn);
-  hist_epilogue<BlockSync>(acc.v, b, smem_dyn, hist, n_real, bin_width, n_bins);
 }
 
 bool topk_args_ok(int ti, int kk) {
@@ -518,35 +460,6 @@ int k2_hist_launch(const void* packed, const void* ibs, const void* jbs, void* h
       static_cast<const int*>(jbs), static_cast<unsigned long long*>(hist), ti,
       static_cast<int64_t>(w), static_cast<int64_t>(row_off), static_cast<int64_t>(col_off),
       static_cast<int64_t>(n_real), bin_width, n_bins);
-}
-
-// The previous body, with the same arguments (rows unused: it reads the
-// tile list's rows straight from packed, as K2-tri does).
-int k2_topk_launch_prev(const void* packed, const void* ibs, const void* jbs, void* row_v,
-                        void* row_i, void* col_v, void* col_i, int t, int ti, long long,
-                        long long w, long long row_off, long long col_off, long long n_real,
-                        int kk, void* stream) {
-  if (!topk_args_ok(ti, kk)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<B1Wgmma>(k2_topk_kernel_prev, epi_grid(t, ti), stream,
-                         static_cast<const uint32_t*>(packed), static_cast<const int*>(ibs),
-                         static_cast<const int*>(jbs), static_cast<int*>(row_v),
-                         static_cast<int*>(row_i), static_cast<int*>(col_v),
-                         static_cast<int*>(col_i), ti, static_cast<int64_t>(w),
-                         static_cast<int64_t>(row_off), static_cast<int64_t>(col_off),
-                         static_cast<int64_t>(n_real), kk);
-}
-
-int k2_hist_launch_prev(const void* packed, const void* ibs, const void* jbs, void* hist,
-                        int t, int ti, long long, long long w, long long row_off,
-                        long long col_off, long long n_real, int bin_width, int n_bins,
-                        void* stream) {
-  if (!hist_args_ok(ti, bin_width, n_bins)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<B1Wgmma>(k2_hist_kernel_prev, epi_grid(t, ti), stream,
-                         static_cast<const uint32_t*>(packed), static_cast<const int*>(ibs),
-                         static_cast<const int*>(jbs), static_cast<unsigned long long*>(hist),
-                         ti, static_cast<int64_t>(w), static_cast<int64_t>(row_off),
-                         static_cast<int64_t>(col_off), static_cast<int64_t>(n_real),
-                         bin_width, n_bins);
 }
 
 }  // extern "C"

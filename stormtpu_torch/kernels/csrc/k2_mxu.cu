@@ -5,8 +5,7 @@
 //   stormtpu/kernels/mxu.py        _k2_kernel / _k2_kernel_planes
 //                                  (triangular tile list, count_tiles_pallas_mxu)
 //   stormtpu/kernels/mxu.py        _k2_rect_concat / _k2_rect_planes
-//                                  (rectangular grid, count_block_pallas_mxu
-//                                  and _count_block_padded)
+//                                  (rectangular grid, count_block_pallas_mxu)
 //   stormtpu/kernels/clustered.py  _k5_kernel_concat / _k5_kernel_planes
 //                                  (work list, count_tiles_worklist)
 //
@@ -33,22 +32,20 @@
 //    row-block pair over all words; K5's is a slot's work items one after
 //    another (one K-group each), so the load pipeline runs across a slot's
 //    items and the slot is stored once: no zeroing, no atomics.
-//  - Chunks arrive through a ring of shared-memory stages filled by
-//    cp.async (16 bytes a thread) ahead of the products. cp.async's source
-//    size zero-fills rows past the tile and words past the K range (exact:
-//    zero bits add nothing), so one loader serves every tile size and K5's
-//    K-groups; a tensor map per operand (TMA) would save the address
-//    arithmetic but not the L2 traffic that sets the pace.
-//  - K2-rect at more than one 128-row sub-tile row of A (Na > 128: the
-//    rows ring's blocks of 256 query rows against a 250,112-row shard) runs
-//    on tile::B1WgmmaTma instead (csrc/tile_body_tma.cuh): there the blocks
-//    of every A sub-tile row read the same B tile, and in the cp.async
-//    form's order (B tile fastest) a B tile's two readers run a whole pass
-//    over B apart, so the shard came from device memory once per sub-tile
-//    row. The TMA form lays the blocks of one B tile next to each other and
-//    pairs sub-tile rows 2q, 2q + 1 in a cluster that multicasts the B rows
-//    into both (k2_rect_tma_kernel below). Na <= 128 (the lookups' 64 query
-//    rows: one sub-tile row, nothing to share) keeps the cp.async form.
+//  - K2-tri's and K5's chunks arrive through a ring of shared-memory stages
+//    filled by cp.async (16 bytes a thread) ahead of the products.
+//    cp.async's source size zero-fills rows past the tile and words past the
+//    K range (exact: zero bits add nothing), so one loader serves every tile
+//    size and K5's K-groups.
+//  - K2-rect runs on tile::B1WgmmaTma (csrc/tile_body_tma.cuh): TMA loads
+//    through a tensor map per operand, whose zero fill stands in for the
+//    rows and words past the operands, and blocks laid out A sub-tile row
+//    fastest, so that the blocks that read one B tile run next to each
+//    other and B (the lookups' 100,000-row panel, the rows ring's
+//    250,112-row shard) streams from device memory once a call. When A has
+//    an even number of sub-tile rows, rows 2q, 2q + 1 form a cluster that
+//    loads each B tile once, multicast into both; else each block loads its
+//    own (clusters of one; k2_rect_tma_kernel below).
 //  - The tile body (tile::B1Wgmma in csrc/tile_body.cuh, which K1 shares)
 //    is 128 x 256 a block, the widest tile whose sums fit the registers:
 //    two warpgroups, each issuing wgmma.m64n256k256 with both operands read
@@ -60,15 +57,10 @@
 //    hands the kernel a schedule of "units" (a slot's sub-tile and its
 //    items), longest first; one block an SM takes them off it as it falls
 //    free and streams them through the ring without a drain between units;
-//    see the K5 kernels below.
-//  - The previous body (S8Body) stays for timing beside it only
-//    (chip_smoke.py): the int8 mma.sync.m16n8k32 with the unpack fused into
-//    the fragment load, which the integer pipe held at a quarter of the
-//    int8 rate.
+//    see k5_stream_kernel below.
 //
 // Launch interface: plain C functions taking device pointers and the
-// stream as void*, returning cudaGetLastError() of the launch. The
-// functions ending in "_prev" launch the previous body.
+// stream as void*, returning cudaGetLastError() of the launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -79,182 +71,11 @@ namespace {
 
 using namespace tile;
 
-// ------------------------------------------------------------- K sources
-// K2's source, RowPairSource, lives in tile_body.cuh (the epilogue kernels
-// of k2_epilogue.cu run the same main loop).
-
-// K5 on the previous body: items [t0, t0 + n_items) of the work list; item t
-// is row blocks ibs[t] x jbs[t] (rows off_a, off_b into the tile) over
-// K-group gsel[t]: words [gsel*wk, gsel*wk + wk) of a row of w words. (On
-// the tile body K5 walks its items with a UnitCursor, below.)
-struct WorkListSource {
-  const uint32_t* packed;
-  const int* ibs;
-  const int* jbs;
-  const int* gsel;
-  int t0, n_items, ti, off_a, off_b, wk;
-  int64_t w;
-  __device__ int chunks() const { return n_items * ((wk + KW - 1) / KW); }
-  __device__ void chunk(int f, const uint32_t*& pa, const uint32_t*& pb,
-                        int& valid) const {
-    const int per_item = (wk + KW - 1) / KW;
-    const int t = t0 + f / per_item;
-    const int c = (f % per_item) * KW;
-    const int64_t k = static_cast<int64_t>(gsel[t]) * wk + c;
-    pa = packed + (static_cast<int64_t>(ibs[t]) * ti + off_a) * w + k;
-    pb = packed + (static_cast<int64_t>(jbs[t]) * ti + off_b) * w + k;
-    valid = wk - c;
-  }
-};
-
-// out[r, c] = acc[r, c] for r < a_rows, c < b_rows; out has row stride ldo
-// (even; an odd b_rows also writes column b_rows, which the pitch must
-// hold). m16n8 accumulator layout: c0, c1 at (grp, 2q + {0,1}); c2, c3 at
-// row grp + 8.
-template <int WARPS_N, int MT, int NT>
-__device__ __forceinline__ void store_frags(const int (&acc)[MT][NT][4],
-                                            int a_rows, int b_rows,
-                                            int* __restrict__ out,
-                                            int64_t ldo) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int grp = lane >> 2;
-  const int wm = (warp / WARPS_N) * (MT * 16);
-  const int wn = (warp % WARPS_N) * (NT * 8);
-  const int q2 = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm + i * 16 + grp + h * 8;
-      if (r < a_rows) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int c = wn + j * 8 + q2;
-          if (c < b_rows) {
-            *reinterpret_cast<int2*>(out + r * ldo + c) =
-                make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// ------------------------- the previous body: int8 product, fused unpack
-struct S8Body {
-  static constexpr int WARPS_M = 2;
-  static constexpr int WARPS_N = 4;
-  static constexpr int MT = 4;
-  static constexpr int NT = 4;
-  static constexpr int BM = 128;
-  static constexpr int BN = 128;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int MIN_BLOCKS = 1;
-  static constexpr int LDS = KW + 4;  // padded row stride in words: 16-B
-                                      // aligned rows, conflict-free reads
-  static constexpr int SMEM_BYTES = (BM + BN) * LDS * 4;
-
-  struct Acc {
-    int v[MT][NT][4];
-  };
-
-  static __device__ __forceinline__ uint32_t spread_nibble(uint32_t nib) {
-    // bits b0..b3 of nib -> bytes 0..3 as 0/1 (shifts 0, 7, 14, 21 do not
-    // overlap, so the multiply has no carries)
-    return (nib * 0x00204081u) & 0x01010101u;
-  }
-
-  static __device__ __forceinline__ void mma_s8(int (&c)[4],
-                                                const uint32_t (&a)[4],
-                                                const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-
-  static __device__ __forceinline__ void load_stage(uint32_t* sm,
-                                                    const uint32_t* g, int rows,
-                                                    int64_t ld, int valid) {
-    constexpr int VEC = KW / 4;
-    for (int v = threadIdx.x; v < BM * VEC; v += THREADS) {
-      const int r = v / VEC;
-      const int c = (v % VEC) * 4;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows && c < valid) {
-        val = *reinterpret_cast<const uint4*>(g + r * ld + c);
-      }
-      *reinterpret_cast<uint4*>(sm + r * LDS + c) = val;
-    }
-  }
-
-  // One packed word is one k32 step. Within the word, fragment column
-  // c = h*16 + q*4 + e holds bit q*8 + h*4 + e, so a thread takes one byte
-  // of the word and spreads each nibble to four bytes with one multiply.
-  template <class Source>
-  static __device__ __forceinline__ void accumulate(Acc& acc, const Source& src,
-                                                    int a_rows, int b_rows,
-                                                    int64_t ld,
-                                                    uint32_t* smem) {
-    uint32_t* sa = smem;
-    uint32_t* sb = smem + BM * LDS;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int grp = lane >> 2;
-    const int shift = (lane & 3) * 8;
-    const int wm = (warp / WARPS_N) * (MT * 16);
-    const int wn = (warp % WARPS_N) * (NT * 8);
-    const int n = src.chunks();
-    for (int f = 0; f < n; ++f) {
-      const uint32_t* pa;
-      const uint32_t* pb;
-      int valid;
-      src.chunk(f, pa, pb, valid);
-      load_stage(sa, pa, a_rows, ld, valid);
-      load_stage(sb, pb, b_rows, ld, valid);
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KW; ++kk) {
-        uint32_t af[MT][4];
-        uint32_t bf[NT][2];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const uint32_t lo = sa[(wm + i * 16 + grp) * LDS + kk] >> shift;
-          const uint32_t hi = sa[(wm + i * 16 + grp + 8) * LDS + kk] >> shift;
-          af[i][0] = spread_nibble(lo & 0xFu);
-          af[i][1] = spread_nibble(hi & 0xFu);
-          af[i][2] = spread_nibble((lo >> 4) & 0xFu);
-          af[i][3] = spread_nibble((hi >> 4) & 0xFu);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const uint32_t x = sb[(wn + j * 8 + grp) * LDS + kk] >> shift;
-          bf[j][0] = spread_nibble(x & 0xFu);
-          bf[j][1] = spread_nibble((x >> 4) & 0xFu);
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_s8(acc.v[i][j], af[i], bf[j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  static __device__ __forceinline__ void store(const Acc& acc, int a_rows,
-                                               int b_rows, int* out,
-                                               int64_t ldo) {
-    store_frags<WARPS_N, MT, NT>(acc.v, a_rows, b_rows, out, ldo);
-  }
-};
-
-static_assert(S8Body::BM == B1Wgmma::BM, "k2_block_rows() speaks for both");
-
+// ------------------------------------------------------------- K2 kernels
 // Triangular form: blockIdx.x = tile pair t, blockIdx.y = BM x BN sub-tile
 // of the TI x TI output tile. Tile t counts row block ibs[t] against
-// jbs[t] (the same rows when ibs[t] == jbs[t]).
+// jbs[t] (the same rows when ibs[t] == jbs[t]); its source, RowPairSource,
+// is in tile_body.cuh.
 template <class Body>
 __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
     k2_tri_kernel(const uint32_t* __restrict__ packed,
@@ -287,32 +108,6 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
 // unit, so blocks store without zeroing or atomics. The host orders the
 // units longest first.
 //
-// Per-unit form, which the previous body keeps: block b runs unit units[b].
-template <class Body>
-__global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
-    k5_kernel(const uint32_t* __restrict__ packed,
-              const int* __restrict__ ibs, const int* __restrict__ jbs,
-              const int* __restrict__ gsel, const int4* __restrict__ units,
-              int* __restrict__ out, int ti, int wk, int64_t w) {
-  extern __shared__ __align__(1024) uint32_t smem_dyn[];
-  constexpr int BM = Body::BM, BN = Body::BN;
-  const int4 u = units[blockIdx.x];
-  const int nsub_n = (ti + BN - 1) / BN;
-  const int si = u.w / nsub_n;
-  const int sj = u.w % nsub_n;
-  const int a_rows = min(BM, ti - si * BM);
-  const int b_rows = min(BN, ti - sj * BN);
-  typename Body::Acc acc;
-  zero_frags(acc.v);
-  const WorkListSource src{packed, ibs, jbs, gsel, u.x, u.y,
-                           ti, si * BM, sj * BN, wk, w};
-  Body::accumulate(acc, src, a_rows, b_rows, w, smem_dyn);
-  Body::store(acc, a_rows, b_rows,
-              out + static_cast<int64_t>(u.z) * ti * ti +
-                  static_cast<int64_t>(si) * BM * ti + sj * BN,
-              ti);
-}
-
 // Where a block's loads stand in its run of units: chunk c of item t of
 // the block's j-th unit, with what stays the same for a whole unit (its
 // sub-tile) and for a whole item (its two row bases) worked out once. A
@@ -382,8 +177,7 @@ struct UnitCursor {
   }
 };
 
-// Streaming form, which the tile body launches: a block runs its units as
-// ONE chunk sequence. The cp.async ring never drains between units: the
+// K5's kernel: a block runs its units as ONE chunk sequence. The cp.async ring never drains between units: the
 // loads run AHEAD chunks in front of the products, into the next unit when
 // this one ends, and after a unit's last chunk the block waits for its
 // products, stores the sums and zeroes them while the next unit's chunks
@@ -449,50 +243,13 @@ __global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
   cp_async_wait<0>();
 }
 
-// Rectangular form: blockIdx.x = BN-row block of B, blockIdx.y = BM-row
-// block of A. The ragged edges of both are masked here (rows past na or nb
-// load as zeros and are not stored), so the operands need no row padding.
-template <class Body>
-__global__ void __launch_bounds__(Body::THREADS, Body::MIN_BLOCKS)
-    k2_rect_kernel(const uint32_t* __restrict__ a,
-                   const uint32_t* __restrict__ b, int* __restrict__ out,
-                   int64_t na, int64_t nb, int64_t w, int64_t ldo) {
-  extern __shared__ __align__(1024) uint32_t smem_dyn[];
-  constexpr int BM = Body::BM, BN = Body::BN;
-  const int64_t ra = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t rb = static_cast<int64_t>(blockIdx.x) * BN;
-  const int a_rows = static_cast<int>(min(static_cast<int64_t>(BM), na - ra));
-  const int b_rows = static_cast<int>(min(static_cast<int64_t>(BN), nb - rb));
-  typename Body::Acc acc;
-  zero_frags(acc.v);
-  const RowPairSource src{a + ra * w, b + rb * w, static_cast<int>(w)};
-  Body::accumulate(acc, src, a_rows, b_rows, w, smem_dyn);
-  Body::store(acc, a_rows, b_rows, out + ra * ldo + rb, ldo);
-}
-
-// a: [na, w], b: [nb, w] words, w a multiple of 4 (a 16-byte vector is
-// loaded whole, and must not reach into the next row); out: int32 [na, ldo]
-// with ldo even and ldo > nb when nb is odd (the stores go out as int2 at
-// even columns: an odd nb writes column nb, which is never read).
-template <class Body>
-int rect_launch(const void* a, const void* b, void* out, long long na,
-                long long nb, long long w, long long ldo, void* stream) {
-  const dim3 grid(static_cast<unsigned>((nb + Body::BN - 1) / Body::BN),
-                  static_cast<unsigned>((na + Body::BM - 1) / Body::BM));
-  return launch<Body>(k2_rect_kernel<Body>, grid, stream,
-                      static_cast<const uint32_t*>(a),
-                      static_cast<const uint32_t*>(b), static_cast<int*>(out),
-                      static_cast<int64_t>(na), static_cast<int64_t>(nb),
-                      static_cast<int64_t>(w), static_cast<int64_t>(ldo));
-}
-
 // Rectangular form on the TMA body, A sub-tile fastest: block x is sub-tile
 // row x % nsub_m of A against B tile x / nsub_m, so the blocks that read
 // one B tile are neighbours in launch order, and with CLUSTER = 2 (nsub_m
 // even) sub-tile rows 2q, 2q + 1 form a cluster that loads the tile's B rows
 // once, each block half of them multicast into both. A and B each have
 // their own tensor map, whose zero fill stands in for the rows past na or
-// nb and the words past w; the store masks them as k2_rect_kernel's does.
+// nb and the words past w; the store masks them.
 template <int CLUSTER>
 __global__ void __launch_bounds__(B1WgmmaTma<CLUSTER>::THREADS, 1)
     k2_rect_tma_kernel(__grid_constant__ const CUtensorMap map_a,
@@ -523,45 +280,35 @@ __global__ void __launch_bounds__(B1WgmmaTma<CLUSTER>::THREADS, 1)
   }
 }
 
-// packed: int32/uint32 [n_pad, w]; ibs, jbs: int32 [t]; out: int32 [t, ti, ti].
-template <class Body>
-int tri_launch(const void* packed, const void* ibs, const void* jbs, void* out,
-               int t, int ti, long long w, void* stream) {
-  const dim3 grid(static_cast<unsigned>(t), sub_tiles<Body>(ti));
-  return launch<Body>(k2_tri_kernel<Body>, grid, stream,
-                      static_cast<const uint32_t*>(packed),
-                      static_cast<const int*>(ibs),
-                      static_cast<const int*>(jbs), static_cast<int*>(out), ti,
-                      static_cast<int64_t>(w));
-}
-
 }  // namespace
 
 extern "C" {
 
-// Output rows per block (of either body): the wrappers' grid-limit check.
+// Output rows per block: the wrappers' grid-limit check.
 int k2_block_rows() { return B1Wgmma::BM; }
 
 // Sub-tiles (blocks) of a ti x ti output tile: the sub-tile ids of K5's units.
 int k2_sub_tiles(int ti) { return static_cast<int>(sub_tiles<B1Wgmma>(ti)); }
-int k2_sub_tiles_prev(int ti) { return static_cast<int>(sub_tiles<S8Body>(ti)); }
 
+// packed: int32/uint32 [n_pad, w]; ibs, jbs: int32 [t]; out: int32 [t, ti, ti].
 int k2_tri_launch(const void* packed, const void* ibs, const void* jbs,
                   void* out, int t, int ti, long long w, void* stream) {
-  return tri_launch<B1Wgmma>(packed, ibs, jbs, out, t, ti, w, stream);
+  const dim3 grid(static_cast<unsigned>(t), sub_tiles<B1Wgmma>(ti));
+  return launch<B1Wgmma>(k2_tri_kernel<B1Wgmma>, grid, stream,
+                         static_cast<const uint32_t*>(packed),
+                         static_cast<const int*>(ibs),
+                         static_cast<const int*>(jbs), static_cast<int*>(out), ti,
+                         static_cast<int64_t>(w));
 }
 
-int k2_rect_launch(const void* a, const void* b, void* out, long long na,
-                   long long nb, long long w, long long ldo, void* stream) {
-  return rect_launch<B1Wgmma>(a, b, out, na, nb, w, ldo, stream);
-}
-
-// The same on the TMA body, in clusters of `cluster` blocks (kernels/mxu.py's
-// rect_cluster(na) says which: 1, or 2 when ceil(na / 128) is even).
+// a: [na, w], b: [nb, w] words; out: int32 [na, ldo], the counts in its
+// first nb columns. The blocks run in clusters of `cluster` (kernels/mxu.py's
+// rect_cluster(na) says which: 2 when ceil(na / 128) is even, else 1).
 // Refuses (cudaErrorInvalidValue, nothing launched) what TMA does not take:
 // a base not 16-byte aligned, w % 4 != 0, a row coordinate or a block count
 // past int32; and another cluster, an ldo that is odd or leaves no spare
-// column for an odd nb.
+// column for an odd nb (the stores go out as int2 at even columns: an odd
+// nb writes column nb, which is never read).
 int k2_rect_tma_launch(const void* a, const void* b, void* out, long long na,
                        long long nb, long long w, long long ldo, int cluster,
                        void* stream) {
@@ -603,32 +350,6 @@ int k5_launch(const void* packed, const void* ibs, const void* jbs,
                          static_cast<const int4*>(units), n_units,
                          static_cast<int*>(counter), static_cast<int*>(out),
                          ti, wk, static_cast<int64_t>(w));
-}
-
-// K2's two kernels on the previous body, for timing beside the above, and
-// K5 on it with one block per unit, in the order of units (whose sub-tiles
-// are that body's: k2_sub_tiles_prev).
-int k2_tri_launch_prev(const void* packed, const void* ibs, const void* jbs,
-                       void* out, int t, int ti, long long w, void* stream) {
-  return tri_launch<S8Body>(packed, ibs, jbs, out, t, ti, w, stream);
-}
-
-int k2_rect_launch_prev(const void* a, const void* b, void* out, long long na,
-                        long long nb, long long w, long long ldo,
-                        void* stream) {
-  return rect_launch<S8Body>(a, b, out, na, nb, w, ldo, stream);
-}
-
-int k5_launch_prev(const void* packed, const void* ibs, const void* jbs,
-                   const void* gsel, const void* units, void* out, int n_units,
-                   int ti, int wk, long long w, void* stream) {
-  return launch<S8Body>(k5_kernel<S8Body>, dim3(static_cast<unsigned>(n_units)),
-                        stream, static_cast<const uint32_t*>(packed),
-                        static_cast<const int*>(ibs),
-                        static_cast<const int*>(jbs),
-                        static_cast<const int*>(gsel),
-                        static_cast<const int4*>(units), static_cast<int*>(out),
-                        ti, wk, static_cast<int64_t>(w));
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// The tile body that K2, K5 and K1 share: exact popcount(A_row AND B_row)
+// The tile body that K2-tri, K5 and K1 share: exact popcount(A_row AND B_row)
 // sums of packed bit rows on the tensor cores' binary product, straight
 // from the packed words, with its cp.async ring and the launch helper.
 //
@@ -44,16 +44,6 @@ template <int N>
 __device__ __forceinline__ void zero_frags(int (&acc)[N]) {
 #pragma unroll
   for (int e = 0; e < N; ++e) acc[e] = 0;
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_frags(int (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 }
 
 // ----------------------------- the tile body: binary product by warpgroups
@@ -219,7 +209,7 @@ struct B1Wgmma {
   }
 };
 
-// K2's source: rows a[0..], b[0..] (row stride ld) over words [0, k_len).
+// K2-tri's source: rows a[0..], b[0..] (row stride ld) over words [0, k_len).
 struct RowPairSource {
   static constexpr bool SPLIT_B = false;
   const uint32_t* a;

@@ -1,8 +1,8 @@
 // The tile body of K2-topk and K2-hist (csrc/k2_epilogue.cu) and of K2-rect
-// at more than one 128-row sub-tile row of A (csrc/k2_mxu.cu): the sums of
-// tile::B1Wgmma (csrc/tile_body.cuh), exact popcount(A_row AND B_row) of
-// packed bit rows on the tensor cores' binary product, with a main loop
-// built for Hopper's copy engine instead of the threads' cp.async.
+// (csrc/k2_mxu.cu): the sums of tile::B1Wgmma (csrc/tile_body.cuh), exact
+// popcount(A_row AND B_row) of packed bit rows on the tensor cores' binary
+// product, with a main loop built for Hopper's copy engine instead of the
+// threads' cp.async.
 //
 // Same block and same sums: 128 x 256 a block, two consumer warpgroups each
 // issuing wgmma.m64n256k256 .b1 .and.popc on its 64 A rows against the 256

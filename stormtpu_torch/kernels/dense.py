@@ -16,10 +16,8 @@ the other.
 K1 runs on the tensor cores: AND + popcount of packed words is what their
 binary product computes, so K1 launches the tile body K2 uses, two of its
 tiles a block (:func:`pair_units` says which). D1 never picks K1 and it
-stays an explicit strategy (``strategy="pallas_dense"``). ``csrc/k1_dense.cu``
-also keeps the previous K1 (one ``__popc`` per pair and word on the CUDA
-cores) for timing beside it: ``previous_body=True`` launches it, for
-measurement scripts only. K0 is bound by the bytes of its two operands.
+stays an explicit strategy (``strategy="pallas_dense"``). K0 is bound by
+the bytes of its two operands.
 
 Exactness: a word's popcount is ≤ 32 and sums are int32, exact for
 M < 2³¹ (``EngineConfig.validate``). ``variant`` ("rows"/"chunk") selects
@@ -165,7 +163,6 @@ def count_tiles_pallas_dense(
     tile_rows: int,
     tile_words: int,
     variant: str = "rows",
-    previous_body: bool = False,
     checked: Optional[DeviceTileIds] = None,
 ) -> torch.Tensor:
     """T count tiles int32 [T, TI, TI] for row-block pairs (ibs[t], jbs[t])
@@ -204,18 +201,11 @@ def count_tiles_pallas_dense(
     if t == 0:
         return out
     with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if previous_body:
-            err = lib.k1_tri_launch_prev(
-                packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), out.data_ptr(),
-                t, tile_rows, w_pad, stream,
-            )
-        else:
-            units = pair_units(ibs)
-            err = lib.k1_tri_launch(
-                packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), units.data_ptr(),
-                out.data_ptr(), t, tile_rows, w_pad, stream,
-            )
+        units = pair_units(ibs)
+        err = lib.k1_tri_launch(
+            packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), units.data_ptr(),
+            out.data_ptr(), t, tile_rows, w_pad, torch.cuda.current_stream().cuda_stream,
+        )
     if err:
         raise RuntimeError(f"k1_tri_launch failed: CUDA error {err}")
     LAUNCHES["k1"] += 1

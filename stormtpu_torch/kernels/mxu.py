@@ -6,8 +6,8 @@ launch counter (``LAUNCHES``):
 
 - :func:`count_tiles_pallas_mxu` — the triangular tile list (CUDA entry
   ``k2_tri_launch`` in ``csrc/k2_mxu.cu``);
-- :func:`count_block_pallas_mxu` and :func:`_count_block_padded` — the
-  rectangular grid (``k2_rect_launch``);
+- :func:`count_block_pallas_mxu` — the rectangular grid
+  (``k2_rect_tma_launch``);
 - :func:`count_tiles_topk` — K2-topk: the tile list's per-row and
   per-column top-k candidate sets, the tiles never stored
   (``k2_topk_launch`` in ``csrc/k2_epilogue.cu``);
@@ -22,8 +22,9 @@ So K2-rect's card route (:func:`count_block_pallas_mxu` on card operands)
 pads no rows: an operand that is contiguous, 16-byte aligned int32 with
 W % 4 == 0 goes in as it is, any other is copied with its words padded to a
 multiple of 4 (:func:`rect_operand`). CPU operands are padded to the tile
-for the plain version. The tile walks' operands (K2-tri, K2-topk, K2-hist)
-are padded to the tile by their callers, which index tiles by row block.
+for the plain version (:func:`_count_block_padded`). The tile walks'
+operands (K2-tri, K2-topk, K2-hist) are padded to the tile by their
+callers, which index tiles by row block.
 
 The callers choose between the two epilogue kernels and storing the tiles
 by dispatch rules named here (:func:`topk_route`, :func:`hist_route`).
@@ -38,15 +39,12 @@ CUDA kernel takes the tensor cores' binary product (AND + popcount over
 anywhere. The plain versions keep the int8 form and unpack one K step
 (``tile_words`` words) at a time.
 
-``csrc/k2_mxu.cu`` also keeps the previous tile body (int8 ``mma.sync``
-with the unpack fused in) for timing beside the one the wrappers launch:
-``previous_body=True`` launches it. K2-topk and K2-hist run on their own
-main loop (``csrc/tile_body_tma.cuh``: TMA loads, a producer warpgroup,
-and clusters of two blocks sharing their B rows by multicast); their
-``previous_body=True`` launches their previous kernels, on K2-tri's loop.
-That argument is for measurement scripts only; nothing in the package
-sets it. K2-rect takes the same TMA loop when A has more than one 128-row
-sub-tile row, by the shape rule :func:`rect_cluster`.
+Each wrapper launches one kernel body. K2-tri's tile body
+(``csrc/tile_body.cuh``) is fed by the threads' ``cp.async``. K2-topk,
+K2-hist and K2-rect run on the TMA body (``csrc/tile_body_tma.cuh``: TMA
+loads, a producer warpgroup, and clusters of two blocks sharing their B
+rows by multicast where the shape lets them pair: :func:`epilogue_cluster`,
+:func:`rect_cluster`).
 
 Exactness: products are 0/1 and sums are int32, exact for M < 2³¹
 (``EngineConfig.validate``). ``variant`` ("concat" or "planes") selects
@@ -118,11 +116,12 @@ EPI_BLOCK = (128, 256)
 # pitch is the same multiple, which keeps the int2 stores aligned and gives
 # an odd Nb's last store a column to spare.
 RECT_WORD_ALIGN = 4
-# The A rows of one K2-rect block (a sub-tile row), on every body: the grid
-# limit and the shape rule (:func:`rect_cluster`) count in them.
+# The A rows (a sub-tile row) and the B rows of one K2-rect block: the shape
+# rule (:func:`rect_cluster`) and the launch's limits count in them.
 RECT_BLOCK_ROWS = 128
-# Blocks a launch may stack along A on the cp.async body (CUDA's grid.y).
-_RECT_MAX_SUB_ROWS = 65535
+RECT_BLOCK_COLS = 256
+# K2-rect's TMA coordinates (rows, words) and its count of blocks are int32.
+_RECT_INT_LIMIT = 1 << 31
 
 # Dispatch routes of a reduction over K2-tri's tiles, by the names that
 # ``utils.profiling.record_stages`` records (and ``routes.<name>`` counts)
@@ -247,17 +246,10 @@ def _launch(source: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
 
 
-def _launch_k2(entry: str, device: torch.device, previous_body: bool, *args) -> None:
-    """:func:`_launch` of ``csrc/k2_mxu.cu``'s ``entry`` (or ``entry_prev``,
-    the same on the previous tile body)."""
-    _launch("k2_mxu", entry + "_prev" if previous_body else entry, device, *args)
-
-
-def _launch_epilogue(entry: str, device: torch.device, previous_body: bool, *args) -> None:
-    """:func:`_launch` of ``csrc/k2_epilogue.cu``'s ``entry`` (or
-    ``entry_prev``, the same on the previous tile body); raises first when
-    the library's sub-tile is not the one the wrappers lay their outputs
-    out by, or its limits are below the dispatch rules'."""
+def _launch_epilogue(entry: str, device: torch.device, *args) -> None:
+    """:func:`_launch` of ``csrc/k2_epilogue.cu``'s ``entry``; raises first
+    when the library's sub-tile is not the one the wrappers lay their
+    outputs out by, or its limits are below the dispatch rules'."""
     from stormtpu_torch.kernels._build import library
 
     lib = library("k2_epilogue")
@@ -266,7 +258,7 @@ def _launch_epilogue(entry: str, device: torch.device, previous_body: bool, *arg
             or lib.k2_hist_max_bins() < HIST_EPI_MAX_BINS:
         raise RuntimeError(f"k2_epilogue was built for sub-tiles {block}, k up to "
                            f"{lib.k2_topk_max_k()}, {lib.k2_hist_max_bins()} bins")
-    _launch("k2_epilogue", entry + "_prev" if previous_body else entry, device, *args)
+    _launch("k2_epilogue", entry, device, *args)
 
 
 def _unpack_step(packed: torch.Tensor, k0: int, tile_words: int) -> torch.Tensor:
@@ -316,8 +308,9 @@ def count_tiles_plain(
 def count_block_plain(
     a_pad: torch.Tensor, b_pad: torch.Tensor, *, tile_words: int
 ) -> torch.Tensor:
-    """Plain version of :func:`_count_block_padded`: per K step, unpack
-    both operands' words and add their int8 product."""
+    """Plain version of :func:`count_block_pallas_mxu` on operands whose
+    words are a multiple of ``tile_words``: per K step, unpack both
+    operands' words and add their int8 product."""
     na = a_pad.shape[0]
     nb, w_pad = b_pad.shape
     out = torch.zeros((na, nb), dtype=torch.int32, device=a_pad.device)
@@ -451,7 +444,6 @@ def count_tiles_pallas_mxu(
     tile_rows: int,
     tile_words: int,
     variant: str = "concat",
-    previous_body: bool = False,
     checked: Optional[DeviceTileIds] = None,
 ) -> torch.Tensor:
     """T count tiles int32 [T, TI, TI] for row-block pairs (ibs[t], jbs[t])
@@ -474,8 +466,8 @@ def count_tiles_pallas_mxu(
     out = torch.empty((t, tile_rows, tile_rows), dtype=torch.int32, device=packed.device)
     if t == 0:
         return out
-    _launch_k2(
-        "k2_tri_launch", packed.device, previous_body,
+    _launch(
+        "k2_mxu", "k2_tri_launch", packed.device,
         packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), out.data_ptr(),
         t, tile_rows, packed.shape[1],
     )
@@ -484,42 +476,43 @@ def count_tiles_pallas_mxu(
 
 
 def rect_cluster(na: int) -> int:
-    """K2-rect's shape rule, by the A operand's row count alone: 0, the
-    ``cp.async`` body (``k2_rect_launch``), when A is one sub-tile row of
-    ``RECT_BLOCK_ROWS`` (Na ≤ 128: nothing to share, and the lookups'
-    panel already streams once); else the cluster of the TMA body
-    (``k2_rect_tma_launch``), whose blocks of one B tile run side by side:
-    2 when A has an even number of sub-tile rows (rows 2q, 2q + 1 load each
-    B tile once, multicast into both), else 1."""
-    sub_rows = -(-na // RECT_BLOCK_ROWS)
-    if sub_rows <= 1:
-        return 0
-    return 2 if sub_rows % 2 == 0 else 1
+    """K2-rect's shape rule, by the A operand's row count alone: the blocks
+    a cluster of ``k2_rect_tma_launch`` holds. 2 when A has an even number
+    of sub-tile rows of ``RECT_BLOCK_ROWS`` (rows 2q, 2q + 1 load each B
+    tile once, multicast into both), else 1 (Na ≤ 128 among them: one
+    sub-tile row, nothing to share)."""
+    return 2 if -(-na // RECT_BLOCK_ROWS) % 2 == 0 else 1
 
 
-def _rect_launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-                 previous_body: bool) -> None:
+def _rect_launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
     """Launch K2-rect: counts of card operands a [Na, W] and b [Nb, W]
-    (contiguous, 16-byte aligned int32, W % 4 == 0; raises otherwise) into
+    (contiguous, 16-byte aligned int32, W a positive multiple of 4) into
     ``out``'s first Nb columns; ``out`` is int32 [Na, ldo], contiguous, ldo
-    even and past Nb when Nb is odd (the kernel's int2 stores). The body is
-    :func:`rect_cluster`'s (``previous_body``: the int8 one); a launch in
-    clusters of two counts ``rect_shared_b``."""
+    even and past Nb when Nb is odd (the kernel's int2 stores). Raises
+    ``ValueError`` or ``TypeError``, before any launch, on what
+    ``k2_rect_tma_launch`` does not take. The cluster is
+    :func:`rect_cluster`'s; a launch in clusters of two counts
+    ``rect_shared_b``."""
     na, w = a.shape
     nb, wb = b.shape
-    if -(-na // RECT_BLOCK_ROWS) > _RECT_MAX_SUB_ROWS:
-        raise ValueError(f"{name}: Na={na} exceeds the grid limit")
+    if (na + RECT_BLOCK_ROWS >= _RECT_INT_LIMIT or nb + RECT_BLOCK_COLS >= _RECT_INT_LIMIT
+            or -(-na // RECT_BLOCK_ROWS) * -(-nb // RECT_BLOCK_COLS) >= _RECT_INT_LIMIT):
+        raise ValueError(f"{name}: Na={na} x Nb={nb} exceeds the grid limit (int32 row "
+                         f"coordinates and block count)")
     for x in (a, b):
         _check_cuda_operand(name, x)
-    if wb != w or w % RECT_WORD_ALIGN:
-        raise ValueError(f"{name}: rows of {w} and {wb} words; K2-rect takes equal "
+    if wb != w or w % RECT_WORD_ALIGN or not 0 < w < _RECT_INT_LIMIT - 32:
+        raise ValueError(f"{name}: rows of {w} and {wb} words; K2-rect takes equal positive "
                          f"multiples of {RECT_WORD_ALIGN} (rect_operand copies others)")
-    cluster = 0 if previous_body else rect_cluster(na)
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), na, nb, w, out.shape[1])
-    if cluster:
-        _launch_k2("k2_rect_tma_launch", a.device, False, *args, cluster)
-    else:
-        _launch_k2("k2_rect_launch", a.device, previous_body, *args)
+    ldo = out.shape[1]
+    if (na < 1 or nb < 1 or out.dtype != torch.int32 or not out.is_contiguous()
+            or out.shape[0] != na or ldo % 2 or ldo < nb + nb % 2):
+        raise ValueError(f"{name}: want Na, Nb >= 1 and a contiguous int32 output [{na}, ldo] "
+                         f"with ldo even and >= {nb + nb % 2}; got {na} x {nb} into "
+                         f"{out.dtype} {tuple(out.shape)}")
+    cluster = rect_cluster(na)
+    _launch("k2_mxu", "k2_rect_tma_launch", a.device, a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), na, nb, w, ldo, cluster)
     LAUNCHES["k2_rect"] += 1
     if cluster == 2:
         profiling.count("rect_shared_b")
@@ -532,14 +525,14 @@ def _count_block_padded(
     tile_rows: int,
     tile_words: int,
     variant: str,
-    previous_body: bool = False,
 ) -> torch.Tensor:
-    """Rectangular counts int32 [Na_pad, Nb_pad] of two padded packed
+    """Rectangular counts int32 [Na_pad, Nb_pad] of two padded packed CPU
     matrices int32 [Na_pad, W_pad] and [Nb_pad, W_pad], rows and words
-    multiples of the tile (``tile_rows``, ``tile_words``): the JAX package's
-    geometry, which the plain version keeps, since it unpacks whole K steps
-    of ``tile_words`` words. The CUDA kernel needs none of it, and
-    :func:`count_block_pallas_mxu` comes here only with CPU operands."""
+    multiples of the tile (``tile_rows``, ``tile_words``): the JAX
+    package's geometry, which the plain version keeps, since it unpacks
+    whole K steps of ``tile_words`` words. Card operands take
+    :func:`count_block_pallas_mxu`, which pads nothing; this raises
+    ``ValueError`` for them."""
     _check_variant(variant)
     _check_geometry("_count_block_padded", a_pad, tile_rows, tile_words)
     _check_geometry("_count_block_padded", b_pad, tile_rows, tile_words)
@@ -547,14 +540,10 @@ def _count_block_padded(
         raise ValueError("word-count mismatch")
     if a_pad.device != b_pad.device:
         raise ValueError("operands on different devices")
-    if a_pad.device.type == "cpu":
-        return count_block_plain(a_pad, b_pad, tile_words=tile_words)
-    if a_pad.device.type != "cuda":
-        raise ValueError(f"unsupported device {a_pad.device}")
-    out = torch.empty((a_pad.shape[0], b_pad.shape[0]), dtype=torch.int32,
-                      device=a_pad.device)
-    _rect_launch("_count_block_padded", a_pad, b_pad, out, previous_body)
-    return out
+    if a_pad.device.type != "cpu":
+        raise ValueError(f"_count_block_padded takes CPU operands, got {a_pad.device}; "
+                         f"card operands take count_block_pallas_mxu")
+    return count_block_plain(a_pad, b_pad, tile_words=tile_words)
 
 
 def _epilogue_checks(name, packed, ibs, jbs, tile_rows, tile_words, variant, checked):
@@ -592,16 +581,13 @@ def count_tiles_topk(
     row_off: int = 0,
     col_off: int = 0,
     variant: str = "concat",
-    previous_body: bool = False,
     checked: Optional[DeviceTileIds] = None,
 ) -> TileTopk:
     """K2-topk: the count tiles of :func:`count_tiles_pallas_mxu` reduced,
     inside the kernel, to each row's and each column's top-min(k,
     tile_rows) candidates a sub-tile (:class:`TileTopk`). Global row and
     column of tile t's element (r, c) are ``row_off + ibs[t]·ti + r`` and
-    ``col_off + jbs[t]·ti + c``. 1 ≤ k ≤ ``TOPK_EPI_MAX``.
-    ``previous_body=True`` launches the previous kernel (K2-tri's main
-    loop) for timing; on the CPU it changes nothing."""
+    ``col_off + jbs[t]·ti + c``. 1 ≤ k ≤ ``TOPK_EPI_MAX``."""
     _epilogue_checks("count_tiles_topk", packed, ibs, jbs, tile_rows, tile_words, variant,
                      checked)
     if not 1 <= k <= TOPK_EPI_MAX:
@@ -618,7 +604,7 @@ def count_tiles_topk(
     if t == 0:
         return TileTopk(*out)
     _launch_epilogue(
-        "k2_topk_launch", packed.device, previous_body,
+        "k2_topk_launch", packed.device,
         packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), *(o.data_ptr() for o in out),
         t, ti, *packed.shape, row_off, col_off, n_real, kk,
     )
@@ -639,15 +625,13 @@ def count_tiles_hist(
     row_off: int = 0,
     col_off: int = 0,
     variant: str = "concat",
-    previous_body: bool = False,
     checked: Optional[DeviceTileIds] = None,
 ) -> torch.Tensor:
     """K2-hist: the bin counts int64 [n_bins] of the valid pairs (global
     row < global column < ``n_real``; coordinates as in
     :func:`count_tiles_topk`) of the count tiles of
     :func:`count_tiles_pallas_mxu`, binned inside the kernel: bin
-    min(count // bin_width, n_bins − 1). 1 ≤ n_bins ≤ ``HIST_EPI_MAX_BINS``.
-    ``previous_body`` as in :func:`count_tiles_topk`."""
+    min(count // bin_width, n_bins − 1). 1 ≤ n_bins ≤ ``HIST_EPI_MAX_BINS``."""
     _epilogue_checks("count_tiles_hist", packed, ibs, jbs, tile_rows, tile_words, variant,
                      checked)
     if not 1 <= n_bins <= HIST_EPI_MAX_BINS:
@@ -664,7 +648,7 @@ def count_tiles_hist(
     if ibs.shape[0] == 0:
         return hist
     _launch_epilogue(
-        "k2_hist_launch", packed.device, previous_body,
+        "k2_hist_launch", packed.device,
         packed.data_ptr(), ibs.data_ptr(), jbs.data_ptr(), hist.data_ptr(),
         ibs.shape[0], tile_rows, *packed.shape, row_off, col_off, n_real, bin_width, n_bins,
     )
@@ -726,10 +710,9 @@ def count_block_pallas_mxu(
     view, not always contiguous).
 
     Card operands go to K2-rect with their true Na and Nb: the kernel
-    masks the ragged row edges, so a query of 64 rows is one row block and
-    the panel streams once; past 128 rows the blocks of each B tile run
-    together and share its rows (:func:`rect_cluster`), so B streams once
-    at any Na. An operand is copied only when
+    masks the ragged row edges, and the blocks of each B tile run together
+    (in pairs sharing its rows where :func:`rect_cluster` says), so B
+    streams once at any Na. An operand is copied only when
     :func:`rect_operand` cannot take it as it is, and then with its words
     padded to a multiple of 4, never its rows; with no copy ``pad_bytes``
     counts 0 and ``rect_unpadded`` one. CPU operands, whose plain version
@@ -761,16 +744,17 @@ def count_block_pallas_mxu(
 def _count_block_card(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K2-rect on card operands [Na, W] and [Nb, W], each as
     :func:`rect_operand` gives it: counts int32 [Na, Nb], a view of
-    [Na, round_up(Nb, 4)] whose spare columns take the odd int2 half."""
+    [Na, round_up(Nb, 4)] whose spare columns take the odd int2 half.
+    Rows of no words count 0 without a launch."""
     na, nb = a.shape[0], b.shape[0]
     ka, kb = rect_operand(a), rect_operand(b)
     unpadded = ka is a and kb is b
     if unpadded:
         profiling.count("pad_bytes", 0)
-    out = torch.empty((na, round_up(nb, RECT_WORD_ALIGN)), dtype=torch.int32,
-                      device=a.device)
-    if na and nb:
-        _rect_launch("count_block_pallas_mxu", ka, kb, out, False)
+    out = (torch.empty if ka.shape[1] else torch.zeros)(
+        (na, round_up(nb, RECT_WORD_ALIGN)), dtype=torch.int32, device=a.device)
+    if na and nb and ka.shape[1]:
+        _rect_launch("count_block_pallas_mxu", ka, kb, out)
         if unpadded:
             profiling.count("rect_unpadded")
     return out[:, :nb]

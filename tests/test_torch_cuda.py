@@ -88,7 +88,7 @@ def test_k2_rect_kernel_equals_plain(cuda, na, nb, w, ti, wk, density):
     ap[:na, :w] = a
     bp[:nb, :w] = b
     ta, tb = to_device_words(ap, cuda), to_device_words(bp, cuda)
-    got = mxu._count_block_padded(ta, tb, tile_rows=ti, tile_words=wk, variant="planes")
+    got = mxu.count_block_pallas_mxu(ta, tb)
     want = mxu.count_block_plain(ta, tb, tile_words=wk)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -115,8 +115,7 @@ RAGGED_NB = (1, 2, 255, 257, 1001)
 def test_k2_rect_takes_ragged_operands_as_they_are(cuda, na, nb, w):
     """K2-rect's card route at true Na and Nb: nothing padded when
     W % 4 == 0 (no pad span, ``pad_bytes`` 0, every launch counted by
-    ``rect_unpadded``), only the words otherwise (W = 10); the previous
-    body takes the same pitch."""
+    ``rect_unpadded``), only the words otherwise (W = 10)."""
     a, b, full = _ragged_operands(w)
     a, b, want = a[:na], b[:nb], full[:na, :nb]
     ad, bd = to_device_words(a, cuda), to_device_words(b, cuda)
@@ -131,10 +130,6 @@ def test_k2_rect_takes_ragged_operands_as_they_are(cuda, na, nb, w):
     if as_is:
         assert rec.counters["pad_bytes"] == 0 and pads == 0
         assert rec.counters["rect_unpadded"] == mxu.LAUNCHES["k2_rect"]
-        prev = torch.empty((na, round_up(nb, mxu.RECT_WORD_ALIGN)), dtype=torch.int32,
-                           device=cuda)
-        mxu._rect_launch("prev", ad, bd, prev, True)
-        assert torch.equal(prev[:, :nb], got)
     else:
         assert rec.counters["pad_bytes"] == 4 * (na + nb) * round_up(w, 4) and pads == 2
         assert "rect_unpadded" not in rec.counters
@@ -163,7 +158,7 @@ def test_k2_rect_copies_the_words_of_what_it_cannot_take(cuda, kind):
     assert "rect_unpadded" not in rec.counters
 
 
-RECT_TMA_NA = (129, 200, 256, 384, 512)
+RECT_TMA_NA = (3, 127, 128, 129, 200, 256, 384, 512)
 RECT_TMA_NB = (1, 255, 257, 4099)
 
 
@@ -184,11 +179,11 @@ def _tma_rect_case(w):
 @pytest.mark.parametrize("nb", RECT_TMA_NB)
 @pytest.mark.parametrize("na", RECT_TMA_NA)
 def test_k2_rect_tma_body_equals_plain_at_ragged_shapes(cuda, na, nb, w):
-    """K2-rect past one sub-tile row of A runs on the TMA body (clusters of
-    two at an even sub-tile row count, else of one) and equals the plain
-    version exactly at ragged Na, Nb and W, on views at row offsets taken
-    as they are; at an even count the TMA body in clusters of one gives the
-    same counts."""
+    """K2-rect at one sub-tile row of A (the lookups' shape) and past it
+    (clusters of two at an even sub-tile row count, else of one) equals
+    the plain version exactly at ragged Na, Nb and W, on views at row
+    offsets taken as they are; at an even count the TMA body in clusters
+    of one gives the same counts."""
     a, b, want = _tma_rect_case(w)
     a, b, want = a[:na], b[:nb], want[:na, :nb]
     mxu.reset_launches()
@@ -197,7 +192,6 @@ def test_k2_rect_tma_body_equals_plain_at_ragged_shapes(cuda, na, nb, w):
     assert torch.equal(got, want)
     assert mxu.LAUNCHES["k2_rect"] == 1 and rec.counters["rect_unpadded"] == 1
     cluster = mxu.rect_cluster(na)
-    assert cluster in (1, 2)
     assert rec.counters.get("rect_shared_b", 0) == (1 if cluster == 2 else 0)
     if cluster == 2:
         from stormtpu_torch.kernels._build import library
@@ -212,7 +206,7 @@ def test_k2_rect_tma_body_equals_plain_at_ragged_shapes(cuda, na, nb, w):
 
 def test_rect_shared_b_counts_each_paired_launch(cuda):
     """One ``rect_shared_b`` a K2-rect launch in clusters of two, none for
-    the cp.async body (Na ≤ 128) or clusters of one (three sub-tile rows)."""
+    clusters of one (one and three sub-tile rows)."""
     a, b, want = _tma_rect_case(36)
     mxu.reset_launches()
     with profiling.record() as rec:
@@ -339,10 +333,9 @@ def _k1_tile_list(nb, order, seed):
     return np.ascontiguousarray(ibs), np.ascontiguousarray(jbs)
 
 
-@pytest.mark.parametrize("previous", (False, True))
 @pytest.mark.parametrize("order", ("i-major", "shuffled", "odd"))
 @pytest.mark.parametrize("ti", (8, 40, 128, 136))
-def test_k1_kernel_tile_sizes_and_tile_lists_equal_plain(cuda, ti, order, previous):
+def test_k1_kernel_tile_sizes_and_tile_lists_equal_plain(cuda, ti, order):
     """K1 pairs tiles that share their A rows. TI = 8 and 40 fill part of a
     block's half, 128 all of it, 136 takes two sub-tile rows (the second 8
     rows tall); a shuffled list leaves most tiles without a partner."""
@@ -352,8 +345,7 @@ def test_k1_kernel_tile_sizes_and_tile_lists_equal_plain(cuda, ti, order, previo
     ibs, jbs = _k1_tile_list(nb, order, seed=ti)
     args = (to_device_words(xp, cuda), torch.from_numpy(ibs).to(cuda),
             torch.from_numpy(jbs).to(cuda))
-    got = dense.count_tiles_pallas_dense(*args, tile_rows=ti, tile_words=wk,
-                                         previous_body=previous)
+    got = dense.count_tiles_pallas_dense(*args, tile_rows=ti, tile_words=wk)
     want = dense.count_tiles_dense_plain(*args, tile_rows=ti, tile_words=wk)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -489,7 +481,7 @@ def test_k2_body_through_all_wrappers_equals_plain(cuda, n, ti, wk, steps, densi
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     a = x[: min(x.shape[0], 2 * ti)]
-    got = mxu._count_block_padded(a, x, tile_rows=ti, tile_words=wk, variant="planes")
+    got = mxu.count_block_pallas_mxu(a, x)
     torch.cuda.synchronize()
     assert torch.equal(got, mxu.count_block_plain(a, x, tile_words=wk))
     if nb <= 16:  # the plain work list walks its items one by one in Python
@@ -506,8 +498,7 @@ def test_k2_body_all_ones_at_the_int32_edge(cuda):
     ids = torch.zeros(1, dtype=torch.int32, device=cuda)
     got = mxu.count_tiles_pallas_mxu(ones, ids, ids, tile_rows=128, tile_words=256)
     assert bool((got == m).all())
-    got = mxu._count_block_padded(ones[:32], ones, tile_rows=32, tile_words=256,
-                                  variant="planes")
+    got = mxu.count_block_pallas_mxu(ones[:32], ones)
     assert bool((got == m).all())
     ng = ones.shape[1] // 256
     zeros = torch.zeros(ng, dtype=torch.int32, device=cuda)
@@ -519,15 +510,15 @@ def test_k2_body_all_ones_at_the_int32_edge(cuda):
     assert bool((got == m).all())
 
 
-def test_previous_tile_body_equals_plain_and_the_build_has_no_spills(cuda):
-    """The int8 body kept for timing, through all three wrappers, at odd
-    tile rows and a K step that is no multiple of a chunk."""
+def test_tile_body_at_odd_tile_rows_equals_plain_and_the_build_has_no_spills(cuda):
+    """K2-tri, K5 and K2-rect at odd tile rows and a K step that is no
+    multiple of a chunk; the library holds one kernel a form."""
     from stormtpu_torch.kernels._build import kernel_resources
 
     used = kernel_resources("k2_mxu")
-    # k2_tri, k2_rect, k5 on the tile body (k5 streaming) and the previous
-    # one, and k2_rect on the TMA body in clusters of one and two
-    assert len(used) == 8
+    # k2_tri and k5 on the tile body, k2_rect on the TMA body in clusters
+    # of one and two
+    assert len(used) == 4
     assert len([s for s in used if "k2_rect_tma_kernel" in s]) == 2
     assert all(v["spill_bytes"] == 0 for v in used.values())
     from stormtpu_torch.kernels import _build
@@ -542,16 +533,13 @@ def test_previous_tile_body_equals_plain_and_the_build_has_no_spills(cuda):
     ids = (torch.from_numpy(ibs).to(cuda), torch.from_numpy(jbs).to(cuda))
     want = mxu.count_tiles_plain(x, *ids, tile_rows=160, tile_words=24)
     work, n_slots = _full_worklist(2, 3, cuda)
-    for previous in (False, True):
-        got = mxu.count_tiles_pallas_mxu(x, *ids, tile_rows=160, tile_words=24,
-                                         previous_body=previous)
-        assert torch.equal(got, want)
-        got = clustered.count_tiles_worklist(x, *work, n_slots=n_slots, tile_rows=160,
-                                             tile_words=24, previous_body=previous)
-        assert torch.equal(got, want)
-        got = mxu._count_block_padded(x[:160], x, tile_rows=160, tile_words=24,
-                                      variant="concat", previous_body=previous)
-        assert torch.equal(got, mxu.count_block_plain(x[:160], x, tile_words=24))
+    got = mxu.count_tiles_pallas_mxu(x, *ids, tile_rows=160, tile_words=24)
+    assert torch.equal(got, want)
+    got = clustered.count_tiles_worklist(x, *work, n_slots=n_slots, tile_rows=160,
+                                         tile_words=24)
+    assert torch.equal(got, want)
+    got = mxu.count_block_pallas_mxu(x[:160], x)
+    assert torch.equal(got, mxu.count_block_plain(x[:160], x, tile_words=24))
 
 
 def test_download_bounds_the_page_locked_bytes_of_live_results(cuda, monkeypatch):
@@ -1379,25 +1367,22 @@ EPI_SHAPES = [(37, 33, 64, 40, 0.5), (300, 300, 256, 256, 0.5), (70, 129, 32, 12
               (100, 70, 96, 72, 0.3), (400, 64, 384, 64, 0.1)]
 
 
-@pytest.mark.parametrize("previous_body", (False, True), ids=("tma", "prev"))
 @pytest.mark.parametrize("order,offsets,cut", [("tri", None, 0), ("grid", None, 5),
                                                ("grid", (3, 1), 0)])
 @pytest.mark.parametrize("k", (1, 8, 16, 32))
 @pytest.mark.parametrize("n,w,ti,wk,density", EPI_SHAPES)
-def test_k2_topk_kernel_equals_plain(cuda, n, w, ti, wk, density, k, order, offsets, cut,
-                                     previous_body):
+def test_k2_topk_kernel_equals_plain(cuda, n, w, ti, wk, density, k, order, offsets, cut):
     """K2-topk's candidate sets, values and indices, equal the plain
-    version's exactly (ties to the lower index on both), on the TMA body
-    and the previous one: at odd tile rows (one, two and three sub-tile
-    rows; clusters of one and two), K tails mid-chunk, boxes past the last
-    row, shuffled lists with tiles on both sides of the diagonal, global
-    offsets (``offsets`` in tiles: a stripe's local ids) and an ``n_real``
-    below the rows."""
+    version's exactly (ties to the lower index on both): at odd tile rows
+    (one, two and three sub-tile rows; clusters of one and two), K tails
+    mid-chunk, boxes past the last row, shuffled lists with tiles on both
+    sides of the diagonal, global offsets (``offsets`` in tiles: a stripe's
+    local ids) and an ``n_real`` below the rows."""
     x, ids, kw = _epilogue_case(cuda, n, w, ti, wk, density, n + k, order)
     row_off, col_off = (0, 0) if offsets is None else (offsets[0] * ti, offsets[1] * ti)
     args = dict(k=k, n_real=n - cut, row_off=row_off, col_off=col_off, **kw)
     reset_launches()
-    got = mxu.count_tiles_topk(x, *ids, checked=ids, previous_body=previous_body, **args)
+    got = mxu.count_tiles_topk(x, *ids, checked=ids, **args)
     assert launch_counts()["k2_topk"] == 1 and launch_counts()["k2_tri"] == 0
     want = mxu.count_tiles_topk_plain(x, *ids, **args)
     torch.cuda.synchronize()
@@ -1405,15 +1390,14 @@ def test_k2_topk_kernel_equals_plain(cuda, n, w, ti, wk, density, k, order, offs
         assert g.dtype == torch.int32 and torch.equal(g, h)
 
 
-@pytest.mark.parametrize("previous_body", (False, True), ids=("tma", "prev"))
 @pytest.mark.parametrize("n_bins,bin_width", [(64, None), (1, 1), (7, 1), (3, 1 << 21),
                                               (4096, 1), (5, 3)])
 @pytest.mark.parametrize("order,offsets,cut", [("tri", None, 0), ("grid", (3, 1), 7)])
 @pytest.mark.parametrize("n,w,ti,wk,density", EPI_SHAPES)
 def test_k2_hist_kernel_equals_plain(cuda, n, w, ti, wk, density, n_bins, bin_width, order,
-                                     offsets, cut, previous_body):
-    """K2-hist's bin counts equal the plain version's exactly, on the TMA
-    body and the previous one (the shapes of the top-k test): one bin,
+                                     offsets, cut):
+    """K2-hist's bin counts equal the plain version's exactly (the shapes
+    of the top-k test): one bin,
     crowded bins (all ones; a width past M), a bin a value (width 1, 4096
     bins), global offsets and an ``n_real`` below the rows."""
     from stormtpu_torch.stream import default_hist_bin_width
@@ -1424,7 +1408,7 @@ def test_k2_hist_kernel_equals_plain(cuda, n, w, ti, wk, density, n_bins, bin_wi
     args = dict(n_real=n - cut, bin_width=width, n_bins=n_bins, row_off=row_off,
                 col_off=col_off, **kw)
     reset_launches()
-    got = mxu.count_tiles_hist(x, *ids, checked=ids, previous_body=previous_body, **args)
+    got = mxu.count_tiles_hist(x, *ids, checked=ids, **args)
     assert launch_counts()["k2_hist"] == 1
     want = mxu.count_tiles_hist_plain(x, *ids, **args)
     torch.cuda.synchronize()
@@ -1509,17 +1493,17 @@ def test_k2_epilogue_cluster_follows_the_shape_rule(cuda):
 
 
 def test_k2_epilogue_build_has_no_spills_and_k2_is_unchanged(cuda):
-    """The epilogue kernels (the TMA body's two cluster instances and the
-    previous ones) spill nothing and the compiler kept their register
-    rebalancing (no "setmaxnreg ignored"); K2's, K5's and K1's kernels on
-    the shared tile body still build to the registers they had before the
-    epilogues (PERF.md: 186, 168, 192, 196)."""
+    """The epilogue kernels (the TMA body's two cluster instances, and no
+    other) spill nothing and the compiler kept their register rebalancing
+    (no "setmaxnreg ignored"); K2-tri's, K5's and K1's kernels on the
+    shared tile body still build to the registers they had before the
+    epilogues (PERF.md: 186, 192, 196)."""
     from stormtpu_torch.kernels import _build
 
     used = _build.kernel_resources("k2_epilogue")
+    assert len(used) == 4
     for name in ("k2_topk_kernel", "k2_hist_kernel"):
-        assert len([s for s in used if name in s and "_prev" not in s]) == 2  # clusters 1, 2
-        assert len([s for s in used if name + "_prev" in s]) == 1
+        assert len([s for s in used if name in s]) == 2  # clusters 1, 2
     assert all(v["spill_bytes"] == 0 for v in used.values())
     log = _build._target("k2_epilogue").with_suffix(".log").read_text()
     assert "setmaxnreg ignored" not in log
@@ -1530,8 +1514,8 @@ def test_k2_epilogue_build_has_no_spills_and_k2_is_unchanged(cuda):
     def registers(kernel):
         return next(v["registers"] for s, v in body.items() if kernel in s and "B1Wgmma" in s)
 
-    assert [registers(k) for k in ("k2_tri_kernel", "k2_rect_kernel", "k5_stream_kernel",
-                                   "k1_pair_kernel")] == [186, 168, 192, 196]
+    assert [registers(k) for k in ("k2_tri_kernel", "k5_stream_kernel",
+                                   "k1_pair_kernel")] == [186, 192, 196]
 
 
 @pytest.mark.parametrize("k", (8, 32, 33))

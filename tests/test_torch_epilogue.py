@@ -180,24 +180,21 @@ def test_hist_plain_equals_tiles_then_the_store_routes_bin_count(panel, offsets,
     assert int(got.sum()) == int(valid.sum())
 
 
-@pytest.mark.parametrize("previous_body", (False, True))
 @pytest.mark.parametrize("panel,ti", [("dense100", 32), ("sparse70", 160)])
-def test_wrappers_on_cpu_tensors_take_the_plain_versions_whatever_the_body(panel, ti,
-                                                                           previous_body):
+def test_wrappers_on_cpu_tensors_take_the_plain_versions(panel, ti):
     """On CPU tensors ``count_tiles_topk`` and ``count_tiles_hist`` return
-    their plain versions' results whichever body ``previous_body`` names
-    (it selects a card kernel only), and count no launch."""
+    their plain versions' results, and count no launch."""
     dense = PANELS[panel]()
     _, xp = _operand(dense, ti, 8)
     ib, jb = _tile_lists(xp.shape[0] // ti, seed=ti)["grid"]
     ibs, jbs = torch.from_numpy(ib), torch.from_numpy(jb)
     kw = dict(tile_rows=ti, tile_words=8, n_real=dense.shape[0] - 3, row_off=ti, col_off=0)
     mxu.reset_launches()
-    got = mxu.count_tiles_topk(xp, ibs, jbs, k=8, previous_body=previous_body, **kw)
+    got = mxu.count_tiles_topk(xp, ibs, jbs, k=8, **kw)
     want = mxu.count_tiles_topk_plain(xp, ibs, jbs, k=8, **kw)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     hkw = dict(bin_width=3, n_bins=17, **kw)
-    got_h = mxu.count_tiles_hist(xp, ibs, jbs, previous_body=previous_body, **hkw)
+    got_h = mxu.count_tiles_hist(xp, ibs, jbs, **hkw)
     assert torch.equal(got_h, mxu.count_tiles_hist_plain(xp, ibs, jbs, **hkw))
     assert mxu.LAUNCHES["k2_topk"] == mxu.LAUNCHES["k2_hist"] == 0
 

@@ -240,7 +240,7 @@ def test_rect_card_route_pads_words_only(monkeypatch, na, nb, w, kind_a, kind_b)
     counters."""
     launched = []
 
-    def launch(name, a, b, out, previous_body):
+    def launch(name, a, b, out):
         assert a.is_contiguous() and b.is_contiguous() and out.is_contiguous()
         launched.append((a.shape, b.shape, out.shape))
         out.fill_(-1)
@@ -261,33 +261,41 @@ def test_rect_card_route_pads_words_only(monkeypatch, na, nb, w, kind_a, kind_b)
     assert rec.counters.get("rect_unpadded", 0) == (0 if copied else 1)
 
 
+def test_rect_card_route_counts_rows_of_no_words_without_a_launch(monkeypatch):
+    """Rows of no words (M = 0) count 0 on the card route, with no launch:
+    the kernel takes no zero-word operand."""
+    def launch(*_):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(tm, "_rect_launch", launch)
+    got = tm._count_block_card(torch.zeros((3, 0), dtype=torch.int32),
+                               torch.zeros((5, 0), dtype=torch.int32))
+    assert got.shape == (3, 5) and not bool(got.any())
+
+
 @pytest.mark.parametrize("na,cluster", [
-    (1, 0), (64, 0), (128, 0),      # one sub-tile row of A: the cp.async body
+    (1, 1), (64, 1), (128, 1),      # one sub-tile row of A: blocks alone
     (129, 2), (200, 2), (256, 2),   # two: a cluster of two shares each B tile
     (384, 1),                       # three: blocks alone, side by side
     (512, 2),
 ])
 def test_rect_shape_rule_picks_the_body_by_na(monkeypatch, na, cluster):
     """K2-rect's shape rule depends on Na alone, and the wrapper hands the
-    library what it says: ``k2_rect_launch`` for one 128-row sub-tile row,
-    else ``k2_rect_tma_launch`` with the rule's cluster; ``rect_shared_b``
-    counts the launches in clusters of two; ``previous_body`` launches the
-    int8 body whatever Na."""
+    library what it says: ``k2_rect_tma_launch`` at every Na, with the
+    rule's cluster; ``rect_shared_b`` counts the launches in clusters of
+    two."""
     assert tm.rect_cluster(na) == cluster
     calls = []
-    monkeypatch.setattr(tm, "_launch_k2",
-                        lambda entry, device, prev, *args: calls.append((entry, prev, args)))
+    monkeypatch.setattr(tm, "_launch",
+                        lambda source, entry, device, *args: calls.append((source, entry, args)))
     a, b = torch.zeros((na, 8), dtype=torch.int32), torch.zeros((5, 8), dtype=torch.int32)
     out = torch.zeros((na, 8), dtype=torch.int32)
     tm.reset_launches()
     with profiling.record() as rec:
-        tm._rect_launch("rule", a, b, out, False)
-        tm._rect_launch("rule", a, b, out, True)
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), na, 5, 8, 8)
-    now = ("k2_rect_tma_launch", False, args + (cluster,)) if cluster else \
-        ("k2_rect_launch", False, args)
-    assert calls == [now, ("k2_rect_launch", True, args)]
-    assert tm.LAUNCHES["k2_rect"] == 2
+        tm._rect_launch("rule", a, b, out)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), na, 5, 8, 8, cluster)
+    assert calls == [("k2_mxu", "k2_rect_tma_launch", args)]
+    assert tm.LAUNCHES["k2_rect"] == 1
     assert rec.counters.get("rect_shared_b", 0) == (1 if cluster == 2 else 0)
 
 
@@ -299,41 +307,70 @@ def _offset(x):
     return torch.zeros(x.numel() + 1, dtype=torch.int32)[1:].view(x.shape)
 
 
+def _rows(n):
+    """n rows of 8 zero words as a view of one row: no memory of its own."""
+    return torch.zeros(8, dtype=torch.int32).expand(n, 8)
+
+
 @pytest.mark.parametrize("case,error,match", [
     ("na_past_grid", ValueError, "grid limit"),
-    ("na_at_grid", ValueError, "contiguous"),  # past the grid check, stopped by the next
+    ("na_at_grid", ValueError, "operand must be contiguous"),  # past the grid check
+    ("nb_past_rows", ValueError, "grid limit"),
+    ("blocks_past_grid", ValueError, "grid limit"),
     ("words_10", ValueError, "multiples of 4"),
     ("words_differ", ValueError, "multiples of 4"),
     ("int64", TypeError, "int32"),
-    ("strided_a", ValueError, "contiguous"),
+    ("strided_a", ValueError, "operand must be contiguous"),
     ("offset_b", ValueError, "aligned"),
+    ("odd_pitch", ValueError, "ldo even"),
 ])
 def test_rect_launch_refuses_what_the_kernel_does_not_take(monkeypatch, case, error, match):
-    """The K2-rect wrapper raises before any launch on what neither body
-    takes: Na past the grid's 65,535 sub-tile rows, rows whose words are
-    not a multiple of 4 (``rect_operand``'s copy pads them; bare operands
-    are refused), unequal words, and an operand that is not contiguous,
-    16-byte aligned int32."""
+    """The K2-rect wrapper raises before any launch on what
+    ``k2_rect_tma_launch`` refuses: a row coordinate of A or B past int32
+    (Na + 128, Nb + 256 ≥ 2³¹), ceil(Na / 128) · ceil(Nb / 256) blocks past
+    int32, rows whose words are not a multiple of 4 (``rect_operand``'s
+    copy pads them; bare operands are refused), unequal words, an operand
+    that is not contiguous, 16-byte aligned int32, and an output pitch that
+    is odd."""
     def launch(*_):
         raise AssertionError("launched")
 
-    monkeypatch.setattr(tm, "_launch_k2", launch)
+    monkeypatch.setattr(tm, "_launch", launch)
     a, b = torch.zeros((3, 8), dtype=torch.int32), torch.zeros((5, 8), dtype=torch.int32)
-    limit = 65535 * tm.RECT_BLOCK_ROWS
+    limit = (1 << 31) - tm.RECT_BLOCK_ROWS  # the first Na refused
+    out = None
     a, b = {
-        "na_past_grid": (torch.zeros(8, dtype=torch.int32).expand(limit + 1, 8), b),
-        "na_at_grid": (torch.zeros(8, dtype=torch.int32).expand(limit, 8), b),
+        "na_past_grid": (_rows(limit), b),
+        "na_at_grid": (_rows(limit - 1), b),
+        "nb_past_rows": (a, _rows((1 << 31) - 256)),
+        # 65,535 sub-tile rows of A x 32,769 B tiles: 2^31 + 65,535 blocks
+        "blocks_past_grid": (_rows(65535 * 128), _rows(32769 * 256)),
         "words_10": (torch.zeros((3, 10), dtype=torch.int32),
                      torch.zeros((5, 10), dtype=torch.int32)),
         "words_differ": (a, b[:, :4].contiguous()),
         "int64": (a.to(torch.int64), b),
         "strided_a": (_strided(a), b),
         "offset_b": (a, _offset(b)),
+        "odd_pitch": (a, b),
     }[case]
+    if case == "odd_pitch":
+        out = torch.zeros((3, 7), dtype=torch.int32)
+    elif a.shape[0] < 8:  # a contiguous output: only the operand checks can refuse
+        out = torch.zeros((a.shape[0], 8), dtype=torch.int32)
+    else:  # an output at these Na would hold gigabytes: a view of one row
+        out = _rows(a.shape[0])
     tm.reset_launches()
     with pytest.raises(error, match=match):
-        tm._rect_launch("refuse", a, b, torch.zeros((a.shape[0], 8), dtype=torch.int32), False)
+        tm._rect_launch("refuse", a, b, out)
     assert tm.LAUNCHES["k2_rect"] == 0
+
+
+def test_tile_padded_form_takes_cpu_operands_only():
+    """``_count_block_padded`` is the plain version's padded form: it
+    refuses operands on any other device, and names the card route."""
+    x = torch.zeros((64, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="count_block_pallas_mxu"):
+        tm._count_block_padded(x, x, tile_rows=32, tile_words=8, variant="planes")
 
 
 @pytest.mark.parametrize("kind", ("whole", "columns"))
