@@ -210,6 +210,8 @@ class BitMatrix:
             row_nnz = _native.row_popcounts_native(packed)
             if row_nnz is None:
                 row_nnz = np.bitwise_count(packed).sum(axis=1, dtype=np.int64)
+            else:
+                profiling.count(f"row_counts.{_native.popcount_path()}")
         return cls(packed=packed, n=n, m_bits=m_bits, row_nnz=row_nnz)
 
     @classmethod

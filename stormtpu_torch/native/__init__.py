@@ -4,6 +4,13 @@ The port's copy of ``stormtpu/native``: packing, unpacking, row popcounts,
 CSR extraction, one pair's count, and K4, the inverted-index all-pairs
 count that runs on the host (``stpu_sparse_outer_*``, ``stpu_mirror_upper``).
 
+Row popcounts, the CSR's first pass and one pair's count share one helper
+in ``packer.cpp`` with three forms: AVX-512 VPOPCNTDQ, 64-bit POPCNT and a
+portable loop. The library is built for the baseline target of its host
+architecture, with the x86-64 forms compiled under ``target`` attributes,
+and picks the best form the CPU reports once as it loads
+(:func:`popcount_path`). Every form gives the same exact counts.
+
 The library is built with ``g++`` at first use (the first call of an entry
 point, of :func:`have_native` or of ``HAVE_NATIVE``; never at import) into
 ``native/build/`` under a name keyed by the source and the flags, so an
@@ -39,6 +46,7 @@ __all__ = [
     "HAVE_NATIVE",
     "have_native",
     "native_build_error",
+    "popcount_path",
     "library_path",
     "reset_launches",
     "pack_positions_native",
@@ -57,6 +65,9 @@ _DIR = Path(__file__).resolve().parent
 SOURCE = _DIR / "packer.cpp"
 BUILD_DIR = _DIR / "build"
 CXXFLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+
+# The library's popcount forms, by the code ``stpu_popcount_path`` returns.
+POPCOUNT_PATHS = ("portable", "popcnt", "avx512_vpopcntdq")
 
 # Runs of the K4 host kernel (``stpu_sparse_outer_*``) since the last reset.
 LAUNCHES = {"k4": 0}
@@ -100,7 +111,7 @@ def _build(so: Path) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    i64 = ctypes.c_int64
+    i64, c_int = ctypes.c_int64, ctypes.c_int
     p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     p_u32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
@@ -118,6 +129,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stpu_positions_csr.argtypes = [p_u32, i64, i64, i64, p_i64, ctypes.c_void_p]
     lib.stpu_pair_count.restype = i64
     lib.stpu_pair_count.argtypes = [p_u32, p_u32, i64]
+    lib.stpu_popcount_path.restype = c_int
+    lib.stpu_popcount_path.argtypes = []
+    # the *_on forms and the support query serve the tests alone
+    lib.stpu_popcount_path_supported.restype = c_int
+    lib.stpu_popcount_path_supported.argtypes = [c_int]
+    lib.stpu_row_popcounts_on.restype = c_int
+    lib.stpu_row_popcounts_on.argtypes = [c_int, p_u32, i64, i64, p_i64]
+    lib.stpu_positions_csr_on.restype = c_int
+    lib.stpu_positions_csr_on.argtypes = [c_int, p_u32, i64, i64, i64, p_i64, ctypes.c_void_p]
+    lib.stpu_pair_count_on.restype = i64
+    lib.stpu_pair_count_on.argtypes = [c_int, p_u32, p_u32, i64]
     lib.stpu_sparse_outer_from_packed.restype = ctypes.c_int
     lib.stpu_sparse_outer_from_packed.argtypes = [p_u32, i64, i64, i64, p_i32]
     lib.stpu_mirror_upper.restype = None
@@ -160,6 +182,13 @@ def native_build_error() -> Optional[str]:
     text), or ``None`` when it is loaded."""
     _load()
     return _error
+
+
+def popcount_path() -> Optional[str]:
+    """The popcount form the library runs on this CPU (one of
+    :data:`POPCOUNT_PATHS`), or ``None`` when it is unavailable."""
+    lib = _load()
+    return None if lib is None else POPCOUNT_PATHS[lib.stpu_popcount_path()]
 
 
 def __getattr__(name: str):

@@ -9,8 +9,24 @@
 // (NumPy's np.bitwise_or.at is an unbuffered ufunc and orders of magnitude
 // slower). This file is that ingest path, exposed via ctypes
 // (stormtpu_torch/native/__init__.py) with a NumPy fallback when unbuilt.
-// It is a copy of stormtpu/native/packer.cpp: the port imports nothing of
-// the JAX package.
+// It began as a copy of stormtpu/native/packer.cpp: the port imports
+// nothing of the JAX package.
+//
+// Popcounts. Row popcounts (stpu_row_popcounts), the CSR's first pass
+// (stpu_positions_csr) and one pair's count (stpu_pair_count) share one
+// helper, count_words, in three forms compiled into this one library:
+//   2  AVX-512 VPOPCNTDQ: 512-bit unaligned loads, _mm512_popcnt_epi64,
+//      a masked load for the tail;
+//   1  POPCNT: 64-bit loads (memcpy: a row starts only 4-byte aligned when
+//      W is odd), __builtin_popcountll, one 32-bit tail word;
+//   0  portable: __builtin_popcount a word, which the baseline x86-64
+//      target compiles to a call of libgcc's bit-trick routine.
+// The x86-64 forms carry __attribute__((target(...))), so the library is
+// built for the baseline target and runs on any x86-64 host; the form is
+// chosen once, as the library loads, from __builtin_cpu_supports
+// (stpu_popcount_path says which). Elsewhere only the portable form is
+// compiled. Every form gives the same exact int64 counts. The *_on entry
+// points run a given form, for the tests that hold each form to the others.
 //
 // Build: on first use, by stormtpu_torch/native/__init__.py, into build/;
 // by hand: make -C stormtpu_torch/native (the same g++ flags).
@@ -18,7 +34,136 @@
 #include <cstdint>
 #include <cstring>
 
+#if defined(__x86_64__)
+#include <immintrin.h>
+#endif
+
+namespace {
+
+enum PopcountPath { kPortable = 0, kPopcnt = 1, kAvx512 = 2 };
+
+// Set bits of a[0, w), or with kAnd of a[j] & b[j].
+template <bool kAnd>
+int64_t count_portable(const uint32_t* a, const uint32_t* b, int64_t w) {
+  int64_t acc = 0;
+  for (int64_t j = 0; j < w; ++j)
+    acc += __builtin_popcount(kAnd ? a[j] & b[j] : a[j]);
+  return acc;
+}
+
+#if defined(__x86_64__)
+template <bool kAnd>
+__attribute__((target("popcnt")))
+int64_t count_popcnt(const uint32_t* a, const uint32_t* b, int64_t w) {
+  uint64_t acc0 = 0, acc1 = 0;
+  int64_t j = 0;
+  for (; j + 4 <= w; j += 4) {
+    uint64_t x0, x1;
+    std::memcpy(&x0, a + j, 8);
+    std::memcpy(&x1, a + j + 2, 8);
+    if (kAnd) {
+      uint64_t y0, y1;
+      std::memcpy(&y0, b + j, 8);
+      std::memcpy(&y1, b + j + 2, 8);
+      x0 &= y0;
+      x1 &= y1;
+    }
+    acc0 += __builtin_popcountll(x0);
+    acc1 += __builtin_popcountll(x1);
+  }
+  if (j + 2 <= w) {
+    uint64_t x;
+    std::memcpy(&x, a + j, 8);
+    if (kAnd) {
+      uint64_t y;
+      std::memcpy(&y, b + j, 8);
+      x &= y;
+    }
+    acc0 += __builtin_popcountll(x);
+    j += 2;
+  }
+  if (j < w) acc1 += __builtin_popcount(kAnd ? a[j] & b[j] : a[j]);
+  return (int64_t)(acc0 + acc1);
+}
+
+template <bool kAnd>
+__attribute__((target("avx512f,avx512vpopcntdq")))
+int64_t count_avx512(const uint32_t* a, const uint32_t* b, int64_t w) {
+  __m512i acc0 = _mm512_setzero_si512(), acc1 = _mm512_setzero_si512();
+  int64_t j = 0;
+  for (; j + 32 <= w; j += 32) {
+    __m512i x0 = _mm512_loadu_si512(a + j);
+    __m512i x1 = _mm512_loadu_si512(a + j + 16);
+    if (kAnd) {
+      x0 = _mm512_and_si512(x0, _mm512_loadu_si512(b + j));
+      x1 = _mm512_and_si512(x1, _mm512_loadu_si512(b + j + 16));
+    }
+    acc0 = _mm512_add_epi64(acc0, _mm512_popcnt_epi64(x0));
+    acc1 = _mm512_add_epi64(acc1, _mm512_popcnt_epi64(x1));
+  }
+  for (; j < w; j += 16) {
+    // lanes past w are masked off: neither read nor counted
+    const __mmask16 m =
+        w - j >= 16 ? (__mmask16)0xFFFF : (__mmask16)((1u << (w - j)) - 1);
+    __m512i x = _mm512_maskz_loadu_epi32(m, a + j);
+    if (kAnd) x = _mm512_and_si512(x, _mm512_maskz_loadu_epi32(m, b + j));
+    acc0 = _mm512_add_epi64(acc0, _mm512_popcnt_epi64(x));
+  }
+  int64_t lanes[8];
+  _mm512_storeu_si512(lanes, _mm512_add_epi64(acc0, acc1));
+  int64_t acc = 0;
+  for (int k = 0; k < 8; ++k) acc += lanes[k];
+  return acc;
+}
+#endif
+
+bool path_supported(int path) {
+  if (path == kPortable) return true;
+#if defined(__x86_64__)
+  __builtin_cpu_init();
+  if (path == kPopcnt) return __builtin_cpu_supports("popcnt");
+  if (path == kAvx512)
+    return __builtin_cpu_supports("avx512f") &&
+           __builtin_cpu_supports("avx512vpopcntdq");
+#endif
+  return false;
+}
+
+int best_path() {
+  if (path_supported(kAvx512)) return kAvx512;
+  if (path_supported(kPopcnt)) return kPopcnt;
+  return kPortable;
+}
+
+// Chosen once, as the library loads.
+const int g_path = best_path();
+
+template <bool kAnd>
+int64_t count_words(int path, const uint32_t* a, const uint32_t* b,
+                    int64_t w) {
+#if defined(__x86_64__)
+  if (path == kAvx512) return count_avx512<kAnd>(a, b, w);
+  if (path == kPopcnt) return count_popcnt<kAnd>(a, b, w);
+#endif
+  return count_portable<kAnd>(a, b, w);
+}
+
+void row_counts(int path, const uint32_t* packed, int64_t n, int64_t w,
+                int64_t* out) {
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = count_words<false>(path, packed + i * w, nullptr, w);
+}
+
+}  // namespace
+
 extern "C" {
+
+// The popcount form this library runs: 2 AVX-512 VPOPCNTDQ, 1 POPCNT,
+// 0 portable.
+int stpu_popcount_path() { return g_path; }
+
+// Whether this CPU can run form ``path`` (tests).
+int stpu_popcount_path_supported(int path) { return path_supported(path); }
 
 // Scatter-OR COO set-bit coordinates into packed words.
 // rows/pos: int64[nnz]; out: uint32[n*w] zero-initialised by caller.
@@ -69,31 +214,34 @@ void stpu_unpack_bits(const uint32_t* packed, int64_t n, int64_t w,
   }
 }
 
-// Per-row set-bit counts.
+// Per-row set-bit counts with form ``path``; 1 (nothing written) when
+// this CPU cannot run it.
+int stpu_row_popcounts_on(int path, const uint32_t* packed, int64_t n,
+                          int64_t w, int64_t* out) {
+  if (!path_supported(path)) return 1;
+  row_counts(path, packed, n, w, out);
+  return 0;
+}
+
 void stpu_row_popcounts(const uint32_t* packed, int64_t n, int64_t w,
                         int64_t* out) {
-  for (int64_t i = 0; i < n; ++i) {
-    const uint32_t* row = packed + i * w;
-    int64_t acc = 0;
-    for (int64_t j = 0; j < w; ++j) acc += __builtin_popcount(row[j]);
-    out[i] = acc;
-  }
+  row_counts(g_path, packed, n, w, out);
 }
 
 // CSR extraction: sorted set-bit positions per row.
-// Pass 1 (indices == nullptr): fill indptr[n+1] with row nnz prefix sums.
+// Pass 1 (indices == nullptr): fill indptr[n+1] with row nnz prefix sums,
+// the counts with form ``path``.
 // Pass 2: fill indices[nnz] (int32 positions), indptr already computed.
-void stpu_positions_csr(const uint32_t* packed, int64_t n, int64_t w,
-                        int64_t m_bits, int64_t* indptr, int32_t* indices) {
+// Returns 1 (nothing written) when this CPU cannot run ``path``.
+int stpu_positions_csr_on(int path, const uint32_t* packed, int64_t n,
+                          int64_t w, int64_t m_bits, int64_t* indptr,
+                          int32_t* indices) {
+  if (!path_supported(path)) return 1;
   if (indices == nullptr) {
     indptr[0] = 0;
-    for (int64_t i = 0; i < n; ++i) {
-      const uint32_t* row = packed + i * w;
-      int64_t acc = 0;
-      for (int64_t j = 0; j < w; ++j) acc += __builtin_popcount(row[j]);
-      indptr[i + 1] = indptr[i] + acc;
-    }
-    return;
+    row_counts(path, packed, n, w, indptr + 1);
+    for (int64_t i = 0; i < n; ++i) indptr[i + 1] += indptr[i];
+    return 0;
   }
   for (int64_t i = 0; i < n; ++i) {
     const uint32_t* row = packed + i * w;
@@ -108,14 +256,25 @@ void stpu_positions_csr(const uint32_t* packed, int64_t n, int64_t w,
       }
     }
   }
+  return 0;
+}
+
+void stpu_positions_csr(const uint32_t* packed, int64_t n, int64_t w,
+                        int64_t m_bits, int64_t* indptr, int32_t* indices) {
+  stpu_positions_csr_on(g_path, packed, n, w, m_bits, indptr, indices);
 }
 
 // Reference-semantics scalar pairwise count (host oracle / cross-check):
-// exact popcount(a AND b) over two packed rows.
+// exact popcount(a AND b) over two packed rows, with form ``path``; -1
+// when this CPU cannot run it.
+int64_t stpu_pair_count_on(int path, const uint32_t* a, const uint32_t* b,
+                           int64_t w) {
+  if (!path_supported(path)) return -1;
+  return count_words<true>(path, a, b, w);
+}
+
 int64_t stpu_pair_count(const uint32_t* a, const uint32_t* b, int64_t w) {
-  int64_t acc = 0;
-  for (int64_t j = 0; j < w; ++j) acc += __builtin_popcount(a[j] & b[j]);
-  return acc;
+  return count_words<true>(g_path, a, b, w);
 }
 
 // K4 from the packed matrix directly (no CSR detour): pass 1 counts

@@ -1,11 +1,13 @@
 """The port's C++ host tier (``stormtpu_torch.native``): every entry point
 against its NumPy fallback and against the JAX package's tier
 (``stormtpu.native``) on shared seeded inputs, duplicated positions
-included; the build on first use, safe when four processes start it at
-once into one empty directory; the build's error text kept. Counts are
-integers: every comparison is exact."""
+included; each popcount form of the library against NumPy, and the form
+it picks against what the CPU reports; the build on first use, safe when
+four processes start it at once into one empty directory; the build's
+error text kept. Counts are integers: every comparison is exact."""
 
 import os
+import platform
 import shutil
 import subprocess
 import sys
@@ -20,8 +22,11 @@ import stormtpu_torch.layout as tl
 import stormtpu_torch.native as tn
 from stormtpu_torch.kernels.sparse import count_matrix_sparse_outer
 from stormtpu_torch.oracle import oracle_count_matrix, oracle_pair_count
+from stormtpu_torch.utils import profiling
 
-SHAPES = ((1, 31), (37, 1000), (64, 4097))
+# (N, M bits); (9, 1051) has an odd W of 33 words, so every other row starts
+# 4 bytes off 8-byte alignment
+SHAPES = ((1, 31), (37, 1000), (64, 4097), (9, 1051))
 
 
 @pytest.fixture
@@ -205,6 +210,114 @@ def test_k4_runs_cross_equals_fallback_and_jax(native_tier, n, m):
     _same(dense, got)
 
 
+# ------------------------------------------------------------ popcount forms
+POPCOUNT_W = (1, 2, 7, 8, 15, 16, 17, 33, 32768 + 3)
+
+
+def _popcount_rows(w, offset):
+    """Seven rows of ``w`` words, ``offset`` words past an 8-byte-aligned
+    start: random, all ones, zero, sparse, a single bit in the last word,
+    random, all ones."""
+    rng = np.random.default_rng(w + 100 * offset)
+    n = 7
+    buf = np.empty(n * w + 2, np.uint32)
+    start = (-buf.ctypes.data // 4) % 2 + offset  # words to an 8-byte boundary, then offset
+    rows = buf[start:start + n * w].reshape(n, w)
+    assert rows.ctypes.data % 8 == 4 * offset
+    rows[:] = rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+    rows[1] = rows[6] = 0xFFFFFFFF
+    rows[2] = 0
+    rows[3] &= rng.integers(0, 2**32, w, dtype=np.uint32) & rng.integers(0, 2**32, w, dtype=np.uint32)
+    rows[4] = 0
+    rows[4, -1] = 1 << 31
+    return rows
+
+
+def _popcounts(rows):
+    return np.bitwise_count(rows).sum(axis=1, dtype=np.int64)
+
+
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("w", POPCOUNT_W)
+@pytest.mark.parametrize("path", range(len(tn.POPCOUNT_PATHS)))
+def test_each_popcount_form_counts_exactly(native_tier, path, w, offset):
+    """Row popcounts, the CSR's first pass and one pair's count with each
+    form of the library, exact against NumPy; a form this CPU cannot run
+    is refused and writes nothing."""
+    lib = tn._load()
+    rows = _popcount_rows(w, offset)
+    n = rows.shape[0]
+    out = np.full(n, -1, np.int64)
+    indptr = np.full(n + 1, -1, np.int64)
+    if not lib.stpu_popcount_path_supported(path):
+        assert lib.stpu_row_popcounts_on(path, rows, n, w, out) == 1
+        assert lib.stpu_positions_csr_on(path, rows, n, w, 32 * w, indptr, None) == 1
+        assert lib.stpu_pair_count_on(path, rows[0], rows[1], w) == -1
+        assert (out == -1).all() and (indptr == -1).all()
+        return
+    want = _popcounts(rows)
+    assert lib.stpu_row_popcounts_on(path, rows, n, w, out) == 0
+    _same(out, want)
+    assert lib.stpu_positions_csr_on(path, rows, n, w, 32 * w, indptr, None) == 0
+    _same(indptr, np.r_[0, np.cumsum(want)].astype(np.int64))
+    for i, j in ((0, 5), (1, 0), (1, 6), (2, 0), (3, 1), (4, 6), (5, 5), (0, 6)):
+        got = lib.stpu_pair_count_on(path, rows[i], rows[j], w)
+        assert got == int(np.bitwise_count(rows[i] & rows[j]).sum()), (i, j)
+    # no rows
+    none = rows[:0]
+    assert lib.stpu_row_popcounts_on(path, none, 0, w, out) == 0
+    indptr[:] = -1
+    assert lib.stpu_positions_csr_on(path, none, 0, w, 32 * w, indptr, None) == 0
+    assert indptr[0] == 0 and (indptr[1:] == -1).all()
+
+
+def _cpu_flags():
+    """The flags ``/proc/cpuinfo`` lists for the first CPU (empty where the
+    file does not exist)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return set(line.split(":", 1)[1].split())
+    except OSError:
+        pass
+    return set()
+
+
+def test_the_library_runs_the_best_popcount_form_the_cpu_has(native_tier):
+    lib = tn._load()
+    path = tn.popcount_path()
+    supported = [p for p in range(len(tn.POPCOUNT_PATHS))
+                 if lib.stpu_popcount_path_supported(p)]
+    assert supported[0] == 0
+    assert path == tn.POPCOUNT_PATHS[supported[-1]]
+    flags = _cpu_flags() if platform.machine() in ("x86_64", "AMD64") else set()
+    if "popcnt" in flags:  # a silent fall back to the bit-trick loop fails here
+        assert path != "portable"
+    if {"avx512f", "avx512_vpopcntdq"} <= flags:
+        assert path == "avx512_vpopcntdq"
+    # the public entry points run that form
+    rows = _popcount_rows(33, 1)
+    _same(tn.row_popcounts_native(rows), _popcounts(rows))
+    assert tn.pair_count_native(rows[0], rows[3]) == lib.stpu_pair_count_on(
+        tn.POPCOUNT_PATHS.index(path), rows[0], rows[3], 33)
+
+
+def test_from_packed_counts_the_popcount_form_it_ran(native_tier):
+    bm = _packed(5, 1000, seed=3)
+    with profiling.record() as rec:
+        tl.BitMatrix.from_packed(bm.packed, 1000)
+    counted = {k: v for k, v in rec.counters.items() if k.startswith("row_counts.")}
+    assert counted == {f"row_counts.{tn.popcount_path()}": 1}
+
+
+def test_from_packed_without_the_tier_counts_no_popcount_form(no_native):
+    with profiling.record() as rec:
+        bm = tl.BitMatrix.from_packed(np.full((3, 4), 0xF0F0F0F0, np.uint32), 128)
+    _same(bm.row_nnz, np.full(3, 64, np.int64))
+    assert not [k for k in rec.counters if k.startswith("row_counts.")]
+
+
 def test_entry_points_refuse_out_of_range_input(native_tier):
     w = tl.words_for_bits(100)
     with pytest.raises(ValueError, match="out of range"):
@@ -243,6 +356,7 @@ def test_without_the_tier_every_entry_point_returns_none(no_native):
                 tn.sparse_outer_runs_native(i64, i32, 2),
                 tn.sparse_outer_runs_cross_native(i64, i32, i64, i32, 2, 2)):
         assert out is None
+    assert tn.popcount_path() is None
     assert tn.mirror_upper_native(np.zeros((2, 2), np.int32)) is False
 
 
