@@ -325,6 +325,32 @@ class BitMatrix:
             ("padded2d", int(n_pad), int(w_pad)),
             lambda: _upload_padded(self.packed, n_pad, w_pad, device), device)
 
+    def device_ordered2d(self, perm: np.ndarray, n_pad: int, w_pad: int, *, device):
+        """The rows ``packed[perm]`` (``perm`` a permutation of the rows)
+        zero-padded to [``n_pad``, ``w_pad``] on ``device``, cached under
+        ("ordered2d", n_pad, w_pad) and the order's checksum. The host rows
+        go up in their own order, a chunk at a time, and are placed on the
+        device: no reordered copy of the matrix is made on the host."""
+        import zlib
+
+        if n_pad < self.n or w_pad < self.n_words:
+            raise ValueError(f"[{n_pad}, {w_pad}] is smaller than [{self.n}, {self.n_words}]")
+        perm = np.ascontiguousarray(perm, dtype=np.int64)
+        key = ("ordered2d", int(n_pad), int(w_pad), zlib.crc32(perm.tobytes()))
+
+        def build():
+            at = np.empty(self.n, dtype=np.int64)
+            at[perm] = np.arange(self.n)
+            out = torch.zeros((n_pad, w_pad), dtype=torch.int32, device=device)
+            w = self.n_words
+            step = max(1, _UPLOAD_ROW_BYTES // max(4 * w, 1))
+            for r in range(0, self.n, step):
+                rows = to_device_words(self.packed[r : r + step], device)
+                out[profiling.upload(torch.from_numpy(at[r : r + step]), device), :w] = rows
+            return out
+
+        return self.device_cached(key, build, device)
+
     def device_nnz(self, n_pad: int, *, device):
         """int32 ``row_nnz`` zero-padded to ``n_pad`` rows on ``device``,
         cached per (``n_pad``, device), as :meth:`device_padded`."""

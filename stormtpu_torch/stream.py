@@ -32,6 +32,7 @@ import concurrent.futures
 import functools
 import json
 import os
+import zlib
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -954,6 +955,232 @@ def _stripe_nonzeros(stripe: torch.Tensor) -> tuple[np.ndarray, np.ndarray, np.n
     vals = stripe[nz[:, 0], nz[:, 1]]
     nz = download(nz)
     return nz[:, 0], nz[:, 1], download(vals)
+
+
+# ------------------------------------------------------------ density order
+# The set bits the density order may hold on the device; the elements of a
+# gathered block, and the nonzero words of a held superblock expanded to
+# bits, made at a time (each bounds a transient buffer: 256 and 128 MB).
+_ORDER_MAX_POSITIONS = 1 << 26
+_GATHER_BLOCK = 1 << 26
+_EXPAND_WORDS = 1 << 20
+
+
+def _k2_stripe_s(fit: dict, sb: int, m_bits: int, tps: int, diagonal: bool) -> float:
+    """The card's K2 stripe on a resident operand (``c_k2_stripe_s_per_op``
+    a bit pair): a diagonal stripe runs the upper triangle of its tiles."""
+    t = fit["c_k2_stripe_s_per_op"] * sb * sb * m_bits
+    return t * (tps + 1) / (2 * tps) if diagonal else t
+
+
+def _k4_stripe_s(fit: dict, emissions, gathered=0.0, positions=0.0):
+    """K4's stripe on the card: its zeroed buffer, segments and launches
+    (``c_k4_stripe_s``), its emissions, and, where the other side is read
+    from the operand, the elements gathered at the held side's columns and
+    the set bits found there."""
+    return (fit["c_k4_stripe_s"] + fit["c_emit_s_per_emission"] * emissions
+            + fit["c_k4_gather_s_per_elem"] * gathered
+            + fit["c_k4_gather_s_per_position"] * positions)
+
+
+def _superblock_coo_device(x: torch.Tensor, sb: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(columns int64, local rows int32) of the set bits of a superblock's
+    words ``x`` (int32 [sb, w] on its device), sorted by (column, row)."""
+    r, w = torch.nonzero(x, as_tuple=True)
+    shifts = torch.arange(32, dtype=torch.int32, device=x.device)
+    keys = []
+    for s in range(0, r.numel(), _EXPAND_WORDS):
+        rs, ws = r[s : s + _EXPAND_WORDS], w[s : s + _EXPAND_WORDS]
+        k, b = torch.nonzero((x[rs, ws][:, None] >> shifts) & 1, as_tuple=True)
+        keys.append((ws[k] * 32 + b) * sb + rs[k])
+    key = torch.sort(torch.cat(keys)).values if keys else r
+    cols = key // sb
+    return cols, (key - cols * sb).to(torch.int32)
+
+
+class _HeldGroup:
+    """A rare superblock of the density order, held on the device as K4
+    reads it: its rows in (column, row) order, each column's run (``cnt``
+    and ``off``, int32 over every column), its occupied columns, the runs
+    of two rows or more (its diagonal stripe), and its rows' counts."""
+
+    def __init__(self, x: torch.Tensor, sb: int, m_bits: int):
+        cols, self.rows = _superblock_coo_device(x, sb)
+        self.positions = cols.numel()
+        cnt = torch.bincount(cols, minlength=m_bits)
+        del cols
+        off = torch.cumsum(cnt, 0) - cnt
+        self.cols_u = torch.nonzero(cnt).squeeze(1)
+        runs = self.cols_u[cnt[self.cols_u] >= 2]
+        self.run_off, self.run_len = off[runs].contiguous(), cnt[runs].contiguous()
+        self.cnt, self.off = cnt.to(torch.int32), off.to(torch.int32)
+        self.nnz = torch.bincount(self.rows, minlength=sb).to(torch.int32)
+
+    def runs_at(self, cols: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(offsets, lengths) int64 of the runs of columns ``cols``."""
+        return self.off[cols].long(), self.cnt[cols].long()
+
+
+def _hold(xp: torch.Tensor, sb: int, m_bits: int, w: int, h: int):
+    """The first ``h`` superblocks of the ordered operand ``xp`` held
+    (:class:`_HeldGroup`), and K4's exact emissions between them, float64
+    [h, h] on the host (a diagonal stripe's Σ p(p−1)/2 over its columns)."""
+    held = [_HeldGroup(xp[g * sb : (g + 1) * sb, :w], sb, m_bits) for g in range(h)]
+    if not held:
+        return held, np.zeros((0, 0))
+    hist = torch.stack([g.cnt for g in held]).to(torch.float64)
+    exact = download(hist @ hist.T).copy()
+    np.fill_diagonal(exact, (np.diag(exact) - [g.positions for g in held]) / 2)
+    return held, exact
+
+
+class _RowOrder:
+    """The density order of a streamed query's walk on a mixed-density
+    panel: rows sorted by their counts (``perm``: ordered position → the
+    caller's row), walked in superblocks of that order on its resident
+    operand, the stripes where K4 costs less than the K2 stripe (``k4``)
+    answered by K4's kernels from the held rare superblocks (``held``).
+
+    K4's stripe is dense ([sb, sb] int32 on the device, a diagonal one the
+    mirrored square with the rows' counts on its diagonal, as a K2 stripe
+    is), so the queries reduce it as they reduce a K2 stripe. The other
+    side of an off-diagonal stripe is either held too (the runs of the
+    columns both share) or read from the operand: its bits at the held
+    side's columns, gathered column by column, whose nonzeros come out
+    column-sorted."""
+
+    def __init__(self, bm: BitMatrix, perm: np.ndarray, xp: torch.Tensor,
+                 held: list, k4: np.ndarray, sb: int):
+        self.bm, self.perm, self.xp, self.held, self.k4, self.sb = bm, perm, xp, held, k4, sb
+
+    def stripe_counts(self, i: int, j: int) -> torch.Tensor:
+        """int32 [sb, sb] counts of stripe (i, j) (i ≤ j, superblock i held)
+        by K4's kernels on the operand's device (their plain versions on
+        the CPU)."""
+        from stormtpu_torch.kernels.sparse import _emission_prefix, k4_emit, k4_mirror
+
+        sb, a = self.sb, self.held[i]
+        out = torch.zeros((sb, sb), dtype=torch.int32, device=self.xp.device)
+        if i == j:
+            lens = a.run_len
+            prefix = _emission_prefix(lens * (lens - 1) // 2)
+            k4_emit(a.rows, a.rows, a.run_off, lens, a.run_off, lens, prefix, out,
+                    triangle=True)
+            k4_mirror(out, a.nnz)
+        else:
+            if j < len(self.held):
+                b = self.held[j]
+                with profiling.wait("nonzero"):
+                    shared = torch.nonzero((a.cnt > 0) & (b.cnt > 0)).squeeze(1)
+                rows_b, (off_b, q) = b.rows, b.runs_at(shared)
+            else:
+                rows_b, q = self._gathered(j, a.cols_u)
+                with profiling.wait("nonzero"):
+                    keep = torch.nonzero(q).squeeze(1)
+                off_b = (torch.cumsum(q, 0) - q)[keep]
+                shared, q = a.cols_u[keep], q[keep]
+            off_a, p = a.runs_at(shared)
+            prefix = _emission_prefix(p * q)
+            k4_emit(a.rows, rows_b, off_a, p, off_b, q, prefix, out, triangle=False)
+        if profiling.counting():
+            with profiling.wait("read_back"):
+                profiling.count("k4_emissions", int(prefix[-1]))
+        return out
+
+    def _gathered(self, j: int, cols: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(rows int32, run lengths int64 [len(cols)]) of superblock j's set
+        bits at the columns ``cols``, column by column, read from the
+        operand (its words gathered by column, a block of columns at a
+        time)."""
+        sb = self.sb
+        xj_t = self.xp[j * sb : (j + 1) * sb].T
+        words = cols >> 5
+        masks = torch.bitwise_left_shift(torch.ones_like(words, dtype=torch.int32),
+                                         (cols & 31).to(torch.int32))
+        step = max(1, _GATHER_BLOCK // sb)
+        rows, runs = [], []
+        for u0 in range(0, cols.numel(), step):
+            got = (xj_t.index_select(0, words[u0 : u0 + step])
+                   & masks[u0 : u0 + step, None]) != 0
+            with profiling.wait("nonzero"):
+                k, r = torch.nonzero(got, as_tuple=True)
+            rows.append(r.to(torch.int32))
+            runs.append(torch.bincount(k, minlength=got.shape[0]))
+        return torch.cat(rows), torch.cat(runs)
+
+
+def _order_rows(bm: BitMatrix, sb: int, n_pad: int, w_pad: int, tps: int,
+                dev: torch.device, resident: Callable[[], bool]) -> Optional[_RowOrder]:
+    """The density order of a walk in superblocks of ``sb`` rows on ``dev``,
+    or None where no stripe of it would go to K4, priced with the card's
+    K2-stripe and K4 constants (``tuning.k4_constants``).
+
+    The rarest superblocks of the order are held (their set bits taken from
+    the ordered operand on the device, within ``_ORDER_MAX_POSITIONS``), in
+    order while holding one wins a stripe: its diagonal stripe goes to K4,
+    or a stripe with a rarer superblock goes to K4 from both sides' runs
+    and would not from the bits gathered at the rarer side's columns; by
+    the estimate S_I·S_J/M of the emissions between two superblocks of S_I
+    and S_J set bits (S²/(2M) on a diagonal stripe). K4's emissions between
+    held superblocks are then exact (their column runs' products); against
+    a superblock not held, the estimate stands, with the bits K4 gathers
+    from the operand charged. The held superblocks are cached on the matrix
+    beside the ordered operand (a BitMatrix does not change once built).
+    The first check prices the rarest superblock alone, from the row
+    counts, so that a panel where K4 takes nothing pays no sort;
+    ``resident`` is asked next (the order needs the whole operand on the
+    device)."""
+    from stormtpu_torch.tuning import k4_constants
+
+    fit = k4_constants(dev)
+    n, m = bm.n, bm.m_bits
+    counts = bm.row_nnz
+    s0 = float(np.partition(counts, sb - 1)[:sb].sum()) if n > sb else float(counts.sum())
+    if not (_k4_stripe_s(fit, s0 * s0 / (2 * m)) < _k2_stripe_s(fit, sb, m, tps, True)
+            or _k4_stripe_s(fit, s0 * s0 / m) < _k2_stripe_s(fit, sb, m, tps, False)):
+        return None
+    if not resident():
+        return None
+    n_super = n_pad // sb
+    with _span("stpu.stream.order", n) as span:
+        perm = np.argsort(counts, kind="stable")
+        s = np.zeros(n_pad, dtype=np.float64)
+        s[:n] = counts[perm]
+        s = s.reshape(n_super, sb).sum(axis=1)
+        dense = np.full((n_super, n_super), _k2_stripe_s(fit, sb, m, tps, False))
+        np.fill_diagonal(dense, _k2_stripe_s(fit, sb, m, tps, True))
+        est = np.outer(s, s) / m
+        np.fill_diagonal(est, s * s / (2 * m))
+        # the held side's occupied columns, at most its set bits, and the
+        # other side's set bits found there
+        cols = np.minimum(s, m)
+        gather = _k4_stripe_s(fit, est, sb * cols[:, None], np.outer(cols, s) / m) < dense
+        runs = _k4_stripe_s(fit, est) < dense
+        h = 0
+        while (h < n_super and s[: h + 1].sum() <= _ORDER_MAX_POSITIONS
+               and (runs[h, h] or (runs[:h, h] & ~gather[:h, h]).any())):
+            h += 1
+        upper = np.triu(np.ones((n_super, n_super), dtype=bool))
+        upper[h:] = False
+        gathered = np.zeros((n_super, n_super))
+        gathered[:h, h:] = sb * cols[:h, None]
+        found = np.zeros((n_super, n_super))
+        found[:h, h:] = np.outer(cols[:h], s[h:]) / m
+        if not (upper & (_k4_stripe_s(fit, est, gathered, found) < dense)).any():
+            span.add_ids(0, 0)
+            return None
+        xp = bm.device_ordered2d(perm, n_pad, w_pad, device=dev)
+        key = ("order_held", sb, n_pad, w_pad, zlib.crc32(perm.tobytes()), h)
+        held, exact = bm.device_cached(key, lambda: _hold(xp, sb, m, bm.n_words, h), dev)
+        est[:h, :h] = exact
+        cols = np.array([g.cols_u.numel() for g in held], dtype=np.float64)
+        gathered[:h, h:] = sb * cols[:, None]
+        found[:h, h:] = np.outer(cols, s[h:]) / m
+        k4 = upper & (_k4_stripe_s(fit, est, gathered, found) < dense)
+        positions = sum(g.positions for g in held)
+        span.add_ids(h, positions)
+        profiling.count("order_positions", positions)
+    return _RowOrder(bm, perm, xp, held, k4, sb)
 
 
 def _stripe_kind(path: str) -> str:

@@ -51,6 +51,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import zlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -87,6 +88,11 @@ __all__ = [
     "extend_stream_pairs_above",
     "extend_stream_pairs_above_complete",
 ]
+
+# the route a density-ordered walk counts for a stripe K4 answers
+# (``profiling.route``); its K2 stripes count their reduction's route, or
+# their kernel where the reduction has none
+ROUTE_K4 = "k4"
 
 # stripe kernels the queries accept ("auto" resolves to one of them); an
 # unknown string must be refused, not run as the K1 branch
@@ -159,6 +165,33 @@ def _walk_resolution(bm: BitMatrix, superblock_rows: int, kernel: str,
         bitmap=bitmap, device=device)
     sparse = _sparse_mode_for(bm, kernel, walk.cfg)
     return walk, sparse, (f"sparse_outer+{walk.kernel}" if sparse else walk.kernel)
+
+
+def _unorder_rows(perm: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Rows of a density-ordered walk (row p is the caller's ``perm[p]``)
+    in the caller's order."""
+    out = np.empty_like(rows)
+    out[perm] = rows
+    return out
+
+
+def _walk_order(bm: BitMatrix, walk: _Walk, requested: str, sparse: bool,
+                out_dir: Optional[str], dev: torch.device):
+    """The walk's density order (``stream._RowOrder``), or None: ``"auto"``
+    orders the rows of a panel that the mean density keeps off the sparse
+    mode by their counts, where the cost model sends some stripe of that
+    order to K4 (a panel of rare and common rows). Only a walk without a
+    directory (its stripe files are keyed by superblocks of the caller's
+    rows, to which an extend appends) on a resident operand is ordered."""
+    if requested != "auto" or sparse or out_dir or bm.n < 2:
+        return None
+    from stormtpu_torch.stream import _order_rows
+
+    def resident() -> bool:
+        return not _wants_operand_streaming(walk.n_pad, walk.w_pad, walk.sb, dev)
+
+    return _order_rows(bm, walk.sb, walk.n_pad, walk.w_pad, walk.sb // walk.ti, dev,
+                       resident)
 
 
 # ------------------------------------------------------------ checkpoints
@@ -262,25 +295,30 @@ def _check_extend_head(bm: BitMatrix, old_n: int, old_fp: str, what: str) -> Non
 
 
 # ------------------------------------------------------ occupancy and merge
-def _superblock_occupancy(bm: BitMatrix, n_pad: int, sb: int) -> Optional[np.ndarray]:
+def _superblock_occupancy(bm: BitMatrix, n_pad: int, sb: int,
+                          order: Optional[np.ndarray] = None) -> Optional[np.ndarray]:
     """Per-superblock K-group occupancy bool [n_super, G] (the block
     summary OR-reduced per superblock, 128-word groups), read-only. None for
     an empty shape. A single group still skips stripes between entirely
-    empty superblocks. Cached on the matrix per (n_pad, sb), as the K5
-    occupancy is: the summary is a pass over every packed word (13 GB at
-    100,000 × 1,048,576 bits), and a BitMatrix does not change once
-    built."""
+    empty superblocks. ``order``: the superblocks are of the rows in that
+    order (a density order's ``perm``). Cached on the matrix per (n_pad,
+    sb) and order, as the K5 occupancy is, with the rows' summary beside
+    it: the summary is a pass over every packed word (13 GB at 100,000 ×
+    1,048,576 bits), and a BitMatrix does not change once built."""
     if not (bm.n and bm.n_words):
         return None
     cache = bm.__dict__.setdefault("_superblock_occ_cache", {})
-    occ = cache.get((n_pad, sb))
+    key = (n_pad, sb) if order is None else (n_pad, sb, zlib.crc32(order.tobytes()))
+    occ = cache.get(key)
     if occ is None:
-        occ_rows = bm.block_summary(block_bits=128 * 32).astype(bool)
+        occ_rows = cache.get("rows")
+        if occ_rows is None:
+            occ_rows = cache["rows"] = bm.block_summary(block_bits=128 * 32).astype(bool)
         full = np.zeros((n_pad, occ_rows.shape[1]), dtype=bool)
-        full[: bm.n] = occ_rows
+        full[: bm.n] = occ_rows if order is None else occ_rows[order]
         occ = full.reshape(n_pad // sb, sb, -1).any(axis=1)
         occ.setflags(write=False)
-        cache[(n_pad, sb)] = occ
+        cache[key] = occ
     return occ
 
 
@@ -372,12 +410,15 @@ class _StripeCounts:
     (``stream._compute_stripe_pair``). Both give the same int32 [SB, SB]
     stripe, a diagonal one mirrored to the full square. Nothing is
     uploaded before the first stripe, so a resumed or skipped walk uploads
-    nothing."""
+    nothing. A density-ordered walk (``order``) reads its order's resident
+    operand, whose rows are in that order."""
 
-    def __init__(self, bm: BitMatrix, walk: _Walk, dev: torch.device):
+    def __init__(self, bm: BitMatrix, walk: _Walk, dev: torch.device, order=None):
         self.bm, self.walk, self.dev = bm, walk, dev
-        self.streaming = _wants_operand_streaming(walk.n_pad, walk.w_pad, walk.sb, dev)
-        self._xp = self._slices = None
+        self.streaming = order is None and _wants_operand_streaming(walk.n_pad, walk.w_pad,
+                                                                    walk.sb, dev)
+        self._xp = None if order is None else order.xp
+        self._slices = None
 
     def __call__(self, i: int, j: int) -> torch.Tensor:
         w = self.walk
@@ -912,6 +953,7 @@ def stream_topk_neighbors(
 
             with _stage("plan", dev):
                 plan = _SparseStripePlan(bm, sb, n_super, dev)
+        order = _walk_order(bm, walk, kernel, sparse_mode, out_dir, dev)
 
         if measure == "count":
             best_v = np.full((n_pad, k), -1, dtype=np.int64)
@@ -941,10 +983,11 @@ def stream_topk_neighbors(
         elif out_dir:
             os.makedirs(out_dir, exist_ok=True)
 
-        occ_sb = _superblock_occupancy(bm, n_pad, sb)
+        perm = None if order is None else order.perm
+        occ_sb = _superblock_occupancy(bm, n_pad, sb, perm)
         nnz_pad = np.zeros(n_pad, dtype=np.int64)
-        nnz_pad[: bm.n] = bm.row_nnz
-        source = _StripeCounts(bm, walk, dev)
+        nnz_pad[: bm.n] = bm.row_nnz if order is None else bm.row_nnz[perm]
+        source = _StripeCounts(bm, walk, dev, order)
         n = bm.n
         # the count top-k's route on dense stripes: K2-topk on K2's stripes
         route = topk_route(k) if walk.kernel == "mxu" else f"store (stripe kernel {walk.kernel})"
@@ -1077,17 +1120,26 @@ def stream_topk_neighbors(
                         if measure in ("phi", "r2"):
                             zero_staircase(i, j, stripe)
                         continue
-                    if measure == "count":
-                        _route(route)
-                        if route == ROUTE_TOPK:
-                            vi, ii, vj, ij = _stripe_topk_sets(source, i, j, k)
-                            _count_stripe(True)
-                            merge(i, vi, ii)
-                            if i != j:
-                                merge(j, vj, ij)
-                            continue
-                    counts = _stripe_counts(source, i, j)
-                    _count_stripe(True)
+                    if order is not None and order.k4[i, j]:
+                        # the density order's K4 stripe: dense, reduced as a stored one
+                        with _stage("k4", dev):
+                            counts = order.stripe_counts(i, j)
+                        _route(ROUTE_K4)
+                        _count_stripe(False)
+                    else:
+                        if measure == "count":
+                            _route(route)
+                            if route == ROUTE_TOPK:
+                                vi, ii, vj, ij = _stripe_topk_sets(source, i, j, k)
+                                _count_stripe(True)
+                                merge(i, vi, ii)
+                                if i != j:
+                                    merge(j, vj, ij)
+                                continue
+                        elif order is not None:
+                            _route(walk.kernel)
+                        counts = _stripe_counts(source, i, j)
+                        _count_stripe(True)
                     if measure != "count":
                         side_i, side_j = measure_stripe(i, j, counts)
                         merge(i, *side_i)
@@ -1110,9 +1162,14 @@ def stream_topk_neighbors(
         with _stage("download", dev):
             best_v = download(best_v[:n])
             best_i = download(best_i[:n])
-        order = np.argsort(-best_v, axis=1, kind="stable")
-        vals = np.take_along_axis(best_v, order, axis=1)
-        idx = np.take_along_axis(best_i, order, axis=1)
+        if order is not None:
+            # rows and partners back to the caller's ids; a partner past the
+            # rows stays past them
+            best_v, best_i = _unorder_rows(perm, best_v), _unorder_rows(perm, best_i)
+            best_i = np.where(best_i < n, perm[np.minimum(best_i, n - 1)], n).astype(np.int32)
+        by_value = np.argsort(-best_v, axis=1, kind="stable")
+        vals = np.take_along_axis(best_v, by_value, axis=1)
+        idx = np.take_along_axis(best_i, by_value, axis=1)
         # as query.topk_neighbors: only real partners survive
         if measure != "count":
             valid = np.isfinite(vals) & (idx < n)
@@ -1263,8 +1320,10 @@ def stream_pairs_above(
 
             with _stage("plan", dev):
                 plan = _SparseStripePlan(bm, sb, n_super, dev)
+        order = _walk_order(bm, walk, kernel, sparse_mode, out_dir, dev)
+        perm = None if order is None else order.perm
         nnz = np.zeros(n_pad, dtype=np.int32)
-        nnz[: bm.n] = bm.row_nnz
+        nnz[: bm.n] = bm.row_nnz if order is None else bm.row_nnz[perm]
         nnz_dev = None
         m_f = float(np.float32(bm.m_bits))
         out_i: list[np.ndarray] = []
@@ -1292,9 +1351,9 @@ def stream_pairs_above(
         # threshold, and no phi threshold (zero-intersection phi is <= 0); r²
         # scores zero-intersection pairs, and a co-empty stripe is nothing else:
         # the staircase emits its hits on the host
-        occ_sb = _superblock_occupancy(bm, n_pad, sb)
+        occ_sb = _superblock_occupancy(bm, n_pad, sb, perm)
         empty64 = np.zeros(0, dtype=np.int64)
-        source = _StripeCounts(bm, walk, dev)
+        source = _StripeCounts(bm, walk, dev, order)
         # a dense stripe's hits are fetched while the next stripe runs: its
         # summary's copy starts when it is screened, and the host waits for it
         # only after the next stripe is launched
@@ -1362,8 +1421,17 @@ def stream_pairs_above(
                             continue
                     if nnz_dev is None:
                         nnz_dev = profiling.upload(torch.from_numpy(nnz), dev)
-                    counts = _stripe_counts(source, i, j)
-                    _count_stripe(True)
+                    if order is not None and order.k4[i, j]:
+                        # the density order's K4 stripe: dense, screened as a K2 one
+                        with _stage("k4", dev):
+                            counts = order.stripe_counts(i, j)
+                        _route(ROUTE_K4)
+                        _count_stripe(False)
+                    else:
+                        if order is not None:
+                            _route(walk.kernel)
+                        counts = _stripe_counts(source, i, j)
+                        _count_stripe(True)
                     hits_d, summary_d = _stripe_screen(
                         counts, nnz_dev[i * sb:(i + 1) * sb], nnz_dev[j * sb:(j + 1) * sb],
                         i * sb, j * sb, bm.n, dev_thresh, m_f, measure=measure)
@@ -1382,9 +1450,13 @@ def stream_pairs_above(
         ii = np.concatenate(out_i)
         jj = np.concatenate(out_j)
         counts = np.concatenate(out_c)
+        if order is not None:
+            # a density-ordered walk's pairs in the caller's ids, i < j
+            ii, jj = perm[ii], perm[jj]
+            ii, jj = np.minimum(ii, jj), np.maximum(ii, jj)
         # stripes emit superblock-pair-major; the contract is row-major
-        order = np.lexsort((jj, ii))
-        ii, jj, counts = ii[order], jj[order], counts[order]
+        by_row = np.lexsort((jj, ii))
+        ii, jj, counts = ii[by_row], jj[by_row], counts[by_row]
         if measure == "count":
             return ii.astype(np.int32), jj.astype(np.int32), counts.astype(np.int32)
         from stormtpu_torch.setops import derive_similarity

@@ -70,6 +70,24 @@ included (it only picks a stripe's kind, never a count):
 - ``h2d_bytes_per_s``: one superblock slice (4096 × 32,768 words) through
   the streamed walk's ``_SliceBuffer`` (the copy into its pinned buffer
   and the upload).
+
+The density order of the streamed queries (``stream._RowOrder``) prices
+each stripe of a mixed-density panel with four more, measured on a panel
+of four superblocks of ``slice_rows`` rows (two of 16 random set bits a
+row, one of density 1/32, one of 1/2) in that order, each the least of
+three walls with the device synchronised:
+
+- ``c_k2_stripe_s_per_op``: an off-diagonal K2 stripe on the resident
+  operand (``stream._compute_stripe``), a bit pair (sb²·M of them);
+- ``c_k4_stripe_s``: K4's stripe between the two rare superblocks (its
+  zeroed buffer, the columns they share, the launch; a few emissions);
+- ``c_k4_gather_s_per_elem``: K4's stripe between a rare superblock and the
+  one of density 1/32, less the above and its emissions, over the
+  elements of the other side's bits it gathers at the rare side's columns
+  (sb a column);
+- ``c_k4_gather_s_per_position``: the same against the superblock of
+  density 1/2, less the above, its emissions and its gathered elements,
+  over the set bits found there.
 """
 
 from __future__ import annotations
@@ -128,6 +146,10 @@ K4_DEFAULTS = {
     "k2_int8_ops_per_s": 6.56e15,
     "dispatch_floor_s": 0.00995,
     "h2d_bytes_per_s": 6.50e9,
+    "c_k2_stripe_s_per_op": 3.48e-16,
+    "c_k4_stripe_s": 6.23e-4,
+    "c_k4_gather_s_per_elem": 2.13e-11,
+    "c_k4_gather_s_per_position": 1.66e-10,
 }
 
 
@@ -538,6 +560,8 @@ def refit_k4_constants(log=print, *, device=None, seed: int = 7) -> Optional[dic
     upload()
     h2d = slice_rows * w_slice * 4 / _least(upload, 4)
     del slices, words
+    order_fit = _order_constants(dev, slice_rows, m_bits, rng, c_emit)
+    probe.update(order_fit.pop("probe"))
     fitted = {
         "c_sort_s_per_nnz": c_sort,
         "c_n2_s_per_elem": c_n2,
@@ -547,14 +571,79 @@ def refit_k4_constants(log=print, *, device=None, seed: int = 7) -> Optional[dic
         "c_download_s_per_elem": c_download,
         "c_k2_host_s_per_word": c_k2_host,
         "h2d_bytes_per_s": h2d,
+        **order_fit,
         "probe": probe,
     }
     log(f"k4 refit on {dev.type}: sort {c_sort:.3e} s/nnz, n2 {c_n2:.3e} s/entry (a "
         f"stripe's {c_stripe_n2:.3e}), emit "
         f"{c_emit:.3e} s/emission; host emit {c_emit_host:.3e} s/emission ({emissions} "
         f"emissions in {host_s:.3f} s), download {c_download:.3e} s/entry, K2 host "
-        f"{c_k2_host:.3e} s/word, upload {h2d / 1e9:.2f} GB/s")
+        f"{c_k2_host:.3e} s/word, upload {h2d / 1e9:.2f} GB/s; density order: K2 stripe "
+        f"{order_fit['c_k2_stripe_s_per_op']:.3e} s/op, K4 stripe "
+        f"{order_fit['c_k4_stripe_s']:.3e} s, gather "
+        f"{order_fit['c_k4_gather_s_per_elem']:.3e} s/elem, "
+        f"{order_fit['c_k4_gather_s_per_position']:.3e} s/bit found")
     return fitted
+
+
+def _order_constants(dev: torch.device, sb: int, m_bits: int, rng, c_emit: float) -> dict:
+    """The density order's constants (module docstring) at ``sb`` rows a
+    superblock and ``m_bits`` bits, K4's emissions at ``c_emit`` a one."""
+    from stormtpu_torch.config import default_config
+    from stormtpu_torch.layout import BitMatrix
+    from stormtpu_torch.stream import _auto_stream_kernel, _compute_stripe, _hold, _RowOrder
+    from stormtpu_torch.utils import round_up
+
+    cfg = default_config()
+    ti, wk = cfg.k2_tile_rows, cfg.k2_tile_words
+    sb = round_up(sb, ti)
+    w = -(-m_bits // 32)
+    packed = np.zeros((4 * sb, w), dtype=np.uint32)
+    ones = rng.integers(0, m_bits, (2 * sb, 16))
+    np.bitwise_or.at(packed, (np.arange(2 * sb)[:, None], ones >> 5),
+                     np.left_shift(np.uint32(1), (ones & 31).astype(np.uint32)))
+    for g, ands in ((2, 5), (3, 1)):  # densities 1/32 and 1/2
+        words = rng.integers(0, 2**32, (ands, sb, w), dtype=np.uint64).astype(np.uint32)
+        packed[g * sb : (g + 1) * sb] = np.bitwise_and.reduce(words, axis=0)
+    del words
+    bm = BitMatrix.from_packed(packed, w * 32)
+    order_ids = np.arange(4 * sb)
+    xp = bm.device_ordered2d(order_ids, 4 * sb, round_up(w, wk), device=dev)
+    held, _ = _hold(xp, sb, bm.m_bits, w, 2)
+    order = _RowOrder(bm, order_ids, xp, held, np.ones((4, 4), dtype=bool), sb)
+    kernel = _auto_stream_kernel(bm.m_bits, bm.n, dev)
+
+    def k2():
+        _compute_stripe(xp, 0, 3, sb // ti, ti, wk, kernel)
+        _sync(dev)
+
+    def k4(j):
+        order.stripe_counts(0, j)
+        _sync(dev)
+
+    def gathered(j):
+        """(elements gathered, set bits found, emissions) of stripe (0, j)."""
+        a = held[0]
+        q = order._gathered(j, a.cols_u)[1]
+        return sb * a.cols_u.numel(), int(q.sum()), int((a.runs_at(a.cols_u)[1] * q).sum())
+
+    for f in (k2, lambda: k4(1), lambda: k4(2), lambda: k4(3)):
+        f()
+    k2_s = _least(k2, 3)
+    k4_s = _least(lambda: k4(1), 3)
+    sparse_s, dense_s = _least(lambda: k4(2), 3), _least(lambda: k4(3), 3)
+    elems, found_s, emit_s = gathered(2)
+    _, found_d, emit_d = gathered(3)
+    c_gather = max(sparse_s - k4_s - c_emit * emit_s, 0.0) / elems
+    c_found = max(dense_s - k4_s - c_emit * emit_d - c_gather * elems, 0.0) / found_d
+    return {"c_k2_stripe_s_per_op": k2_s / (sb * sb * bm.m_bits),
+            "c_k4_stripe_s": k4_s,
+            "c_k4_gather_s_per_elem": c_gather,
+            "c_k4_gather_s_per_position": c_found,
+            "probe": {"order_k2_stripe_s": k2_s, "order_k4_stripe_s": k4_s,
+                      "order_gather_stripe_s": [sparse_s, dense_s],
+                      "order_gathered": elems, "order_found": [found_s, found_d],
+                      "order_emissions": [emit_s, emit_d]}}
 
 
 def tune(

@@ -365,6 +365,12 @@ def synchronised() -> bool:
     return _sync is not None
 
 
+def counting() -> bool:
+    """Whether a counter would be kept now: a caller whose count costs a
+    read-back from the card asks first."""
+    return bool(_live or _ap._is_profiler_enabled)
+
+
 @contextlib.contextmanager
 def record_stages() -> Iterator[StageTimes]:
     """Measure the stages of every walk run in this context. A measuring

@@ -1568,3 +1568,28 @@ def test_routes_through_the_epilogues_equal_the_store_route(cuda, monkeypatch, k
         assert all(len(set(r.tolist())) == k and i not in r for i, r in enumerate(gi))
     for g, h in zip(got[3:], want[3:]):
         assert np.array_equal(g, h)
+
+
+def test_the_density_order_on_the_card_equals_the_k2_walk(cuda):
+    """An LD panel of 16,384 × 2²⁰ bits (``tests/reference_ld.py``: neutral
+    carrier counts, nested carriers in blocks of 32 rows) under the card's
+    own constants: ``kernel="auto"`` orders it by count and K4 answers the
+    rare superblocks' stripes (the diagonal, both sides' runs and the
+    gathered other side), with the K2 walk's hits and r² top-k."""
+    import stormtpu_torch.stream_query as tsq
+    from reference_ld import ld_panel
+
+    bm = BitMatrix.from_packed(ld_panel(11, 16384, 1 << 20), 1 << 20)
+    with profiling.record() as rec:
+        got = tsq.stream_pairs_above(bm, 0.8, measure="r2", kernel="auto", device=cuda)
+        vals, idx = tsq.stream_topk_neighbors(bm, 4, measure="r2", kernel="auto", device=cuda)
+    assert rec.counters["routes.k4"] > 0 and rec.counters["routes.mxu"] > 0
+    assert rec.counters["order_positions"] > 0
+    bm.clear_device_cache()
+    want = tsq.stream_pairs_above(bm, 0.8, measure="r2", kernel="mxu", device=cuda)
+    assert want[0].size > 0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    dvals, _ = tsq.stream_topk_neighbors(bm, 4, measure="r2", kernel="mxu", device=cuda)
+    assert np.array_equal(vals, dvals)
+    assert np.all(idx != np.arange(bm.n)[:, None])

@@ -227,7 +227,8 @@ CARD_CONSTANTS = dict(
     c_emit_s_per_emission=7.07e-11,
     c_emit_host_s_per_emission=1.55e-8, c_download_s_per_elem=7.84e-11,
     c_k2_host_s_per_word=1.44e-9, k2_int8_ops_per_s=6.56e15, dispatch_floor_s=0.00995,
-    h2d_bytes_per_s=6.50e9)
+    h2d_bytes_per_s=6.50e9, c_k2_stripe_s_per_op=3.48e-16, c_k4_stripe_s=6.23e-4,
+    c_k4_gather_s_per_elem=2.13e-11, c_k4_gather_s_per_position=1.66e-10)
 
 
 def test_d1_names_k4_at_config_3_b_and_k2_at_a(tmp_path, monkeypatch):

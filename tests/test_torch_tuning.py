@@ -288,7 +288,8 @@ def test_refit_k4_constants_on_the_cpu(monkeypatch):
     fit = ttuning.refit_k4_constants(lambda *a: None, device="cpu")
     assert native.have_native()
     for key in ("c_sort_s_per_nnz", "c_n2_s_per_elem", "c_emit_s_per_emission",
-                "h2d_bytes_per_s", "c_stripe_n2_s_per_elem"):
+                "h2d_bytes_per_s", "c_stripe_n2_s_per_elem", "c_k2_stripe_s_per_op",
+                "c_k4_stripe_s", "c_k4_gather_s_per_elem", "c_k4_gather_s_per_position"):
         assert fit[key] >= 0.0
     probe = fit["probe"]
     assert probe["emissions"] > 0 and probe["nnz"] == int(300 * (1 << 15) * 1e-2)
