@@ -235,6 +235,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     against 250,112 rows of 32,768 words, a 32.8-GB shard made on the card,
     both row views): one launch in clusters of two, equal to the plain
     version over every chunk of 8,192 B rows.
+37. (run right after phase 36) the streamed screen's compaction
+    (``kernels.screen.stripe_screen``, ``csrc/stripe_screen.cu``) at a
+    config-4 stripe: 4096² counts about Binomial(2²⁰, 1/4), by count at
+    ``c4.screen_stream``'s threshold and, with 4,096 planted pairs of r²
+    about 0.74-0.88, by r² at 0.8, off and on the diagonal, and at a count
+    threshold whose hits pass a buffer of 64: the same total, above 0, and
+    hit set (row, column, count) as its plain version on the card; timed
+    beside the plain version and its bound (one read of the stripe). The
+    kernel table's ``launches`` are phase 25's config-4 screen's, one a
+    stripe; this phase's own are ``timing_launches``.
 
 Phases 20-28 print each call's wall time and a ``[breakdown]`` of its
 stages (K2 by CUDA events, the screen, merge and bin passes, the summary
@@ -451,6 +461,86 @@ def exact_diff(torch, got, want) -> int:
     if err:
         raise AssertionError(f"kernel differs from its plain version by up to {err}")
     return err
+
+
+def screen_kernel_phase(torch, dev, rng) -> dict:
+    """Phase 37: ``kernels.screen.stripe_screen`` against its plain form on
+    a config-4 stripe (see the module docstring); returns its kernel-table
+    entry, timed on stripe (0, 1)."""
+    from stormtpu_torch.kernels import launch_counts, reset_launches, screen
+    from stormtpu_torch.query import _validate_screen
+
+    sb, m = SUPERBLOCK, 1 << 20
+    mean, sd = m / 4, (m * 0.25 * 0.75) ** 0.5
+    counts_h = np.rint(rng.normal(mean, sd, (sb, sb))).astype(np.int32)
+    nnz_h = np.rint(rng.normal(m / 2, (m / 4) ** 0.5, 2 * sb)).astype(np.int32)
+    # independent rows give no pair r2 >= 0.8: 4096 planted pairs of r about
+    # uniform on [0.86, 0.94] put hundreds on both sides of the threshold
+    pi, pj = rng.integers(0, sb, 4096), rng.integers(0, sb, 4096)
+    ca, cb = nnz_h[pi].astype(np.float64), nnz_h[sb + pj].astype(np.float64)
+    r = rng.uniform(0.86, 0.94, pi.size)
+    planted = counts_h.copy()
+    planted[pi, pj] = np.rint(ca * cb / m + r * np.sqrt(ca * (m - ca) * cb * (m - cb)) / m)
+    counts = torch.from_numpy(counts_h).to(dev)
+    by_measure = {"count": counts, "r2": torch.from_numpy(planted).to(dev)}
+    nnz = torch.from_numpy(nnz_h).to(dev)
+    m_f = float(np.float32(m))
+    cap = sb * sb // 4
+
+    def screened(fn, args, room):
+        out = screen.hit_buffer(room, dev)
+        fn(*args, out)
+        total = int(out[0])
+        h = out[1:1 + 3 * min(total, room)].view(-1, 3).cpu().numpy().astype(np.int64)
+        return total, h[np.lexsort((h[:, 1], h[:, 0]))]
+
+    reset_launches()
+    timed = {}
+    for measure, thresh in (("count", 264_254), ("r2", 0.8)):
+        t = float(_validate_screen(measure, thresh))
+        for col0 in (sb, 0):  # stripe (0, 1), then the diagonal stripe (0, 0)
+            args = (by_measure[measure], nnz[:sb], nnz[sb:], 0, col0, 10 * sb, t, m_f, measure)
+            got_total, got = screened(screen.stripe_screen, args, cap)
+            want_total, want = screened(screen.stripe_screen_plain, args, cap)
+            if got_total != want_total or want_total == 0 or not np.array_equal(got, want):
+                raise AssertionError(f"stripe_screen {measure} >= {thresh} at (0, {col0}): "
+                                     f"{got_total} hits, the plain form {want_total}")
+            print(f"[screen] {measure} >= {thresh} on stripe (0, {col0 // sb}): {got_total} "
+                  f"hits, equal to the plain form")
+            if col0:
+                out = screen.hit_buffer(cap, dev)
+                timed[measure] = dict(
+                    ms=cuda_ms(torch, lambda: screen.stripe_screen(*args, out), reps=50,
+                               warmup=3),
+                    plain_ms=cuda_ms(torch, lambda: screen.stripe_screen_plain(*args, out),
+                                     reps=3),
+                    hits=want_total)
+    # a buffer of 64 under thousands of hits: the whole total, 64 of the hits
+    args = (counts, nnz[:sb], nnz[sb:], 0, sb, 10 * sb, float(np.float32(mean + 3 * sd)), m_f,
+            "count")
+    total, part = screened(screen.stripe_screen, args, 64)
+    want_total, want = screened(screen.stripe_screen_plain, args, cap)
+    keys = set(map(tuple, want.tolist()))
+    if total != want_total or total <= 64 or len(part) != 64 \
+            or not all(tuple(r) in keys for r in part.tolist()):
+        raise AssertionError(f"stripe_screen past its buffer: total {total} of {want_total}")
+    print(f"[screen] {total} hits into a buffer of 64: the total and 64 of them")
+    b_ms, b_by = bound(0.0, 4.0 * sb * sb + 8.0 * sb)
+    for measure, r in timed.items():
+        print(f"[timing] stripe_screen {measure} {sb}x{sb}: kernel {r['ms']:.4f} ms "
+              f"({4.0 * sb * sb / (r['ms'] * 1e-3) / 1e9:.0f} GB/s), plain {r['plain_ms']:.3f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), {r['hits']} hits")
+    del counts, by_measure, nnz
+    torch.cuda.empty_cache()
+    return dict(name="stripe_screen", route="cuda",
+                source="stormtpu_torch/kernels/csrc/stripe_screen.cu",
+                replaces="none (stormtpu/stream_query.py stream_pairs_above screens a stripe "
+                         "with jitted reductions)",
+                timing_launches=launch_counts()["stripe_screen"], max_abs_err=0,
+                library_ms=None,
+                library="none: no one call screens and compacts a stripe's hits",
+                ms=timed["count"]["ms"], plain_ms=timed["count"]["plain_ms"], r2=timed["r2"],
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def rect_tma_phase(torch, dev, rng) -> int:
@@ -2012,7 +2102,7 @@ def query_phases(torch, dev, cfg, rng, seed, k2_ops_per_s, main, block, ld, cfg3
     stages("config 4 topk_neighbors (tile walk)", rec, wall_t, chunks4, tri_bound4)
     del buf, a_pad, b_pad
     print(f"[query] phases 20-24 launches: {total}")
-    streamed = stream_query_phases(
+    streamed, kept["screen_launches"] = stream_query_phases(
         torch, dev, cfg, k2_ops_per_s,
         (run, stages, wall_of, same_pairs, topk_of, valid_indices, store_route),
         cfg4=(bm4, got, v4, rows, rect, t4), ld=(bm_ld, ld_ref, t_ld), cfg3_b=cfg3_b,
@@ -2032,7 +2122,8 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
     query's result or to the reference matrix. ``helpers`` are phases
     20-24's (run, stages, wall_of, same_pairs, topk_of, valid_indices,
     store_route).
-    Returns the launches of every kernel over these phases' calls."""
+    Returns the launches of every kernel over these phases' calls, and the
+    screen kernel's on its main path (phase 25's config-4 screen)."""
     import stormtpu_torch as st
     from stormtpu_torch import stream_query as sq
     from stormtpu_torch.kernels import launch_counts
@@ -2112,8 +2203,13 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
     got, wall, rec, launched = run(
         "config 4 stream_pairs_above",
         lambda: sq.stream_pairs_above(bm4, t4, superblock_rows=sb, device=dev),
-        want=("k2_tri",), absent=("k0", "k4"), again=True, into=total)
+        want=("k2_tri", "stripe_screen"), absent=("k0", "k4"), again=True, into=total)
     same_pairs("config 4 stream_pairs_above", got, hits4)
+    # the screen kernel's main path: one launch a dense stripe, none again
+    screen_launches = launched["stripe_screen"]
+    if screen_launches != stripes4:
+        raise AssertionError(f"config 4 stream_pairs_above: {screen_launches} stripe_screen "
+                             f"launches, want one a stripe ({stripes4})")
     plain = wall_of(lambda: sq.stream_pairs_above(bm4, t4, superblock_rows=sb, device=dev))
     print(f"[stream query] config 4 stream_pairs_above(count >= {t4}): {got[0].size} hits, "
           f"equal to phase 24's pairs_above; launches {launched}")
@@ -2150,7 +2246,7 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
     res, wall, rec, launched = run(
         "LD stream_pairs_above resident",
         lambda: sq.stream_pairs_above(bm_ld, t_ld, superblock_rows=sb, device=dev),
-        want=("k2_tri",), into=total)
+        want=("k2_tri", "stripe_screen"), into=total)
     same_pairs("LD stream_pairs_above resident", res, want_ld)
     per_stripe("LD stream_pairs_above, operand resident", rec, wall)
     (tv, ti_), _, _, _ = run(
@@ -2175,7 +2271,7 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
                 "LD stream_pairs_above streamed",
                 lambda: sq.stream_pairs_above(bm_ld, t_ld, superblock_rows=sb, out_dir=scr,
                                               device=dev),
-                want=("k2_tri",), into=total)
+                want=("k2_tri", "stripe_screen"), into=total)
             same_pairs("LD stream_pairs_above streamed", got, want_ld)
             per_stripe("LD stream_pairs_above, two slices, out_dir", rec, wall)
             n_files = len([f for f in os.listdir(scr) if f.startswith("hits_")])
@@ -2185,7 +2281,7 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
                 "LD stream_pairs_above resumed",
                 lambda: sq.stream_pairs_above(bm_ld, t_ld, superblock_rows=sb, out_dir=scr,
                                               device=dev),
-                want=("k2_tri",), into=total)
+                want=("k2_tri", "stripe_screen"), into=total)
             same_pairs("LD stream_pairs_above resumed", got, want_ld)
             if rec.launched != 2:
                 raise AssertionError(f"LD resume computed {rec.launched} stripes, want 2")
@@ -2193,7 +2289,7 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
             got, wall, rec, launched = run(
                 "LD extend_stream_pairs_above",
                 lambda: sq.extend_stream_pairs_above(bm_ld, grown, device=dev),
-                want=("k2_tri",), into=total)
+                want=("k2_tri", "stripe_screen"), into=total)
             same_pairs("LD extend_stream_pairs_above", got, want_ld)
             print(f"[stream query] LD panel {n_ld} x {bm_ld.m_bits} bits, count >= {t_ld}: "
                   f"{want_ld[0].size} pairs from the resident walk, the two-slice walk into "
@@ -2289,7 +2385,7 @@ def stream_query_phases(torch, dev, cfg, k2_ops_per_s, helpers, cfg4, ld, cfg3_b
     per_stripe("stream_pairs_above_complete (four grids a stripe)", rec, wall)
     print(f"[stream query] phases 25-28 launches: {total}; the phases took "
           f"{time.perf_counter() - t_phases:.1f} s")
-    return total
+    return total, screen_launches
 
 
 def tuning_phase(torch, dev, seed, k2_ops_per_s) -> tuple[dict, dict]:
@@ -3152,6 +3248,7 @@ def main(argv=None) -> int:
     # phases draw what they drew before)
     max_err["k2_rect"] = max(max_err["k2_rect"],
                              rect_tma_phase(torch, dev, np.random.default_rng(args.seed + 36)))
+    screen_entry = screen_kernel_phase(torch, dev, np.random.default_rng(args.seed + 37))
 
     # --------------------------------------------------------- 3 main path
     words = rng.integers(0, 1 << 32, size=(MAIN_N, MAIN_M // 32), dtype=np.uint32)
@@ -3769,6 +3866,7 @@ def main(argv=None) -> int:
         torch, dev, cfg, rng, args.seed, k2_ops_per_s, main=(bm, main_out), block=(bm_a, blk),
         ld=(bm_ld, ld_ref), cfg3_b=cfg3_b)
     topk20_launches = kept["topk20_launches"]
+    screen_main_launches = kept["screen_launches"]
     t0 = time.perf_counter()
     repair_launches = repaired_topk_phase(torch, dev, cfg3_b)
     print(f"[phase 34] config 3 B top-k and ring took {time.perf_counter() - t0:.1f} s")
@@ -3871,6 +3969,10 @@ def main(argv=None) -> int:
                                if key != "max_abs_err"},
              **{key: v for key, v in stream_launches["epilogue"]["k2_hist"].items()
                 if key != "max_abs_err"}),
+        # launches on its main path (phase 25's config-4 stream_pairs_above),
+        # phase 37's own beside them
+        dict(screen_entry, launches=screen_main_launches,
+             stream_query_launches=sq_launches["stripe_screen"]),
     ]
     for k in kernels:
         k.update({key: counts.get(k["name"], 0) for key, counts in later.items()})

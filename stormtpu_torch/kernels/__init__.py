@@ -14,6 +14,8 @@
   on the caller's device) and K4 (the inverted index: on a card its
   emission and mirror kernels, ``csrc/k4_sparse.cu``; on the CPU the C++
   tier ``stormtpu_torch.native``).
+- ``screen``    — the streamed screen's compaction of a count stripe's hits
+  into a bounded buffer (``csrc/stripe_screen.cu``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ STATIC_MXU_XLA_MAX_BITS = 1 << 17
 MXU_XLA_MAX_BITS = 0
 
 from stormtpu_torch import native  # noqa: E402
-from stormtpu_torch.kernels import clustered, dense, mxu, sparse  # noqa: E402
+from stormtpu_torch.kernels import clustered, dense, mxu, screen, sparse  # noqa: E402
 from stormtpu_torch.kernels.clustered import (  # noqa: E402
     ClusteredPlan,
     build_clustered_plan,
@@ -65,15 +67,16 @@ __all__ = [
     "reset_launches",
 ]
 
-_COUNTED = (mxu, clustered, dense, sparse, native)
+_COUNTED = (mxu, clustered, dense, sparse, screen, native)
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel wrapper since the last reset, by kernel:
     on the card ``k2_tri``, ``k2_rect``, ``k2_topk``, ``k2_hist``, ``k5``,
     ``k1``, ``k0``, ``k3`` (a block of rows), ``k4`` (K4's emission
-    kernel) and ``k4_mirror``; on the host ``k4_host`` (a run of the C++
-    K4, the CPU's route)."""
+    kernel), ``k4_mirror`` and ``stripe_screen`` (the streamed screen's
+    compaction); on the host ``k4_host`` (a run of the C++ K4, the CPU's
+    route)."""
     out = {k: v for m in _COUNTED if m is not native for k, v in m.LAUNCHES.items()}
     out["k4_host"] = native.LAUNCHES["k4"]
     return out

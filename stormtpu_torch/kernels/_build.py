@@ -35,6 +35,7 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _STR = ctypes.c_char_p
+_F = ctypes.c_float
 
 # source name → {C function: (argtypes, restype)}
 SOURCES = {
@@ -73,11 +74,15 @@ SOURCES = {
         "k4_emit_launch": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _I, _VP, _LL, _VP), _I),
         "k4_mirror_launch": ((_VP, _VP, _LL, _LL, _VP), _I),
     },
+    "stripe_screen": {
+        "stripe_screen_launch": ((_VP, _LL, _I, _I, _VP, _VP, _LL, _I, _F, _F, _VP, _I, _VP),
+                                 _I),
+    },
 }
 
 # The sources the package's entry points launch. ``tc_rate`` is a measuring
 # tool (``kernels/tc_rate.py``) and is built only for whoever asks for it.
-KERNEL_SOURCES = ("k2_mxu", "k2_epilogue", "k1_dense", "k4_sparse")
+KERNEL_SOURCES = ("k2_mxu", "k2_epilogue", "k1_dense", "k4_sparse", "stripe_screen")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -19,12 +19,12 @@ same. On each stripe a PyTorch pass on the device reduces the counts:
   (``_merge_topk_torch``, the host merge ``_merge_topk``'s sorts). A similarity
   ranks float32 candidates with their exact counts, rescored in float64 on
   the host and certified per stripe (``cross``'s contract).
-- ``stream_pairs_above``: the screen, the strict upper triangle and the
-  packed hit bits on the device; a one-bit-a-word summary of the bitmap is
-  downloaded, then its nonzero words, and the hits' counts are gathered
-  from the stripe still on the device. Similarity screens run in float32
-  with the reference's slack and the host re-filters in float64, so
-  rounding can only add candidates.
+- ``stream_pairs_above``: the screen of the strict upper triangle on the
+  device, whose hits (row, column, count) one kernel compacts into a
+  bounded buffer (``kernels.screen``); the buffer comes back in one copy,
+  which the host reads while the next stripe runs. Similarity screens run
+  in float32 with the reference's slack and the host re-filters in
+  float64, so rounding can only add candidates.
 - ``stream_pairs_above_complete``: the pairwise-complete screen, four count
   grids a stripe from four superblock slices (data and mask of both row
   blocks), re-derived exactly on the host (``setops._complete_refine``).
@@ -573,38 +573,105 @@ def _stripe_topk_measure(counts: torch.Tensor, nnz_i: torch.Tensor, nnz_j: torch
 
 def _stripe_screen(counts: torch.Tensor, nnz_i: torch.Tensor, nnz_j: torch.Tensor,
                    row0_i: int, row0_j: int, n: int, thresh: float, m_f: float, *,
-                   measure: str):
-    """One stripe's screen on the device: the packed hit bits int32 [SB,
-    SB/32] of measure ≥ ``thresh`` in the global strict upper triangle
-    (i < j < n), and their one-bit-a-word summary."""
-    from stormtpu_torch.query import _pack_bit_rows, _screen_vals, _word_summary
+                   measure: str, out: torch.Tensor) -> None:
+    """One stripe's screen on the device: its pairs of measure ≥ ``thresh``
+    in the global strict upper triangle (i < j < n) compacted into the hit
+    buffer ``out`` (``kernels.screen.stripe_screen``)."""
+    from stormtpu_torch.kernels.screen import stripe_screen
 
-    dev = counts.device
-    with _stage("reduce", dev):
-        vals = _screen_vals(counts, nnz_i, nnz_j, m_f, measure)
-        rows, cols = _grid_coords(counts.shape, row0_i, row0_j, dev)
-        hits = _pack_bit_rows((vals >= thresh) & (cols > rows) & (rows < n) & (cols < n))
-        return hits, _word_summary(hits)
+    with _stage("reduce", counts.device):
+        stripe_screen(counts, nnz_i, nnz_j, row0_i, row0_j, n, thresh, m_f, measure, out)
 
 
-def _start_download(t: torch.Tensor):
-    """Start copying ``t`` to the host without waiting for it; the
-    returned call waits for the copy and gives the array."""
-    profiling.count("d2h_bytes", t.numel() * t.element_size())
-    if t.device.type != "cuda":
-        return t.numpy
-    profiling.count("pinned_allocs")
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    copied = torch.cuda.Event()
-    copied.record()
+# the least number of hits a stripe's copy to the host holds (12 bytes a
+# hit, with the total 4 more), and the device buffers' room until a
+# stripe's hits outgrow it
+_SCREEN_HITS = 1 << 14
 
-    def wait() -> np.ndarray:
-        with profiling.wait("copy"):
-            copied.synchronize()
-        return host.numpy()
 
-    return wait
+class _ScreenHits:
+    """A screen walk's hit buffers. Each dense stripe's screen compacts its
+    hits into one of two device buffers, in turns, and its total with its
+    first hits goes in one copy into one of two host buffers (pinned on a
+    card), so that the host reads stripe s's hits while stripe s + 1 runs.
+    The copy holds ``_SCREEN_HITS`` hits, or as many as the stripe read
+    last had where that is more, so it follows the walk's hits both ways.
+    A stripe with more hits than its copy holds has the rest read from its
+    device buffer, which stripe s + 1 did not touch (counter
+    ``screen_refetch``); where they outgrew that buffer too, the stripe is
+    screened again from its counts into one grown to fit, and both device
+    buffers keep that size. Buffers are made at a walk's first stripes and
+    remade only to grow."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.turn = 0
+        self.least = _SCREEN_HITS
+        self.cap = _SCREEN_HITS
+        self.last = 0
+        self.bufs: list = [None, None]
+        self.host: list = [None, None]
+
+    def _buffers(self, turn: int, room: int):
+        from stormtpu_torch.kernels.screen import hit_buffer
+
+        if self.bufs[turn] is None or self.bufs[turn].numel() < 1 + 3 * self.cap:
+            self.bufs[turn] = hit_buffer(self.cap, self.dev)
+        if self.host[turn] is None or self.host[turn].numel() < 1 + 3 * room:
+            pin = self.dev.type == "cuda"
+            if pin:
+                profiling.count("pinned_allocs")
+            self.host[turn] = torch.empty(1 + 3 * room, dtype=torch.int32, pin_memory=pin)
+        return self.bufs[turn], self.host[turn]
+
+    def launch(self, counts: torch.Tensor, nnz_i: torch.Tensor, nnz_j: torch.Tensor,
+               row0_i: int, row0_j: int, n: int, thresh: float, m_f: float, measure: str):
+        """Screen stripe ``counts`` (:func:`_stripe_screen`) and start
+        copying its hits to the host; returns what :meth:`collect` takes."""
+        turn = self.turn
+        self.turn ^= 1
+        room = self.least if self.last <= self.least else min(self.cap, next_pow2(self.last))
+        buf, host = self._buffers(turn, room)
+        screen = (nnz_i, nnz_j, row0_i, row0_j, n, thresh, m_f)
+        _stripe_screen(counts, *screen, measure=measure, out=buf)
+        size = 1 + 3 * room
+        profiling.count("d2h_bytes", 4 * size)
+        copied = None
+        if self.dev.type == "cuda":
+            host[:size].copy_(buf[:size], non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+        else:
+            host[:size].copy_(buf[:size])
+        return counts, screen, measure, turn, room, host, copied
+
+    def collect(self, launched) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """A launched stripe's hits (local row, local column, count; int64),
+        row-major. Waits for its copy alone, unless the hits outgrew it."""
+        from stormtpu_torch.kernels.screen import hit_buffer
+
+        counts, screen, measure, turn, room, host, copied = launched
+        if copied is not None:
+            with profiling.wait("copy"):
+                copied.synchronize()
+        total = self.last = int(host[0])
+        got = host[1:1 + 3 * min(total, room)].numpy()
+        if total > room:
+            profiling.count("screen_refetch")
+            buf = self.bufs[turn]
+            if total > (buf.numel() - 1) // 3:
+                # stripe s + 2, the next to screen into this buffer, has not
+                # been launched: the grown one takes its place
+                self.cap = max(self.cap, next_pow2(total))
+                buf = self.bufs[turn] = hit_buffer(self.cap, self.dev)
+                _stripe_screen(counts, *screen, measure=measure, out=buf)
+                got = download(buf[1:1 + 3 * total])
+            else:
+                got = np.concatenate([got, download(buf[1 + 3 * room:1 + 3 * total])])
+        hits = got.reshape(total, 3)
+        # the kernel's slots follow its atomics
+        order = np.argsort(hits[:, 0].astype(np.int64) * counts.shape[1] + hits[:, 1])
+        return tuple(hits[order, k].astype(np.int64) for k in range(3))
 
 
 def _fetch_hits(hits_d: torch.Tensor, summary: np.ndarray, sb: int):
@@ -1295,8 +1362,8 @@ def stream_pairs_above(
     similarity; (ii, jj, values) row-major, int32 counts or float64
     similarities).
 
-    A stripe's download is its hit bitmap's word summary, its nonzero
-    words and the hits' counts. ``kernel`` and the operand as in
+    A stripe's hits are compacted on the device and come back in one copy,
+    read while the next stripe runs. ``kernel`` and the operand as in
     :func:`stream_topk_neighbors`; on K4 stripes the exact counts are
     filtered on the host, and for r² the cardinality staircase adds the
     zero-intersection pairs K4 never emits.
@@ -1306,7 +1373,7 @@ def stream_pairs_above(
     marker) and stripes whose file exists are not computed again. Keyed by
     a manifest on (n, m_bits, superblock, kernel, measure, threshold) and a
     content fingerprint; a mismatch raises (``resume=False`` overwrites)."""
-    from stormtpu_torch.query import _gather_hit_words, _validate_screen
+    from stormtpu_torch.query import _validate_screen
 
     dev_thresh = float(_validate_screen(measure, threshold))
     with _span("stpu.stream.job") as job:
@@ -1354,17 +1421,15 @@ def stream_pairs_above(
         occ_sb = _superblock_occupancy(bm, n_pad, sb, perm)
         empty64 = np.zeros(0, dtype=np.int64)
         source = _StripeCounts(bm, walk, dev, order)
-        # a dense stripe's hits are fetched while the next stripe runs: its
-        # summary's copy starts when it is screened, and the host waits for it
-        # only after the next stripe is launched
+        # a dense stripe's hits are read while the next stripe runs: its copy
+        # starts when it is screened, and the host waits for it only after the
+        # next stripe is launched
+        hits = None
         pending = None
 
-        def finish(i, j, counts, hits_d, summary) -> None:
+        def finish(i, j, launched) -> None:
             with _stage("download", dev):
-                li, lj = _fetch_hits(hits_d, summary(), sb)
-                # the hits' counts, gathered from the stripe still on the device
-                cvals = (_gather_hit_words(counts, li, lj).astype(np.int64) if li.size
-                         else empty64)
+                li, lj, cvals = hits.collect(launched)
             emit(i, j, li + i * sb, lj + j * sb, cvals)
 
         for i in range(n_super):
@@ -1421,6 +1486,7 @@ def stream_pairs_above(
                             continue
                     if nnz_dev is None:
                         nnz_dev = profiling.upload(torch.from_numpy(nnz), dev)
+                        hits = _ScreenHits(dev)
                     if order is not None and order.k4[i, j]:
                         # the density order's K4 stripe: dense, screened as a K2 one
                         with _stage("k4", dev):
@@ -1432,14 +1498,13 @@ def stream_pairs_above(
                             _route(walk.kernel)
                         counts = _stripe_counts(source, i, j)
                         _count_stripe(True)
-                    hits_d, summary_d = _stripe_screen(
+                    launched = (i, j, hits.launch(
                         counts, nnz_dev[i * sb:(i + 1) * sb], nnz_dev[j * sb:(j + 1) * sb],
-                        i * sb, j * sb, bm.n, dev_thresh, m_f, measure=measure)
-                    launched = (i, j, counts, hits_d, _start_download(summary_d))
+                        i * sb, j * sb, bm.n, dev_thresh, m_f, measure))
                     if pending is not None:
                         finish(*pending)
                     pending = launched
-                    del counts, hits_d, summary_d
+                    del counts
         if pending is not None:
             finish(*pending)
         if _extend_from is not None:

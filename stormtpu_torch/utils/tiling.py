@@ -146,7 +146,9 @@ def assemble_stripe_torch(
     is written once, in place, and the mirror goes ``MIRROR_CHUNK_TILES``
     tiles at a time. ``loc_i`` / ``loc_j`` are host arrays: which tiles
     the mirror moves is decided on the host and uploaded with the
-    coordinates in one copy, so nothing is read back from the device."""
+    coordinates in one copy, so nothing is read back from the device. To
+    a card the copy goes from pinned memory without waiting: a blocking
+    upload would hold the host until the tile kernel before it ends."""
     t = tiles.shape[0]
     loc_i = np.asarray(loc_i, dtype=np.int64)
     loc_j = np.asarray(loc_j, dtype=np.int64)
@@ -157,7 +159,11 @@ def assemble_stripe_torch(
     if t == 0:
         return full
     off = np.flatnonzero(loc_i != loc_j) if diagonal else np.zeros(0, dtype=np.int64)
-    idx = torch.from_numpy(np.concatenate([loc_i, loc_j, off])).to(tiles.device)
+    idx = torch.from_numpy(np.concatenate([loc_i, loc_j, off]))
+    if tiles.device.type == "cuda":
+        profiling.count("pinned_allocs")
+        profiling.count("h2d_bytes", idx.numel() * idx.element_size())
+        idx = idx.pin_memory().to(tiles.device, non_blocking=True)
     li, lj, off_d = idx[:t], idx[t : 2 * t], idx[2 * t :]
     grid = full.view(tps, tile_rows, tps, tile_rows)
     grid[li, :, lj, :] = tiles

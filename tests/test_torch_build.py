@@ -5,8 +5,8 @@ from the sources' text, on the CPU (there is no compiler here).
 Every name listed for ``csrc/<name>.cu`` is defined in that file's
 ``extern "C"`` block with as many parameters as its ``argtypes``, each of
 the type ``ctypes`` will pass (a pointer as ``c_void_p``, ``long long``
-as ``c_longlong``, ``int`` as ``c_int``), and every ``extern "C"``
-function there is listed. A missing or short ``argtypes`` entry makes
+as ``c_longlong``, ``int`` as ``c_int``, ``float`` as ``c_float``), and
+every ``extern "C"`` function there is listed. A missing or short ``argtypes`` entry makes
 ``ctypes`` pass a pointer or a 64-bit integer as a 32-bit int."""
 
 import ctypes
@@ -56,7 +56,8 @@ def _param_type(param: str) -> str:
 def _ctype(c_type: str):
     if "*" in c_type:
         return ctypes.c_char_p if c_type.replace(" ", "") == "constchar*" else ctypes.c_void_p
-    return {"int": ctypes.c_int, "long long": ctypes.c_longlong}[" ".join(c_type.split())]
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}[" ".join(c_type.split())]
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))

@@ -1127,21 +1127,124 @@ def test_stripe_topk_on_card_equals_its_cpu_form(cuda, diagonal, k):
         assert torch.equal(torch.gather(m, 1, i.cpu().long()), wv)
 
 
-@pytest.mark.parametrize("measure,threshold", [("count", 40), ("jaccard", 0.2), ("r2", 0.05)])
-def test_stripe_screen_on_card_equals_its_cpu_form(cuda, measure, threshold):
-    """The per-stripe screen (float32 values, the strict upper triangle,
-    the packed hit bits and their summary) on the card against the CPU."""
-    from stormtpu_torch.stream_query import _stripe_screen
+SCREENS = [("count", 40), ("jaccard", 0.2), ("dice", 0.3), ("cosine", 0.3), ("overlap", 0.4),
+           ("phi", 0.1), ("r2", 0.05)]
 
-    n, sb = 180, 96
-    c_d, c_h, nz_d, nz_h = _stripe_case(cuda, sb, seed=7, diagonal=False)
-    args = (0, 96)
-    hits_d, summary_d = _stripe_screen(c_d, nz_d[:sb], nz_d[sb:], *args, n, threshold,
-                                       4096.0, measure=measure)
-    hits_h, summary_h = _stripe_screen(c_h, nz_h[:sb], nz_h[sb:], *args, n, threshold,
-                                       4096.0, measure=measure)
-    assert torch.equal(hits_d.cpu(), hits_h) and torch.equal(summary_d.cpu(), summary_h)
-    assert int((hits_h != 0).sum()) > 0
+
+def _screened(fn, args, cap):
+    """(total, the hits (row, column, count) row-major) of a screen into a
+    buffer of ``cap`` hits."""
+    from stormtpu_torch.kernels import screen
+
+    out = screen.hit_buffer(cap, args[0].device)
+    fn(*args, out)
+    total = int(out[0])
+    h = out[1:1 + 3 * min(total, cap)].view(-1, 3).cpu().numpy().astype(np.int64)
+    return total, h[np.lexsort((h[:, 1], h[:, 0]))]
+
+
+@pytest.mark.parametrize("n,diagonal", [(180, False), (180, True), (250, False), (250, True)])
+@pytest.mark.parametrize("measure,threshold", SCREENS)
+def test_stripe_screen_on_card_equals_its_cpu_form(cuda, measure, threshold, n, diagonal):
+    """The per-stripe screen's compaction (``csrc/stripe_screen.cu``: float32
+    values, the strict upper triangle, rows and columns below n) on the card
+    against its plain form on the CPU: the same total, and the same hits
+    with their counts. n = 180 cuts the column superblock (and the row one
+    on the diagonal); 250 cuts neither."""
+    from stormtpu_torch.kernels import screen
+    from stormtpu_torch.query import _validate_screen
+
+    sb = 96
+    c_d, c_h, nz_d, nz_h = _stripe_case(cuda, sb, seed=7, diagonal=diagonal)
+    row0, col0 = (96, 96) if diagonal else (0, 96)
+    t = float(_validate_screen(measure, threshold))
+    reset_launches()
+    got = _screened(screen.stripe_screen,
+                    (c_d, nz_d[:sb], nz_d[sb:], row0, col0, n, t, 4096.0, measure), sb * sb)
+    assert launch_counts()["stripe_screen"] == 1
+    want = _screened(screen.stripe_screen,
+                     (c_h, nz_h[:sb], nz_h[sb:], row0, col0, n, t, 4096.0, measure), sb * sb)
+    assert got[0] == want[0] > 0
+    assert np.array_equal(got[1], want[1])
+
+
+def test_stripe_screen_past_its_buffer_on_card(cuda, monkeypatch):
+    """A buffer smaller than the stripe's hits: the kernel adds every hit to
+    the total and writes as many as fit. The walk's buffers screen the
+    first such stripe again into a buffer grown to fit and keep the size;
+    the next stripe's copy holds as many hits; after a stripe of no hit the
+    copy is small again, and a stripe past it has the rest read from its
+    grown buffer without a second screen. Both count ``screen_refetch``."""
+    from stormtpu_torch import stream_query as sq
+    from stormtpu_torch.kernels import screen
+
+    sb = 96
+    c_d, c_h, nz_d, nz_h = _stripe_case(cuda, sb, seed=8, diagonal=False)
+    args = (nz_d[:sb], nz_d[sb:], 0, 96, 180, 40.0, 4096.0, "count")
+    none = args[:5] + (1e6,) + args[6:]
+    total, part = _screened(screen.stripe_screen, (c_d, *args), 5)
+    want_total, want = _screened(screen.stripe_screen_plain, (c_h, nz_h[:sb], nz_h[sb:],
+                                                              *args[2:]), sb * sb)
+    assert total == want_total > 5 and len(part) == 5
+    assert set(map(tuple, part.tolist())) <= set(map(tuple, want.tolist()))
+    monkeypatch.setattr(sq, "_SCREEN_HITS", 5)
+    hits = sq._ScreenHits(cuda)
+    reset_launches()
+    with profiling.record() as rec:
+        got = [hits.collect(hits.launch(c_d, *a)) for a in (args, args, none, args)]
+    assert rec.counters["screen_refetch"] == 2 and launch_counts()["stripe_screen"] == 5
+    assert hits.cap >= want_total
+    for g, a in zip(got, (args, args, none, args)):
+        assert all(x.dtype == np.int64 for x in g)
+        assert np.array_equal(np.stack(g, axis=1), want if a is args else want[:0])
+
+
+def _pairs_above_oracle(bm, threshold, measure):
+    """``pairs_above``'s answer from the numpy oracle's whole count matrix,
+    its similarities by ``setops.derive_similarity`` (the walk's float64
+    refine), in blocks of rows."""
+    from stormtpu_torch.setops import derive_similarity
+
+    c = oracle_count_matrix(bm.packed)
+    out_i, out_j, out_v = [], [], []
+    for r0 in range(0, bm.n, 2048):
+        blk = c[r0:r0 + 2048]
+        if measure == "count":
+            vals = blk
+        else:
+            vals = derive_similarity(blk, bm.row_nnz[r0:r0 + 2048, None],
+                                     bm.row_nnz[None, :], bm.m_bits, measure)
+        cols = np.arange(bm.n)[None, :]
+        ii, jj = np.nonzero((vals >= threshold) & (cols > np.arange(r0, r0 + len(blk))[:, None]))
+        out_i.append(ii + r0)
+        out_j.append(jj)
+        out_v.append(vals[ii, jj])
+    ii, jj, vv = (np.concatenate(x) for x in (out_i, out_j, out_v))
+    return (ii.astype(np.int32), jj.astype(np.int32),
+            vv.astype(np.int32) if measure == "count" else vv)
+
+
+@pytest.mark.parametrize("measure,threshold", [("count", 45), ("r2", 0.06)])
+def test_stream_pairs_above_16384_rows_on_card_equals_the_oracle(cuda, measure, threshold):
+    """``stream_pairs_above`` at 16,384 rows (superblock 4096: ten stripes,
+    about 1,800 and 11,000 hits) on the card against the numpy oracle's
+    answer: equal arrays; one screen launch a stripe, no refetch, and at
+    most 2.5 host waits a stripe (the copy's event, the tile ids' upload).
+    The CPU route is not run at this size: its plain int8 product takes
+    about 300 s a measure on a CPU."""
+    from stormtpu_torch import stream_query as sq
+
+    bm = BitMatrix.from_packed(_words(16384, 8, 0.3, seed=16), 256)
+    reset_launches()
+    with profiling.record() as rec:
+        got = sq.stream_pairs_above(bm, threshold, measure=measure, device=cuda)
+    assert launch_counts()["stripe_screen"] == rec.counters["stripes"] == 10
+    assert rec.counters.get("screen_refetch", 0) == 0
+    assert rec.counters["waits"] <= 2.5 * rec.counters["stripes"], rec.counters
+    want = _pairs_above_oracle(bm, threshold, measure)
+    assert got[0].size > 0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
 
 
 @pytest.mark.parametrize("kernel", ("mxu", "dense"))
